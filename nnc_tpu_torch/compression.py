@@ -6,8 +6,10 @@ reference's bytes. What the port supplies is the executer: with ``ioq`` set
 and no ``model_executer`` given, :func:`compress_model` builds the torch
 ``NeRFModelExecuter`` on ``device`` and hands it to
 ``nnc_tpu.compression.compress_model(model_executer=...)``, which then never
-reaches the JAX presets. LSA and fine-tuning need the training kernels and
-are not ported yet: asking for them raises.
+reaches the JAX presets. The executer is built when ``lsa``,
+``fine_tune`` or ``ioq`` asks for one (as nnc_tpu/compression.py:147 builds
+the JAX one), and LSA / fine-tuning train through it on ``device``.
+Occupancy mode and a device mesh are not supported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -75,10 +77,6 @@ def compress_model(model_path_or_object,
                    device=None):
     """Compress a model into an NNR bitstream (the reference's signature,
     plus ``device``: where the NeRF executer renders; None requires CUDA)."""
-    if lsa or fine_tune:
-        raise NotImplementedError(
-            "lsa / fine_tune are not ported to nnc_tpu_torch yet "
-            "(ROADMAP B1: the fused train kernel pair)")
     if occupancy_renders or occupancy_tuning:
         raise NotImplementedError(
             "occupancy mode is not ported to nnc_tpu_torch yet (ROADMAP A4)")
@@ -86,7 +84,8 @@ def compress_model(model_path_or_object,
         raise NotImplementedError("nnc_tpu_torch renders on one device; "
                                   "mesh is not supported")
 
-    if ioq and model_executer is None and task_type == "NeRF":
+    if (lsa or fine_tune or ioq) and model_executer is None \
+            and task_type == "NeRF":
         if mlp_config is None:
             if isinstance(model_path_or_object, str):
                 _, parameters = torch_io.create_NNC_model_instance_from_file(
@@ -114,8 +113,8 @@ def compress_model(model_path_or_object,
         codebook_mode=codebook_mode, scan_order=scan_order,
         lambda_scale=lambda_scale, param_opt=param_opt,
         cabac_unary_length_minus1=cabac_unary_length_minus1, opt_qp=opt_qp,
-        ioq=ioq, ioq_codebook=ioq_codebook, bnf=bnf, lsa=False,
-        fine_tune=False, block_id_and_param_type=block_id_and_param_type,
+        ioq=ioq, ioq_codebook=ioq_codebook, bnf=bnf, lsa=lsa,
+        fine_tune=fine_tune, block_id_and_param_type=block_id_and_param_type,
         model_name=model_name, model_executer=model_executer,
         model_struct=model_struct, dataset_path=dataset_path,
         learning_rate=learning_rate, batch_size=batch_size, epochs=epochs,

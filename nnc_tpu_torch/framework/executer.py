@@ -2,23 +2,33 @@
 
 Counterpart of ``nnc_tpu/framework/executer.py`` (reference:
 framework/pytorch_model/__init__.py:922-1217). ``eval_model`` is IOQ's
-render probe (one ray batch), ``test_model`` renders the test views.
-LSA / fine-tune tuning (``tune_model``) is not ported yet (ROADMAP B1).
+render probe (one ray batch), ``test_model`` renders the test views, and
+``tune_model`` trains the LSA scales (and, for fine-tuning, the biases)
+against the dequantized weights by rendering training rays
+(``train/lsa.py``), checkpointing and rendering the test views at every
+i_save.
 """
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
 
 from nnc_tpu.core.model import ModelExecute
+from nnc_tpu.framework.torch_io import save_to_torch_file
 from nnc_tpu.utils.logging import mse2psnr, to8b
+from nnc_tpu.utils.video import write_video
 
 from ..data.rays import RayBatcher
 from ..models import nerf
 from ..render import renderer
 from ..render.rays import get_rays_np, ndc_rays
+from ..train import lsa
+from ..utils.images import write_png
+
+_CKPT = re.compile(r"ckpt_step(\d+)\.pt$")
 
 
 class NeRFModelExecuter(ModelExecute):
@@ -26,8 +36,9 @@ class NeRFModelExecuter(ModelExecute):
                  device, learning_rate=1e-4, epochs=2,
                  learning_rate_decay=0.1, n_iters=50000, i_save=10000,
                  n_rand=1024, seed=451, verbose=True, render_factor=0,
-                 precrop_iters=0, precrop_frac=0.5):
+                 precrop_iters=0, precrop_frac=0.5, resume=False):
         renderer.check_supported(render_config)
+        self.resume = resume
         self.device = torch.device(device)
         self.render_factor = int(render_factor)
         self.precrop_iters = int(precrop_iters)
@@ -71,7 +82,8 @@ class NeRFModelExecuter(ModelExecute):
 
     def _split_params(self, parameters):
         """(coarse, fine) NeRF modules on the device. Missing LSA scales
-        stay absent: the reference's all-ones scales multiply exactly."""
+        stay absent: the reference's all-ones scales multiply exactly
+        (tuning attaches them, lsa.trained_tensors)."""
         cfg = self.rc.mlp
         return (nerf.params_from_state_dict(parameters, "model.", cfg,
                                             device=self.device),
@@ -109,10 +121,8 @@ class NeRFModelExecuter(ModelExecute):
             rgb = out["rgb_map"].cpu().numpy()
             rgbs.append(rgb)
             if savedir is not None:
-                import imageio.v2 as imageio
                 name = names[i] if names is not None else i
-                imageio.imwrite(os.path.join(savedir, f"{name:03d}.png"),
-                                to8b(rgb))
+                write_png(os.path.join(savedir, f"{name:03d}.png"), to8b(rgb))
         return np.stack(rgbs)
 
     def _render_views(self, model_c, model_f, pose_indices, savedir=None):
@@ -124,12 +134,109 @@ class NeRFModelExecuter(ModelExecute):
                  for i, vi in enumerate(pose_indices)]
         return rgbs, psnrs
 
+    def _resume_point(self, basedir_save, model_c, model_f, biases=False):
+        """The newest mid-tune checkpoint under ``basedir_save``: loads its
+        scales, and with ``biases`` its fine-tuned biases, into the models;
+        returns (its step, its optimizer state or None), or (0, None) when
+        there is none."""
+        rec_dir = os.path.join(basedir_save, "reconstructed")
+        names = os.listdir(rec_dir) if os.path.isdir(rec_dir) else []
+        steps = sorted(int(m.group(1)) for m in map(_CKPT.match, names) if m)
+        if not steps:
+            return 0, None
+        latest = os.path.join(rec_dir, f"ckpt_step{steps[-1]}.pt")
+        sd = torch.load(latest, map_location="cpu", weights_only=True)
+        for prefix, model in (("model.", model_c), ("model_fine.", model_f)):
+            for name, layer in model.layers().items():
+                ls = sd.get(prefix + name + ".weight_scaling")
+                if ls is not None:
+                    layer.weight_scaling = ls.reshape(-1, 1).to(self.device)
+                if biases:
+                    with torch.no_grad():
+                        layer.bias.copy_(sd[prefix + name + ".bias"])
+        opt_path = latest[:-3] + ".opt.pt"
+        opt_state = torch.load(opt_path, map_location=self.device,
+                               weights_only=True) \
+            if os.path.exists(opt_path) else None
+        if self.verbose:
+            print(f"INFO: resuming LSA from step {steps[-1]} ({latest}"
+                  f"{', with optimizer state' if opt_state else ''})")
+        return steps[-1], opt_state
+
+    def _save_hook(self, basedir_save):
+        """save_hook for lsa.tune_lsa_scales: the checkpoint
+        ``reconstructed/ckpt_step{N}.pt`` (the models' weights, biases and
+        scales) with its optimizer state ``ckpt_step{N}.opt.pt``, the test
+        views as PNGs in ``testset_step{N}/`` and the step videos in
+        ``movies/`` (reference: run_nerf.py:781-794)."""
+        scene = self.scene
+
+        def save_hook(step, model_c, model_f, opt_state):
+            sd = nerf.params_to_state_dict(model_c, "model.")
+            sd.update(nerf.params_to_state_dict(model_f, "model_fine."))
+            rec_dir = os.path.join(basedir_save, "reconstructed")
+            os.makedirs(rec_dir, exist_ok=True)
+            save_to_torch_file(sd, os.path.join(rec_dir,
+                                                f"ckpt_step{step}.pt"))
+            torch.save(opt_state,
+                       os.path.join(rec_dir, f"ckpt_step{step}.opt.pt"))
+            testdir = os.path.join(basedir_save, f"testset_step{step}")
+            os.makedirs(testdir, exist_ok=True)
+            rgbs, _ = self._render_views(model_c, model_f, scene["i_test"],
+                                         savedir=testdir)
+            moviedir = os.path.join(basedir_save, "movies")
+            os.makedirs(moviedir, exist_ok=True)
+            write_video(os.path.join(moviedir, f"step{step}_rgb"),
+                        to8b(rgbs), fps=30, quality=8)
+            rposes = scene.get("render_poses")
+            if rposes is not None and len(rposes):
+                frames = self._render_poses(model_c, model_f, rposes,
+                                            render_factor=self.render_factor)
+                write_video(os.path.join(moviedir, f"step{step}_spiral_rgb"),
+                            to8b(frames), fps=30, quality=8)
+
+        return save_hook
+
     # -- ModelExecute interface --------------------------------------------
     def tune_model(self, bitstream_path, parameters, param_types,
                    lsa_flag=True, ft_flag=False, verbose=False):
-        raise NotImplementedError(
-            "LSA / fine-tune tuning is not ported to nnc_tpu_torch yet "
-            "(ROADMAP B1: the fused train kernel pair)")
+        """Tune the LSA scales (``lsa_flag``) and/or the biases
+        (``ft_flag``) of the dequantized ``parameters``. Returns
+        (lsa_params, ft_params): {"model[_fine].<layer>.weight_scaling":
+        (out,)} and {"model[_fine].<layer>.bias": (out,)}, numpy."""
+        model_c, model_f = self._split_params(parameters)
+        scene = self.scene
+        basedir_save = os.path.dirname(os.path.dirname(bitstream_path)) \
+            if bitstream_path else None
+        global_step0, opt_state0 = 0, None
+        if self.resume and basedir_save:
+            global_step0, opt_state0 = self._resume_point(
+                basedir_save, model_c, model_f, biases=ft_flag)
+        ls_c, ls_f, _psnr, _loss, _step, biases = lsa.tune_lsa_scales(
+            model_c, model_f, self._make_batcher(), self.rc, scene["near"],
+            scene["far"], learning_rate=self.learning_rate,
+            learning_rate_decay=self.learning_rate_decay,
+            epochs=self.epochs, n_iters=self.n_iters, i_save=self.i_save,
+            basedir_save=basedir_save, global_step0=global_step0,
+            seed=self.seed, verbose=self.verbose or verbose,
+            save_hook=self._save_hook(basedir_save) if basedir_save else None,
+            tune_biases=ft_flag, tune_scales=lsa_flag,
+            opt_state0=opt_state0)
+
+        as_np = lambda t: t.cpu().numpy()
+        lsa_params, ft_params = {}, {}
+        if lsa_flag:
+            for prefix, ls in (("model.", ls_c), ("model_fine.", ls_f)):
+                for name, v in ls.items():
+                    lsa_params[prefix + name + ".weight_scaling"] = as_np(v)
+        if ft_flag and biases is not None:
+            # fine-tuning adjusts the bias companions against the quantized
+            # weights (reference ft trains O_TYPES params, not weights:
+            # pytorch_model/__init__.py:1129-1145, 1195-1203)
+            for prefix, b in zip(("model.", "model_fine."), biases):
+                for name, v in b.items():
+                    ft_params[prefix + name + ".bias"] = as_np(v)
+        return lsa_params, ft_params
 
     def test_model(self, parameters, verbose=False):
         """Render all test views; returns the mean PSNR."""
@@ -164,7 +271,7 @@ class NeRFModelExecuter(ModelExecute):
         return True
 
     def has_tune_ft(self):
-        return False
+        return True
 
     def has_tune_lsa(self):
-        return False
+        return True

@@ -82,7 +82,14 @@ class Linear(nn.Module):
             return self.weight
         return self.weight * self.weight_scaling
 
-    def forward(self, x):
+    def forward(self, x, output_scaling: bool = False):
+        """``x @ (ls * W)^T + b``; with ``output_scaling`` the same as
+        ``(x @ W^T) * ls + b``, whose autograd takes the scale gradient from
+        the unscaled product instead of a full (out, in) weight gradient
+        (training renders; mlp_train_pallas.py:108-110)."""
+        if output_scaling and self.weight_scaling is not None:
+            return F.linear(x, self.weight) * self.weight_scaling.reshape(-1) \
+                + self.bias
         return F.linear(x, self.effective_weight(), self.bias)
 
 
@@ -112,23 +119,24 @@ class NeRF(nn.Module):
     def device(self) -> torch.device:
         return self.pts_linears[0].weight.device
 
-    def forward(self, pts_emb, views_emb=None):
+    def forward(self, pts_emb, views_emb=None, output_scaling: bool = False):
         """pts_emb: (..., input_ch); views_emb: (..., input_ch_views).
-        Returns raw (..., 4) = (rgb logits, sigma)."""
+        Returns raw (..., 4) = (rgb logits, sigma). ``output_scaling``: see
+        :meth:`Linear.forward`."""
         cfg = self.config
         h = pts_emb
         for i, layer in enumerate(self.pts_linears):
-            h = F.relu(layer(h))
+            h = F.relu(layer(h, output_scaling))
             if i in cfg.skips:
                 h = torch.cat([pts_emb, h], dim=-1)
         if cfg.use_viewdirs:
-            alpha = self.alpha_linear(h)
-            feature = self.feature_linear(h)
+            alpha = self.alpha_linear(h, output_scaling)
+            feature = self.feature_linear(h, output_scaling)
             h = torch.cat([feature, views_emb], dim=-1)
-            h = F.relu(self.views_linears[0](h))
-            rgb = self.rgb_linear(h)
+            h = F.relu(self.views_linears[0](h, output_scaling))
+            rgb = self.rgb_linear(h, output_scaling)
             return torch.cat([rgb, alpha], dim=-1)
-        return self.output_linear(h)
+        return self.output_linear(h, output_scaling)
 
 
 def init_params(config: NeRFConfig = NeRFConfig(),
@@ -161,9 +169,10 @@ def init_lsa_scales(model: NeRF, std: float = 1e-5,
     return model
 
 
-def apply_mlp(model: NeRF, pts_emb, views_emb=None):
+def apply_mlp(model: NeRF, pts_emb, views_emb=None,
+              output_scaling: bool = False):
     """Forward the MLP on embedded points (+ embedded view dirs)."""
-    return model(pts_emb, views_emb)
+    return model(pts_emb, views_emb, output_scaling)
 
 
 def fold_lsa(model: NeRF) -> NeRF:

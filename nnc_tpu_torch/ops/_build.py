@@ -1,6 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc -c`` per ``.cu`` file, all started together, and linked into one
 shared library with a plain C interface, ``build/nnc_tpu_torch/
 libnnc_kernels.so`` at the repository root, on first use. The library is
 rebuilt whenever a source is newer than it (as the codec's native CABAC
@@ -17,6 +18,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -26,10 +28,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nnc_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libnnc_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-KERNELS = ("render_pass", "mlp_from_points")
+KERNELS = ("render_pass", "mlp_from_points", "mlp_train_fwd", "mlp_train_bwd")
 
 _lock = threading.Lock()
 _lib = None
@@ -80,18 +83,34 @@ def build(force: bool = False) -> float:
     if not force and _lib_is_fresh():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s)[:-3] + ".o")
+                for s in srcs]
+        so = os.path.join(tmp, os.path.basename(LIB_PATH))
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                for s, o in zip(srcs, objs)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        rcs = [p.returncode for p in procs]
+        if not any(rcs):
+            cmds.append([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs])
+            proc = subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            outs.append(proc.stdout)
+            rcs.append(proc.returncode)
+        seconds = time.perf_counter() - t0
+        with open(BUILD_LOG, "w") as f:
+            f.writelines(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        if any(rcs):
+            raise RuntimeError("nvcc failed:\n" + "".join(
+                f"{' '.join(c)} ({r}):\n{o}"
+                for c, o, r in zip(cmds, outs, rcs) if r))
+        os.replace(so, LIB_PATH)
     return seconds
 
 
@@ -111,6 +130,13 @@ def lib() -> ctypes.CDLL:
         handle.nnc_render_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, cf,
                                            vp, vp, ci, ci, vp]
         handle.nnc_render_pass.restype = ci
+        handle.nnc_train_sizes.argtypes = [ctypes.POINTER(ci)] * 2
+        handle.nnc_train_sizes.restype = ci
+        handle.nnc_mlp_train_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
+        handle.nnc_mlp_train_fwd.restype = ci
+        handle.nnc_mlp_train_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                             vp, ci, ci, ci, vp]
+        handle.nnc_mlp_train_bwd.restype = ci
         _lib = handle
         return _lib
 

@@ -8,7 +8,10 @@ PyTorch runs eagerly, so a chunk's tail is not padded to the chunk size.
 Deterministic renders with ``use_fused_mlp`` take the port's kernels under
 the reference's dispatch: full fusion (K-B2, ``ops/render_fused.py``) when
 ``use_fused_compositing`` is set and ``raw_noise_std == 0``, else the fused
-MLP from points (K-B3, ``ops/mlp_fused.py``) + ``raw2outputs``.
+MLP from points (K-B3, ``ops/mlp_fused.py``) + ``raw2outputs``. Training
+renders (``deterministic=False``) with ``use_fused_train`` run the MLP
+through the differentiable kernel pair K-B1 (``ops/mlp_train_fused.py``),
+else through the plain MLP in output-scaling form.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import nerf
-from ..ops import mlp_fused
+from ..ops import mlp_fused, mlp_train_fused
 from ..ops.posenc import positional_encoding
 from ..ops.render_fused import fused_render_pass
 from ..ops.sampling import sample_pdf, stratified_samples
@@ -59,12 +62,9 @@ class RenderConfig:
     occ_sample_block: int = 16
 
 
-def check_supported(rc: RenderConfig, deterministic: bool = True) -> None:
+def check_supported(rc: RenderConfig) -> None:
     """Raise for the render options whose kernels are not ported yet."""
     missing = []
-    if not deterministic and rc.use_fused_train:
-        missing.append("training renders with use_fused_train (kernel "
-                       "K-B1, ROADMAP queue B)")
     if rc.use_int8_mlp:
         missing.append("use_int8_mlp (kernel K-B4, ROADMAP queue B)")
     if rc.use_fused_mlp and (rc.multires, rc.multires_views) != (10, 4):
@@ -79,7 +79,15 @@ def check_supported(rc: RenderConfig, deterministic: bool = True) -> None:
 
 def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
                allow_fused: bool = True):
-    """posenc + MLP over (R, S, 3) points. Returns raw (R, S, 4)."""
+    """posenc + MLP over (R, S, 3) points. Returns raw (R, S, 4).
+
+    allow_fused=False routes training: the differentiable kernel pair
+    (use_fused_train, posenc 10/4) or the plain MLP in output-scaling form
+    (the inference kernels have no backward)."""
+    if not allow_fused and rc.use_fused_train and \
+            (rc.multires, rc.multires_views) == (10, 4):
+        return mlp_train_fused.fused_nerf_mlp_train(
+            model, pts, viewdirs[..., None, :], with_dw=rc.train_with_dw)
     if allow_fused and rc.use_fused_mlp:
         return mlp_fused.fused_nerf_mlp_from_points(model, pts,
                                                     viewdirs[..., None, :])
@@ -88,7 +96,8 @@ def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
     if rc.mlp.use_viewdirs:
         ve = positional_encoding(viewdirs, rc.multires_views)
         views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
-    return nerf.apply_mlp(model, pts_emb, views_emb)
+    return nerf.apply_mlp(model, pts_emb, views_emb,
+                          output_scaling=not allow_fused)
 
 
 def render_rays(model, model_fine, rays_o, rays_d, viewdirs, near, far,
@@ -101,7 +110,7 @@ def render_rays(model, model_fine, rays_o, rays_d, viewdirs, near, far,
     ``noise1`` (coarse / fine sigma noise); missing ones are drawn from
     ``generator``. Returns dict with rgb_map/disp_map/acc_map (+ rgb0/disp0/
     acc0/z_std when n_importance > 0)."""
-    check_supported(rc, deterministic)
+    check_supported(rc)
     n_rays = rays_o.shape[0]
     device = rays_o.device
     perturb = rc.perturb and not deterministic

@@ -1,0 +1,207 @@
+"""LSA fine-tuning: train per-output-channel weight scales by rendering rays
+and backpropagating photometric MSE through the volume renderer.
+
+Counterpart of ``nnc_tpu/train/lsa.py`` (reference hot loop: run_nerf.py:
+685-799; loss at :741-752; scale-only grads: pytorch_model/__init__.py:
+1129-1145), without the occupancy loss and the device mesh. The TPU package
+batches steps into one ``lax.scan`` call to amortise dispatch; here each step
+is a plain iteration: render the batch coarse then fine (the MLP through
+kernel pair K-B1 with ``use_fused_train``), the double MSE loss, backward,
+one Adam update of the trained tensors.
+
+The random draws of a step (stratified jitter, ``sample_pdf``'s u, the raw
+noise) come from a ``torch.Generator`` on the render device seeded with
+``seed``, or from a ``draws`` callable, so that a test can replay the JAX
+package's draws.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from nnc_tpu.utils.logging import ResultLogger, mse2psnr
+
+from ..render import renderer
+
+BETAS = (0.9, 0.999)
+EPS = 1e-8
+
+
+def double_mse_loss(model_c, model_f, rays_o, rays_d, viewdirs, target, near,
+                    far, rc: renderer.RenderConfig,
+                    draws: Optional[dict] = None,
+                    generator: Optional[torch.Generator] = None):
+    """loss = mse(fine, target) + mse(coarse, target); returns (loss,
+    img_loss), differentiable in whatever the models' tensors require.
+    ``draws``: optional ``t_rand`` / ``u`` / ``noise0`` / ``noise1`` of the
+    training render (renderer.render_rays); the rest come from
+    ``generator``."""
+    if viewdirs is None:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    out = renderer.render_rays(model_c, model_f, rays_o, rays_d, viewdirs,
+                               near, far, rc, deterministic=False,
+                               generator=generator, **(draws or {}))
+    img_loss = torch.mean((out["rgb_map"] - target) ** 2)
+    loss = img_loss
+    if "rgb0" in out:
+        loss = loss + torch.mean((out["rgb0"] - target) ** 2)
+    return loss, img_loss
+
+
+def make_lr_schedule(lr: float, decay: float, steps_per_epoch: int,
+                     offset: int = 0) -> Callable[[int], float]:
+    """Per-epoch staircase decay (torch StepLR semantics; decay=0 disables):
+    the learning rate of the update that follows ``count`` earlier ones.
+    ``offset`` shifts the count, for a resume without optimizer state.
+    (reference: pytorch_model/__init__.py:1161-1167)"""
+    if not decay:
+        return lambda count: lr
+    return lambda count: lr * decay ** ((count + offset) // steps_per_epoch)
+
+
+def trained_tensors(model_c, model_f, tune_scales=True, tune_biases=False):
+    """Mark what trains and return it, in a fixed order: every layer's
+    ``weight_scaling`` of both models (attached as ones where absent) unless
+    fine-tuning without LSA, then the biases when ``tune_biases``. Nothing
+    else requires grad."""
+    scales, biases = [], []
+    for model in (model_c, model_f):
+        if model is None:
+            continue
+        for layer in model.layers().values():
+            if layer.weight_scaling is None:
+                layer.weight_scaling = torch.ones(
+                    layer.weight.shape[0], 1, device=layer.weight.device)
+            layer.weight.requires_grad_(False)
+            scales.append(layer.weight_scaling)
+            biases.append(layer.bias)
+    train_scales = tune_scales or not tune_biases
+    for t in scales:
+        t.requires_grad_(train_scales)
+    for t in biases:
+        t.requires_grad_(tune_biases)
+    return (scales if train_scales else []) + (biases if tune_biases else [])
+
+
+def opt_state_fits(opt_state, trained) -> bool:
+    """Whether a saved optimizer state ({"count", "adam"}) has the moments of
+    exactly these tensors: the same number, each of the same shape."""
+    if not isinstance(opt_state, dict) or set(opt_state) != {"count", "adam"}:
+        return False
+    adam = opt_state["adam"]
+    if len(adam.get("param_groups", [])) != 1 or \
+            len(adam["param_groups"][0]["params"]) != len(trained):
+        return False
+    state = adam.get("state", {})
+    if len(state) != len(trained):
+        return False
+    for i, t in enumerate(trained):
+        s = state.get(i)
+        if s is None or any(tuple(s[k].shape) != tuple(t.shape)
+                            for k in ("exp_avg", "exp_avg_sq")):
+            return False
+    return True
+
+
+def _as_tensor(a, device):
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
+                    learning_rate=1e-4, learning_rate_decay=0.1, epochs=2,
+                    n_iters=1000, i_save=0, basedir_save=None,
+                    global_step0=0, seed=451, verbose=True, save_hook=None,
+                    tune_biases=False, tune_scales=True, opt_state0=None,
+                    draws: Optional[Callable[[int], dict]] = None):
+    """Run the full LSA optimization on the models' own tensors (trained in
+    place). Returns (ls_c, ls_f, mean_psnr, mean_loss (of the last epoch),
+    global_step, biases): ``ls_*`` as {layer name: (out,)}, ``biases`` as
+    ({name: (out,)}, {name: (out,)}) when ``tune_biases`` (fine-tuning),
+    else None.
+
+    ``save_hook(global_step, model_c, model_f, opt_state)`` is called at step
+    1 and every ``i_save`` steps; ``opt_state`` ({"count": updates so far,
+    "adam": the optimizer's state_dict}) resumes a later call as
+    ``opt_state0``. A state that does not fit the trained tensors is
+    dropped (fresh moments), and then, as without one, a resume at
+    ``global_step0`` offsets the schedule. ``draws(i)`` gives the random
+    draws of this call's i-th step (0-based) in place of the generator's.
+    """
+    device = model_c.device
+    trained = trained_tensors(model_c, model_f, tune_scales, tune_biases)
+    optimizer = torch.optim.Adam(trained, lr=learning_rate, betas=BETAS,
+                                 eps=EPS)
+    count = 0
+    offset = global_step0
+    if opt_state0 is not None:
+        if opt_state_fits(opt_state0, trained):
+            optimizer.load_state_dict(opt_state0["adam"])
+            count = int(opt_state0["count"])
+            offset = 0
+        else:
+            print("INFO: saved optimizer state does not fit the tuned "
+                  "tensors; restarting moments with schedule offset")
+    schedule = make_lr_schedule(learning_rate, learning_rate_decay, n_iters,
+                                offset=offset)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    logger = ResultLogger(basedir_save) if basedir_save else None
+
+    def get_batch():
+        batch = batcher.next_batch()
+        if len(batch) == 4:
+            ro, rd, vd, tgt = batch
+        else:
+            ro, rd, tgt = batch
+            vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+        return tuple(_as_tensor(a, device) for a in (ro, rd, vd, tgt))
+
+    global_step = global_step0
+    step = 0
+    mean_psnr = mean_loss = 0.0
+    for _epoch in range(epochs):
+        psnrs, losses = [], []
+        for _it in range(n_iters):
+            ro, rd, vd, tgt = get_batch()
+            for group in optimizer.param_groups:
+                group["lr"] = schedule(count)
+            optimizer.zero_grad(set_to_none=True)
+            loss, img_loss = double_mse_loss(
+                model_c, model_f, ro, rd, vd, tgt, near, far, rc,
+                draws=None if draws is None else draws(step),
+                generator=generator)
+            loss.backward()
+            optimizer.step()
+            count += 1
+            step += 1
+            global_step += 1
+            loss_v = float(loss.detach())
+            psnr_v = mse2psnr(float(img_loss.detach()))
+            psnrs.append(psnr_v)
+            losses.append(loss_v)
+            if logger is not None:
+                logger.append(psnr_v, loss_v)
+            if i_save and (global_step == 1 or global_step % i_save == 0) \
+                    and save_hook is not None:
+                save_hook(global_step, model_c, model_f,
+                          {"count": count, "adam": optimizer.state_dict()})
+        mean_psnr = float(np.mean(psnrs))
+        mean_loss = float(np.mean(losses))
+        if verbose:
+            print(f"Epoch done. mean PSNR {mean_psnr:.3f}, "
+                  f"mean loss {mean_loss:.6f}")
+    if logger is not None:
+        logger.flush()
+
+    def vectors(model, attr):
+        if model is None:
+            return {}
+        return {name: getattr(layer, attr).detach().reshape(-1).clone()
+                for name, layer in model.layers().items()}
+
+    biases = (vectors(model_c, "bias"), vectors(model_f, "bias")) \
+        if tune_biases else None
+    return (vectors(model_c, "weight_scaling"),
+            vectors(model_f, "weight_scaling"), mean_psnr, mean_loss,
+            global_step, biases)

@@ -9,8 +9,13 @@ without the repository's conftest, which imports JAX:
 Tolerances, float32 on both sides: raw MLP outputs 1e-3 (12 layers of
 K=256 sums in another order); composited rgb/acc/weights 1e-4 with early
 termination off, 2 eps with it on (both versions skip the same blocks, up to
-threshold ties); depth 10x those (it sums w * z, z <= 6).
+threshold ties); depth 10x those (it sums w * z, z <= 6). K-B1's gradients
+(sums over every point, in another order, through relu masks that may flip
+at ties): the criterion of tests/test_mlp_train_pallas.py:41-50, 99.9% of
+the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
+off by more than 5% of it.
 """
+import ctypes
 import math
 
 import pytest
@@ -18,7 +23,7 @@ import torch
 
 from nnc_tpu_torch.data import synthetic
 from nnc_tpu_torch.models import nerf
-from nnc_tpu_torch.ops import _build, mlp_fused, render_fused
+from nnc_tpu_torch.ops import _build, mlp_fused, mlp_train_fused, render_fused
 from nnc_tpu_torch.render import renderer
 
 
@@ -50,6 +55,10 @@ def _rays(R, S, device, seed=1):
 @pytest.mark.cuda
 def test_cuda_build_and_packed_layout(cuda_device):
     assert _build.lib().nnc_params_size() == mlp_fused.PARAMS_SIZE
+    sizes = [ctypes.c_int() for _ in range(2)]
+    _build.lib().nnc_train_sizes(*[ctypes.byref(s) for s in sizes])
+    assert [s.value for s in sizes] == [mlp_train_fused.U_SIZE,
+                                        mlp_train_fused.WT_SIZE]
 
 
 @pytest.mark.cuda
@@ -124,8 +133,7 @@ def test_cuda_renderer_kernels_vs_plain_path(cuda_device):
     with torch.no_grad():
         want = renderer.render_rays(model_c, model_f, ro, rd, vd, 2.0, 6.0,
                                     plain, deterministic=True)
-        assert _build.launch_counts() == {"render_pass": 0,
-                                          "mlp_from_points": 0}
+        assert not any(_build.launch_counts().values())
         got = renderer.render_rays(model_c, model_f, ro, rd, vd, 2.0, 6.0,
                                    fused, deterministic=True)
         assert _build.launch_counts()["render_pass"] == 2
@@ -148,3 +156,83 @@ def test_cuda_renderer_kernels_vs_plain_path(cuda_device):
         assert float((got_n["rgb0"] - want_n["rgb0"]).abs().max()) < 1e-4
         assert float((got_n["rgb_map"] - want_n["rgb_map"]).abs().max()) \
             < 5e-3
+
+
+def _grads_close(got, want, what):
+    scale = max(float(want.abs().max()), 1e-12)
+    close = torch.isclose(got, want, rtol=5e-2, atol=5e-3 * scale)
+    assert float(close.float().mean()) > 0.999, (what, close.float().mean())
+    assert float((got - want).abs().max()) < 0.05 * scale, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,with_dw", [(10_000, False), (10_000, True),
+                                       (4096, False)])
+def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
+    """K-B1 forward and backward against the plain versions; n = 10,000 is
+    not a multiple of the 64-point tile (the ragged tail)."""
+    model = _fog_model(cuda_device)
+    g = torch.Generator().manual_seed(6)
+    pts = (2 * torch.randn(n, 3, generator=g)).to(cuda_device)
+    vd = torch.randn(n, 3, generator=g).to(cuda_device)
+    cot = torch.randn(n, 4, generator=g).to(cuda_device)
+    tensors = mlp_train_fused._layer_tensors(model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    before = _build.launch_counts()
+    raw, ws = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd, save_u=True)
+    flat = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts, vd, cot,
+                                         ws, with_dw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["mlp_train_fwd"] == before["mlp_train_fwd"] + 1
+    assert after["mlp_train_bwd"] == before["mlp_train_bwd"] + 1
+    raw_p = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
+    assert float((raw - raw_p).abs().max()) <= 1e-3
+    flat_p = mlp_train_fused.mlp_train_bwd_plain(params, params_t, ls, pts,
+                                                 vd, cot, with_dw)
+    assert flat.shape == flat_p.shape == (mlp_train_fused.grad_size(with_dw),)
+    assert torch.isfinite(flat).all()
+    for part, got, want in zip(("dW", "dls", "db"),
+                               mlp_train_fused.split_grads(flat, with_dw),
+                               mlp_train_fused.split_grads(flat_p, with_dw)):
+        if got is None:
+            continue
+        for name in got:
+            _grads_close(got[name], want[name], f"{part} {name}")
+    # the sum over CTAs is taken in a fixed order: bit-identical reruns
+    again = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts, vd, cot,
+                                          ws, with_dw)
+    assert torch.equal(again, flat)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_train_autograd(cuda_device):
+    """fused_nerf_mlp_train through autograd on the card against the plain
+    MLP's torch autograd: scale and bias grads real, weight grads zero
+    without with_dw."""
+    model = _fog_model(cuda_device)
+    for layer in model.layers().values():
+        for t in (layer.weight, layer.bias, layer.weight_scaling):
+            t.requires_grad_(True)
+    g = torch.Generator().manual_seed(7)
+    pts = (2 * torch.randn(33, 61, 3, generator=g)).to(cuda_device)
+    vd = torch.randn(33, 1, 3, generator=g).to(cuda_device)
+    tgt = torch.randn(33, 61, 4, generator=g).to(cuda_device)
+    raw = mlp_train_fused.fused_nerf_mlp_train(model, pts, vd)
+    ((raw - tgt) ** 2).mean().backward()
+    got = {n: (l.weight.grad, l.bias.grad, l.weight_scaling.grad)
+           for n, l in model.layers().items()}
+    for layer in model.layers().values():
+        layer.weight.grad = layer.bias.grad = layer.weight_scaling.grad = None
+    from nnc_tpu_torch.ops.posenc import positional_encoding
+    want = nerf.apply_mlp(model, positional_encoding(pts, 10),
+                          positional_encoding(vd.expand_as(pts), 4),
+                          output_scaling=True)
+    assert float((raw - want).abs().max()) <= 1e-3
+    ((want - tgt) ** 2).mean().backward()
+    for n, layer in model.layers().items():
+        gw, gb, gl = got[n]
+        assert float(gw.abs().max()) == 0.0
+        _grads_close(gb, layer.bias.grad, f"{n}.bias")
+        _grads_close(gl, layer.weight_scaling.grad, f"{n}.weight_scaling")

@@ -185,14 +185,14 @@ def test_presets_match_jax(tmp_path, kind):
 
 
 def test_compress_model_refuses_unported_stages(tmp_path):
+    """Occupancy mode and a device mesh are not ported; LSA and
+    fine-tuning are (tests/test_torch_port_train.py)."""
     scene, sd = _scene("inward")
-    for kw in ({"lsa": True}, {"fine_tune": True},
-               {"occupancy_renders": True}):
+    for kw in ({"occupancy_renders": True}, {"occupancy_tuning": True},
+               {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             nnc_tpu_torch.compress_model(
                 sd, bitstream_path=str(tmp_path / "x.nnc"), ioq=True,
-                scene=scene, device="cpu", verbose=False, **kw)
+                lsa=True, scene=scene, device="cpu", verbose=False, **kw)
     _ex_j, ex_t = _executers(scene)
-    assert not ex_t.has_tune_lsa() and not ex_t.has_tune_ft()
-    with pytest.raises(NotImplementedError, match="B1"):
-        ex_t.tune_model(None, sd, None)
+    assert ex_t.has_tune_lsa() and ex_t.has_tune_ft()
