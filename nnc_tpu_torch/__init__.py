@@ -1,7 +1,9 @@
 """nnc_tpu_torch: the PyTorch / CUDA port of nnc_tpu for NVIDIA Hopper GPUs.
 
-It renders NeRFs for the shared NNR codec (``nnc_tpu.compression``, which
-imports no JAX) with hand-written CUDA kernels, and imports no JAX itself.
+A package of its own: the NNR codec (``compression``, ``core``, ``coder``,
+``hls``), the NeRF renderer and the LSA trainer, with hand-written CUDA
+kernels where ``nnc_tpu`` has Pallas kernels. It imports ``torch``, never
+``jax``, and nothing of ``nnc_tpu``.
 
 Public API: compress_model, compress, decompress, decompress_model
 """

@@ -19,8 +19,8 @@ import argparse
 import os
 
 import nnc_tpu_torch
-from nnc_tpu.utils import ckpt as utils
 from nnc_tpu_torch.train.presets import load_scene_from_config
+from nnc_tpu_torch.utils import ckpt as utils
 from nnc_tpu_torch.utils.device import resolve_device
 
 DEVICE_ENV = "NNC_TPU_TORCH_DEVICE"

@@ -16,17 +16,16 @@ import re
 import numpy as np
 import torch
 
-from nnc_tpu.core.model import ModelExecute
-from nnc_tpu.framework.torch_io import save_to_torch_file
-from nnc_tpu.utils.logging import mse2psnr, to8b
-from nnc_tpu.utils.video import write_video
-
+from ..core.model import ModelExecute
 from ..data.rays import RayBatcher
 from ..models import nerf
 from ..render import renderer
 from ..render.rays import get_rays_np, ndc_rays
 from ..train import lsa
 from ..utils.images import write_png
+from ..utils.logging import mse2psnr, to8b
+from ..utils.video import write_video
+from .torch_io import save_to_torch_file
 
 _CKPT = re.compile(r"ckpt_step(\d+)\.pt$")
 

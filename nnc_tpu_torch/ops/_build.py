@@ -5,7 +5,7 @@ The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
 shared library with a plain C interface, ``build/nnc_tpu_torch/
 libnnc_kernels.so`` at the repository root, on first use. The library is
 rebuilt whenever a source is newer than it (as the codec's native CABAC
-library is, nnc_tpu/coder/cabac.py). It is loaded with ctypes; every pointer
+library is, coder/cabac.py). It is loaded with ctypes; every pointer
 and the CUDA stream pass as ``c_void_p``.
 
 Each kernel wrapper adds one to its launch count (:func:`count_launch`)
@@ -32,7 +32,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-KERNELS = ("render_pass", "mlp_from_points", "mlp_train_fwd", "mlp_train_bwd")
+KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
+           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd")
 
 _lock = threading.Lock()
 _lib = None
@@ -127,6 +128,13 @@ def lib() -> ctypes.CDLL:
         handle.nnc_params_size.restype = ci
         handle.nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
         handle.nnc_mlp_from_points.restype = ci
+        handle.nnc_mlp_embedded.argtypes = [vp, vp, vp, vp, ci, vp]
+        handle.nnc_mlp_embedded.restype = ci
+        handle.nnc_int8_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        handle.nnc_int8_sizes.restype = ci
+        handle.nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, vp, vp,
+                                                    ci, vp]
+        handle.nnc_mlp_int8_from_points.restype = ci
         handle.nnc_render_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, cf,
                                            vp, vp, ci, ci, vp]
         handle.nnc_render_pass.restype = ci

@@ -1,7 +1,9 @@
 // The flagship NeRF MLP (D=8, W=256, skip at layer 4, view head; posenc
 // 10/4 frequencies) on a tile of kM points, in float32, for one CTA of
-// kThreads threads. Shared by mlp_from_points.cu (K-B3) and render_pass.cu
-// (K-B2).
+// kThreads threads. Shared by mlp_from_points.cu (K-B3), mlp_embedded.cu
+// (K-B5) and render_pass.cu (K-B2). The tile's embedding comes either from
+// embed_tile (posenc computed here) or from load_embedded_tile (read from
+// device memory).
 //
 // Layout. Activations live in shared memory transposed, channel-major
 // (act[channel * kLd + point]), so that one thread reads eight consecutive
@@ -145,6 +147,28 @@ __device__ __forceinline__ void embed_tile(float* __restrict__ emb,
       emb[(base + 3 + 6 * fr + d) * kLd + m] = sn;
       emb[(base + 6 + 6 * fr + d) * kLd + m] = cs;
     }
+  }
+}
+
+// The second way in: the tile's embeddings, computed by the caller, from
+// device memory into the layout embed_tile writes. pts_emb: (n, kInPts),
+// views_emb: (n, kInViews), contiguous float32; rows past n become zeros.
+// Consecutive threads read consecutive floats; the transposed store costs a
+// 4-way bank conflict (row stride kLd = 68), small against the MLP.
+__device__ __forceinline__ void load_embedded_tile(
+    float* __restrict__ emb, const float* __restrict__ pts_emb,
+    const float* __restrict__ views_emb, long long base, int n) {
+  const long long rows = n - base < kM ? n - base : kM;
+  for (int i = threadIdx.x; i < kM * kInPts; i += kThreads) {
+    const int m = i / kInPts;
+    const int c = i - m * kInPts;
+    emb[c * kLd + m] = m < rows ? __ldg(pts_emb + base * kInPts + i) : 0.f;
+  }
+  for (int i = threadIdx.x; i < kM * kInViews; i += kThreads) {
+    const int m = i / kInViews;
+    const int c = i - m * kInViews;
+    emb[(kInPts + c) * kLd + m] =
+        m < rows ? __ldg(views_emb + base * kInViews + i) : 0.f;
   }
 }
 

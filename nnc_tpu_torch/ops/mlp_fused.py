@@ -1,15 +1,20 @@
-"""Posenc + NeRF MLP from raw points: kernel K-B3 and its plain version.
+"""The inference NeRF MLP as one kernel per point tile: K-B3 (posenc + MLP
+from raw points), K-B4 (the same in int8 x int8 -> int32 products) and K-B5
+(the MLP on embeddings computed outside), each with its plain version.
 
-Counterpart of ``fused_nerf_mlp_from_points`` in ``nnc_tpu/ops/mlp_pallas.py``.
-Only the flagship architecture (D=8, W=256, skip=(4,), viewdirs, 63/27
-posenc) has a kernel; :func:`fused_nerf_mlp_from_points` runs the plain MLP
-for any other, as the reference does (mlp_pallas.py:391-395).
+Counterpart of ``nnc_tpu/ops/mlp_pallas.py`` (``fused_nerf_mlp_from_points``,
+``fused_nerf_mlp_int8_from_points``, ``fused_nerf_mlp``). Only the flagship
+architecture (D=8, W=256, skip=(4,), viewdirs, 63/27 posenc) has kernels; the
+three entry points run the plain MLP for any other, as the reference does
+(mlp_pallas.py:361-365, 391-395, 421-422).
 
-The kernel (``csrc/mlp_from_points.cu``) reads the weights packed by
-:func:`pack_weights`: one float32 buffer, layers in ``nerf.layer_names``
-order, each W in (in, out) row-major then its bias, padded to a multiple of
-64 floats, with LSA scales folded in. The plain version reads the same
-buffer, so the CPU tests check the layout the kernel reads.
+The float32 kernels (``csrc/mlp_from_points.cu``, ``csrc/mlp_embedded.cu``)
+read the weights packed by :func:`pack_weights`: one float32 buffer, layers
+in ``nerf.layer_names`` order, each W in (in, out) row-major then its bias,
+padded to a multiple of 64 floats, with LSA scales folded in. The int8 kernel
+(``csrc/mlp_int8_from_points.cu``) reads the three buffers of
+:func:`pack_weights_int8`. The plain versions read the same buffers, so the
+CPU tests check the layouts the kernels read.
 """
 from __future__ import annotations
 
@@ -41,6 +46,41 @@ def _segments(config: nerf.NeRFConfig):
 
 
 PARAMS_SIZE = _segments(FLAGSHIP)[1]
+
+# K-B4 quantizes the activations that enter each product with one scale per
+# block of this many consecutive points (the kernel's tile). The TPU kernel's
+# block is its half tile of 1,024 points, zero rows of padding included
+# (mlp_pallas.py:120, 315-319, 374-376); the block is the kernel's, not part
+# of the function, and the plain version takes it as a parameter.
+INT8_ACT_BLOCK = 64
+
+# The 14 int8 weight blocks in the reference's order (mlp_pallas.py:328-329):
+# (key, layer, first row, rows, out). The skip and the view layers are two
+# blocks each, one per concatenated input.
+INT8_BLOCKS = (
+    ("w0", "pts_linears.0", 0, 63, 256),
+    ("w1", "pts_linears.1", 0, 256, 256),
+    ("w2", "pts_linears.2", 0, 256, 256),
+    ("w3", "pts_linears.3", 0, 256, 256),
+    ("w4", "pts_linears.4", 0, 256, 256),
+    ("w5a", "pts_linears.5", 0, 63, 256),
+    ("w5b", "pts_linears.5", 63, 256, 256),
+    ("w6", "pts_linears.6", 0, 256, 256),
+    ("w7", "pts_linears.7", 0, 256, 256),
+    ("wf", "feature_linear", 0, 256, 256),
+    ("wa", "alpha_linear", 0, 256, 1),
+    ("wva", "views_linears.0", 0, 256, 128),
+    ("wvb", "views_linears.0", 256, 27, 128),
+    ("wr", "rgb_linear", 0, 128, 3),
+)
+# the 12 bias rows in the reference's order (mlp_pallas.py:330-331)
+INT8_BIASES = tuple((f"b{i}", f"pts_linears.{i}", 256) for i in range(8)) + (
+    ("bf", "feature_linear", 256), ("ba", "alpha_linear", 1),
+    ("bv", "views_linears.0", 128), ("br", "rgb_linear", 3))
+# bytes of the packed int8 weights: rows padded to a multiple of 4
+INT8_WQ_SIZE = sum(-(-rows // 4) * 4 * out for *_, rows, out in INT8_BLOCKS)
+INT8_SCALES_SIZE = sum(out for *_, out in INT8_BLOCKS)
+INT8_BIASES_SIZE = sum(n for *_, n in INT8_BIASES)
 
 
 def pack_weights(model: nerf.NeRF) -> torch.Tensor:
@@ -86,6 +126,159 @@ def _mlp_packed(L, pe, ve):
     return torch.cat([rgb, alpha], dim=-1)
 
 
+def pack_weights_int8(model: nerf.NeRF):
+    """The flagship model's weights as K-B4 reads them: ``(wq, scales,
+    biases)``, three flat tensors.
+
+    Counterpart of ``_pack_weights_int8`` (mlp_pallas.py:99-113): LSA scales
+    folded in, then every block of :data:`INT8_BLOCKS` quantized per output
+    column, ``s_o = max|w[:, o]| / 127``, ``q = clip(round(w / s_o), +-127)``,
+    a zero column staying zero. ``wq`` (int8) holds the blocks one after the
+    other, each with its rows padded with zeros to a multiple of 4 and laid
+    out as (rows / 4, out, 4): four consecutive inputs of one output column
+    share a 32-bit word, the operand of ``__dp4a``. ``scales`` (float32)
+    holds the 14 rows of ``s_o``, ``biases`` (float32) the 12 bias rows of
+    :data:`INT8_BIASES`. The TPU layout's 128-row blocks and 128-lane output
+    columns are not carried over."""
+    if not supports(model.config):
+        raise ValueError(f"no fused kernel for {model.config}")
+    layers = model.layers()
+    wq, scales = [], []
+    with torch.no_grad():
+        for _key, name, row0, rows, _out in INT8_BLOCKS:
+            w = layers[name].effective_weight().t().float()[row0:row0 + rows]
+            s = _div(w.abs().amax(dim=0), 127.0)
+            q = torch.where(s > 0, torch.round(w / torch.where(s > 0, s, 1.0)),
+                            0.0)
+            q = torch.clamp(q, -127, 127).to(torch.int8)
+            q = F.pad(q, (0, 0, 0, -rows % 4))
+            wq.append(q.reshape(-1, 4, q.shape[1]).permute(0, 2, 1)
+                      .reshape(-1))
+            scales.append(s)
+        biases = [layers[name].bias.float() for _key, name, _n in INT8_BIASES]
+        return torch.cat(wq), torch.cat(scales), torch.cat(biases)
+
+
+def unpack_weights_int8(wq, scales, biases):
+    """``({key: (q (rows, out) int8, s (out,))}, {key: b})`` read back from
+    the buffers of :func:`pack_weights_int8`."""
+    for name, t, dtype, size in (("wq", wq, torch.int8, INT8_WQ_SIZE),
+                                 ("scales", scales, torch.float32,
+                                  INT8_SCALES_SIZE),
+                                 ("biases", biases, torch.float32,
+                                  INT8_BIASES_SIZE)):
+        if t.dtype != dtype or tuple(t.shape) != (size,):
+            raise ValueError(f"{name}: expected {dtype} ({size},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    blocks, off, soff = {}, 0, 0
+    for key, _name, _row0, rows, out in INT8_BLOCKS:
+        k4 = -(-rows // 4)
+        q = wq[off:off + k4 * 4 * out].view(k4, out, 4).permute(0, 2, 1) \
+            .reshape(k4 * 4, out)[:rows]
+        blocks[key] = (q, scales[soff:soff + out])
+        off += k4 * 4 * out
+        soff += out
+    rows_b, boff = {}, 0
+    for key, _name, n in INT8_BIASES:
+        rows_b[key] = biases[boff:boff + n]
+        boff += n
+    return blocks, rows_b
+
+
+def _div(a, b):
+    """a / b as one correctly rounded float32 division, whichever of the two
+    is the scalar. (``tensor / scalar`` may multiply by the scalar's
+    reciprocal on the card, and ``scalar / tensor`` does so everywhere: one
+    more rounding than the kernel's and the reference's division.)"""
+    if not torch.is_tensor(a):
+        a = torch.full_like(b, a)
+    if not torch.is_tensor(b):
+        b = torch.full_like(a, b)
+    return a / b
+
+
+def _qdense(xq, m, block):
+    """One quantized product of K-B4: xq (B, block, K) float32 holding the
+    integers of the quantized activations, m (B, 1, 1) their block's scale.
+    Every partial sum is an integer below 319 * 127^2 < 2^24, which float32
+    holds exactly, so the float32 product is the exact int32 one in any
+    order of summation."""
+    q, s = block
+    return (xq @ q.float()) * (s * _div(m, 127.0))
+
+
+def _quantize(x):
+    """Dynamic symmetric int8 quantization of x (B, block, K) with one scale
+    per block (mlp_pallas.py:120-121): returns (integers as float32, m)."""
+    m = x.abs().amax(dim=(1, 2), keepdim=True) + 1e-12
+    return torch.clamp(torch.round(x * _div(127.0, m)), -127, 127), m
+
+
+def _mlp_int8_blocks(W, B, pe, ve):
+    """``_mlp_body_int8`` (mlp_pallas.py:127-147) on (B, block, 63 / 27)
+    embeddings: the float32 steps in the reference's order."""
+    emb, m_e = _quantize(torch.cat([pe, ve], dim=-1))
+    pq, vq = emb[..., :63], emb[..., 63:]
+    h = F.relu(_qdense(pq, m_e, W["w0"]) + B["b0"])
+    for i in (1, 2, 3, 4):
+        hq, m = _quantize(h)
+        h = F.relu(_qdense(hq, m, W[f"w{i}"]) + B[f"b{i}"])
+    hq, m = _quantize(h)
+    h = F.relu(_qdense(pq, m_e, W["w5a"]) + _qdense(hq, m, W["w5b"])
+               + B["b5"])
+    for i in (6, 7):
+        hq, m = _quantize(h)
+        h = F.relu(_qdense(hq, m, W[f"w{i}"]) + B[f"b{i}"])
+    hq, m = _quantize(h)
+    alpha = _qdense(hq, m, W["wa"]) + B["ba"]
+    fq, m_f = _quantize(_qdense(hq, m, W["wf"]) + B["bf"])
+    v = F.relu(_qdense(fq, m_f, W["wva"]) + _qdense(vq, m_e, W["wvb"])
+               + B["bv"])
+    vq2, m_v = _quantize(v)
+    rgb = _qdense(vq2, m_v, W["wr"]) + B["br"]
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def fused_nerf_mlp_int8_from_points_plain(wq, scales, biases, pts, dirs,
+                                          block=INT8_ACT_BLOCK):
+    """Plain PyTorch version of K-B4: pts, dirs (N, 3) -> raw (N, 4).
+
+    Activations are quantized per ``block`` consecutive points (a last,
+    shorter block holds the remaining points alone); the integer products
+    are exact (see :func:`_qdense`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    W, B = unpack_weights_int8(wq, scales, biases)
+    n = pts.shape[0]
+    outs = []
+    chunk = max(PLAIN_CHUNK // block, 1) * block
+    for start in range(0, n, chunk):
+        p, d = pts[start:start + chunk], dirs[start:start + chunk]
+        pe, ve = positional_encoding(p, 10), positional_encoding(d, 4)
+        full = p.shape[0] // block * block
+        for lo, hi, b in ((0, full, block), (full, p.shape[0],
+                                             p.shape[0] - full)):
+            if hi > lo:
+                outs.append(_mlp_int8_blocks(
+                    W, B, pe[lo:hi].reshape(-1, b, 63),
+                    ve[lo:hi].reshape(-1, b, 27)).reshape(-1, 4))
+    if not outs:
+        return pts.new_zeros((0, 4))
+    return torch.cat(outs)
+
+
+def fused_nerf_mlp_plain(packed, pts_emb, views_emb):
+    """Plain PyTorch version of K-B5: pts_emb (N, 63), views_emb (N, 27) ->
+    raw (N, 4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = unpack_weights(packed)
+    outs = [_mlp_packed(L, pts_emb[start:start + PLAIN_CHUNK],
+                        views_emb[start:start + PLAIN_CHUNK])
+            for start in range(0, pts_emb.shape[0], PLAIN_CHUNK)]
+    if not outs:
+        return pts_emb.new_zeros((0, 4))
+    return torch.cat(outs)
+
+
 def fused_nerf_mlp_from_points_plain(packed, pts, dirs):
     """Plain PyTorch version of K-B3: pts, dirs (N, 3) -> raw (N, 4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,37 +294,71 @@ def fused_nerf_mlp_from_points_plain(packed, pts, dirs):
     return torch.cat(outs)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32 or not t.is_contiguous() or \
+def _check(name, t, shape, dtype=torch.float32):
+    if t.dtype != dtype or not t.is_contiguous() or \
             tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected contiguous float32 {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)} "
+        raise ValueError(f"{name}: expected contiguous {dtype} "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
                          f"contiguous={t.is_contiguous()}")
+
+
+def _run(name, plain, weights, inputs):
+    """Shared body of the three kernel wrappers. ``inputs``: {label: (tensor
+    (N, width), width)}, float32. The plain version for CPU tensors, the
+    kernel ``nnc_<name>`` for CUDA tensors, an error for any other device.
+    Returns raw (N, 4)."""
+    tensors = [t for t, _width in inputs.values()]
+    n = tensors[0].shape[0]
+    for label, (t, width) in inputs.items():
+        _check(label, t, (n, width))
+    device = tensors[0].device
+    if any(t.device != device for t in (*weights, *tensors)):
+        raise ValueError(f"{name}: weights and inputs must be on one device")
+    if device.type == "cpu":
+        return plain(*weights, *tensors)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib = _build.lib()
+    out = torch.empty((n, 4), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.count_launch(name)
+        _build.check(getattr(lib, "nnc_" + name)(
+            *(t.data_ptr() for t in (*weights, *tensors)), out.data_ptr(), n,
+            stream), name)
+    return out
 
 
 def mlp_from_points(packed, pts, dirs):
     """K-B3 wrapper: raw (N, 4) for points and view directions (N, 3).
 
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    n = pts.shape[0]
     _check("packed", packed, (PARAMS_SIZE,))
-    _check("pts", pts, (n, 3))
-    _check("dirs", dirs, (n, 3))
-    if not (packed.device == pts.device == dirs.device):
-        raise ValueError("packed, pts and dirs must be on one device")
-    if pts.device.type == "cpu":
-        return fused_nerf_mlp_from_points_plain(packed, pts, dirs)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    lib = _build.lib()
-    out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.count_launch("mlp_from_points")
-        _build.check(lib.nnc_mlp_from_points(
-            packed.data_ptr(), pts.data_ptr(), dirs.data_ptr(),
-            out.data_ptr(), n, stream), "mlp_from_points")
-    return out
+    return _run("mlp_from_points", fused_nerf_mlp_from_points_plain,
+                (packed,), {"pts": (pts, 3), "dirs": (dirs, 3)})
+
+
+def mlp_int8_from_points(wq, scales, biases, pts, dirs):
+    """K-B4 wrapper: raw (N, 4) for points and view directions (N, 3), the
+    weights as :func:`pack_weights_int8` gives them; activations quantized
+    per :data:`INT8_ACT_BLOCK` points.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    _check("wq", wq, (INT8_WQ_SIZE,), torch.int8)
+    _check("scales", scales, (INT8_SCALES_SIZE,))
+    _check("biases", biases, (INT8_BIASES_SIZE,))
+    return _run("mlp_int8_from_points", fused_nerf_mlp_int8_from_points_plain,
+                (wq, scales, biases), {"pts": (pts, 3), "dirs": (dirs, 3)})
+
+
+def mlp_embedded(packed, pts_emb, views_emb):
+    """K-B5 wrapper: raw (N, 4) for embedded points (N, 63) and embedded view
+    directions (N, 27).
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    _check("packed", packed, (PARAMS_SIZE,))
+    return _run("mlp_embedded", fused_nerf_mlp_plain, (packed,),
+                {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)})
 
 
 def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
@@ -145,4 +372,33 @@ def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
     raw = mlp_from_points(pack_weights(model),
                           pts.reshape(-1, 3).float().contiguous(),
                           vd.reshape(-1, 3).float().contiguous())
+    return raw.reshape(*lead, 4)
+
+
+def fused_nerf_mlp_int8_from_points(model: nerf.NeRF, pts, viewdirs):
+    """int8 variant of :func:`fused_nerf_mlp_from_points`: per-channel int8
+    weights, activations quantized at run time per block of points, int32
+    sums. pts: (..., 3); viewdirs broadcastable to pts. Returns raw (..., 4)
+    float32."""
+    vd = torch.broadcast_to(viewdirs, pts.shape)
+    if not supports(model.config):
+        return nerf.apply_mlp(model, positional_encoding(pts, 10),
+                              positional_encoding(vd, 4))
+    lead = pts.shape[:-1]
+    raw = mlp_int8_from_points(*pack_weights_int8(model),
+                               pts.reshape(-1, 3).float().contiguous(),
+                               vd.reshape(-1, 3).float().contiguous())
+    return raw.reshape(*lead, 4)
+
+
+def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
+    """Drop-in for ``nerf.apply_mlp`` on the flagship config (inference
+    only). pts_emb: (..., 63); views_emb: (..., 27). Returns raw (..., 4)
+    float32."""
+    if not supports(model.config):
+        return nerf.apply_mlp(model, pts_emb, views_emb)
+    lead = pts_emb.shape[:-1]
+    raw = mlp_embedded(pack_weights(model),
+                       pts_emb.reshape(-1, 63).float().contiguous(),
+                       views_emb.reshape(-1, 27).float().contiguous())
     return raw.reshape(*lead, 4)

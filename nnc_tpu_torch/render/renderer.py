@@ -7,8 +7,11 @@ PyTorch runs eagerly, so a chunk's tail is not padded to the chunk size.
 
 Deterministic renders with ``use_fused_mlp`` take the port's kernels under
 the reference's dispatch: full fusion (K-B2, ``ops/render_fused.py``) when
-``use_fused_compositing`` is set and ``raw_noise_std == 0``, else the fused
-MLP from points (K-B3, ``ops/mlp_fused.py``) + ``raw2outputs``. Training
+``use_fused_compositing`` is set, ``raw_noise_std == 0`` and the posenc is
+10/4; else ``raw2outputs`` on the fused MLP (``ops/mlp_fused.py``): from
+points (K-B3, or K-B4 with ``use_int8_mlp``) when the posenc is 10/4, on
+embeddings made here (K-B5 where the architecture has a kernel) when it is
+not. Training
 renders (``deterministic=False``) with ``use_fused_train`` run the MLP
 through the differentiable kernel pair K-B1 (``ops/mlp_train_fused.py``),
 else through the plain MLP in output-scaling form.
@@ -63,18 +66,10 @@ class RenderConfig:
 
 
 def check_supported(rc: RenderConfig) -> None:
-    """Raise for the render options whose kernels are not ported yet."""
-    missing = []
-    if rc.use_int8_mlp:
-        missing.append("use_int8_mlp (kernel K-B4, ROADMAP queue B)")
-    if rc.use_fused_mlp and (rc.multires, rc.multires_views) != (10, 4):
-        missing.append("use_fused_mlp with multires != 10/4 (kernel K-B5, "
-                       "ROADMAP queue B)")
+    """Raise for the render options that are not ported yet."""
     if rc.use_occupancy_renders or rc.use_occupancy_tuning:
-        missing.append("occupancy mode (ROADMAP A4)")
-    if missing:
         raise NotImplementedError("not ported to nnc_tpu_torch yet: "
-                                  + ", ".join(missing))
+                                  "occupancy mode (ROADMAP A4)")
 
 
 def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
@@ -84,18 +79,23 @@ def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
     allow_fused=False routes training: the differentiable kernel pair
     (use_fused_train, posenc 10/4) or the plain MLP in output-scaling form
     (the inference kernels have no backward)."""
-    if not allow_fused and rc.use_fused_train and \
-            (rc.multires, rc.multires_views) == (10, 4):
+    posenc_10_4 = (rc.multires, rc.multires_views) == (10, 4)
+    if not allow_fused and rc.use_fused_train and posenc_10_4:
         return mlp_train_fused.fused_nerf_mlp_train(
             model, pts, viewdirs[..., None, :], with_dw=rc.train_with_dw)
-    if allow_fused and rc.use_fused_mlp:
-        return mlp_fused.fused_nerf_mlp_from_points(model, pts,
-                                                    viewdirs[..., None, :])
+    if allow_fused and rc.use_fused_mlp and posenc_10_4:
+        # posenc happens inside the kernel
+        from_points = mlp_fused.fused_nerf_mlp_int8_from_points \
+            if rc.use_int8_mlp else mlp_fused.fused_nerf_mlp_from_points
+        return from_points(model, pts, viewdirs[..., None, :])
     pts_emb = positional_encoding(pts, rc.multires)
     views_emb = None
     if rc.mlp.use_viewdirs:
+        # encoded once per ray, broadcast across its samples
         ve = positional_encoding(viewdirs, rc.multires_views)
         views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
+    if allow_fused and rc.use_fused_mlp:
+        return mlp_fused.fused_nerf_mlp(model, pts_emb, views_emb)
     return nerf.apply_mlp(model, pts_emb, views_emb,
                           output_scaling=not allow_fused)
 
@@ -117,6 +117,7 @@ def render_rays(model, model_fine, rays_o, rays_d, viewdirs, near, far,
 
     use_full_fusion = (rc.use_fused_compositing and rc.use_fused_mlp
                        and deterministic and rc.raw_noise_std == 0
+                       and (rc.multires, rc.multires_views) == (10, 4)
                        and mlp_fused.supports(rc.mlp))
 
     def one_pass(m, z, noise, ro=rays_o, rd=rays_d, vd=viewdirs,

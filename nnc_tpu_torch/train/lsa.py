@@ -21,9 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from nnc_tpu.utils.logging import ResultLogger, mse2psnr
-
 from ..render import renderer
+from ..utils.logging import ResultLogger, mse2psnr
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8

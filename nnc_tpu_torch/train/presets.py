@@ -6,7 +6,7 @@ hyperparameters (reference: framework/applications/utils/train_nerf.py:37-70):
     N_importance=128, N_rand=1024, half_res, near 2 / far 6
   llff (fern): factor=8, llffhold=8, N_rand=1024, N_samples=64,
     N_importance=64, raw_noise_std=1.0, NDC near 0 / far 1
-The dataset loaders are the JAX-free ``nnc_tpu.data`` modules.
+The dataset loaders are the port's own ``data.blender`` and ``data.llff``.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def load_scene(dataset_type: str, data_dir: str = None, half_res=True,
         data_dir = os.path.join(DEFAULT_DATA_ROOT,
                                 DATASET_DIRS.get(dataset_type, ""))
     if dataset_type == "blender":
-        from nnc_tpu.data.blender import load_blender_data
+        from ..data.blender import load_blender_data
         images, poses, render_poses, hwf, i_split = load_blender_data(
             data_dir, half_res=half_res, testskip=testskip)
         i_train, _i_val, i_test = i_split
@@ -62,7 +62,7 @@ def load_scene(dataset_type: str, data_dir: str = None, half_res=True,
             "dataset_type": "blender",
         }
     if dataset_type == "llff":
-        from nnc_tpu.data.llff import load_llff_data
+        from ..data.llff import load_llff_data
         images, poses, bds, render_poses, i_test = load_llff_data(
             data_dir, factor=factor, recenter=True, bd_factor=0.75,
             spherify=spherify)
@@ -96,7 +96,7 @@ def load_scene(dataset_type: str, data_dir: str = None, half_res=True,
 def load_scene_from_config(config_path: str, data_dir: str = None):
     """Build a scene from a nerf-pytorch style configs/*.txt file.
     Returns (scene, leftover overrides e.g. n_samples/n_rand)."""
-    from nnc_tpu.utils.config_txt import load_config, scene_overrides
+    from ..utils.config_txt import load_config, scene_overrides
     ov = scene_overrides(load_config(config_path))
     dataset_type = ov.pop("dataset_type")
     data_dir = data_dir or ov.pop("data_dir", None)
@@ -126,8 +126,8 @@ def make_render_config(scene, mlp_config=None, chunk=1024 * 32,
         chunk=chunk,
         use_fused_mlp=use_fused_mlp,
         # deterministic renders take K-B2 (fused compositing, early
-        # termination, empty-ray culling) or K-B3; training renders would
-        # take the fused train pair (K-B1, not ported yet)
+        # termination, empty-ray culling) or K-B3; training renders take
+        # the fused train pair K-B1
         use_fused_compositing=use_fused_mlp,
         use_fused_train=use_fused_mlp,
     )

@@ -9,7 +9,14 @@ without the repository's conftest, which imports JAX:
 Tolerances, float32 on both sides: raw MLP outputs 1e-3 (12 layers of
 K=256 sums in another order); composited rgb/acc/weights 1e-4 with early
 termination off, 2 eps with it on (both versions skip the same blocks, up to
-threshold ties); depth 10x those (it sums w * z, z <= 6). K-B1's gradients
+threshold ties); depth 10x those (it sums w * z, z <= 6). K-B5's raw
+outputs 1e-3 like K-B3's. K-B4's integer sums are exact and its float32 steps
+are single rounded operations in the plain version's order, so kernel and
+plain version differ only where the card's sincosf and torch's sin / cos
+differ in the last bit of an embedding value that sits on a quantization tie:
+at most 1e-3 of the elements may differ by more than 1e-5, none by more than
+the reference's bound against the float MLP (tests/test_mlp_pallas.py:255).
+K-B1's gradients
 (sums over every point, in another order, through relu masks that may flip
 at ties): the criterion of tests/test_mlp_train_pallas.py:41-50, 99.9% of
 the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
@@ -24,6 +31,7 @@ import torch
 from nnc_tpu_torch.data import synthetic
 from nnc_tpu_torch.models import nerf
 from nnc_tpu_torch.ops import _build, mlp_fused, mlp_train_fused, render_fused
+from nnc_tpu_torch.ops.posenc import positional_encoding
 from nnc_tpu_torch.render import renderer
 
 
@@ -59,6 +67,11 @@ def test_cuda_build_and_packed_layout(cuda_device):
     _build.lib().nnc_train_sizes(*[ctypes.byref(s) for s in sizes])
     assert [s.value for s in sizes] == [mlp_train_fused.U_SIZE,
                                         mlp_train_fused.WT_SIZE]
+    sizes = [ctypes.c_int() for _ in range(3)]
+    _build.lib().nnc_int8_sizes(*[ctypes.byref(s) for s in sizes])
+    assert [s.value for s in sizes] == [mlp_fused.INT8_WQ_SIZE,
+                                        mlp_fused.INT8_SCALES_SIZE,
+                                        mlp_fused.INT8_BIASES_SIZE]
 
 
 @pytest.mark.cuda
@@ -75,6 +88,103 @@ def test_cuda_mlp_from_points_matches_plain(cuda_device):
     assert _build.launch_counts()["mlp_from_points"] == before + 1
     want = mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd)
     assert float((got - want).abs().max()) <= 1e-3
+
+
+def _points(n, device, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(device)
+    vd = torch.randn(n, 3, generator=g)
+    return pts, (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 10_000])
+def test_cuda_mlp_embedded_matches_plain(cuda_device, n):
+    model = _fog_model(cuda_device)
+    pts, vd = _points(n, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    packed = mlp_fused.pack_weights(model)
+    before = _build.launch_counts()["mlp_embedded"]
+    got = mlp_fused.mlp_embedded(packed, pe, ve)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["mlp_embedded"] == before + 1
+    want = mlp_fused.fused_nerf_mlp_plain(packed, pe, ve)
+    assert float((got - want).abs().max()) <= 1e-3
+    # the same chain as K-B3 on the embedding it computes itself
+    from_points = mlp_fused.mlp_from_points(packed, pts, vd)
+    assert float((got - from_points).abs().max()) <= 1e-3
+    # the drop-in for apply_mlp, leading shape kept
+    via = mlp_fused.fused_nerf_mlp(model, pe.reshape(1, n, 63),
+                                   ve.reshape(1, n, 27))
+    assert via.shape == (1, n, 4) and torch.equal(via[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64, 10_000])
+def test_cuda_mlp_int8_from_points_matches_plain(cuda_device, n):
+    model = _fog_model(cuda_device)
+    pts, vd = _points(n, cuda_device)
+    packed = mlp_fused.pack_weights_int8(model)
+    before = _build.launch_counts()["mlp_int8_from_points"]
+    got = mlp_fused.mlp_int8_from_points(*packed, pts, vd)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["mlp_int8_from_points"] == before + 1
+    want = mlp_fused.fused_nerf_mlp_int8_from_points_plain(*packed, pts, vd)
+    ref = mlp_fused.mlp_from_points(mlp_fused.pack_weights(model), pts, vd)
+    bound = 0.05 * float(ref.abs().max()) + 0.05
+    d = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert float((d > 1e-5).float().mean()) <= 1e-3
+    assert float(d.max()) < bound
+    assert 0 < float((got - ref).abs().max()) < bound
+
+
+@pytest.mark.cuda
+def test_cuda_renderer_int8_and_embedded_routes(cuda_device):
+    """use_int8_mlp launches K-B4 and stays within the reference's bound of
+    the float render (tests/test_mlp_pallas.py:274) on every ray whose far
+    sample cannot change sign; the MLP called as
+    fused_nerf_mlp on embeddings made outside launches K-B5 and gives K-B3's
+    render."""
+    model = _fog_model(cuda_device)
+    ro, rd, vd, _z = _rays(100, 8, cuda_device)
+    ro = ro + torch.tensor([0.0, 0.0, 4.0], device=cuda_device)
+    common = dict(n_samples=16, n_importance=16, perturb=False,
+                  use_fused_mlp=True, raw_noise_std=1.0)
+    render = lambda rc: renderer.render_rays(model, None, ro, rd, vd, 2.0,
+                                             6.0, rc, deterministic=True)
+    exact = render(renderer.RenderConfig(**common))
+    before = _build.launch_counts()
+    int8 = render(renderer.RenderConfig(**common, use_int8_mlp=True))
+    after = _build.launch_counts()
+    assert after["mlp_int8_from_points"] == \
+        before["mlp_int8_from_points"] + 2
+    assert after["mlp_from_points"] == before["mlp_from_points"]
+    # raw2outputs gives a ray's last sample (dist 1e10) alpha 1 or 0 by the
+    # sign of its sigma: rays whose far sample the float model puts within
+    # the int8 error of zero may flip, every other ray is held to the bound
+    raw_far = mlp_fused.fused_nerf_mlp_from_points(model, ro + rd * 6.0, vd)
+    steady = raw_far[:, 3].abs() > 0.05 * raw_far.abs().max() + 0.05
+    d = (int8["rgb_map"] - exact["rgb_map"]).abs().amax(dim=-1)
+    assert int(steady.sum()) >= 50
+    assert 0 < float(d[steady].max()) < 0.1
+
+    def embedded(m, pts, viewdirs, rc, allow_fused=True):
+        ve = positional_encoding(viewdirs, 4)
+        return mlp_fused.fused_nerf_mlp(
+            m, positional_encoding(pts, 10),
+            ve[..., None, :].expand(*pts.shape[:-1], 27))
+
+    real = renderer._query_mlp
+    renderer._query_mlp = embedded
+    try:
+        emb = render(renderer.RenderConfig(**common))
+    finally:
+        renderer._query_mlp = real
+    assert _build.launch_counts()["mlp_embedded"] == \
+        after["mlp_embedded"] + 2
+    assert float((emb["rgb_map"] - exact["rgb_map"]).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -129,6 +129,41 @@ def test_eval_and_test_model_match_jax(kind):
     assert np.isfinite(te_t) and te_t > 15
 
 
+@pytest.mark.parametrize("case", ["int8", "posenc"])
+def test_executers_render_int8_and_other_posenc_routes(case):
+    """The render options that the port refused before it had K-B4 and K-B5
+    are passing renders now: ``use_int8_mlp``, and ``use_fused_mlp`` with a
+    posenc other than 10/4. At W=32 neither package has a kernel for the
+    architecture, so both end in their plain MLP: within 1e-3 dB."""
+    if case == "int8":
+        scene, sd = _scene("ndc")
+        ex_j, ex_t = _executers(scene)
+        change = dict(use_int8_mlp=True)
+    else:
+        mlp = jnerf.NeRFConfig(W=32, input_ch_views=3 + 6 * 2)
+        change = dict(multires_views=2)
+        rc = jrenderer.RenderConfig(mlp=mlp, n_samples=8, n_importance=4,
+                                    chunk=HW * HW, **change)
+        scene, teachers = jsynthetic.make_scene(n_images=3, H=HW, W=HW,
+                                                mlp=mlp, rc=rc)
+        scene["n_importance"] = N_IMPORTANCE
+        sd = jnerf.params_to_state_dict(teachers[0], "model.")
+        sd.update(jnerf.params_to_state_dict(teachers[1], "model_fine."))
+        ex_j = JExecuter(scene, jpresets.make_render_config(
+            scene, mlp, chunk=HW * HW, use_fused_mlp=True,
+            n_samples=N_SAMPLES), verbose=False)
+        ex_t = tpresets.create_nerf_model_executer(
+            scene=scene, device="cpu",
+            mlp_config=tnerf.NeRFConfig(W=32, input_ch_views=3 + 6 * 2),
+            use_fused_mlp=True, n_samples=N_SAMPLES, verbose=False)
+    ex_j.rc = dataclasses.replace(ex_j.rc, **change)
+    ex_t.rc = dataclasses.replace(ex_t.rc, **change)
+    trenderer.check_supported(ex_t.rc)
+    te_j, te_t = ex_j.test_model(sd), ex_t.test_model(sd)
+    assert abs(te_t - te_j) < 1e-3, (te_t, te_j)
+    assert np.isfinite(te_t) and te_t > 15
+
+
 def _layout(bitstream):
     model_info, ad = coder.decode(bitstream)
     return (sorted(ad["parameters"]), ad["approx_method"],
