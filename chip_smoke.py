@@ -34,7 +34,12 @@ Phases:
      use_int8_mlp (K-B4) on the teacher, a test view of random full-width
      models through K-B4 against the float render of the same models, and
      test_model with the MLP called as fused_nerf_mlp on embeddings made as
-     the renderer makes them (K-B5) against the K-B3 render.
+     the renderer makes them (K-B5) against the K-B3 render. Then one more
+     view through each of K-B3, K-B4 and K-B5 in which every launch is held
+     against the plain version on the tensors the renderer gave it (chunks
+     of 32,768 rays and the ragged last one, 64 and 128 samples: 1.7M to
+     4.2M points), and the K-B4 view against the same view rendered through
+     the plain int8 version.
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), and the two renders of
 phase 10. Every failed check raises. Each kernel's bound is the larger of
@@ -42,6 +47,7 @@ its bytes over the card's memory rate and its operations over the card's
 peak for their type. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -668,6 +674,34 @@ def phase_int8(dev, ctx):
     return row
 
 
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """module.name is fn inside the block and what it was after it."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def held_against_plain(name, plain, seen):
+    """Inside the block every call of the kernel wrapper mlp_fused.<name> is
+    followed by its plain version on the same tensors. ``seen`` gets, per
+    launch, (points, max |d raw|, share of the elements beyond 1e-5,
+    max |raw|). These launches are made after a path's counts were read."""
+    real = getattr(mlp_fused, name)
+
+    def both(*args):
+        got = real(*args)
+        d = (got - plain(*args)).abs()
+        seen.append((got.shape[0], float(d.max()),
+                     float((d > 1e-5).float().mean()),
+                     float(got.abs().max())))
+        return got
+    return swapped(mlp_fused, name, both)
+
+
 def _query_embedded(model, pts, viewdirs, rc, allow_fused=True):
     """The renderer's MLP query with the embeddings made outside the kernel,
     as its route for other posenc widths makes them (one view embedding per
@@ -706,9 +740,29 @@ def phase_lowprec_slice(dev, scene, sd, psnr_kb3):
     launches = {"mlp_int8_from_points": counts["mlp_int8_from_points"]}
     check(counts["mlp_from_points"] == 0 and counts["render_pass"] == 0,
           f"the int8 renders launched a float kernel: {counts}")
-    # the same view of the same models through K-B3, image against image
+    # the same view of the same models through K-B3, image against image;
+    # each K-B3 launch of it held against the plain version
     fog_c, fog_f = ex._split_params(sd_fog)
-    rgbf, _ = ex._render_views(fog_c, fog_f, view)
+    seen = {name: [] for name in ("mlp_from_points", "mlp_int8_from_points",
+                                  "mlp_embedded")}
+    with held_against_plain("mlp_from_points",
+                            mlp_fused.fused_nerf_mlp_from_points_plain,
+                            seen["mlp_from_points"]):
+        rgbf, _ = ex._render_views(fog_c, fog_f, view)
+    # the K-B4 view once more with each launch held against the plain int8
+    # version, then the whole view through the plain int8 version: kernel
+    # and plain version are meant to agree bit for bit, so the two images
+    # differ only where a tie flipped (see phase 9), far-sample steps
+    # included
+    with held_against_plain("mlp_int8_from_points",
+                            mlp_fused.fused_nerf_mlp_int8_from_points_plain,
+                            seen["mlp_int8_from_points"]):
+        rgb8_again, _ = ex8._render_views(fog_c, fog_f, view)
+    with swapped(mlp_fused, "mlp_int8_from_points",
+                 mlp_fused.fused_nerf_mlp_int8_from_points_plain):
+        rgb8_plain, _ = ex8._render_views(fog_c, fog_f, view)
+    d_plain = np.abs(rgb8 - rgb8_plain)[0].max(-1).reshape(-1)
+    share_plain = float((d_plain > 1e-5).mean())
     d_pix = np.abs(rgb8 - rgbf)[0].max(-1).reshape(-1)
     between = -10.0 * math.log10(float(np.mean((rgb8 - rgbf) ** 2)))
     # raw2outputs gives the last sample of a ray (at the far plane, dist
@@ -731,18 +785,50 @@ def phase_lowprec_slice(dev, scene, sd, psnr_kb3):
     n_flipped = int((d_pix > 0.1).sum())
 
     _build.reset_launch_counts()
-    query, renderer._query_mlp = renderer._query_mlp, _query_embedded
-    try:
+    with swapped(renderer, "_query_mlp", _query_embedded):
         t0 = time.perf_counter()
         psnr_emb = ex.test_model(sd)
         torch.cuda.synchronize()
         t_emb = time.perf_counter() - t0
-    finally:
-        renderer._query_mlp = query
-    counts = _build.launch_counts()
+        counts = _build.launch_counts()
+        with held_against_plain("mlp_embedded", mlp_fused.fused_nerf_mlp_plain,
+                                seen["mlp_embedded"]):
+            ex._render_views(*ex._split_params(sd), view)
     launches["mlp_embedded"] = counts["mlp_embedded"]
     check(counts["mlp_from_points"] == 0,
           f"the embedded render launched K-B3: {counts}")
+    # the shapes the renderer gives the wrappers: chunks of rc.chunk rays and
+    # the ragged last one, coarse (n_samples) and fine (+ n_importance)
+    rays, rc = H * W, ex.rc
+    sizes = {min(rc.chunk, rays - r0) * s
+             for r0 in range(0, rays, rc.chunk)
+             for s in (rc.n_samples, rc.n_samples + rc.n_importance)}
+    for name, rows in seen.items():
+        check({r[0] for r in rows} == sizes
+              and len(rows) == 2 * -(-rays // rc.chunk),
+              f"{name}: held launches of {sorted({r[0] for r in rows})} points,"
+            f" {len(rows)} in all; the view has {sorted(sizes)}")
+        worst = max(r[1] for r in rows)
+        if name == "mlp_int8_from_points":
+            # phase 9's tolerance, at each launch
+            check(all(r[2] <= 1e-3 and r[1] < 0.05 * r[3] + 0.05
+                      for r in rows),
+                  f"K-B4 at the view's shapes off its plain version: {rows}")
+        else:
+            check(worst <= 1e-3, f"{name} at the view's shapes: max |draw| "
+                  f"{worst} > 1e-3 against plain: {rows}")
+        print(f"[10] {name}: {len(rows)} launches of one view, "
+              f"{min(sizes)} to {max(sizes)} points, each against its plain "
+              f"version: max|draw| {worst:.3e}, at most "
+              f"{max(r[2] for r in rows):.2e} of a launch's elements beyond "
+              f"1e-5")
+    print(f"[10] K-B4 view against the same view through the plain int8 "
+          f"version: max|d rgb| {d_plain.max():.3e}, {share_plain:.2e} of "
+          f"the pixels beyond 1e-5")
+    check(np.array_equal(rgb8, rgb8_again), "two K-B4 renders of one view "
+          "differ")
+    check(share_plain <= 1e-4, f"K-B4 render: {share_plain} of the pixels "
+          f"off the plain int8 render by more than 1e-5")
     print(f"[10] low-precision slice, NDC {FERN_HW[0]}x{FERN_HW[1]}, 64+64: "
           f"teacher test PSNR through K-B4 {psnr_int8:.2f} dB in "
           f"{t_int8:.2f} s (through K-B3 {psnr_kb3:.2f} dB); random "

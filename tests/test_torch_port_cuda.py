@@ -98,7 +98,7 @@ def _points(n, device, seed=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [33, 10_000])
+@pytest.mark.parametrize("n", [33, 10_000, 3_414_016])
 def test_cuda_mlp_embedded_matches_plain(cuda_device, n):
     model = _fog_model(cuda_device)
     pts, vd = _points(n, cuda_device)
@@ -121,7 +121,7 @@ def test_cuda_mlp_embedded_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [33, 64, 10_000])
+@pytest.mark.parametrize("n", [33, 64, 10_000, 3_414_016])
 def test_cuda_mlp_int8_from_points_matches_plain(cuda_device, n):
     model = _fog_model(cuda_device)
     pts, vd = _points(n, cuda_device)
@@ -169,6 +169,19 @@ def test_cuda_renderer_int8_and_embedded_routes(cuda_device):
     d = (int8["rgb_map"] - exact["rgb_map"]).abs().amax(dim=-1)
     assert int(steady.sum()) >= 50
     assert 0 < float(d[steady].max()) < 0.1
+    # the kernel against the same render through its plain version: they
+    # agree bit for bit but for a flipped tie, far-sample steps included
+    real = mlp_fused.mlp_int8_from_points
+    mlp_fused.mlp_int8_from_points = \
+        mlp_fused.fused_nerf_mlp_int8_from_points_plain
+    try:
+        plain = render(renderer.RenderConfig(**common, use_int8_mlp=True))
+    finally:
+        mlp_fused.mlp_int8_from_points = real
+    assert _build.launch_counts()["mlp_int8_from_points"] == \
+        after["mlp_int8_from_points"]
+    d = (int8["rgb_map"] - plain["rgb_map"]).abs().amax(dim=-1)
+    assert int((d > 1e-5).sum()) <= 1
 
     def embedded(m, pts, viewdirs, rc, allow_fused=True):
         ve = positional_encoding(viewdirs, 4)

@@ -300,7 +300,11 @@ def test_renderer_int8_route_matches_reference(flagship, monkeypatch):
     quantize over other blocks (64 points against 1,024 with padding), so
     the renders agree within the reference's bound for this route
     (tests/test_mlp_pallas.py:274: max |d rgb_map| < 0.1), each also against
-    the float render."""
+    the float render. raw2outputs gives a ray's last sample (dist 1e10)
+    alpha 1 or 0 by the sign of its sigma, a step that an error of any size
+    can cross: the bound is held on the rays whose far sample the float
+    model puts further from zero than the int8 error of the raw output
+    (tests/test_mlp_pallas.py:255), which must be more than half of them."""
     common = dict(n_samples=8, n_importance=8, perturb=False,
                   use_fused_mlp=True, use_int8_mlp=True, raw_noise_std=1.0)
     calls = []
@@ -314,10 +318,15 @@ def test_renderer_int8_route_matches_reference(flagship, monkeypatch):
             model, None, ro, rd, vd, 2.0, 6.0,
             dataclasses.replace(rc_t, use_int8_mlp=False),
             deterministic=True)
+        raw_far = mlp_fused.fused_nerf_mlp_from_points(model, ro + rd * 6.0,
+                                                       vd)
+    steady = (raw_far[:, 3].abs() > _int8_bound(raw_far.numpy())).numpy()
+    assert steady.sum() > 0.5 * len(steady)
     for k in ("rgb_map", "rgb0", "acc_map"):
+        g = got[k].numpy()[steady]
         assert np.isfinite(got[k].numpy()).all()
-        assert np.abs(got[k].numpy() - np.asarray(want[k])).max() < 0.1, k
-        assert float((got[k] - exact[k]).abs().max()) < 0.1, k
+        assert np.abs(g - np.asarray(want[k])[steady]).max() < 0.1, k
+        assert np.abs(g - exact[k].numpy()[steady]).max() < 0.1, k
     assert float((got["rgb_map"] - exact["rgb_map"]).abs().max()) > 0
 
 
