@@ -40,9 +40,28 @@ Phases:
      of 32,768 rays and the ragged last one, 64 and 128 samples: 1.7M to
      4.2M points), and the K-B4 view against the same view rendered through
      the plain int8 version.
+ 11. kernel K-B6 (one shard's column + row pair of the tensor-parallel MLP)
+     against its plain version at 262,144 points: the three pair shapes of
+     the forward at M = 4 shards, and the lightest and the heaviest pair at
+     M = 1 and at M = 8;
+ 12. the tensor-parallel slice at full width: fused_nerf_mlp_tp on a mesh of
+     4 x cuda:0 on the embeddings of the first launch of a 378x504 NDC view
+     (32,768 rays x 64 samples), against K-B5 on the same tensors; then the
+     same call with each of its 20 launches of K-B6 held against the plain
+     version on the tensors the forward gave it; then one shard's five pair
+     calls with the sum over shards left out, for M in 1, 2, 4, beside
+     K-B5's time / M (a measurement, no verdict);
+ 13. the multi-device slice on meshes of 4 x cuda:0:
+     graft_entry.dryrun_multichip(4); 10 data-parallel LSA steps at lego
+     geometry (N_rand 1,024) against the single-device run on the same
+     draws; one 400x400 test view through render_image(mesh=) against the
+     view without a mesh, with culling and early termination off (equal
+     bits expected) and on; a joint LSA of 2 scenes against each scene
+     tuned alone.
 The launch counts are reset just before each path and read just after it:
-phases 4-5 (the render path), phase 7 (the LSA path), and the two renders of
-phase 10. Every failed check raises. Each kernel's bound is the larger of
+phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
+phase 10, the tensor-parallel call of phase 12 and the runs of phase 13.
+Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
@@ -61,11 +80,14 @@ import numpy as np
 import torch
 
 import nnc_tpu_torch
-from nnc_tpu_torch import coder
+from nnc_tpu_torch import coder, graft_entry, parallel
 from nnc_tpu_torch.data import synthetic
 from nnc_tpu_torch.models import nerf
-from nnc_tpu_torch.ops import _build, mlp_fused, mlp_train_fused, render_fused
+from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
+                               mlp_train_fused, render_fused)
 from nnc_tpu_torch.ops.posenc import positional_encoding
+from nnc_tpu_torch.ops.sampling import stratified_samples
+from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
 from nnc_tpu_torch.train import lsa, presets
@@ -101,7 +123,13 @@ KERNEL_ROWS = {
                       "nnc_tpu/ops/mlp_train_pallas.py:275"),
     "mlp_train_bwd": ("nnc_tpu_torch/ops/csrc/mlp_train.cu",
                       "nnc_tpu/ops/mlp_train_pallas.py:300"),
+    "mlp_tp_pair": ("nnc_tpu_torch/ops/csrc/mlp_tp_pair.cu",
+                    "nnc_tpu/ops/mlp_tp_pallas.py:82"),
 }
+# K-B6: (K, O2, relu_mid) of the forward's pairs: w0 -> w1; w2 -> w3,
+# w4 -> w5b, w6 -> w7; wf -> wva. S = 256 / M.
+PAIR_HEADS = ((63, 256, True), (256, 256, True), (256, 128, False))
+TP_SHARDS = 4
 RENDER_KERNELS = ("render_pass", "mlp_from_points")
 LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
@@ -495,17 +523,18 @@ def phase_train_kernels(dev):
     return row
 
 
-def _lsa_run(ex, model_c, model_f, draws):
+def _lsa_run(ex, model_c, model_f, draws, mesh=None):
     """TRAJ_STEPS LSA steps from the given models on the executer's batches
-    and the given draws; returns (scales {name: (out,)} of both models,
-    mean step ms on the host clock)."""
+    and the given draws, data-parallel over ``mesh`` if given; returns
+    (scales {name: (out,)} of both models, mean step ms on the host
+    clock)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ls_c, ls_f, *_ = lsa.tune_lsa_scales(
         model_c, model_f, ex._make_batcher(), ex.rc, ex.scene["near"],
         ex.scene["far"], learning_rate=ex.learning_rate,
         learning_rate_decay=0.0, epochs=1, n_iters=TRAJ_STEPS,
-        verbose=False, draws=draws)
+        verbose=False, draws=draws, mesh=mesh)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / TRAJ_STEPS
     return torch.cat([torch.cat(list(d.values())) for d in (ls_c, ls_f)]), ms
@@ -605,7 +634,7 @@ def phase_lsa(dev, scene, sd, tar):
     check(span > 0.0 and drift <= 1e-2 * span and drift_l2 <= 1e-2,
           f"K-B1 LSA trajectory drifts from the plain one: max {drift} "
           f"(bound 1e-2 x {span}), L2 {drift_l2} (bound 1e-2)")
-    return launches
+    return launches, dec0, sets
 
 
 def phase_embedded(dev, ctx):
@@ -685,12 +714,12 @@ def swapped(module, name, fn):
         setattr(module, name, real)
 
 
-def held_against_plain(name, plain, seen):
-    """Inside the block every call of the kernel wrapper mlp_fused.<name> is
+def held_against_plain(name, plain, seen, module=mlp_fused):
+    """Inside the block every call of the kernel wrapper <module>.<name> is
     followed by its plain version on the same tensors. ``seen`` gets, per
     launch, (points, max |d raw|, share of the elements beyond 1e-5,
     max |raw|). These launches are made after a path's counts were read."""
-    real = getattr(mlp_fused, name)
+    real = getattr(module, name)
 
     def both(*args):
         got = real(*args)
@@ -699,7 +728,7 @@ def held_against_plain(name, plain, seen):
                      float((d > 1e-5).float().mean()),
                      float(got.abs().max())))
         return got
-    return swapped(mlp_fused, name, both)
+    return swapped(module, name, both)
 
 
 def _query_embedded(model, pts, viewdirs, rc, allow_fused=True):
@@ -860,6 +889,257 @@ def phase_lowprec_slice(dev, scene, sd, psnr_kb3):
     return launches
 
 
+def _pair_inputs(n, k, s, o2, g, dev):
+    x = torch.randn(n, k, generator=g).to(dev)
+    wa = (torch.randn(k, s, generator=g) / math.sqrt(k)).to(dev)
+    ba = torch.randn(s, generator=g).to(dev)
+    wb = (torch.randn(s, o2, generator=g) / math.sqrt(s)).to(dev)
+    return x, wa, ba, wb
+
+
+def phase_tp_pair(dev):
+    """K-B6 against its plain version (torch.addmm, relu, torch.mm: cuBLAS).
+    Bound on the error: 1e-4 of max |ref| + 1e-5 (two float32 products, sums
+    over at most 256 terms in another order). library_ms is None: the
+    function is three PyTorch calls, whose summed time is plain_ms."""
+    g = torch.Generator().manual_seed(7)
+    n = N_POINTS
+    shapes = [(TP_SHARDS, *head) for head in PAIR_HEADS] + \
+        [(m, *head) for m in (1, 8) for head in PAIR_HEADS[:2]]
+    row = None
+    for m, k, o2, relu_mid in shapes:
+        s = 256 // m
+        args = (*_pair_inputs(n, k, s, o2, g, dev), relu_mid)
+        got = mlp_tp_fused.fused_pair(*args)
+        torch.cuda.synchronize()
+        want = mlp_tp_fused.fused_pair_plain(*args)
+        err, limit = maxabs(got, want), 1e-4 * float(want.abs().max()) + 1e-5
+        check(torch.isfinite(got).all().item(), "K-B6 output not finite")
+        check(err <= limit, f"K-B6 M={m} K={k} S={s} O2={o2}: max |d| {err} "
+              f"> {limit}")
+        check(torch.equal(got, mlp_tp_fused.fused_pair(*args)),
+              "K-B6 reruns differ")
+        ms = cuda_ms(lambda: mlp_tp_fused.fused_pair(*args))
+        plain_ms = cuda_ms(lambda: mlp_tp_fused.fused_pair_plain(*args))
+        ops = 2 * n * s * (k + o2)
+        b = bound(nbytes(*args[:4], got), ops, PEAK_FP32)
+        print(f"[11] K-B6 {n} points M={m} K={k} S={s} O2={o2} "
+              f"relu_mid={relu_mid}: max|d| {err:.3e} (bound {limit:.3e}); "
+              f"kernel {ms:.3f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+              f"{b['bound_by']}")
+        if (m, k, o2) == (TP_SHARDS, 256, 256):
+            # the row of the kernel table: the pair that the forward runs
+            # three times per shard (w2 -> w3, w4 -> w5b, w6 -> w7)
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+    return row
+
+
+def phase_tp_slice(dev, scene, sd):
+    """fused_nerf_mlp_tp on 4 x cuda:0 at full width on the embeddings of
+    the first launch of one NDC view, as the renderer makes them."""
+    H, W, K = scene["H"], scene["W"], np.asarray(scene["K"], np.float32)
+    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                            use_fused_mlp=True, verbose=False)
+    rc = ex.rc
+    model, _fine = ex._split_params(sd)
+    ro, rd = get_rays_np(H, W, K, scene["poses"][scene["i_test"][0]][:3, :4])
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro_n, rd_n = ndc_rays(H, W, float(K[0][0]), 1.0,
+                          torch.as_tensor(ro, device=dev),
+                          torch.as_tensor(rd, device=dev))
+    R = rc.chunk
+    ro_n, rd_n = ro_n.reshape(-1, 3)[:R], rd_n.reshape(-1, 3)[:R]
+    z = stratified_samples(scene["near"], scene["far"], rc.n_samples, R,
+                           False, device=dev)
+    pts = ro_n[:, None, :] + rd_n[:, None, :] * z[..., None]
+    pe = positional_encoding(pts, rc.multires)
+    ve = positional_encoding(torch.as_tensor(vd.reshape(-1, 3)[:R],
+                                             device=dev), rc.multires_views)
+    ve = ve[:, None, :].expand(R, rc.n_samples, ve.shape[-1])
+    n = R * rc.n_samples
+    mesh = parallel.make_mesh(TP_SHARDS, ("model",))
+    check(mesh.shape == {"model": TP_SHARDS}
+          and all(d == dev for d in mesh.devices.flat), f"mesh {mesh}")
+
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
+        torch.cuda.synchronize()
+        launched = _build.launch_counts()["mlp_tp_pair"]
+        want = mlp_fused.fused_nerf_mlp(model, pe, ve)
+        dense = nerf.apply_mlp(model, pe.reshape(-1, 63), ve.reshape(-1, 27))
+    scale = float(want.abs().max())
+    err, err_dense = maxabs(got, want), maxabs(got.reshape(-1, 4), dense)
+    check(got.shape == (R, rc.n_samples, 4)
+          and torch.isfinite(got).all().item(), "TP output shape or values")
+    check(launched == 5 * TP_SHARDS, f"the TP forward launched K-B6 "
+          f"{launched} times, not 5 per shard")
+    # the sum over 4 shards runs in another order than K-B5's sum over 256
+    # channels: rtol 1e-4, atol 1e-5 x the teacher's raw scale
+    for what, ref in (("K-B5", want), ("the dense MLP", dense.reshape_as(got))):
+        check(torch.allclose(got, ref, rtol=1e-4, atol=1e-5 * scale),
+              f"TP forward off {what}: max |d| {maxabs(got, ref)} at raw "
+              f"scale {scale}")
+    seen = []
+    with held_against_plain("fused_pair", mlp_tp_fused.fused_pair_plain, seen,
+                            module=mlp_tp_fused), torch.no_grad():
+        again = mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
+    check(torch.equal(again, got), "two TP forwards differ")
+    check(len(seen) == 5 * TP_SHARDS and {r[0] for r in seen} == {n},
+          f"held {len(seen)} launches of {sorted({r[0] for r in seen})} points")
+    worst = max(r[1] / (1e-4 * r[3] + 1e-5) for r in seen)
+    check(worst <= 1.0, f"K-B6 at the forward's tensors: {seen}")
+    print(f"[12] TP slice, mesh {mesh.shape} of {dev}, {n} points (first "
+          f"launch of a {H}x{W} NDC view): max|draw| {err:.3e} against K-B5, "
+          f"{err_dense:.3e} against the dense MLP (raw scale {scale:.1f}); "
+          f"{launched} K-B6 launches; each held against its plain version "
+          f"on the forward's tensors: max|d| {max(r[1] for r in seen):.3e}, "
+          f"at most {worst:.3f} of its bound")
+
+    # tools/tp_mlp_bench.py's question on this card: one shard's compute
+    # alone (the sum over shards as the identity) against K-B5's time / M
+    m_pts = N_POINTS
+    pe_s = pe.reshape(-1, 63)[:m_pts].contiguous()
+    ve_s = ve.reshape(-1, 27)[:m_pts].contiguous()
+    packed = mlp_fused.pack_weights(model)
+    kb5_ms = cuda_ms(lambda: mlp_fused.mlp_embedded(packed, pe_s, ve_s))
+    alone = lambda parts, devices: {devices[0]: parts[0]}
+    with torch.no_grad():
+        for m in (1, 2, 4):
+            shards, reps = mlp_tp_fused.place_tp_weights(model, [dev] * m)
+            ms = cuda_ms(lambda: mlp_tp_fused._tp_forward(
+                {dev: (pe_s, ve_s)}, shards[:1], reps, psum=alone))
+            print(f"[12] TP shard M={m}, {m_pts} points (5 pair calls + the "
+                  f"replicated torch pieces, no sum over shards): {ms:.3f} "
+                  f"ms against K-B5 {kb5_ms:.3f} ms / {m} = "
+                  f"{kb5_ms / m:.3f} ms")
+        full_ms = cuda_ms(lambda: mlp_tp_fused.fused_nerf_mlp_tp(
+            model, pe_s, ve_s, mesh))
+    print(f"[12] the whole TP forward on the mesh of {TP_SHARDS} x {dev}, "
+          f"{m_pts} points: {full_ms:.3f} ms (all shards on one card, one "
+          f"after the other)")
+    return launched
+
+
+def phase_multi_device(dev, scene, dec0, sets):
+    """The multi-device slice on meshes of 4 x cuda:0."""
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    t_dry = time.perf_counter() - t0
+    dry = _build.launch_counts()
+    check(dry["mlp_tp_pair"] == 10 and dry["render_pass"] > 0,
+          f"dryrun_multichip(4) launches: {dry}")
+    print(f"[13] dryrun_multichip(4) on 4 x {dev} in {t_dry:.1f} s; launches "
+          f"{ {k: v for k, v in dry.items() if v} }")
+
+    # data-parallel LSA against the single-device run, the same batches and
+    # draws, from the qp=-20 decode without LSA
+    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                            use_fused_mlp=True,
+                                            learning_rate=LSA_LR,
+                                            verbose=False)
+    mesh = parallel.make_mesh(4, ("data",))
+    draws = lambda i: sets[i]
+    _build.reset_launch_counts()
+    ls_1, ms_1 = _lsa_run(ex, *ex._split_params(dec0), draws)
+    one = _build.launch_counts()
+    _build.reset_launch_counts()
+    ls_4, ms_4 = _lsa_run(ex, *ex._split_params(dec0), draws, mesh=mesh)
+    four = _build.launch_counts()
+    check(all(one[k] == 2 * TRAJ_STEPS and four[k] == 4 * one[k]
+              for k in LSA_KERNELS), f"K-B1 launches: one device {one}, "
+          f"mesh {four}")
+    drift = float((ls_4 - ls_1).abs().max())
+    span = float((ls_1 - 1.0).abs().max())
+    print(f"[13] data-parallel LSA, {TRAJ_STEPS} steps, N_rand 1024 on mesh "
+          f"{mesh.shape} of {dev}: max |d scale| {drift:.3e} against the "
+          f"single-device run (max |ls-1| {span:.3e}); mean step "
+          f"{ms_4:.2f} ms on the mesh, {ms_1:.2f} ms on one device; K-B1 "
+          f"launches {four['mlp_train_fwd']} + {four['mlp_train_bwd']} "
+          f"against {one['mlp_train_fwd']} + {one['mlp_train_bwd']}")
+    # the CPU test's tolerance (tests/test_torch_port_parallel.py (d))
+    check(span > 0 and torch.allclose(ls_4, ls_1, rtol=1e-4, atol=1e-6),
+          f"mesh LSA scales off the single-device run by {drift}")
+    launches = {k: four[k] for k in LSA_KERNELS}
+
+    # one test view through render_image(mesh=) against no mesh
+    model_c, model_f = ex._split_params(dec0)
+    H, W, K = scene["H"], scene["W"], np.asarray(scene["K"], np.float32)
+    ro, rd = get_rays_np(H, W, K, scene["poses"][scene["i_test"][0]][:3, :4])
+    exact = dataclasses.replace(ex.rc, early_term_eps=0.0, empty_ray_eps=0.0)
+    for what, rc, limit in (("culling and early termination off", exact, 0.0),
+                            ("the preset's culling and early termination",
+                             ex.rc, 5e-3)):
+        single = renderer.render_image(model_c, model_f, ro, rd,
+                                       scene["near"], scene["far"], rc)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        multi = renderer.render_image(model_c, model_f, ro, rd,
+                                      scene["near"], scene["far"], rc,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        t_view = time.perf_counter() - t0
+        n_kb2 = _build.launch_counts()["render_pass"]
+        d_rgb = maxabs(multi["rgb_map"], single["rgb_map"])
+        print(f"[13] {H}x{W} view through render_image(mesh=) with {what}: "
+              f"max|d rgb| {d_rgb:.3e} against the view without a mesh "
+              f"(bound {limit:g}); {t_view:.2f} s, {n_kb2} K-B2 launches")
+        check(multi["rgb_map"].shape == (H, W, 3)
+              and torch.isfinite(multi["rgb_map"]).all().item(),
+              "mesh view shape or values")
+        # rays are grouped into culling and termination tiles within each
+        # shard: with both off every ray's result is its own (equal bits);
+        # with them on, the reference's bound for a culled render against
+        # the exact one
+        check(d_rgb <= limit, f"mesh view off the single-device view by "
+              f"{d_rgb} with {what}")
+        # 2 passes x 4 shards per chunk of 32,768 rays
+        check(n_kb2 == 8 * -(-H * W // rc.chunk), f"{n_kb2} K-B2 launches")
+    launches["render_pass"] = n_kb2
+
+    # joint LSA of 2 scenes (the same images, other batches) on a
+    # ('scene', 'data') mesh against each scene tuned alone
+    n_ms = 3
+    scene_mesh = multi_scene.make_scene_mesh(2, 4)
+    ex_b = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                              use_fused_mlp=True,
+                                              verbose=False)
+    ex_b.seed = ex.seed + 1
+    batcher = lambda i: (ex, ex_b)[i]._make_batcher()
+    _build.reset_launch_counts()
+    tuned, psnrs = multi_scene.tune_multi_scene(
+        [scene, scene], [ex._split_params(dec0) for _ in range(2)], ex.rc,
+        batchers=[batcher(i) for i in range(2)], learning_rate=LSA_LR,
+        n_iters=n_ms, mesh=scene_mesh, seed=9, verbose=False)
+    torch.cuda.synchronize()
+    joint = _build.launch_counts()
+    check(all(joint[k] == 2 * 2 * 2 * n_ms for k in LSA_KERNELS),
+          f"joint multi-scene K-B1 launches: {joint}")
+    worst = 0.0
+    for i, seed_i in enumerate(multi_scene.scene_seeds(9, 2)):
+        alone, psnr = multi_scene.tune_multi_scene(
+            [scene], [ex._split_params(dec0)], ex.rc, batchers=[batcher(i)],
+            learning_rate=LSA_LR, n_iters=n_ms, seeds=[seed_i],
+            verbose=False)
+        for joint_s, seq_s in zip(tuned[i], alone[0]):
+            for name in seq_s:
+                worst = max(worst, maxabs(joint_s[name], seq_s[name]))
+                check(torch.allclose(joint_s[name], seq_s[name], rtol=2e-4,
+                                     atol=2e-6),
+                      f"scene {i} scale {name}: joint and sequential differ "
+                      f"by {maxabs(joint_s[name], seq_s[name])}")
+        check(abs(psnrs[i] - psnr[0]) < 0.05, f"scene {i} PSNR joint "
+              f"{psnrs[i]}, alone {psnr[0]}")
+    print(f"[13] joint LSA of 2 scenes, {n_ms} steps on mesh "
+          f"{scene_mesh.shape} of {dev}: max |d scale| {worst:.3e} against "
+          f"each scene alone (rtol 2e-4, atol 2e-6); last-step PSNR "
+          f"{[round(p, 3) for p in psnrs]}")
+    return launches, dry["mlp_tp_pair"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -873,11 +1153,18 @@ def main():
     scene_ndc, sd_ndc, psnr_kb3 = phase_llff(dev)
     launches = {k: _build.launch_counts()[k] for k in RENDER_KERNELS}
     rows.update(phase_train_kernels(dev))
-    launches.update(phase_lsa(dev, scene, sd, tar))   # resets them first
+    lsa_launches, dec0, sets = phase_lsa(dev, scene, sd, tar)   # resets first
+    launches.update(lsa_launches)
     rows["mlp_embedded"] = phase_embedded(dev, ctx)
     rows["mlp_int8_from_points"] = phase_int8(dev, ctx)
     del ctx
     launches.update(phase_lowprec_slice(dev, scene_ndc, sd_ndc, psnr_kb3))
+    rows["mlp_tp_pair"] = phase_tp_pair(dev)
+    launches["mlp_tp_pair"] = phase_tp_slice(dev, scene_ndc, sd_ndc)
+    mesh_launches, dry_pairs = phase_multi_device(dev, scene, dec0, sets)
+    launches["mlp_tp_pair"] += dry_pairs
+    for name, n in mesh_launches.items():
+        check(n > 0, f"the multi-device slice did not launch {name}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     kernels = [{"name": name, "route": "cuda",

@@ -26,6 +26,7 @@ from . import coder, hls
 from .core import approximator
 from .core import model as nnr_model
 from .models import nerf
+from .parallel import data_devices
 from .utils.device import resolve_device
 from .utils.logging import StageTimer
 
@@ -53,6 +54,14 @@ def add_lsa_scaling_parameters(parameter_dict):
                 out[ls_name] = np.ones((np.asarray(value).shape[0],),
                                        np.float32)
     return out
+
+
+def _executer_device(device, mesh):
+    """Where the executer renders: ``device``, else the mesh's first data
+    device, else the first CUDA device (an error where there is none)."""
+    if device is None and mesh is not None:
+        return data_devices(mesh)[0]
+    return resolve_device(device)
 
 
 def compress_model(model_path_or_object,
@@ -108,15 +117,15 @@ def compress_model(model_path_or_object,
                    device=None):
     """Compress a model (torch module, state dict, flat numpy dict, or file
     path) into an NNR bitstream. (reference: nnc/compression.py:74-315)
-    ``device``: where the NeRF executer renders; None requires CUDA."""
+    ``device``: where the NeRF executer renders; None means the first data
+    device of ``mesh`` (``parallel.Mesh``: LSA and fine-tuning steps run
+    data-parallel over it) or, without one, the first CUDA device, which
+    must exist."""
     from .framework import tf_io, torch_io
 
     if occupancy_renders or occupancy_tuning:
         raise NotImplementedError(
             "occupancy mode is not ported to nnc_tpu_torch yet (ROADMAP A4)")
-    if mesh is not None:
-        raise NotImplementedError("nnc_tpu_torch renders on one device; "
-                                  "mesh is not supported (ROADMAP A6)")
 
     if tf_io.is_tef_model(model_path_or_object):
         if isinstance(model_path_or_object, str):
@@ -171,14 +180,14 @@ def compress_model(model_path_or_object,
             mlp_config = nerf.config_from_state_dict(parameters, "model.")
         model_executer = create_nerf_model_executer(
             dataset_type=dataset_type, dataset_path=dataset_path,
-            scene=scene, device=resolve_device(device),
+            scene=scene, device=_executer_device(device, mesh),
             learning_rate=learning_rate, epochs=epochs,
             learning_rate_decay=learning_rate_decay, n_iters=N_iters,
             i_save=i_save, mlp_config=mlp_config,
             use_fused_mlp=use_fused_mlp, verbose=verbose,
             render_factor=render_factor, precrop_iters=precrop_iters,
             precrop_frac=precrop_frac, n_rand=N_rand,
-            n_samples=n_samples, n_importance=n_importance)
+            n_samples=n_samples, n_importance=n_importance, mesh=mesh)
 
     result = compress(
         parameters,

@@ -35,10 +35,13 @@ class NeRFModelExecuter(ModelExecute):
                  device, learning_rate=1e-4, epochs=2,
                  learning_rate_decay=0.1, n_iters=50000, i_save=10000,
                  n_rand=1024, seed=451, verbose=True, render_factor=0,
-                 precrop_iters=0, precrop_frac=0.5, resume=False):
+                 precrop_iters=0, precrop_frac=0.5, resume=False, mesh=None):
         renderer.check_supported(render_config)
         self.resume = resume
         self.device = torch.device(device)
+        # parallel.Mesh: LSA / fine-tuning steps run data-parallel over its
+        # 'data' devices, the first of which must be ``device``
+        self.mesh = mesh
         self.render_factor = int(render_factor)
         self.precrop_iters = int(precrop_iters)
         self.precrop_frac = float(precrop_frac)
@@ -220,7 +223,7 @@ class NeRFModelExecuter(ModelExecute):
             seed=self.seed, verbose=self.verbose or verbose,
             save_hook=self._save_hook(basedir_save) if basedir_save else None,
             tune_biases=ft_flag, tune_scales=lsa_flag,
-            opt_state0=opt_state0)
+            opt_state0=opt_state0, mesh=self.mesh)
 
         as_np = lambda t: t.cpu().numpy()
         lsa_params, ft_params = {}, {}

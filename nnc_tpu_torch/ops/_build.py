@@ -33,7 +33,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
-           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd")
+           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd", "mlp_tp_pair")
 
 _lock = threading.Lock()
 _lib = None
@@ -145,6 +145,9 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_train_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                              vp, ci, ci, ci, vp]
         handle.nnc_mlp_train_bwd.restype = ci
+        handle.nnc_mlp_tp_pair.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                           ci, vp]
+        handle.nnc_mlp_tp_pair.restype = ci
         _lib = handle
         return _lib
 

@@ -15,8 +15,14 @@ padded to a multiple of 64 floats, with LSA scales folded in. The int8 kernel
 (``csrc/mlp_int8_from_points.cu``) reads the three buffers of
 :func:`pack_weights_int8`. The plain versions read the same buffers, so the
 CPU tests check the layouts the kernels read.
+
+Packing folds and copies every weight, so the model-level entry points take
+their buffers from :data:`PACKS`, one cache for all of them (and for the
+tensor-parallel entry, ``ops/mlp_tp_fused.py``).
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +87,55 @@ INT8_BIASES = tuple((f"b{i}", f"pts_linears.{i}", 256) for i in range(8)) + (
 INT8_WQ_SIZE = sum(-(-rows // 4) * 4 * out for *_, rows, out in INT8_BLOCKS)
 INT8_SCALES_SIZE = sum(out for *_, out in INT8_BLOCKS)
 INT8_BIASES_SIZE = sum(n for *_, n in INT8_BIASES)
+
+
+class PackCache:
+    """What a packing function made of a model, kept until the model changes.
+
+    An entry belongs to a model (held weakly) and a ``kind`` (which packing),
+    and stays valid while every weight, bias and LSA scale of the model is
+    the same tensor object, at the same version (``Tensor._version``, which
+    every in-place update bumps: an optimizer step, ``load_state_dict``,
+    ``copy_``), on the same device and storage (``module.to`` swaps
+    ``.data`` without a new version). The entry keeps those tensors alive,
+    so no other tensor can take their place in memory unnoticed. The cached
+    buffers are shared between calls: read them, never write them."""
+
+    def __init__(self):
+        self._entries = weakref.WeakKeyDictionary()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _state(model: nerf.NeRF):
+        return [None if t is None
+                else (t, t._version, t.device, t.data_ptr())
+                for layer in model.layers().values()
+                for t in (layer.weight, layer.bias, layer.weight_scaling)]
+
+    @staticmethod
+    def _same(a, b):
+        return len(a) == len(b) and all(
+            (x is None and y is None) or
+            (x is not None and y is not None and x[0] is y[0]
+             and x[1:] == y[1:]) for x, y in zip(a, b))
+
+    def get(self, model: nerf.NeRF, kind, pack):
+        """``pack(model)``, computed on a miss and remembered under
+        ``kind`` (hashable)."""
+        state = self._state(model)
+        entries = self._entries.setdefault(model, {})
+        entry = entries.get(kind)
+        if entry is not None and self._same(entry[0], state):
+            self.hits += 1
+            return entry[1]
+        self.misses += 1
+        value = pack(model)
+        entries[kind] = (state, value)
+        return value
+
+
+PACKS = PackCache()
 
 
 def pack_weights(model: nerf.NeRF) -> torch.Tensor:
@@ -369,7 +424,7 @@ def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4))
     lead = pts.shape[:-1]
-    raw = mlp_from_points(pack_weights(model),
+    raw = mlp_from_points(PACKS.get(model, "float32", pack_weights),
                           pts.reshape(-1, 3).float().contiguous(),
                           vd.reshape(-1, 3).float().contiguous())
     return raw.reshape(*lead, 4)
@@ -385,7 +440,7 @@ def fused_nerf_mlp_int8_from_points(model: nerf.NeRF, pts, viewdirs):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4))
     lead = pts.shape[:-1]
-    raw = mlp_int8_from_points(*pack_weights_int8(model),
+    raw = mlp_int8_from_points(*PACKS.get(model, "int8", pack_weights_int8),
                                pts.reshape(-1, 3).float().contiguous(),
                                vd.reshape(-1, 3).float().contiguous())
     return raw.reshape(*lead, 4)
@@ -398,7 +453,7 @@ def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
     if not supports(model.config):
         return nerf.apply_mlp(model, pts_emb, views_emb)
     lead = pts_emb.shape[:-1]
-    raw = mlp_embedded(pack_weights(model),
+    raw = mlp_embedded(PACKS.get(model, "float32", pack_weights),
                        pts_emb.reshape(-1, 63).float().contiguous(),
                        views_emb.reshape(-1, 27).float().contiguous())
     return raw.reshape(*lead, 4)

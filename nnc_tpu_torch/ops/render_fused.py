@@ -24,8 +24,8 @@ import torch.nn.functional as F
 
 from ..models import nerf
 from . import _build
-from .mlp_fused import (PARAMS_SIZE, _check, fused_nerf_mlp_from_points_plain,
-                        pack_weights)
+from .mlp_fused import (PACKS, PARAMS_SIZE, _check,
+                        fused_nerf_mlp_from_points_plain, pack_weights)
 
 RAY_TILE = 2
 SAMPLE_BLOCK = 32
@@ -151,7 +151,7 @@ def fused_render_pass(model: nerf.NeRF, rays_o, rays_d, viewdirs, z_vals, *,
     term_csd = -math.log(early_term_eps) if early_term_eps > 0 else math.inf
     f32 = lambda t: t.float().contiguous()
     maps, weights = render_pass(
-        pack_weights(model), f32(rays_o), f32(rays_d), f32(viewdirs),
+        PACKS.get(model, "float32", pack_weights), f32(rays_o), f32(rays_d), f32(viewdirs),
         f32(z_vals), f32(dists), live.contiguous(), term_csd,
         want_weights=return_weights)
     out = unpack_maps(maps)

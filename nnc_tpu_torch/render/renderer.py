@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..models import nerf
 from ..ops import mlp_fused, mlp_train_fused
 from ..ops.posenc import positional_encoding
@@ -195,14 +196,51 @@ def render_chunk(model, model_fine, rays_o, rays_d, near, far,
                        far, rc, deterministic, **draws)
 
 
+def step_draws(n_rays: int, rc: RenderConfig, generator: torch.Generator,
+               device=None) -> dict:
+    """The random draws of one training render of ``n_rays`` rays, taken
+    from ``generator`` in the order and shapes in which :func:`render_rays`
+    takes them: ``t_rand``, ``noise0``, ``u``, ``noise1`` (each only where
+    ``rc`` uses it). Drawn once for a batch, they can be split with its rays
+    over a mesh."""
+    rand = lambda *shape: torch.rand(shape, generator=generator,
+                                     device=device)
+    randn = lambda *shape: torch.randn(shape, generator=generator,
+                                       device=device)
+    noisy = rc.raw_noise_std > 0
+    draws = {}
+    if rc.perturb:
+        draws["t_rand"] = rand(n_rays, rc.n_samples)
+    if noisy:
+        draws["noise0"] = randn(n_rays, rc.n_samples)
+    if rc.n_importance > 0:
+        if rc.perturb:
+            draws["u"] = rand(n_rays, rc.n_importance)
+        if noisy:
+            draws["noise1"] = randn(n_rays, rc.n_samples + rc.n_importance)
+    return draws
+
+
 @torch.no_grad()
 def render_image(model, model_fine, rays_o, rays_d, near, far,
-                 rc: RenderConfig, viewdirs=None, device=None):
+                 rc: RenderConfig, viewdirs=None, device=None, mesh=None):
     """Deterministic render of an arbitrary set of rays, by chunks.
 
     rays_o/d: (N, 3) or (H, W, 3), numpy or tensors, moved to ``device``
     (default: the model's). Returns dict of tensors (rgb_map, disp_map,
-    acc_map) on that device, with leading shape matching the input."""
+    acc_map) on that device, with leading shape matching the input.
+
+    With ``mesh`` each chunk (``rc.chunk`` rounded up to a multiple of the
+    'data' size) is split in ray order into equal parts over the mesh's
+    'data' devices, the last chunk's parts as even as its rays allow; every
+    part is rendered on its device by that device's replica of the models,
+    one part after the other on the device's current stream, and the
+    results are joined in ray order on ``device``. Empty-ray culling and
+    early termination group rays into tiles within a part, so a ray near a
+    tile border may be culled or stopped in one render and not in the other:
+    a mesh render equals the render without a mesh exactly where both are
+    off, and else within the bound of a culled render against the exact one
+    (5e-3 in the tests)."""
     device = torch.device(device) if device is not None else model.device
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32)
                                      if not torch.is_tensor(a) else a,
@@ -211,13 +249,29 @@ def render_image(model, model_fine, rays_o, rays_d, near, far,
     ro = as_t(rays_o).reshape(-1, 3)
     rd = as_t(rays_d).reshape(-1, 3)
     vd = None if viewdirs is None else as_t(viewdirs).reshape(-1, 3)
+    chunk = rc.chunk
+    places = [(device, model, model_fine)]
+    if mesh is not None:
+        devices = parallel.data_devices(mesh)
+        chunk = -(-chunk // len(devices)) * len(devices)
+        rep_c = parallel.replicate_params(mesh, model)
+        rep_f = None if model_fine is None else \
+            parallel.replicate_params(mesh, model_fine)
+        places = [(d, rep_c[d], None if rep_f is None else rep_f[d])
+                  for d in devices]
     outs = []
-    for start in range(0, ro.shape[0], rc.chunk):
-        end = start + rc.chunk
-        res = render_chunk(model, model_fine, ro[start:end], rd[start:end],
-                           near, far, rc, True,
-                           None if vd is None else vd[start:end])
-        outs.append({k: res[k] for k in ("rgb_map", "disp_map", "acc_map")})
+    for start in range(0, ro.shape[0], chunk):
+        end = min(start + chunk, ro.shape[0])
+        part = -(-(end - start) // len(places))
+        for i, (d, m_c, m_f) in enumerate(places):
+            lo, hi = start + i * part, min(start + (i + 1) * part, end)
+            if hi <= lo:
+                break
+            res = render_chunk(m_c, m_f, ro[lo:hi].to(d), rd[lo:hi].to(d),
+                               near, far, rc, True,
+                               None if vd is None else vd[lo:hi].to(d))
+            outs.append({k: res[k].to(device)
+                         for k in ("rgb_map", "disp_map", "acc_map")})
     return {k: torch.cat([o[k] for o in outs]).reshape(
                 lead_shape + outs[0][k].shape[1:])
             for k in outs[0]}

@@ -3,11 +3,20 @@ and backpropagating photometric MSE through the volume renderer.
 
 Counterpart of ``nnc_tpu/train/lsa.py`` (reference hot loop: run_nerf.py:
 685-799; loss at :741-752; scale-only grads: pytorch_model/__init__.py:
-1129-1145), without the occupancy loss and the device mesh. The TPU package
-batches steps into one ``lax.scan`` call to amortise dispatch; here each step
-is a plain iteration: render the batch coarse then fine (the MLP through
-kernel pair K-B1 with ``use_fused_train``), the double MSE loss, backward,
-one Adam update of the trained tensors.
+1129-1145), without the occupancy loss. The TPU package batches steps into
+one ``lax.scan`` call to amortise dispatch; here each step is a plain
+iteration: render the batch coarse then fine (the MLP through kernel pair
+K-B1 with ``use_fused_train``), the double MSE loss, backward, one Adam
+update of the trained tensors.
+
+With a ``mesh`` (``parallel.Mesh``) the step is data-parallel: the ray batch
+and its random draws, drawn once for the whole batch, are split over the
+mesh's 'data' devices; each shard's loss and backward run on its device with
+that device's replica of the models; the loss and the gradients are the mean
+over the equal shards, summed in mesh order into the first replica, which
+takes the one Adam step; the updated tensors are copied to the other
+replicas. A mesh run therefore equals the single-device run on the same
+draws up to the order of the float32 sums.
 
 The random draws of a step (stratified jitter, ``sample_pdf``'s u, the raw
 noise) come from a ``torch.Generator`` on the render device seeded with
@@ -21,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..render import renderer
 from ..utils.logging import ResultLogger, mse2psnr
 
@@ -104,6 +114,68 @@ def opt_state_fits(opt_state, trained) -> bool:
     return True
 
 
+def make_places(mesh, model_c, model_f, tune_scales=True, tune_biases=False):
+    """The shards of a data-parallel step over ``mesh``: ``(places,
+    others)``. ``places`` holds one ``(device, model_c, model_f)`` per 'data'
+    device, the given models themselves on the first, which must be their
+    device, and one replica per other distinct device; ``others`` holds the
+    trained tensors of each such replica, in :func:`trained_tensors`'
+    order."""
+    devices = parallel.data_devices(mesh)
+    if model_c.device != devices[0]:
+        raise ValueError(f"the models are on {model_c.device}, the mesh's "
+                         f"first data device is {devices[0]}")
+    rep_c = parallel.replicate_params(mesh, model_c)
+    rep_f = {d: None for d in devices} if model_f is None \
+        else parallel.replicate_params(mesh, model_f)
+    places = [(d, rep_c[d], rep_f[d]) for d in devices]
+    others = [trained_tensors(rep_c[d], rep_f[d], tune_scales, tune_biases)
+              for d in dict.fromkeys(devices[1:]) if d != devices[0]]
+    return places, others
+
+
+def sharded_loss_backward(places, batch, near, far, rc, draws: dict):
+    """One data-parallel loss and backward. ``batch``: (rays_o, rays_d,
+    viewdirs, target) of the whole step on the first device, ``draws`` its
+    random draws; both are split in ray order into equal parts over
+    ``places``. Every shard's gradient, scaled to the mean over the shards,
+    is accumulated in its replica's ``.grad``. Returns the mean (loss,
+    img_loss), detached, on the first device."""
+    n = len(places)
+    n_rays = batch[0].shape[0]
+    if n_rays % n:
+        raise ValueError(f"{n_rays} rays do not divide over {n} shards")
+    part = n_rays // n
+    first = places[0][0]
+    total = None
+    for i, (d, m_c, m_f) in enumerate(places):
+        cut = lambda t: t[i * part:(i + 1) * part].to(d)
+        loss, img_loss = double_mse_loss(
+            m_c, m_f, *(cut(t) for t in batch), near, far, rc,
+            draws={k: cut(v) for k, v in draws.items()})
+        (loss / n).backward()
+        both = torch.stack([loss.detach(), img_loss.detach()]).to(first) / n
+        total = both if total is None else total + both
+    return total[0], total[1]
+
+
+def reduce_grads(trained, others) -> None:
+    """Add the other replicas' gradients to the first replica's, replica by
+    replica in mesh order, and clear them."""
+    for tensors in others:
+        for t, o in zip(trained, tensors):
+            t.grad = t.grad + o.grad.to(t.device)
+            o.grad = None
+
+
+def broadcast(trained, others) -> None:
+    """Copy the first replica's trained tensors to the other replicas."""
+    with torch.no_grad():
+        for tensors in others:
+            for t, o in zip(trained, tensors):
+                o.copy_(t)
+
+
 def _as_tensor(a, device):
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
@@ -113,7 +185,8 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                     n_iters=1000, i_save=0, basedir_save=None,
                     global_step0=0, seed=451, verbose=True, save_hook=None,
                     tune_biases=False, tune_scales=True, opt_state0=None,
-                    draws: Optional[Callable[[int], dict]] = None):
+                    draws: Optional[Callable[[int], dict]] = None,
+                    mesh: Optional[parallel.Mesh] = None):
     """Run the full LSA optimization on the models' own tensors (trained in
     place). Returns (ls_c, ls_f, mean_psnr, mean_loss (of the last epoch),
     global_step, biases): ``ls_*`` as {layer name: (out,)}, ``biases`` as
@@ -127,9 +200,15 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     dropped (fresh moments), and then, as without one, a resume at
     ``global_step0`` offsets the schedule. ``draws(i)`` gives the random
     draws of this call's i-th step (0-based) in place of the generator's.
+    ``mesh``: run each step data-parallel over its 'data' devices (see the
+    module docstring); the models must be on the first of them.
     """
     device = model_c.device
     trained = trained_tensors(model_c, model_f, tune_scales, tune_biases)
+    places = others = None
+    if mesh is not None:
+        places, others = make_places(mesh, model_c, model_f, tune_scales,
+                                     tune_biases)
     optimizer = torch.optim.Adam(trained, lr=learning_rate, betas=BETAS,
                                  eps=EPS)
     count = 0
@@ -166,12 +245,22 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
             for group in optimizer.param_groups:
                 group["lr"] = schedule(count)
             optimizer.zero_grad(set_to_none=True)
-            loss, img_loss = double_mse_loss(
-                model_c, model_f, ro, rd, vd, tgt, near, far, rc,
-                draws=None if draws is None else draws(step),
-                generator=generator)
-            loss.backward()
+            step_draws = None if draws is None else draws(step)
+            if places is None:
+                loss, img_loss = double_mse_loss(
+                    model_c, model_f, ro, rd, vd, tgt, near, far, rc,
+                    draws=step_draws, generator=generator)
+                loss.backward()
+            else:
+                step_draws = {**renderer.step_draws(ro.shape[0], rc,
+                                                    generator, device),
+                              **(step_draws or {})}
+                loss, img_loss = sharded_loss_backward(
+                    places, (ro, rd, vd, tgt), near, far, rc, step_draws)
+                reduce_grads(trained, others)
             optimizer.step()
+            if others:
+                broadcast(trained, others)
             count += 1
             step += 1
             global_step += 1

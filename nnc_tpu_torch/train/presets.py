@@ -140,8 +140,9 @@ def create_nerf_model_executer(dataset_type="blender", dataset_path=None,
                                use_fused_mlp=False, verbose=True,
                                render_factor=0, precrop_iters=0,
                                precrop_frac=0.5, n_rand=1024, n_samples=64,
-                               n_importance=None):
-    """Build the NeRF executer (the codec's model_executer) on ``device``.
+                               n_importance=None, mesh=None):
+    """Build the NeRF executer (the codec's model_executer) on ``device``;
+    with ``mesh`` (``parallel.Mesh``) its tuning steps run data-parallel.
     (reference: framework/pytorch_model/__init__.py:924-959)"""
     if scene is None:
         scene = load_scene(dataset_type, dataset_path)
@@ -152,4 +153,4 @@ def create_nerf_model_executer(dataset_type="blender", dataset_path=None,
         epochs=epochs, learning_rate_decay=learning_rate_decay,
         n_iters=n_iters, i_save=i_save, verbose=verbose, n_rand=n_rand,
         render_factor=render_factor, precrop_iters=precrop_iters,
-        precrop_frac=precrop_frac)
+        precrop_frac=precrop_frac, mesh=mesh)

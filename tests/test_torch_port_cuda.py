@@ -20,7 +20,10 @@ K-B1's gradients
 (sums over every point, in another order, through relu masks that may flip
 at ties): the criterion of tests/test_mlp_train_pallas.py:41-50, 99.9% of
 the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
-off by more than 5% of it.
+off by more than 5% of it. K-B6 (two float32 products, sums over at most 256
+terms in another order than cuBLAS's): 1e-4 of max |ref| + 1e-5; the
+tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
+output's scale (tests/test_parallel.py:296).
 """
 import ctypes
 import math
@@ -28,9 +31,11 @@ import math
 import pytest
 import torch
 
+from nnc_tpu_torch import graft_entry, parallel
 from nnc_tpu_torch.data import synthetic
 from nnc_tpu_torch.models import nerf
-from nnc_tpu_torch.ops import _build, mlp_fused, mlp_train_fused, render_fused
+from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
+                               mlp_train_fused, render_fused)
 from nnc_tpu_torch.ops.posenc import positional_encoding
 from nnc_tpu_torch.render import renderer
 
@@ -359,3 +364,69 @@ def test_cuda_fused_train_autograd(cuda_device):
         assert float(gw.abs().max()) == 0.0
         _grads_close(gb, layer.bias.grad, f"{n}.bias")
         _grads_close(gl, layer.weight_scaling.grad, f"{n}.weight_scaling")
+
+
+PAIR_HEADS = ((63, 256, True), (256, 256, True), (256, 128, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [262_144, 10_001])
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_cuda_mlp_tp_pair_matches_plain(cuda_device, m, n):
+    """K-B6 at every (K, S, O2, relu_mid) the forward uses with M shards,
+    at 262,144 points and at a count that is no multiple of the tile."""
+    g = torch.Generator().manual_seed(8)
+    s = 256 // m
+    for k, o2, relu_mid in PAIR_HEADS:
+        x = torch.randn(n, k, generator=g).to(cuda_device)
+        wa = (torch.randn(k, s, generator=g) / k ** 0.5).to(cuda_device)
+        ba = torch.randn(s, generator=g).to(cuda_device)
+        wb = (torch.randn(s, o2, generator=g) / s ** 0.5).to(cuda_device)
+        before = _build.launch_counts()["mlp_tp_pair"]
+        got = mlp_tp_fused.fused_pair(x, wa, ba, wb, relu_mid)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["mlp_tp_pair"] == before + 1
+        want = mlp_tp_fused.fused_pair_plain(x, wa, ba, wb, relu_mid)
+        assert got.shape == (n, o2) and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max()) + 1e-5, (k, s, o2)
+        # every sum runs in a fixed order: bit-identical reruns
+        assert torch.equal(got, mlp_tp_fused.fused_pair(x, wa, ba, wb,
+                                                        relu_mid))
+    with pytest.raises(ValueError, match="no kernel"):
+        mlp_tp_fused.fused_pair(x, wa, ba, wb, True)    # (128, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_cuda_fused_nerf_mlp_tp_matches_dense(cuda_device, m):
+    """The tensor-parallel forward on a mesh of M x cuda:0 against the dense
+    MLP and against K-B5, 5 launches per shard."""
+    model = _fog_model(cuda_device)
+    n = 20_001
+    pts, vd = _points(n, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    mesh = parallel.make_mesh(m, ("model",))
+    assert all(d == cuda_device for d in mesh.devices.flat)
+    before = _build.launch_counts()["mlp_tp_pair"]
+    with torch.no_grad():
+        got = mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["mlp_tp_pair"] == before + 5 * m
+        dense = nerf.apply_mlp(model, pe, ve)
+        kb5 = mlp_fused.fused_nerf_mlp(model, pe, ve)
+    scale = float(dense.abs().max())
+    for want in (dense, kb5):
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_multichip_and_entry(cuda_device, capsys):
+    graft_entry.dryrun_multichip(4)
+    out = capsys.readouterr().out
+    assert "TP fused MLP OK" in out and "joint==sequential" in out
+    fn, args = graft_entry.entry()
+    rgb = fn(*args)
+    assert rgb.shape == (1024, 3) and rgb.device == cuda_device
+    assert torch.isfinite(rgb).all()

@@ -40,6 +40,8 @@ def test_every_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages("
         "nnc_tpu_torch.__path__, 'nnc_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "for n in ('parallel', 'parallel.multi_scene', 'ops.mlp_tp_fused',"
+        " 'graft_entry'): assert 'nnc_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib'))\n"
@@ -52,7 +54,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    assert int(out.stdout.strip().splitlines()[-1]) >= 44
 
 
 def _imported_modules(path):
@@ -82,7 +84,8 @@ def test_no_jax_loading_imports(forbidden):
 TRY_ALLOWED = ("hls/syntax.py", "coder/cabac.py", "framework/torch_io.py",
                "utils/config_txt.py", "utils/video.py")
 KERNEL_SIDE = {"ops", "render", "_build", "mlp_fused", "render_fused",
-               "mlp_train_fused", "renderer"}
+               "mlp_train_fused", "mlp_tp_fused", "renderer", "parallel",
+               "multi_scene", "graft_entry"}
 
 
 def _names_imported(tree):
@@ -119,6 +122,11 @@ def test_no_try_around_kernel_build_or_launch():
             & set(_names_imported(tree))
         assert not bad, (path, bad)
     assert seen == set(TRY_ALLOWED)
+    # the tensor-parallel wrapper and the mesh modules are among the checked
+    checked = {os.path.relpath(p, PKG).replace(os.sep, "/")
+               for p in _sources()} - seen
+    assert {"ops/mlp_tp_fused.py", "parallel/__init__.py",
+            "parallel/multi_scene.py", "graft_entry.py"} <= checked
 
 
 def test_require_cuda_raises_without_a_card():

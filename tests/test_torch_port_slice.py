@@ -220,11 +220,11 @@ def test_presets_match_jax(tmp_path, kind):
 
 
 def test_compress_model_refuses_unported_stages(tmp_path):
-    """Occupancy mode and a device mesh are not ported; LSA and
-    fine-tuning are (tests/test_torch_port_train.py)."""
+    """Occupancy mode is not ported; LSA and fine-tuning are
+    (tests/test_torch_port_train.py), and so is a device mesh
+    (tests/test_torch_port_parallel.py)."""
     scene, sd = _scene("inward")
-    for kw in ({"occupancy_renders": True}, {"occupancy_tuning": True},
-               {"mesh": object()}):
+    for kw in ({"occupancy_renders": True}, {"occupancy_tuning": True}):
         with pytest.raises(NotImplementedError):
             nnc_tpu_torch.compress_model(
                 sd, bitstream_path=str(tmp_path / "x.nnc"), ioq=True,
