@@ -6,17 +6,21 @@
 Phases:
   1. environment: the card, torch/CUDA versions, and the kernel build
      (nvcc, sm_90a) from the sources in this checkout;
-  2. kernel K-B3 (posenc + MLP from points) against its plain PyTorch
-     version, full-width 8x256 net with LSA scales, 262,144 points;
-  3. kernel K-B2 (fused render pass) against its plain version, 4,096 rays
-     at S=64 (with weights) and S=192 (without), early termination off and
-     at 1e-4, with dead ray tiles;
+  2. kernel K-B3 (posenc + MLP from points, 3xTF32 products on the tensor
+     cores) against its exact float32 plain PyTorch version, full-width
+     8x256 net with LSA scales, 262,144 points and three ragged sizes, reruns
+     bit-equal; timed in turns with K-B5 (the SIMT chain it replaced) and the
+     plain version;
+  3. kernel K-B2 (fused render pass, the same chain) against its plain
+     version, 4,096 rays at S=64 (with weights) and S=192 (without), early
+     termination off and at 1e-4, with dead ray tiles, reruns bit-equal;
   4. the slice at lego's geometry (400x400, near 2, far 6, white background,
      64+128 samples, N_rand 1024) on a solid full-width teacher:
      compress_model(ioq=True, lsa=False) with the render probe -> decode ->
-     test-view render through the kernels and through the plain path;
+     test-view render through the kernels and through the plain path; the
+     same compression with the probe on the plain path, for its bytes;
   5. the LLFF-style path (NDC, raw_noise_std=1, 378x504, 64+64 samples),
-     whose deterministic renders run K-B3;
+     whose deterministic renders run K-B3, beside the plain path;
   6. kernel pair K-B1 (training MLP forward + backward) against its plain
      versions at the LSA step's shapes, 65,536 (coarse) and 196,608 (fine)
      points, full width, LSA scales std 0.05, with_dw off and on, timed
@@ -63,7 +67,8 @@ phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12 and the runs of phase 13.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
-peak for their type. The last two lines are the kernel table and the result
+peak for their type: for K-B2 and K-B3, whose float32 products are three
+TF32 products each, a third of the tensor cores' TF32 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
 import contextlib
@@ -81,6 +86,7 @@ import torch
 
 import nnc_tpu_torch
 from nnc_tpu_torch import coder, graft_entry, parallel
+from nnc_tpu_torch.coder import cabac
 from nnc_tpu_torch.data import synthetic
 from nnc_tpu_torch.models import nerf
 from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
@@ -102,6 +108,7 @@ LEGO_HW = 400
 LEGO_FOCAL = 0.5 * LEGO_HW / math.tan(0.5 * 0.6911112070083618)
 FERN_HW = (378, 504)   # fern at factor 8
 N_POINTS = 262_144     # K-B3 comparison
+RAGGED = (33, 10_000, 3_414_016)   # K-B3 at sizes that are no tile multiple
 N_RAYS = 4096          # K-B2 comparison
 N_TRAIN = (65_536, 196_608)   # K-B1: one LSA step's coarse and fine points
 TRAJ_STEPS = 10
@@ -134,8 +141,16 @@ RENDER_KERNELS = ("render_pass", "mlp_from_points")
 LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # device memory bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s
-# of the tensor cores.
-PEAK_BYTES, PEAK_FP32, PEAK_INT8 = 3.35e12, 67e12, 1979e12
+# and TF32 FLOP/s of the tensor cores. A float32 product computed as three
+# TF32 products (K-B2, K-B3) is bounded by a third of the TF32 peak.
+PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
+PEAK_3XTF32 = PEAK_TF32 / 3
+# K-B3's raw logits against the exact float32 plain version, 10x the 2.4e-6
+# measured at values up to 2.7. One TF32 product instead of three reads
+# 1.6e-3 in the plain model of the arithmetic, a lost correction term half of
+# that, and the three products summed straight into the layer's accumulator
+# (the tensor core cuts where float32 rounds) read 1.4e-5.
+TOL_RAW = 3e-5
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
 # int8 products (no biases); and the backward's dx products, which skip the
@@ -216,7 +231,12 @@ def phase_mlp(dev):
     vd = torch.randn(n, 3, generator=g)
     vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
     packed = mlp_fused.pack_weights(model)
-    got = mlp_fused.mlp_from_points(packed, pts, vd)
+    packed_mma = mlp_fused.repack_mma(packed)
+    check(_build.lib().nnc_mma_params_size() == mlp_fused.MMA_PARAMS_SIZE,
+          "the kernel's and the packing's buffer sizes differ")
+    run = lambda p=pts, v=vd: mlp_fused.mlp_from_points(packed, p, v,
+                                                        packed_mma)
+    got = run()
     torch.cuda.synchronize()
     want = mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd)
     err = maxabs(got, want)
@@ -224,20 +244,50 @@ def phase_mlp(dev):
                                torch.relu(r[:, 3:])], -1)
     err_act = maxabs(act(got), act(want))
     check(torch.isfinite(got).all().item(), "K-B3 output not finite")
-    check(err <= 1e-3, f"K-B3 max |draw| {err} > 1e-3")
-    check(err_act <= 1e-4, f"K-B3 max |d activated| {err_act} > 1e-4")
-    ms = cuda_ms(lambda: mlp_fused.mlp_from_points(packed, pts, vd))
-    plain_ms = cuda_ms(
-        lambda: mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd))
-    gflop = 2 * MLP_MACS * n / 1e9
+    check(err <= TOL_RAW, f"K-B3 max |draw| {err} > {TOL_RAW}")
+    check(err_act <= TOL_RAW, f"K-B3 max |d activated| {err_act} > {TOL_RAW}")
+    check(torch.equal(run(), got), "K-B3 reruns differ")
+    check(torch.equal(mlp_fused.mlp_from_points(packed, pts, vd), got),
+          "K-B3 on a buffer repacked by the wrapper differs")
+    ragged = {}
+    for m in RAGGED:
+        p = (4 * torch.rand(m, 3, generator=g) - 2).to(dev)
+        v = vd[torch.randint(n, (m,), generator=g).to(dev)].contiguous()
+        ragged[m] = maxabs(run(p, v),
+                           mlp_fused.fused_nerf_mlp_from_points_plain(
+                               packed, p, v))
+        check(ragged[m] <= TOL_RAW, f"K-B3 {m} points: max |draw| "
+              f"{ragged[m]} > {TOL_RAW}")
+    # the plain model of the kernel's arithmetic on the same inputs
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    L = mlp_fused.unpack_weights(packed)
+    err_model = maxabs(got, mlp_fused.mlp_3xtf32_plain(L, pe, ve))
+    # in turns: the new chain, the SIMT chain it replaced (K-B5, which keeps
+    # it, on embeddings made outside), the plain version (cuBLAS)
+    kb5 = lambda: mlp_fused.mlp_embedded(packed, pe, ve)
+    plain = lambda: mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts,
+                                                               vd)
+    times = [[cuda_ms(fn) for fn in (run, kb5, plain)] for _ in range(2)]
+    ms, kb5_ms, plain_ms = (min(t) for t in zip(*times))
+    flop = 2 * MLP_MACS * n
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes(packed, pts, vd, got), 2 * MLP_MACS * n, PEAK_FP32)}
+           **bound(nbytes(packed_mma, pts, vd, got), flop, PEAK_3XTF32),
+           "peak_tflops": PEAK_3XTF32 / 1e12}
     print(f"[2] K-B3 {n} points: max|draw| {err:.3e} (activated "
-          f"{err_act:.3e}); kernel {ms:.3f} ms ({gflop / ms:.2f} TFLOP/s), "
-          f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
-          f"{row['bound_by']}")
-    return row, {"model": model, "packed": packed, "pts": pts, "vd": vd,
-                 "raw": got, "raw_plain": want}
+          f"{err_act:.3e}; {err_model:.3e} against the plain 3xTF32 model; "
+          f"ragged { {m: f'{e:.3e}' for m, e in ragged.items()} }), reruns "
+          f"bit-equal")
+    print(f"    in turns, ms: K-B3 {[f'{t[0]:.3f}' for t in times]}, K-B5 "
+          f"(SIMT chain) {[f'{t[1]:.3f}' for t in times]}, plain "
+          f"{[f'{t[2]:.3f}' for t in times]}; K-B3 {flop / ms / 1e9:.2f} "
+          f"TFLOP/s, bound {row['bound_ms']:.3f} ms by {row['bound_by']} at "
+          f"{row['peak_tflops']:.0f} TFLOP/s: {100 * row['bound_ms'] / ms:.1f}"
+          f"% reached; K-B5 {flop / kb5_ms / 1e9:.2f} TFLOP/s")
+    check(ms < kb5_ms, f"the tensor-core chain ({ms} ms) is not faster than "
+          f"the SIMT chain ({kb5_ms} ms)")
+    return row, {"model": model, "packed": packed, "packed_mma": packed_mma,
+                 "pts": pts, "vd": vd, "raw": got, "raw_plain": want}
 
 
 def phase_render(dev):
@@ -255,6 +305,7 @@ def phase_render(dev):
     ro, rd = ro[sel].contiguous(), rd[sel].contiguous()
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     live = ((torch.arange(R, device=dev) // 64) % 4 != 3).to(torch.int32)
+    packed_mma = mlp_fused.repack_mma(packed)
     worst, row = 0.0, None
     for S, want_w in ((64, True), (192, False)):
         z, _ = torch.sort(2 + 4 * torch.rand(R, S, generator=g), dim=-1)
@@ -262,51 +313,72 @@ def phase_render(dev):
         dists = torch.cat([z[:, 1:] - z[:, :-1],
                            torch.full_like(z[:, :1], 1e10)], -1) \
             * torch.linalg.norm(rd, dim=-1, keepdim=True)
+        # the optical depth before each sample, for the work the rays need
+        pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
+        raw = mlp_fused.mlp_from_points(
+            packed, pts.reshape(-1, 3).contiguous(),
+            vd[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous(),
+            packed_mma)
+        tau = torch.cumsum(torch.relu(raw[:, 3]).reshape(R, S) * dists,
+                           dim=-1)
+        before = torch.cat([torch.zeros_like(tau[:, :1]), tau[:, :-1]], -1)
         for eps in (0.0, 1e-4):
             term = -math.log(eps) if eps > 0 else math.inf
             args = (packed, ro, rd, vd, z, dists, live, term, want_w)
-            maps, w = render_fused.render_pass(*args)
+            run = lambda: render_fused.render_pass(*args,
+                                                   packed_mma=packed_mma)
+            maps, w = run()
             torch.cuda.synchronize()
             maps_p, w_p = render_fused.fused_render_pass_plain(*args)
             d_rgb_acc = maxabs(maps[:, :4], maps_p[:, :4])
             d_depth = maxabs(maps[:, 4], maps_p[:, 4])
             d_w = maxabs(w, w_p) if want_w else 0.0
-            tol = 1e-4 if eps == 0 else 2 * eps
-            tol_depth = 1e-3 if eps == 0 else 2 * eps * 6.0
+            # 10x what was measured with early termination off: rgb/acc
+            # 8.3e-7, depth 7.9e-6 (it sums w * z, z <= 6); the weights
+            # (1.7e-5, at sigma * dist up to ~100) at the 1e-4 they had
+            tol, tol_w, tol_depth = (1e-5, 1e-4, 1e-4) if eps == 0 else \
+                (2 * eps, 2 * eps, 2 * eps * 6.0)
             check(torch.isfinite(maps).all().item(), "K-B2 maps not finite")
-            check(d_rgb_acc <= tol and d_w <= tol and d_depth <= tol_depth,
+            check(d_rgb_acc <= tol and d_w <= tol_w and d_depth <= tol_depth,
                   f"K-B2 S={S} eps={eps}: rgb/acc {d_rgb_acc}, depth "
                   f"{d_depth}, weights {d_w}")
             check(float(maps[live == 0].abs().max()) == 0.0,
                   "K-B2 dead tiles not zero")
+            maps_2, w_2 = run()
+            check(torch.equal(maps_2, maps)
+                  and (not want_w or torch.equal(w_2, w)),
+                  "K-B2 reruns differ")
             if eps == 0:
                 worst = max(worst, d_rgb_acc, d_w)
-            ms = cuda_ms(lambda: render_fused.render_pass(*args))
+            ms = cuda_ms(run)
             plain_ms = cuda_ms(
                 lambda: render_fused.fused_render_pass_plain(*args))
+            # the work these rays need: a sample of a live ray counts while
+            # the ray's transmittance before it is still >= eps
+            needed = int(((before < term) & (live[:, None] > 0)).sum())
+            b = bound(nbytes(packed_mma, ro, rd, vd, z, dists, live, maps),
+                      2 * MLP_MACS * needed, PEAK_3XTF32)
+            # and what the kernel's tiles compute for it: every block of
+            # SAMPLE_BLOCK samples of a live tile of RAY_TILE rays at whose
+            # start one of its rays is still below the threshold
+            rt, sb = render_fused.RAY_TILE, render_fused.SAMPLE_BLOCK
+            starts = before[:, ::sb].reshape(R // rt, rt, -1).amin(dim=1)
+            tile_live = live.reshape(R // rt, rt).amax(dim=1) > 0
+            computed = int(((starts < term) & tile_live[:, None]).sum()) \
+                * rt * sb
             print(f"[3] K-B2 {R} rays S={S} weights={want_w} eps={eps}: "
                   f"max|d| rgb/acc {d_rgb_acc:.3e} depth {d_depth:.3e} "
-                  f"weights {d_w:.3e}; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms")
+                  f"weights {d_w:.3e}, reruns bit-equal; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms; {needed} of {R * S} points "
+                  f"needed ({computed} computed in tiles, "
+                  f"{2 * MLP_MACS * computed / ms / 1e9:.2f} TFLOP/s): "
+                  f"{2 * MLP_MACS * needed / ms / 1e9:.2f} TFLOP/s, "
+                  f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} at "
+                  f"{PEAK_3XTF32 / 1e12:.0f} TFLOP/s: "
+                  f"{100 * b['bound_ms'] / ms:.1f}% reached")
             if S == 192 and eps > 0:
-                # the work these rays need: a sample of a live ray counts
-                # while the ray's transmittance before it is still >= eps
-                pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
-                raw = mlp_fused.mlp_from_points(
-                    packed, pts.reshape(-1, 3).contiguous(),
-                    vd[:, None, :].expand(R, S, 3).reshape(-1, 3)
-                    .contiguous())
-                tau = torch.cumsum(torch.relu(raw[:, 3]).reshape(R, S)
-                                   * dists, dim=-1)
-                before = torch.cat([torch.zeros_like(tau[:, :1]),
-                                    tau[:, :-1]], -1)
-                needed = int(((before < term) & (live[:, None] > 0)).sum())
-                row = {"ms": ms, "plain_ms": plain_ms,
-                       **bound(nbytes(packed, ro, rd, vd, z, dists, live,
-                                      maps), 2 * MLP_MACS * needed,
-                               PEAK_FP32)}
-                print(f"    {needed} of {R * S} points needed; bound "
-                      f"{row['bound_ms']:.3f} ms by {row['bound_by']}")
+                row = {"ms": ms, "plain_ms": plain_ms, **b,
+                       "peak_tflops": PEAK_3XTF32 / 1e12}
     return {"max_abs_err": worst, **row}
 
 
@@ -335,6 +407,11 @@ def phase_slice(dev):
     bs = os.path.join(OUT, "teacher.nnc")
     pt = os.path.join(OUT, "decoded.pt")
 
+    # the codec's CABAC library is compiled (g++) on first use: before the
+    # clock starts, so that the two compressions below are timed alike
+    t0 = time.perf_counter()
+    cabac._load()
+    t_cabac = time.perf_counter() - t0
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     nnc_tpu_torch.compress_model(tar, bitstream_path=bs, qp=-20, lsa=False,
@@ -368,17 +445,34 @@ def phase_slice(dev):
           "the plain path launched a kernel")
     teacher_k = ex_k.test_model(sd)
 
+    # the same compression with IOQ's probe on the plain path: sample_pdf is
+    # discontinuous in the coarse weights, so the two QP searches may settle
+    # on other bytes (reported, not asserted)
+    bs_p = os.path.join(OUT, "teacher_plain_probe.nnc")
+    before_p = _build.launch_counts()
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(tar, bitstream_path=bs_p, qp=-20, lsa=False,
+                                 ioq=True, scene=scene, use_fused_mlp=False,
+                                 device=dev, verbose=False)
+    torch.cuda.synchronize()
+    t_compress_p = time.perf_counter() - t0
+    check(_build.launch_counts() == before_p,
+          "the plain probe launched a kernel")
+
     size = os.path.getsize(bs)
     raw = sum(np.asarray(v).nbytes for v in sd.values())
     print(f"[4] lego-geometry slice {LEGO_HW}x{LEGO_HW}: {size} B of {raw} B "
-          f"({100.0 * size / raw:.2f}%); decoded test PSNR kernels "
+          f"({100.0 * size / raw:.2f}%; {os.path.getsize(bs_p)} B with the "
+          f"probe on the plain path); decoded test PSNR kernels "
           f"{psnr_k:.4f} dB, plain {psnr_p:.4f} dB, diff "
           f"{psnr_k - psnr_p:+.4f} dB; teacher through kernels "
           f"{teacher_k:.2f} dB")
     print(f"    launches during IOQ {ioq_launches}, after test_model "
           f"{after_k}")
-    print(f"    times: ground truth {t_gt:.1f} s, compress (IOQ) "
-          f"{t_compress:.1f} s, decode {t_decode:.2f} s, test_model "
+    print(f"    times: ground truth {t_gt:.1f} s, CABAC library build "
+          f"{t_cabac:.1f} s, compress (IOQ) "
+          f"{t_compress:.1f} s (plain probe {t_compress_p:.1f} s), decode "
+          f"{t_decode:.2f} s, test_model (one {LEGO_HW}x{LEGO_HW} view) "
           f"kernels {t_test_k:.2f} s, plain {t_test_p:.2f} s")
     check(all(np.isfinite([psnr_k, psnr_p, teacher_k])), "PSNR not finite")
     check(abs(psnr_k - psnr_p) <= 0.05,
@@ -412,9 +506,19 @@ def phase_llff(dev):
     torch.cuda.synchronize()
     t_test = time.perf_counter() - t0
     launched = _build.launch_counts()["mlp_from_points"] - before
+    ex_p = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                              use_fused_mlp=False,
+                                              verbose=False)
+    t0 = time.perf_counter()
+    psnr_p = ex_p.test_model(sd)
+    torch.cuda.synchronize()
+    t_test_p = time.perf_counter() - t0
+    check(_build.launch_counts()["mlp_from_points"] - before == launched,
+          "the plain NDC render launched K-B3")
     print(f"[5] LLFF-style NDC {FERN_HW[0]}x{FERN_HW[1]}, 64+64: teacher "
           f"test PSNR through K-B3 {psnr:.2f} dB in {t_test:.2f} s, "
-          f"{launched} K-B3 launches")
+          f"{launched} K-B3 launches; plain path {psnr_p:.2f} dB in "
+          f"{t_test_p:.2f} s")
     check(np.isfinite(psnr) and psnr > 40.0,
           f"NDC render through K-B3 {psnr} dB against its plain ground truth")
     check(launched > 0, "the LLFF-style path ran no K-B3")
@@ -651,7 +755,8 @@ def phase_embedded(dev, ctx):
     check(err_kb3 <= 1e-3, f"K-B5 against K-B3 max |draw| {err_kb3} > 1e-3")
     ms = cuda_ms(lambda: mlp_fused.mlp_embedded(packed, pe, ve))
     plain_ms = cuda_ms(lambda: mlp_fused.fused_nerf_mlp_plain(packed, pe, ve))
-    kb3_ms = cuda_ms(lambda: mlp_fused.mlp_from_points(packed, pts, vd))
+    kb3_ms = cuda_ms(lambda: mlp_fused.mlp_from_points(
+        packed, pts, vd, ctx["packed_mma"]))
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes(packed, pe, ve, got), 2 * MLP_MACS * n, PEAK_FP32)}
     print(f"[8] K-B5 {n} points: max|draw| {err:.3e} against plain, "
@@ -689,8 +794,8 @@ def phase_int8(dev, ctx):
     ms = cuda_ms(lambda: mlp_fused.mlp_int8_from_points(*args))
     plain_ms = cuda_ms(
         lambda: mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args))
-    kb3_ms = cuda_ms(
-        lambda: mlp_fused.mlp_from_points(ctx["packed"], pts, vd))
+    kb3_ms = cuda_ms(lambda: mlp_fused.mlp_from_points(
+        ctx["packed"], pts, vd, ctx["packed_mma"]))
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes(*args, got), 2 * INT8_MACS * n, PEAK_INT8)}
     print(f"[9] K-B4 {n} points, {mlp_fused.INT8_ACT_BLOCK} per activation "
@@ -721,8 +826,8 @@ def held_against_plain(name, plain, seen, module=mlp_fused):
     max |raw|). These launches are made after a path's counts were read."""
     real = getattr(module, name)
 
-    def both(*args):
-        got = real(*args)
+    def both(*args, **kernel_only):
+        got = real(*args, **kernel_only)
         d = (got - plain(*args)).abs()
         seen.append((got.shape[0], float(d.max()),
                      float((d > 1e-5).float().mean()),
@@ -1073,8 +1178,17 @@ def phase_multi_device(dev, scene, dec0, sets):
     for what, rc, limit in (("culling and early termination off", exact, 0.0),
                             ("the preset's culling and early termination",
                              ex.rc, 5e-3)):
-        single = renderer.render_image(model_c, model_f, ro, rd,
-                                       scene["near"], scene["far"], rc)
+        times = {}
+        for how, rc_1 in (("kernels", rc), ("plain", dataclasses.replace(
+                rc, use_fused_mlp=False, use_fused_compositing=False))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = renderer.render_image(model_c, model_f, ro, rd,
+                                        scene["near"], scene["far"], rc_1)
+            torch.cuda.synchronize()
+            times[how] = time.perf_counter() - t0
+            if how == "kernels":
+                single = one
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         multi = renderer.render_image(model_c, model_f, ro, rd,
@@ -1086,7 +1200,9 @@ def phase_multi_device(dev, scene, dec0, sets):
         d_rgb = maxabs(multi["rgb_map"], single["rgb_map"])
         print(f"[13] {H}x{W} view through render_image(mesh=) with {what}: "
               f"max|d rgb| {d_rgb:.3e} against the view without a mesh "
-              f"(bound {limit:g}); {t_view:.2f} s, {n_kb2} K-B2 launches")
+              f"(bound {limit:g}); {t_view:.2f} s, {n_kb2} K-B2 launches; "
+              f"without a mesh {times['kernels']:.2f} s through the kernels, "
+              f"{times['plain']:.2f} s plain")
         check(multi["rgb_map"].shape == (H, W, 3)
               and torch.isfinite(multi["rgb_map"]).all().item(),
               "mesh view shape or values")

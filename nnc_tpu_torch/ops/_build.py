@@ -126,6 +126,8 @@ def lib() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         handle.nnc_params_size.argtypes = []
         handle.nnc_params_size.restype = ci
+        handle.nnc_mma_params_size.argtypes = []
+        handle.nnc_mma_params_size.restype = ci
         handle.nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
         handle.nnc_mlp_from_points.restype = ci
         handle.nnc_mlp_embedded.argtypes = [vp, vp, vp, vp, ci, vp]

@@ -8,15 +8,18 @@
 // (render_pallas.py:262): every deterministic blender render, coarse and
 // fine pass (renderer.py:124-146).
 //
-// Bound on the H100: float32 FMA throughput, ~1.2 MFLOP per sample point
-// against ~8 bytes of per-sample input (z, dist) and 4 of output (weight);
-// the SIMT float32 peak is 67 TFLOP/s (H100 SXM data sheet, 700 W).
+// Bound on the H100: operations, ~1.2 MFLOP per sample point against ~8
+// bytes of per-sample input (z, dist) and 4 of output (weight). The products
+// run on the tensor cores as three TF32 products each (nerf_mlp_mma.cuh):
+// 495 / 3 = 165 TFLOP/s float32-equivalent (H100 SXM data sheet, 700 W).
 //
 // Design: one CTA of 256 threads owns a tile of kRT = 2 rays and walks its
 // sample blocks of kSB = 32 in order (64 points per block, the MLP tile of
-// nerf_mlp.cuh). This loop replaces the Pallas grid's sequential sample-block
-// axis and its VMEM scratch: the running optical depth and the rgb/acc/depth
-// sums live in shared memory across blocks. A block is skipped, uniformly
+// nerf_mlp_mma.cuh). This loop replaces the Pallas grid's sequential
+// sample-block axis and its VMEM scratch: the running optical depth and the
+// rgb/acc/depth sums live in shared memory across blocks. The weight ring
+// keeps running across blocks, so the next block's first slabs arrive while
+// two warps composite this one. A block is skipped, uniformly
 // across the CTA, once every ray of the tile has optical depth >= term_csd
 // (early termination; that block and all later ones are skipped) or when all
 // its dists are 0; a tile whose rays are all culled (live == 0) writes zeros.
@@ -26,9 +29,11 @@
 // catastrophically (render_pallas.py:68-71). A ragged last sample block is
 // masked. Outputs: maps (R, 5) [rgb, acc, depth] and, when asked, the
 // per-sample weights (R, S).
-#include "nerf_mlp.cuh"
+#include "nerf_mlp_mma.cuh"
 
 namespace {
+
+namespace mma = nerf::mma;
 
 constexpr int kRT = 2;
 constexpr int kSB = 32;
@@ -37,7 +42,7 @@ static_assert(kSB == 32, "one warp composites one ray's block");
 constexpr unsigned kFull = 0xffffffffu;
 
 struct RenderSmem {
-  nerf::MlpSmem mlp;
+  mma::MlpSmem mlp;
   float xs[nerf::kM * 3];
   float ds[nerf::kM * 3];
   float zb[nerf::kM];
@@ -91,6 +96,9 @@ render_pass_kernel(const float* __restrict__ P,
     s.csd[tid] = 0.f;
     for (int c = 0; c < 5; ++c) s.maps[tid][c] = 0.f;
   }
+  mma::Pipe pipe;
+  pipe.start(P, s.mlp.ring);
+  mma::zero_embedding_pad(s.mlp.emb);
   __syncthreads();
 
   for (int blk = 0; blk < nblk; ++blk) {
@@ -132,9 +140,8 @@ render_pass_kernel(const float* __restrict__ P,
       if (!alive) break;
       continue;
     }
-    nerf::embed_tile(s.mlp.emb, s.xs, s.ds);
-    __syncthreads();
-    nerf::mlp_tile(s.mlp, P);
+    mma::embed_tile(s.mlp.emb, s.xs, s.ds);
+    mma::mlp_tile(s.mlp, pipe, P);
 
     // composite: warp r takes ray r, lane = sample within the block
     if (tid < kRT * 32) {
@@ -171,6 +178,7 @@ render_pass_kernel(const float* __restrict__ P,
     }
     __syncthreads();
   }
+  pipe.drain();
   if (tid < n_rays * 5)
     maps[static_cast<long long>(ray0) * 5 + tid] = s.maps[tid / 5][tid % 5];
 }
@@ -178,7 +186,8 @@ render_pass_kernel(const float* __restrict__ P,
 }  // namespace
 
 // rays_o, rays_d, viewdirs: (R, 3); z, dists: (R, S) (dists already scaled by
-// |rays_d|); live: (R,) int32; maps: (R, 5); weights: (R, S) or null.
+// |rays_d|); live: (R,) int32; maps: (R, 5); weights: (R, S) or null; params:
+// the weights as pack_weights_mma lays them out, 16-byte aligned.
 extern "C" int nnc_render_pass(const float* params, const float* rays_o,
                                const float* rays_d, const float* viewdirs,
                                const float* z, const float* dists,

@@ -8,13 +8,21 @@ architecture (D=8, W=256, skip=(4,), viewdirs, 63/27 posenc) has kernels; the
 three entry points run the plain MLP for any other, as the reference does
 (mlp_pallas.py:361-365, 391-395, 421-422).
 
-The float32 kernels (``csrc/mlp_from_points.cu``, ``csrc/mlp_embedded.cu``)
-read the weights packed by :func:`pack_weights`: one float32 buffer, layers
-in ``nerf.layer_names`` order, each W in (in, out) row-major then its bias,
-padded to a multiple of 64 floats, with LSA scales folded in. The int8 kernel
-(``csrc/mlp_int8_from_points.cu``) reads the three buffers of
-:func:`pack_weights_int8`. The plain versions read the same buffers, so the
-CPU tests check the layouts the kernels read.
+K-B5 (``csrc/mlp_embedded.cu``) and every float32 plain version read the
+weights packed by :func:`pack_weights`: one float32 buffer, layers in
+``nerf.layer_names`` order, each W in (in, out) row-major then its bias,
+padded to a multiple of 64 floats, with LSA scales folded in. K-B3
+(``csrc/mlp_from_points.cu``) and K-B2 (``csrc/render_pass.cu``) run their
+products on the tensor cores as three TF32 products each
+(``csrc/nerf_mlp_mma.cuh``) and read the same values in the order the
+``mma.sync`` fragments want them, :func:`pack_weights_mma` /
+:func:`repack_mma`; :func:`tf32_round`, :func:`matmul_3xtf32_plain` and
+:func:`mlp_3xtf32_plain` model that arithmetic in plain PyTorch. The int8
+kernel (``csrc/mlp_int8_from_points.cu``) reads the three buffers of
+:func:`pack_weights_int8`. The plain versions read :func:`pack_weights`'
+and :func:`pack_weights_int8`'s buffers, and :func:`unpack_weights_mma`
+reads the fragment order back, so the CPU tests check the layouts the
+kernels read.
 
 Packing folds and copies every weight, so the model-level entry points take
 their buffers from :data:`PACKS`, one cache for all of them (and for the
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import weakref
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -165,20 +174,170 @@ def unpack_weights(packed: torch.Tensor):
             for name, din, dout, off in segs}
 
 
-def _mlp_packed(L, pe, ve):
-    """The flagship MLP on embedded points, weights from unpack_weights."""
+def _mlp_packed(L, pe, ve, addmm=torch.addmm):
+    """The flagship MLP (any width) on embedded points, weights from
+    unpack_weights; ``addmm(b, x, w)`` computes the ten wide layers, the two
+    small heads are always exact float32."""
     h = pe
     for i in range(8):
         w, b = L[f"pts_linears.{i}"]
-        h = F.relu(torch.addmm(b, h, w))
+        h = F.relu(addmm(b, h, w))
         if i == 4:
             h = torch.cat([pe, h], dim=-1)
     alpha = torch.addmm(L["alpha_linear"][1], h, L["alpha_linear"][0])
-    feature = torch.addmm(L["feature_linear"][1], h, L["feature_linear"][0])
+    feature = addmm(L["feature_linear"][1], h, L["feature_linear"][0])
     w, b = L["views_linears.0"]
-    h = F.relu(torch.addmm(b, torch.cat([feature, ve], dim=-1), w))
+    h = F.relu(addmm(b, torch.cat([feature, ve], dim=-1), w))
     rgb = torch.addmm(L["rgb_linear"][1], h, L["rgb_linear"][0])
     return torch.cat([rgb, alpha], dim=-1)
+
+
+# --- the tensor-core chain of K-B3 / K-B2: its packing and its arithmetic ----
+# csrc/nerf_mlp_mma.cuh. Eight warps each own 8 * NT output channels of a
+# layer (NT n-tiles of mma.sync m16n8k8; NT = 4 for 256 outputs, 2 for the
+# view layer's 128). Lane 4 g + t of warp w reads, for k step ks and n-tile
+# nt, b0 = W[row(ks, t, 0), col] and b1 = W[row(ks, t, 1), col] with
+# row(ks, t, r) = 16 (ks // 2) + 4 t + 2 (ks % 2) + r and
+# col = 8 NT w + 8 nt + g: the channels of a k step are taken in the order in
+# which one 16-byte load of the point-major activations delivers them. The
+# buffer's order is [slab][warp][k step][n-tile pair][lane][nt % 2][r].
+MMA_SLAB = 8192   # floats per slab of the weight ring (32 KB)
+# (layer, first row, rows, rows padded to whole k steps with zeros) of each
+# run of k steps, in the order the chain consumes them; every run starts on
+# a slab boundary
+MMA_RUNS = (
+    [("pts_linears.0", 0, 63, 64)]
+    + [(f"pts_linears.{i}", 0, 256, 256) for i in (1, 2, 3, 4)]
+    + [("pts_linears.5", 0, 63, 64), ("pts_linears.5", 63, 256, 256)]
+    + [(f"pts_linears.{i}", 0, 256, 256) for i in (6, 7)]
+    + [("feature_linear", 0, 256, 256), ("views_linears.0", 0, 256, 256),
+       ("views_linears.0", 256, 27, 32)])
+# after the slabs: biases of the ten tensor-core layers, then the two heads
+# (alpha w 256, b 1 + 3 pad; rgb w (128, 3) row-major, b 3 + 1 pad)
+_MMA_BIASES = tuple(f"pts_linears.{i}" for i in range(8)) + (
+    "feature_linear", "views_linears.0")
+
+
+def _mma_index():
+    """For every float of the fragment-ordered buffer, the index of its value
+    in pack_weights' buffer, or PARAMS_SIZE where it is zero padding."""
+    segs = {name: (din, dout, off) for name, din, dout, off
+            in _segments(FLAGSHIP)[0]}
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    parts = []
+    for name, row0, rows, padded in MMA_RUNS:
+        _din, dout, off = segs[name]
+        nt_n = dout // 64
+        per_slab = 16 // nt_n             # k steps in a slab
+        ks = np.arange(-(-padded // (8 * per_slab)) * per_slab)
+        # [ks][warp][q][lane][nt2][r]; rows past the run are zero padding
+        row = (16 * (ks // 2) + 2 * (ks % 2))[:, None, None, None, None, None] \
+            + (4 * t)[None, None, None, :, None, None] \
+            + np.arange(2)[None, None, None, None, None, :]
+        col = (8 * nt_n * np.arange(8))[None, :, None, None, None, None] \
+            + (16 * np.arange(nt_n // 2))[None, None, :, None, None, None] \
+            + (8 * np.arange(2))[None, None, None, None, :, None] \
+            + g[None, None, None, :, None, None]
+        idx = np.where(row < rows, off + (row0 + row) * dout + col,
+                       PARAMS_SIZE)
+        # -> [slab][warp][k step of the slab][q][lane][nt2][r]
+        idx = idx.reshape(-1, per_slab, 8, nt_n // 2, 32, 2, 2) \
+            .transpose(0, 2, 1, 3, 4, 5, 6)
+        parts.append(idx.reshape(-1))
+    for name in _MMA_BIASES:
+        din, dout, off = segs[name]
+        parts.append(off + din * dout + np.arange(dout))
+    for name in ("alpha_linear", "rgb_linear"):
+        din, dout, off = segs[name]
+        parts += [off + np.arange(din * dout + dout),
+                  np.full(-dout % 4, PARAMS_SIZE)]
+    idx = np.concatenate(parts)
+    return np.concatenate([idx, np.full(-idx.size % _SEG, PARAMS_SIZE)]) \
+        .astype(np.int64)
+
+
+MMA_INDEX = _mma_index()
+MMA_PARAMS_SIZE = MMA_INDEX.size
+MMA_SLABS = 73    # 2.39 MB of the buffer; then 3,080 floats of biases, heads
+_mma_index_on = {}   # device -> MMA_INDEX as a tensor there
+
+
+def repack_mma(packed: torch.Tensor) -> torch.Tensor:
+    """The buffer of :func:`pack_weights` in the order K-B3 and K-B2 read it
+    (one gather; zero rows pad the depths 63 and 27 to whole k steps)."""
+    _check("packed", packed, (PARAMS_SIZE,))
+    index = _mma_index_on.get(packed.device)
+    if index is None:
+        index = _mma_index_on[packed.device] = \
+            torch.from_numpy(MMA_INDEX).to(packed.device)
+    return torch.cat([packed, packed.new_zeros(1)])[index]
+
+
+def pack_weights_mma(model: nerf.NeRF) -> torch.Tensor:
+    """The flagship model's weights as K-B3 and K-B2 read them (LSA folded):
+    :func:`repack_mma` of the model's cached :func:`pack_weights` buffer."""
+    return repack_mma(PACKS.get(model, "float32", pack_weights))
+
+
+def packed_mma_for(model: nerf.NeRF, device):
+    """The model's cached :func:`pack_weights_mma` buffer where the kernels
+    will launch (a CUDA device), None where the plain versions run."""
+    if torch.device(device).type != "cuda":
+        return None
+    return PACKS.get(model, "float32_mma", pack_weights_mma)
+
+
+def unpack_weights_mma(packed_mma: torch.Tensor):
+    """{layer name: (w (in, out), b (out,))} read back from a buffer of
+    :func:`repack_mma`, as :func:`unpack_weights` gives them."""
+    _check("packed_mma", packed_mma, (MMA_PARAMS_SIZE,))
+    index = torch.from_numpy(MMA_INDEX).to(packed_mma.device)
+    flat = packed_mma.new_zeros(PARAMS_SIZE + 1)
+    flat[index] = packed_mma
+    return unpack_weights(flat[:PARAMS_SIZE])
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero, by integer operations on the
+    float32 bits. Infinities and NaNs pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x cut to TF32: the low 13 mantissa bits cleared, which is how the
+    tensor core reads a float32 register given to it as a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) as the kernel splits an operand: hi = x rounded to TF32,
+    lo = the exact rest x - hi as the tensor core reads it (cut to TF32).
+    |x - (hi + lo)| <= 2^-21 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_truncate(x - hi)
+
+
+def matmul_3xtf32_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the tensor-core chain computes it: both operands split by
+    :func:`split_tf32`, and the three products lo * hi, hi * lo, hi * hi
+    summed in float32, the small ones first (lo * lo is dropped). Every
+    TF32 x TF32 product is exact in float32; only the order of the float32
+    sums differs from the kernel's."""
+    (xh, xl), (wh, wl) = split_tf32(x), split_tf32(w)
+    return (xl @ wh + xh @ wl) + xh @ wh
+
+
+def mlp_3xtf32_plain(L, pe, ve):
+    """The MLP (weights as :func:`unpack_weights` gives them, any width) on
+    embedded points with the ten wide layers' products as
+    :func:`matmul_3xtf32_plain` and the two heads in float32: the arithmetic
+    of ``csrc/nerf_mlp_mma.cuh``."""
+    return _mlp_packed(
+        L, pe, ve, addmm=lambda b, x, w: b + matmul_3xtf32_plain(x, w))
 
 
 def pack_weights_int8(model: nerf.NeRF):
@@ -357,10 +516,24 @@ def _check(name, t, shape, dtype=torch.float32):
                          f"contiguous={t.is_contiguous()}")
 
 
-def _run(name, plain, weights, inputs):
+def _check_mma(packed, packed_mma):
+    """The fragment-ordered buffer K-B3 and K-B2 launch with: ``packed_mma``
+    checked (``cp.async`` copies it 16 bytes at a time), or made from
+    ``packed`` if None."""
+    if packed_mma is None:
+        packed_mma = repack_mma(packed)
+    _check("packed_mma", packed_mma, (MMA_PARAMS_SIZE,))
+    if packed_mma.device != packed.device or packed_mma.data_ptr() % 16:
+        raise ValueError("packed_mma must lie on packed's device, 16-byte "
+                         "aligned")
+    return packed_mma
+
+
+def _run(name, plain, weights, inputs, kernel_weights=None):
     """Shared body of the three kernel wrappers. ``inputs``: {label: (tensor
-    (N, width), width)}, float32. The plain version for CPU tensors, the
-    kernel ``nnc_<name>`` for CUDA tensors, an error for any other device.
+    (N, width), width)}, float32. The plain version (on ``weights``) for CPU
+    tensors, the kernel ``nnc_<name>`` (on ``kernel_weights`` if given, else
+    ``weights``) for CUDA tensors, an error for any other device.
     Returns raw (N, 4)."""
     tensors = [t for t, _width in inputs.values()]
     n = tensors[0].shape[0]
@@ -379,18 +552,23 @@ def _run(name, plain, weights, inputs):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch(name)
         _build.check(getattr(lib, "nnc_" + name)(
-            *(t.data_ptr() for t in (*weights, *tensors)), out.data_ptr(), n,
+            *(t.data_ptr() for t in (*(kernel_weights or weights), *tensors)),
+            out.data_ptr(), n,
             stream), name)
     return out
 
 
-def mlp_from_points(packed, pts, dirs):
+def mlp_from_points(packed, pts, dirs, packed_mma=None):
     """K-B3 wrapper: raw (N, 4) for points and view directions (N, 3).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which reads ``packed_mma``
+    (:func:`repack_mma` of ``packed``, made here if not given); CPU tensors
+    take the plain version on ``packed``."""
     _check("packed", packed, (PARAMS_SIZE,))
     return _run("mlp_from_points", fused_nerf_mlp_from_points_plain,
-                (packed,), {"pts": (pts, 3), "dirs": (dirs, 3)})
+                (packed,), {"pts": (pts, 3), "dirs": (dirs, 3)},
+                kernel_weights=(_check_mma(packed, packed_mma),)
+                if packed.is_cuda else None)
 
 
 def mlp_int8_from_points(wq, scales, biases, pts, dirs):
@@ -426,7 +604,8 @@ def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
     lead = pts.shape[:-1]
     raw = mlp_from_points(PACKS.get(model, "float32", pack_weights),
                           pts.reshape(-1, 3).float().contiguous(),
-                          vd.reshape(-1, 3).float().contiguous())
+                          vd.reshape(-1, 3).float().contiguous(),
+                          packed_mma=packed_mma_for(model, pts.device))
     return raw.reshape(*lead, 4)
 
 

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 
 from ..models import nerf
 from . import _build
-from .mlp_fused import (PACKS, PARAMS_SIZE, _check,
-                        fused_nerf_mlp_from_points_plain, pack_weights)
+from .mlp_fused import (PACKS, PARAMS_SIZE, _check, _check_mma,
+                        fused_nerf_mlp_from_points_plain, pack_weights,
+                        packed_mma_for)
 
 RAY_TILE = 2
 SAMPLE_BLOCK = 32
@@ -71,12 +72,14 @@ def fused_render_pass_plain(packed, rays_o, rays_d, viewdirs, z_vals, dists,
 
 
 def render_pass(packed, rays_o, rays_d, viewdirs, z_vals, dists, live,
-                term_csd: float, want_weights: bool = True):
+                term_csd: float, want_weights: bool = True, packed_mma=None):
     """K-B2 wrapper. rays_*: (R, 3); z_vals, dists: (R, S) (dists already
     scaled by |rays_d|); live: (R,) int32. Returns (maps (R, 5), weights
     (R, S) or None).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which reads ``packed_mma``
+    (``mlp_fused.repack_mma`` of ``packed``, made here if not given); CPU
+    tensors take the plain version on ``packed``."""
     R, S = z_vals.shape
     _check("packed", packed, (PARAMS_SIZE,))
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d),
@@ -98,6 +101,7 @@ def render_pass(packed, rays_o, rays_d, viewdirs, z_vals, dists, live,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     lib = _build.lib()
+    packed_mma = _check_mma(packed, packed_mma)
     maps = torch.empty((R, 5), dtype=torch.float32, device=device)
     weights = torch.empty((R, S), dtype=torch.float32, device=device) \
         if want_weights else None
@@ -105,7 +109,7 @@ def render_pass(packed, rays_o, rays_d, viewdirs, z_vals, dists, live,
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch("render_pass")
         _build.check(lib.nnc_render_pass(
-            packed.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
+            packed_mma.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
             viewdirs.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
             live.data_ptr(), float(term_csd), maps.data_ptr(),
             None if weights is None else weights.data_ptr(), R, S, stream),
@@ -151,9 +155,10 @@ def fused_render_pass(model: nerf.NeRF, rays_o, rays_d, viewdirs, z_vals, *,
     term_csd = -math.log(early_term_eps) if early_term_eps > 0 else math.inf
     f32 = lambda t: t.float().contiguous()
     maps, weights = render_pass(
-        PACKS.get(model, "float32", pack_weights), f32(rays_o), f32(rays_d), f32(viewdirs),
-        f32(z_vals), f32(dists), live.contiguous(), term_csd,
-        want_weights=return_weights)
+        PACKS.get(model, "float32", pack_weights), f32(rays_o), f32(rays_d),
+        f32(viewdirs), f32(z_vals), f32(dists), live.contiguous(), term_csd,
+        want_weights=return_weights,
+        packed_mma=packed_mma_for(model, z_vals.device))
     out = unpack_maps(maps)
     if return_weights:
         out["weights"] = weights

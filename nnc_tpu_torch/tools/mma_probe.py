@@ -1,0 +1,208 @@
+"""What holds the tensor-core chain of K-B3 / K-B2 (ops/csrc/nerf_mlp_mma.cuh)
+on the card it runs on. Needs a CUDA device and nvcc:
+
+    python -m nnc_tpu_torch.tools.mma_probe
+
+Prints, after the card's name and power limit:
+  1. the rate at which one SM sub-partition issues
+     ``mma.sync.m16n8k8 .tf32`` (clocks per instruction with 1, 2 and 4
+     warps a sub-partition and 8, 16 or 32 independent accumulators a warp,
+     and the TF32 TFLOP/s that makes over the card): the ceiling of any chain
+     built on that instruction, a third of it for 3xTF32;
+  2. K-B3 at 262,144 points built three ways from the sources in this
+     checkout: as shipped, with ``cvt.rna.tf32.f32`` in place of the integer
+     rounding (``-DNNC_SPLIT_CVT``; the outputs must be bit-equal), and with
+     clock marks (``-DNNC_MMA_PROFILE``): the two times in turns, and the
+     share of a tile's clocks spent in each part of the chain;
+  3. the SASS opcode counts of the shipped build (how many instructions ride
+     along with each HMMA).
+Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import re
+import subprocess
+
+import torch
+
+from ..data import synthetic
+from ..models import nerf
+from ..ops import _build, mlp_fused
+
+OUT = os.path.join(_build.BUILD_DIR, "mma_probe")
+N_POINTS = 262_144
+PROFILE_SLOTS = ("stage the points in", "embedding", "product loops",
+                 "barrier after the products", "epilogue stores",
+                 "barrier after the stores", "alpha head",
+                 "rgb head and barrier", "store the logits")
+
+MMA_RATE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int NACC>
+__global__ void issue_rate(float* out, long long* clk, int iters) {
+  uint32_t a[4], b[2];
+  for (int j = 0; j < 4; ++j) a[j] = 0x3f800000u + (threadIdx.x + j << 13);
+  for (int j = 0; j < 2; ++j) b[j] = 0x3f000000u + (threadIdx.x + j << 13);
+  float c[NACC][4] = {};
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int i = 0; i < NACC; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) clk[blockIdx.x] = t1 - t0;
+}
+extern "C" int nnc_issue_rate(int nacc, int threads, int blocks, int iters,
+                              float* out, long long* clk) {
+  if (nacc == 8) issue_rate<8><<<blocks, threads>>>(out, clk, iters);
+  else if (nacc == 16) issue_rate<16><<<blocks, threads>>>(out, clk, iters);
+  else issue_rate<32><<<blocks, threads>>>(out, clk, iters);
+  cudaError_t err = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : cudaDeviceSynchronize());
+}
+"""
+
+
+def _compile(src, so, *flags):
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _ms(fn, iters=10, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def issue_rate(lib, dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 512, device=dev)
+    clk = torch.zeros(sms, dtype=torch.int64, device=dev)
+    iters = 2000
+    for nacc in (8, 16, 32):
+        for warps in (4, 8, 16):
+            if nacc * warps > 256:    # more registers than an SM has
+                continue
+            args = (nacc, 32 * warps, sms, iters, out.data_ptr(),
+                    clk.data_ptr())
+            assert lib.nnc_issue_rate(*args) == 0
+            ms = _ms(lambda: lib.nnc_issue_rate(*args), iters=3, warmup=1)
+            per_part = iters * nacc * warps / 4
+            flop = sms * iters * nacc * warps * 2 * 16 * 8 * 8
+            print(f"[1] {warps // 4} warps a sub-partition, {nacc} "
+                  f"accumulators a warp: {clk.double().mean().item() / per_part:.2f} "
+                  f"clocks per mma.sync a sub-partition, "
+                  f"{flop / ms / 1e9:.1f} TF32 TFLOP/s over the card")
+
+
+def chain(libs, dev):
+    g = torch.Generator().manual_seed(0)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    packed_mma = mlp_fused.pack_weights_mma(model)
+    pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(N_POINTS, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    outs = {}
+
+    def launch(name):
+        out = outs.setdefault(name, torch.empty(N_POINTS, 4, device=dev))
+        rc = libs[name].nnc_mlp_from_points(
+            packed_mma.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+            out.data_ptr(), N_POINTS,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    times = [{name: _ms(lambda: launch(name)) for name in ("shipped", "cvt")}
+             for _ in range(2)]
+    assert torch.equal(outs["shipped"], outs["cvt"]), \
+        "the integer rounding and cvt.rna.tf32.f32 disagree"
+    shown = {name: [f"{t[name]:.3f}" for t in times] for name in times[0]}
+    print(f"[2] K-B3 {N_POINTS} points in turns, ms: integer rounding "
+          f"{shown['shipped']}, cvt.rna.tf32.f32 {shown['cvt']}; outputs "
+          f"bit-equal")
+    sums = (ctypes.c_ulonglong * len(PROFILE_SLOTS))()
+    launch("profile")
+    torch.cuda.synchronize()
+    assert libs["profile"].nnc_mma_profile(sums) == 0   # warm-up, discarded
+    launch("profile")
+    torch.cuda.synchronize()
+    assert libs["profile"].nnc_mma_profile(sums) == 0
+    tiles = -(-N_POINTS // 64)
+    total = sum(sums)
+    print(f"[2] clocks of a tile of 64 points by thread 0's marks, "
+          f"{total / tiles:.0f} in all:")
+    for slot, what in enumerate(PROFILE_SLOTS):
+        print(f"      {what:28s} {sums[slot] / tiles:9.0f}  "
+              f"{100 * sums[slot] / total:5.1f}%")
+
+
+def sass_counts(so):
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         so], capture_output=True, text=True, check=True).stdout
+    ops = collections.Counter(
+        m.group(1).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)", sass))
+    print(f"[3] SASS opcodes of the shipped K-B3: {ops.most_common(16)}")
+
+
+def main():
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(OUT, exist_ok=True)
+    rate_cu = os.path.join(OUT, "issue_rate.cu")
+    with open(rate_cu, "w") as f:
+        f.write(MMA_RATE_CU)
+    kb3 = os.path.join(_build.SRC_DIR, "mlp_from_points.cu")
+    builds = {"issue_rate": (rate_cu,), "shipped": (kb3,),
+              "cvt": (kb3, "-DNNC_SPLIT_CVT"),
+              "profile": (kb3, "-DNNC_MMA_PROFILE")}
+    procs = {name: _compile(args[0], os.path.join(OUT, name + ".so"),
+                            *args[1:]) for name, args in builds.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        for line in log.splitlines():
+            if name != "issue_rate" and "registers" in line:
+                print(f"    ptxas, {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(os.path.join(OUT, name + ".so"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp]
+    for name in ("shipped", "cvt", "profile"):
+        libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
+    issue_rate(libs["issue_rate"], dev)
+    chain(libs, dev)
+    sass_counts(os.path.join(OUT, "shipped.so"))
+
+
+if __name__ == "__main__":
+    main()
