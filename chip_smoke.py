@@ -21,10 +21,12 @@ Phases:
      same compression with the probe on the plain path, for its bytes;
   5. the LLFF-style path (NDC, raw_noise_std=1, 378x504, 64+64 samples),
      whose deterministic renders run K-B3, beside the plain path;
-  6. kernel pair K-B1 (training MLP forward + backward) against its plain
-     versions at the LSA step's shapes, 65,536 (coarse) and 196,608 (fine)
-     points, full width, LSA scales std 0.05, with_dw off and on, timed
-     against the plain forward + torch autograd backward;
+  6. kernel pair K-B1 (training MLP forward + backward; the forward and the
+     backward without dW as 3xTF32 products on the tensor cores) against its
+     plain versions at the LSA step's shapes, 65,536 (coarse) and 196,608
+     (fine) points, full width, LSA scales std 0.05, with_dw off and on,
+     reruns bit-equal, timed against the plain forward + torch autograd
+     backward;
   7. the LSA slice on phase 4's scene and teacher: compress_model(qp=-20,
      lsa=True) tuning the scales through K-B1 -> decode -> test render,
      beside the same qp without LSA, and a 10-step kernel-vs-plain LSA
@@ -67,8 +69,8 @@ phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12 and the runs of phase 13.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
-peak for their type: for K-B2 and K-B3, whose float32 products are three
-TF32 products each, a third of the tensor cores' TF32 peak. The last two lines are the kernel table and the result
+peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
+products are three TF32 products each, a third of the tensor cores' TF32 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
 import contextlib
@@ -142,7 +144,8 @@ LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # device memory bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s
 # and TF32 FLOP/s of the tensor cores. A float32 product computed as three
-# TF32 products (K-B2, K-B3) is bounded by a third of the TF32 peak.
+# TF32 products (K-B1 without dW, K-B2, K-B3) is bounded by a third of the
+# TF32 peak.
 PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
 # K-B3's raw logits against the exact float32 plain version, 10x the 2.4e-6
@@ -553,25 +556,43 @@ def phase_train_kernels(dev):
     tensors = mlp_train_fused._layer_tensors(model)
     params, params_t, ls = mlp_train_fused.pack_train(
         tensors[0::3], tensors[1::3], tensors[2::3])
+    # what the tensor-core kernels read: the cached fragment-ordered weights
+    # and the bias vector, as fused_nerf_mlp_train hands them over
+    packed_mma, packed_mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    biases = mlp_train_fused.gather_biases(params)
     row = None
     for n in N_TRAIN:
         pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
         vd = torch.randn(n, 3, generator=g)
         vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
         cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
-        raw, ws = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
-                                                save_u=True)
+
+        def fwd():
+            return mlp_train_fused.mlp_train_fwd(
+                params, ls, pts, vd, save_u=True, packed_mma=packed_mma,
+                biases=biases)
+
+        def bwd(with_dw):
+            return mlp_train_fused.mlp_train_bwd(
+                params, params_t, ls, pts, vd, cot, ws, with_dw,
+                packed_mma_t=packed_mma_t, biases=biases)
+
+        raw, ws = fwd()
         torch.cuda.synchronize()
         raw_p = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
         err_raw = maxabs(raw, raw_p)
         check(torch.isfinite(raw).all().item(), "K-B1 forward not finite")
         check(err_raw <= 1e-3, f"K-B1 forward max |draw| {err_raw} > 1e-3")
-        fwd_ms = cuda_ms(lambda: mlp_train_fused.mlp_train_fwd(
-            params, ls, pts, vd, save_u=True))
+        # the buffers made inside the wrappers from pack_train's are the same
+        raw_m, ws_m = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
+                                                    save_u=True)
+        check(torch.equal(raw_m, raw) and torch.equal(ws_m, ws),
+              "K-B1 forward differs between given and made buffers")
+        del raw_m, ws_m
+        fwd_ms = cuda_ms(fwd)
         pe, ve = positional_encoding(pts, 10), positional_encoding(vd, 4)
         for with_dw in (False, True):
-            flat = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts,
-                                                 vd, cot, ws, with_dw)
+            flat = bwd(with_dw)
             torch.cuda.synchronize()
             flat_p = mlp_train_fused.mlp_train_bwd_plain(
                 params, params_t, ls, pts, vd, cot, with_dw)
@@ -581,11 +602,9 @@ def phase_train_kernels(dev):
             check(torch.isfinite(flat).all().item(), "K-B1 grads not finite")
             check(ok, f"K-B1 backward n={n} with_dw={with_dw}: gradients "
                   f"off the plain version's (worst {err_g:.3e} of scale)")
-            again = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts,
-                                                  vd, cot, ws, with_dw)
-            check(torch.equal(again, flat), "K-B1 backward not deterministic")
-            bwd_ms = cuda_ms(lambda: mlp_train_fused.mlp_train_bwd(
-                params, params_t, ls, pts, vd, cot, ws, with_dw))
+            check(torch.equal(bwd(with_dw), flat),
+                  "K-B1 backward not deterministic")
+            bwd_ms = cuda_ms(lambda: bwd(with_dw))
 
             # plain: the output-scaling MLP, torch autograd for its backward
             for layer in model.layers().values():
@@ -605,24 +624,35 @@ def phase_train_kernels(dev):
                 for t in (layer.weight, layer.bias, layer.weight_scaling):
                     t.requires_grad_(False)
                     t.grad = None
+            # the forward and the backward without dW: 3xTF32 on the tensor
+            # cores; the backward with dW (the dx and the x^T du products):
+            # float32 FMAs outside them
+            rows = {"mlp_train_fwd": {
+                        "max_abs_err": err_raw, "ms": fwd_ms,
+                        "plain_ms": plain_fwd_ms,
+                        **bound(nbytes(packed_mma, ls, biases, pts, vd, raw,
+                                       ws), 2 * MLP_MACS * n, PEAK_3XTF32)},
+                    "mlp_train_bwd": {
+                        "max_abs_err": err_g_abs, "ms": bwd_ms,
+                        "plain_ms": plain_bwd_ms,
+                        **(bound(nbytes(params, params_t, ls, pts, vd, cot,
+                                        ws, flat),
+                                 2 * (BWD_MACS + INT8_MACS) * n, PEAK_FP32)
+                           if with_dw else
+                           bound(nbytes(packed_mma_t, ls, biases, cot, ws,
+                                        flat), 2 * BWD_MACS * n,
+                                 PEAK_3XTF32))}}
             print(f"[6] K-B1 {n} points with_dw={with_dw}: max|draw| "
                   f"{err_raw:.3e}, worst gradient error {err_g:.3e} of its "
                   f"max ({err_g_abs:.3e} absolute); kernel fwd "
                   f"{fwd_ms:.3f} ms + bwd {bwd_ms:.3f} ms, "
                   f"plain fwd {plain_fwd_ms:.3f} ms + autograd bwd "
-                  f"{plain_bwd_ms:.3f} ms")
+                  f"{plain_bwd_ms:.3f} ms; bounds fwd "
+                  f"{rows['mlp_train_fwd']['bound_ms']:.3f} ms, bwd "
+                  f"{rows['mlp_train_bwd']['bound_ms']:.3f} ms "
+                  f"({'SIMT float32' if with_dw else '3xTF32'} peak)")
             if n == N_TRAIN[-1] and not with_dw:
-                row = {"mlp_train_fwd": {
-                           "max_abs_err": err_raw, "ms": fwd_ms,
-                           "plain_ms": plain_fwd_ms,
-                           **bound(nbytes(params, ls, pts, vd, raw, ws),
-                                   2 * MLP_MACS * n, PEAK_FP32)},
-                       "mlp_train_bwd": {
-                           "max_abs_err": err_g_abs, "ms": bwd_ms,
-                           "plain_ms": plain_bwd_ms,
-                           **bound(nbytes(params, params_t, ls, pts, vd, cot,
-                                          ws, flat), 2 * BWD_MACS * n,
-                                   PEAK_FP32)}}
+                row = rows
         del ws
     return row
 

@@ -142,11 +142,17 @@ def lib() -> ctypes.CDLL:
         handle.nnc_render_pass.restype = ci
         handle.nnc_train_sizes.argtypes = [ctypes.POINTER(ci)] * 2
         handle.nnc_train_sizes.restype = ci
-        handle.nnc_mlp_train_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
+        handle.nnc_train_mma_sizes.argtypes = [ctypes.POINTER(ci)] * 2
+        handle.nnc_train_mma_sizes.restype = ci
+        handle.nnc_mlp_train_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                             vp]
         handle.nnc_mlp_train_fwd.restype = ci
-        handle.nnc_mlp_train_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                             vp, ci, ci, ci, vp]
-        handle.nnc_mlp_train_bwd.restype = ci
+        handle.nnc_mlp_train_bwd_mma.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                 ci, ci, vp]
+        handle.nnc_mlp_train_bwd_mma.restype = ci
+        handle.nnc_mlp_train_bwd_dw.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                vp, vp, ci, ci, vp]
+        handle.nnc_mlp_train_bwd_dw.restype = ci
         handle.nnc_mlp_tp_pair.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, vp]
         handle.nnc_mlp_tp_pair.restype = ci

@@ -7,47 +7,101 @@
 //
 // What it computes. Forward: posenc (10/4 frequencies) and the flagship MLP
 // with the LSA scales applied as output scaling, u = x @ W, y = u * ls + b
-// (relu on the hidden and view layers), from unscaled weights and a separate
-// scale vector. Backward, for the raw-output cotangent g: the reverse chain,
-// with dls = colsum(dy_pre * u), db = colsum(dy_pre) over every point, and
-// dW = x^T du only with_dw; the inputs get no gradient.
+// (relu on the hidden and view layers), from unscaled weights and separate
+// scale and bias vectors. Backward, for the raw-output cotangent g: the
+// reverse chain, with dls = colsum(dy_pre * u), db = colsum(dy_pre) over
+// every point, and dW = x^T du only with_dw; the inputs get no gradient.
 //
-// Bound on the H100: SIMT float32 FMAs, as K-B3. The forward costs ~1.19
-// MFLOP per point; the backward ~1.2 MFLOP more without dW (the dx products)
-// and ~1.2 more with it (the x^T du products). Device memory traffic is small
-// beside that (below).
+// Bound on the H100: operations. A point costs 1.19 MFLOP forward and 1.12
+// MFLOP backward without dW (the dx products) against 9.7 KB of workspace
+// written by the one and read by the other. The forward and the backward
+// without dW run their products on the tensor cores as three TF32 products
+// each (nerf_mlp_mma.cuh), so the peak that bounds them is 495 / 3 = 165
+// TFLOP/s float32-equivalent (H100 SXM data sheet, dense TF32, at 700 W):
+// 196,608 points cannot take less than 1.42 ms forward and 1.33 ms backward;
+// the workspace is 0.57 ms of device memory traffic each way. The backward
+// with dW (no preset turns it on) keeps the SIMT chain of nerf_mlp.cuh and is
+// bound by the 67 TFLOP/s float32 peak outside the tensor cores.
 //
 // Design.
-// - The reverse chain needs, per point, every layer's u (2,436 floats):
-//   far beyond 227 KB of shared memory for a tile. The TPU kernel recomputes
-//   the forward in VMEM. Here the forward writes u per point to a workspace
-//   in device memory instead (9.7 KB per point: 1.9 GB at 196,608 points,
-//   ~1.2 ms of HBM traffic written once and read once), and the backward
-//   rebuilds every activation it needs, h = relu(fmaf(u, ls, b)), bit for
-//   bit as the forward computed it. The relu mask is fmaf(u, ls, b) > 0,
-//   which is h > 0 for that same h. The workspace is written and read with
-//   evict-first cache hints (__stcs / __ldcs): streamed through L2 like any
-//   other data, it evicted the weights that every tile reads from L2, and
-//   the forward took 19.0 ms instead of 11.7 (196,608 points, H100).
-// - The backward's dx = du @ W^T reads W along its output axis; it reads a
-//   second copy of the weights packed in torch's (out, in) layout, so that a
-//   warp's loads of one row are contiguous, as the forward's are in (in, out).
-// - dls/db (and dW) are sums over all points. One persistent CTA per SM walks
-//   tiles blockIdx.x, blockIdx.x + gridDim.x, ... and adds each tile's sums
-//   into its own row of a partial buffer (no other CTA touches it); a second
-//   kernel sums the rows in a fixed order. The result is deterministic run to
-//   run; it differs from a one-pass sum only by float32 reassociation.
+// - The reverse chain needs, per point, every layer's u (2,436 floats): far
+//   beyond 227 KB of shared memory for a tile. The TPU kernel recomputes the
+//   forward in VMEM. Here the forward writes u per point to a workspace in
+//   device memory instead (1.9 GB at 196,608 points), and the backward
+//   rebuilds what it needs of the activations, the relu mask
+//   fmaf(u, ls, b) > 0, bit for bit as the forward computed it. The workspace
+//   is written and read with evict-first cache hints (__stcs / __ldcs):
+//   streamed through L2 like any other data it evicts the weight slabs that
+//   every tile reads from L2.
+// - Forward (train_layer, mlp_tile_train). The chain of nerf_mlp_mma.cuh:
+//   one persistent CTA per SM, eight warps that each own all 64 points x 32
+//   (16) output channels of a layer, 3xTF32 products with two-level sums,
+//   the same 73 slabs in the same fragment order through the same
+//   three-stage cp.async ring. The inference chain folds ls into the weights
+//   and starts its accumulators at the bias; training cannot (dls needs the
+//   unscaled u), so a layer streams the unscaled weights, starts at zero,
+//   and its epilogue stores u to the workspace and act(fmaf(u, ls, b)) to
+//   the activation buffer. A fragment holds (row g, columns 2t, 2t + 1):
+//   straight from the registers u would go out as 8-byte stores, four lanes
+//   filling one 32-byte sector per row and n-tile. Instead the fragments go
+//   to the activation buffer first (it is free: every warp has read its
+//   input), and after a barrier every thread takes four consecutive
+//   channels of 16 rows: u out as 16-byte stores, a warp writing 512
+//   contiguous bytes of a row (scalar stores for the view layer, whose
+//   workspace columns start at the odd offset 2,305), the activation back
+//   in place. -DNNC_TRAIN_DIRECT_U builds the stores from the registers,
+//   for nnc_tpu_torch/tools/mma_probe.py to time: 0.3 ms slower at 196,608
+//   points (NVIDIA H100 80GB HBM3, 700 W).
+// - Backward without dW (bwd_layer, grad_epilogue). dx = du @ W^T has the
+//   forward's shapes, so it runs on the same products from a second slab
+//   stream: torch's (out, in) weights are the row-major B of that product,
+//   packed in fragment order (68 slabs: 4 for the view layer's 128 x 256, 8
+//   for the feature layer and each of pts layers 7..1; layer 5 only its 256
+//   rows for h, layer 0 none). What channel_grad did in a pass of its own,
+//   one thread a channel, happens in the epilogue on the accumulator
+//   fragments: load the matching u (__ldcs), mask, form dpre, sum dpre * u
+//   and dpre over the thread's eight rows and then over g by three shuffles,
+//   write du = dpre * ls as the next product's input. The rank-1 alpha term
+//   and the rgb head's 3 x 128 are FMAs on the fragments. The epilogue's u
+//   comes from device memory, 64 KB a layer and tile: the CTA asks L2 for
+//   it before the layer's product loop (prefetch_u), and every thread
+//   starts all its loads of the layer, with its scales and biases, before
+//   the barrier that follows the products, so that one trip to L2 is waited
+//   for, under the barrier, and not one per n-tile.
+// - dls / db are sums over all points. One persistent CTA per SM walks
+//   tiles blockIdx.x, blockIdx.x + gridDim.x, ... and keeps its sums in
+//   shared memory, every column owned by one thread; at its end it writes
+//   them to its own row of a partial buffer, and a second kernel sums the
+//   rows in a fixed order. No atomics: reruns are bit-equal; the result
+//   differs from a one-pass sum only by float32 reassociation.
 // - Rows past n: the forward reads zero points there and writes their u (so
 //   the workspace is finite); the backward loads a zero cotangent for them,
 //   so they add exactly zero.
 //
-// Packed inputs (nnc_tpu_torch/ops/mlp_train_fused.py): P, the forward layout
-// of nerf_mlp.cuh (each layer W (in, out) and its bias, unscaled); PT, each
-// layer's W in (out, in), concatenated in layer order (offset wt_offset);
-// LS, the scales of every layer's outputs, concatenated (offset u_offset).
-// The workspace row of a point and the gradient rows use the u_offset
-// layout too.
-#include "nerf_mlp.cuh"
+// Where the time goes at 196,608 points (NVIDIA H100 80GB HBM3, 700 W;
+// nnc_tpu_torch/tools/mma_probe.py, times and thread 0's clock marks).
+// Forward 3.7 ms (the SIMT kernel before it 11.4; 3.3 ms without the
+// workspace; 3.9-4.0 ms with u stored from the fragments): 80% of a tile's
+// clocks in the product loops, 12% in the epilogue (staging u, the workspace
+// rows, the activations), 4% at barriers, 2% in the heads, 2% embedding and
+// staging. Backward without dW 3.5 ms (11.6 before): 86% in the product
+// loops, where the wait for u now falls, 8% in the epilogue (mask, du, the
+// column sums), 3% at barriers. It took 3.9 ms with u loaded n-tile by
+// n-tile in the epilogue, 3.7 with the L2 prefetch, 3.6 with scales and
+// biases loaded before the barrier. Both run the product loops at K-B3's
+// rate (8.4 clocks a product and sub-partition against the instruction's
+// 6.0), which is what holds them at 38-40% of their bounds.
+//
+// Packed inputs (nnc_tpu_torch/ops/mlp_train_fused.py). The tensor-core
+// kernels: FW, the unscaled weights in pack_weights_mma's order (slabs, an
+// unused bias block, the heads' weights); BW, the transposed slabs and the
+// heads' weights (pack_train_mma); LS and BI, every layer's scales and
+// biases concatenated (offset u_offset). The with_dw kernel: P, the forward
+// layout of nerf_mlp.cuh (each layer W (in, out) and its bias, unscaled);
+// PT, each layer's W in (out, in), concatenated in layer order (offset
+// wt_offset); LS. The workspace row of a point and the gradient rows use
+// the u_offset layout too.
+#include "nerf_mlp_mma.cuh"
 
 #include <cstddef>
 
@@ -67,159 +121,586 @@ __host__ __device__ constexpr int wt_offset(int i) {
 }
 constexpr int kU = u_offset(kLayers);     // 2,436 outputs of the 12 layers
 constexpr int kWt = wt_offset(kLayers);   // 593,408 weights
+constexpr int kLayerFeature = 8, kLayerAlpha = 9, kLayerViews = 10,
+              kLayerRgb = 11;
 
-// ---------------------------------------------------------------- forward
+// ------------------------------------------- forward, on the tensor cores
 
-// out = act(ls * u + b) with u = x @ w (+ x2 @ w2), for the kM points of the
-// tile; u goes to U (row stride kU) when U is not null.
-template <int NOUT, bool RELU>
-__device__ __forceinline__ void dense_train(float* __restrict__ out,
-                                            const float* __restrict__ x, int K,
-                                            const float* __restrict__ w,
-                                            const float* __restrict__ x2, int K2,
-                                            const float* __restrict__ w2,
-                                            const float* __restrict__ b,
-                                            const float* __restrict__ ls,
-                                            float* __restrict__ U) {
-  constexpr int NC = NOUT / 32;
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  float acc[8][NC];
+// This thread's fragment (rows mt * 16 + g and + 8, columns c and c + 1 of
+// n-tile nt at c = col0 + 8 nt) as float2 accesses of a point-major buffer.
+template <int NT>
+__device__ __forceinline__ void store_fragments(float* __restrict__ out,
+                                                const float (&v)[4][NT][4],
+                                                int g, int col0) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
-  accumulate<NOUT, NC>(acc, x, K, w, r0, lane);
-  if (K2 > 0) accumulate<NOUT, NC>(acc, x2, K2, w2, r0, lane);
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int c = lane + 32 * j;
-    const float bj = __ldg(b + c);
-    const float lj = __ldg(ls + c);
-    float v[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      if (U != nullptr)
-        __stcs(U + static_cast<size_t>(r0 + r) * kU + c, acc[r][j]);
-      const float p = fmaf(acc[r][j], lj, bj);
-      v[r] = RELU ? fmaxf(p, 0.f) : p;
+    for (int nt = 0; nt < NT; ++nt) {
+      float* o = out + (mt * 16 + g) * mma::kLdA + col0 + nt * 8;
+      *reinterpret_cast<float2*>(o) = make_float2(v[mt][nt][0], v[mt][nt][1]);
+      *reinterpret_cast<float2*>(o + 8 * mma::kLdA) =
+          make_float2(v[mt][nt][2], v[mt][nt][3]);
     }
-    float4* o = reinterpret_cast<float4*>(out + c * kLd + r0);
-    o[0] = make_float4(v[0], v[1], v[2], v[3]);
-    o[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// How a layer's u reaches the workspace: staged through the activation
+// buffer and written as 16-byte coalesced rows, or (-DNNC_TRAIN_DIRECT_U,
+// for nnc_tpu_torch/tools/mma_probe.py to time) straight from the fragments.
+#ifdef NNC_TRAIN_DIRECT_U
+constexpr bool kStageU = false;
+#else
+constexpr bool kStageU = true;
+#endif
+
+// out[:, 0..64 NT) = act(fmaf(u, ls, b)) with u = x1 @ w (+ x2 @ w2) for the
+// tile's 64 points, the unscaled weights from the pipe; u goes to U (the
+// tile's first workspace row at the layer's columns, row stride kU) when
+// SAVE. U2: the layer's workspace columns start at an even offset, so a
+// fragment's two columns are one 8-byte store. out may be x1 or x2, as in
+// mma_layer. Ends with a barrier.
+template <int NT, bool RELU, bool SAVE, bool U2>
+__device__ __forceinline__ void train_layer(mma::Pipe& pipe, float* out,
+                                            const float* x1, int ld1, int K1,
+                                            const float* x2, int ld2, int K2,
+                                            const float* __restrict__ ls,
+                                            const float* __restrict__ b,
+                                            float* __restrict__ U) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int col0 = warp * 8 * NT + 2 * (lane & 3);
+  float acc[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  mma::mma_segment<NT>(pipe, acc, x1, ld1, K1);
+  if (K2 > 0) mma::mma_segment<NT>(pipe, acc, x2, ld2, K2);
+  NNC_PROF(2);
+  __syncthreads();
+  NNC_PROF(3);
+  if constexpr (SAVE && kStageU) {
+    // u through the activation buffer: every thread then takes four
+    // consecutive channels of 16 (8) rows, so a warp writes 512 contiguous
+    // bytes of a workspace row
+    constexpr int kQuads = 16 * NT;   // float4s in a row
+    const int c = 4 * (threadIdx.x % kQuads);
+    const float4 l4 = make_float4(__ldg(ls + c), __ldg(ls + c + 1),
+                                  __ldg(ls + c + 2), __ldg(ls + c + 3));
+    const float4 b4 = make_float4(__ldg(b + c), __ldg(b + c + 1),
+                                  __ldg(b + c + 2), __ldg(b + c + 3));
+    store_fragments<NT>(out, acc, g, col0);
+    __syncthreads();
+#pragma unroll 4
+    for (int r = threadIdx.x / kQuads; r < kM; r += kThreads / kQuads) {
+      float4* o = reinterpret_cast<float4*>(out + r * mma::kLdA + c);
+      const float4 u4 = *o;
+      float* w = U + static_cast<size_t>(r) * kU + c;
+      if (U2) {
+        __stcs(reinterpret_cast<float4*>(w), u4);
+      } else {
+        __stcs(w, u4.x);
+        __stcs(w + 1, u4.y);
+        __stcs(w + 2, u4.z);
+        __stcs(w + 3, u4.w);
+      }
+      float4 h = make_float4(fmaf(u4.x, l4.x, b4.x), fmaf(u4.y, l4.y, b4.y),
+                             fmaf(u4.z, l4.z, b4.z), fmaf(u4.w, l4.w, b4.w));
+      if (RELU)
+        h = make_float4(fmaxf(h.x, 0.f), fmaxf(h.y, 0.f), fmaxf(h.z, 0.f),
+                        fmaxf(h.w, 0.f));
+      *o = h;
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = col0 + nt * 8;
+      const float l0 = __ldg(ls + c), l1 = __ldg(ls + c + 1);
+      const float b0 = __ldg(b + c), b1 = __ldg(b + c + 1);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (SAVE) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float* w = U + static_cast<size_t>(mt * 16 + g + 8 * half) * kU + c;
+            if (U2) {
+              __stcs(reinterpret_cast<float2*>(w),
+                     make_float2(acc[mt][nt][2 * half],
+                                 acc[mt][nt][2 * half + 1]));
+            } else {
+              __stcs(w, acc[mt][nt][2 * half]);
+              __stcs(w + 1, acc[mt][nt][2 * half + 1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = fmaf(acc[mt][nt][i], i & 1 ? l1 : l0, i & 1 ? b1 : b0);
+          acc[mt][nt][i] = RELU ? fmaxf(p, 0.f) : p;
+        }
+      }
+    }
+    store_fragments<NT>(out, acc, g, col0);
   }
+  NNC_PROF(4);
+  __syncthreads();
+  NNC_PROF(5);
 }
 
 // The training MLP on the embedded tile in s.emb; raw logits to s.raw, u of
-// every layer to U (the tile's first workspace row) unless U is null.
-__device__ __forceinline__ void mlp_tile_train(MlpSmem& s,
-                                               const float* __restrict__ P,
+// every layer to U (the tile's first workspace row) when SAVE. FW: the
+// buffer of pack_train_mma's forward half, whose slabs `pipe` streams. All
+// threads enter; starts (after the embedding's stores) and ends with a
+// barrier.
+template <bool SAVE>
+__device__ __forceinline__ void mlp_tile_train(mma::MlpSmem& s,
+                                               mma::Pipe& pipe,
+                                               const float* __restrict__ FW,
                                                const float* __restrict__ LS,
+                                               const float* __restrict__ BI,
                                                float* __restrict__ U) {
-  float* A = s.a;
-  float* B = s.b;
+  float* A = s.act;
   const float* E = s.emb;
-#define NNC_UO(i) (U != nullptr ? U + u_offset(i) : nullptr)
-  dense_train<kW, true>(A, E, kInPts, weight<0>(P), nullptr, 0, nullptr,
-                        bias<0>(P), LS + u_offset(0), NNC_UO(0));
-  __syncthreads();
-  dense_train<kW, true>(B, A, kW, weight<1>(P), nullptr, 0, nullptr,
-                        bias<1>(P), LS + u_offset(1), NNC_UO(1));
-  __syncthreads();
-  dense_train<kW, true>(A, B, kW, weight<2>(P), nullptr, 0, nullptr,
-                        bias<2>(P), LS + u_offset(2), NNC_UO(2));
-  __syncthreads();
-  dense_train<kW, true>(B, A, kW, weight<3>(P), nullptr, 0, nullptr,
-                        bias<3>(P), LS + u_offset(3), NNC_UO(3));
-  __syncthreads();
-  dense_train<kW, true>(A, B, kW, weight<4>(P), nullptr, 0, nullptr,
-                        bias<4>(P), LS + u_offset(4), NNC_UO(4));
-  __syncthreads();
-  // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
-  dense_train<kW, true>(B, E, kInPts, weight<5>(P), A, kW,
-                        weight<5>(P) + kInPts * kW, bias<5>(P),
-                        LS + u_offset(5), NNC_UO(5));
-  __syncthreads();
-  dense_train<kW, true>(A, B, kW, weight<6>(P), nullptr, 0, nullptr,
-                        bias<6>(P), LS + u_offset(6), NNC_UO(6));
-  __syncthreads();
-  dense_train<kW, true>(B, A, kW, weight<7>(P), nullptr, 0, nullptr,
-                        bias<7>(P), LS + u_offset(7), NNC_UO(7));
-  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  // alpha head (layer 9, 256 -> 1) on h7 = B: 4 partial sums per point
+  __syncthreads();
+  NNC_PROF(1);
+  train_layer<4, true, SAVE, true>(pipe, A, E, mma::kLdE, mma::kPtsPad,
+                                   nullptr, 0, 0, LS, BI, U);
+#pragma unroll 1
+  for (int i = 1; i <= 4; ++i)
+    train_layer<4, true, SAVE, true>(pipe, A, A, mma::kLdA, kW, nullptr, 0, 0,
+                                     LS + i * kW, BI + i * kW, U + i * kW);
+  // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
+  train_layer<4, true, SAVE, true>(pipe, A, E, mma::kLdE, mma::kPtsPad, A,
+                                   mma::kLdA, kW, LS + 5 * kW, BI + 5 * kW,
+                                   U + 5 * kW);
+#pragma unroll 1
+  for (int i = 6; i <= 7; ++i)
+    train_layer<4, true, SAVE, true>(pipe, A, A, mma::kLdA, kW, nullptr, 0, 0,
+                                     LS + i * kW, BI + i * kW, U + i * kW);
+
+  // alpha head (256 -> 1) on h = A: warp w takes points 8 w .. 8 w + 7
   {
-    const int m = threadIdx.x & (kM - 1);
-    const int part = threadIdx.x / kM;
-    const float* wa = weight<9>(P);
-    float acc = 0.f;
-    for (int k = part * (kW / 4); k < (part + 1) * (kW / 4); ++k)
-      acc = fmaf(B[k * kLd + m], __ldg(wa + k), acc);
-    s.red[part * kM + m] = acc;
+    constexpr int o = u_offset(kLayerAlpha);
+    float wa[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      wa[j] = __ldg(FW + mma::kOffAlphaW + lane + 32 * j);
+    const float la = __ldg(LS + o), ba = __ldg(BI + o);
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const int m = warp * 8 + i;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc = fmaf(A[m * mma::kLdA + lane + 32 * j], wa[j], acc);
+      acc = mma::warp_sum_all(acc);
+      if (lane == 0) {
+        if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o, acc);
+        s.raw[m * 4 + 3] = fmaf(acc, la, ba);
+      }
+    }
   }
-  // feature (layer 8, no activation) on h7 = B
-  dense_train<kW, false>(A, B, kW, weight<8>(P), nullptr, 0, nullptr,
-                         bias<8>(P), LS + u_offset(8), NNC_UO(8));
-  __syncthreads();
-  if (threadIdx.x < kM) {
-    const int m = threadIdx.x;
-    const float ua = (s.red[m] + s.red[kM + m]) +
-                     (s.red[2 * kM + m] + s.red[3 * kM + m]);
-    if (U != nullptr) __stcs(U + static_cast<size_t>(m) * kU + u_offset(9), ua);
-    s.raw[m * 4 + 3] = fmaf(ua, __ldg(LS + u_offset(9)), __ldg(bias<9>(P)));
+  NNC_PROF(6);
+  // feature (no activation) on h = A, in place
+  train_layer<4, false, SAVE, true>(
+      pipe, A, A, mma::kLdA, kW, nullptr, 0, 0, LS + u_offset(kLayerFeature),
+      BI + u_offset(kLayerFeature), U + u_offset(kLayerFeature));
+  // views: relu(ls * ([feature, view emb] @ wv) + bv) -> A cols 0..127
+  train_layer<2, true, SAVE, false>(
+      pipe, A, A, mma::kLdA, kW, E + mma::kPtsPad, mma::kLdE, mma::kViewsPad,
+      LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
+      U + u_offset(kLayerViews));
+  // rgb head (128 -> 3)
+  {
+    constexpr int o = u_offset(kLayerRgb);
+    float wr[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        wr[j][c] = __ldg(FW + mma::kOffRgbW + (lane + 32 * j) * 3 + c);
+    float lr = 0.f, br = 0.f;
+    if (lane < 3) {
+      lr = __ldg(LS + o + lane);
+      br = __ldg(BI + o + lane);
+    }
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const int m = warp * 8 + i;
+      float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float h = A[m * mma::kLdA + lane + 32 * j];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[c] = fmaf(h, wr[j][c], acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[c] = mma::warp_sum_all(acc[c]);
+      if (lane < 3) {
+        const float u = lane == 0 ? acc[0] : lane == 1 ? acc[1] : acc[2];
+        if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o + lane, u);
+        s.raw[m * 4 + lane] = fmaf(u, lr, br);
+      }
+    }
   }
-  // views (layer 10): relu(ls * ([feature, view emb] @ wv) + bv) -> B 0..127
-  dense_train<kW / 2, true>(B, A, kW, weight<10>(P), E + kInPts * kLd,
-                            kInViews, weight<10>(P) + kW * (kW / 2),
-                            bias<10>(P), LS + u_offset(10), NNC_UO(10));
   __syncthreads();
-  // rgb head (layer 11, 128 -> 3)
-  if (threadIdx.x < 3 * kM) {
-    const int m = threadIdx.x & (kM - 1);
-    const int c = threadIdx.x / kM;
-    const float* wr = weight<11>(P);
-    float acc = 0.f;
-    for (int k = 0; k < kW / 2; ++k)
-      acc = fmaf(B[k * kLd + m], __ldg(wr + k * 3 + c), acc);
-    if (U != nullptr)
-      __stcs(U + static_cast<size_t>(m) * kU + u_offset(11) + c, acc);
-    s.raw[m * 4 + c] = fmaf(acc, __ldg(LS + u_offset(11) + c),
-                            __ldg(bias<11>(P) + c));
-  }
-#undef NNC_UO
-  __syncthreads();
+  NNC_PROF(7);
 }
 
 struct FwdSmem {
-  MlpSmem mlp;
+  mma::MlpSmem mlp;
   float xs[kM * 3];
   float ds[kM * 3];
 };
 
+template <bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1)
-mlp_train_fwd_kernel(const float* __restrict__ P, const float* __restrict__ LS,
+mlp_train_fwd_kernel(const float* __restrict__ FW,
+                     const float* __restrict__ LS,
+                     const float* __restrict__ BI,
                      const float* __restrict__ pts,
                      const float* __restrict__ dirs, float* __restrict__ out,
-                     float* __restrict__ ws, int n) {
+                     float* __restrict__ ws, int n, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kM;
-  if (tid < kM * 3) {
-    const bool valid = base + tid / 3 < n;
-    s.xs[tid] = valid ? pts[base * 3 + tid] : 0.f;
-    s.ds[tid] = valid ? dirs[base * 3 + tid] : 0.f;
+  mma::prof_begin();
+  mma::Pipe pipe;
+  pipe.start(FW, s.mlp.ring);
+  mma::zero_embedding_pad(s.mlp.emb);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kM;
+    if (tid < kM * 3) {
+      const bool valid = base + tid / 3 < n;
+      s.xs[tid] = valid ? pts[base * 3 + tid] : 0.f;
+      s.ds[tid] = valid ? dirs[base * 3 + tid] : 0.f;
+    }
+    __syncthreads();
+    NNC_PROF(0);
+    mma::embed_tile(s.mlp.emb, s.xs, s.ds);
+    mlp_tile_train<SAVE>(s.mlp, pipe, FW, LS, BI,
+                         SAVE ? ws + static_cast<size_t>(base) * kU : nullptr);
+    static_assert(kM * 4 == kThreads, "one output per thread");
+    if (base + tid / 4 < n) out[base * 4 + tid] = s.mlp.raw[tid];
+    NNC_PROF(8);
   }
-  __syncthreads();
-  embed_tile(s.mlp.emb, s.xs, s.ds);
-  __syncthreads();
-  mlp_tile_train(s.mlp, P, LS,
-                 ws != nullptr ? ws + static_cast<size_t>(base) * kU : nullptr);
-  static_assert(kM * 4 == kThreads, "one output per thread");
-  if (base + tid / 4 < n) out[base * 4 + tid] = s.mlp.raw[tid];
+  pipe.drain();
+  mma::prof_end();
 }
 
-// ---------------------------------------------------------------- backward
+// ------------------------------ backward without dW, on the tensor cores
+
+// The transposed slab stream in the order the reverse chain consumes it:
+// the view layer's feature rows (4 slabs), the feature layer (8), pts
+// layers 7..1 (8 each); then the heads' weights.
+constexpr int kBwdSlabs = 4 + 8 + 7 * 8;
+static_assert(kBwdSlabs == 68, "transposed slab schedule");
+using BwdPipe = mma::PipeT<kBwdSlabs>;
+constexpr int kOffAlphaWT = kBwdSlabs * mma::kSlab;   // 256 weights
+constexpr int kOffRgbWT = kOffAlphaWT + kW;           // (3, 128) row-major
+constexpr int kBwdParamsSize = (kOffRgbWT + 3 * (kW / 2) + 63) / 64 * 64;
+
+// Asks L2 for the tile's 64 workspace rows at one layer's columns (p: row 0
+// at the layer's first column, `bytes` wide), one 128-byte line a request,
+// four threads a row. Issued before the layer's product loop, so that the
+// epilogue's loads find u in L2 instead of waiting for device memory once
+// per n-tile.
+__device__ __forceinline__ void prefetch_u(const float* __restrict__ p,
+                                           int bytes) {
+  const char* row = reinterpret_cast<const char*>(
+      p + static_cast<size_t>(threadIdx.x >> 2) * kU);
+  for (int off = (threadIdx.x & 3) * 128; off < bytes; off += 512)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + off));
+  // rows start 16 bytes off a line's start or more: the last bytes may lie
+  // in one more line
+  if ((threadIdx.x & 3) == 3)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + bytes - 4));
+}
+
+struct BwdMmaSmem {
+  float ring[mma::kStages * mma::kSlab];  // transposed slabs in flight
+  float g[kM * mma::kLdA];  // du of the layer above, then this layer's
+  float gr[kM * 4];         // the tile's raw cotangent, then the heads' du
+  float part[2 * kU];       // this CTA's sums: dls, then db
+};
+
+// This thread's scales and biases of a layer: lb[nt] = {ls, ls, b, b} of
+// columns c, c + 1 at c = col0 + 8 nt.
+template <int NT>
+__device__ __forceinline__ void load_lb(float (&lb)[NT][4],
+                                        const float* __restrict__ ls,
+                                        const float* __restrict__ b,
+                                        int col0) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    lb[nt][0] = __ldg(ls + col0 + nt * 8);
+    lb[nt][1] = __ldg(ls + col0 + nt * 8 + 1);
+    lb[nt][2] = __ldg(b + col0 + nt * 8);
+    lb[nt][3] = __ldg(b + col0 + nt * 8 + 1);
+  }
+}
+
+// This thread's u of a layer, from the workspace (U: the tile's first row
+// at the layer's columns): u[nt][mt][half] holds rows mt * 16 + g + 8 half,
+// columns c, c + 1 at c = col0 + 8 nt. U2: the columns start at an even
+// offset, so the two are one 8-byte load.
+template <int NT, bool U2>
+__device__ __forceinline__ void load_u(float (&u)[NT][4][2][2],
+                                       const float* __restrict__ U, int g,
+                                       int col0) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* up = U +
+            static_cast<size_t>(mt * 16 + g + 8 * half) * kU + col0 + nt * 8;
+        if (U2) {
+          const float2 u2 = __ldcs(reinterpret_cast<const float2*>(up));
+          u[nt][mt][half][0] = u2.x;
+          u[nt][mt][half][1] = u2.y;
+        } else {
+          u[nt][mt][half][0] = __ldcs(up);
+          u[nt][mt][half][1] = __ldcs(up + 1);
+        }
+      }
+}
+
+// The accumulators hold the gradient of a layer's output for the tile (the
+// fragment layout of mma_layer). In place they become du = dpre * ls, with
+// dpre the gradient masked by the layer's relu (RELU; the forward's
+// fmaf(u, ls, b) > 0 from the workspace's u); dpre * u and dpre, summed over
+// the tile's 64 rows, are added to the CTA's dls and db of the layer's
+// columns. du goes to G, the next product's input, if `write`. part_ls,
+// part_b: at the layer's columns; u, lb: load_u and load_lb of the layer,
+// which the caller starts before its barrier, so that one trip to L2 is
+// waited for and not one per n-tile. Every warp must be done reading G; ends
+// with a barrier.
+template <int NT, bool RELU>
+__device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
+                                              const float (&u)[NT][4][2][2],
+                                              const float (&lb)[NT][4],
+                                              float* __restrict__ G,
+                                              float* __restrict__ part_ls,
+                                              float* __restrict__ part_b,
+                                              bool write) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int col0 = warp * 8 * NT + 2 * (lane & 3);
+  float sl[NT][2], sb[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float l = lb[nt][j], bb = lb[nt][2 + j];
+      float tl = 0.f, tb = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float uj = u[nt][mt][half][j];
+          float d = acc[mt][nt][2 * half + j];
+          if (RELU && !(fmaf(uj, l, bb) > 0.f)) d = 0.f;
+          tl = fmaf(d, uj, tl);
+          tb += d;
+          acc[mt][nt][2 * half + j] = d * l;
+        }
+      sl[nt][j] = tl;
+      sb[nt][j] = tb;
+    }
+  NNC_PROF(4);
+  // over g: the eight lanes that share t, in a fixed order; the 4 NT sums
+  // of a step are independent of each other
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sl[nt][j] += __shfl_xor_sync(0xffffffffu, sl[nt][j], off);
+        sb[nt][j] += __shfl_xor_sync(0xffffffffu, sb[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        part_ls[col0 + nt * 8 + j] += sl[nt][j];
+        part_b[col0 + nt * 8 + j] += sb[nt][j];
+      }
+  }
+  NNC_PROF(5);
+  if (write) store_fragments<NT>(G, acc, g, col0);
+  NNC_PROF(6);
+  __syncthreads();
+  NNC_PROF(7);
+}
+
+// One step of the reverse chain: the gradient of layer L's output,
+// du_above (64 x K, in s.g) @ (the next K / 32 transposed slabs), plus
+// du_alpha (x) w_alpha when ALPHA (layer 7 feeds the alpha head too), then
+// grad_epilogue of layer L.
+template <bool RELU, bool ALPHA>
+__device__ __forceinline__ void bwd_layer(BwdMmaSmem& s, BwdPipe& pipe, int K,
+                                          int L, bool write,
+                                          const float* __restrict__ BW,
+                                          const float* __restrict__ LS,
+                                          const float* __restrict__ BI,
+                                          const float* __restrict__ ws,
+                                          int tile) {
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  const int o = L * kW;   // u_offset(L) for L <= 8
+  const float* U = ws + static_cast<size_t>(tile) * (kM * kU) + o;
+  prefetch_u(U, kW * static_cast<int>(sizeof(float)));
+  mma::mma_segment<4>(pipe, acc, s.g, mma::kLdA, K);
+  if (ALPHA) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int col0 = (threadIdx.x >> 5) * 32 + 2 * (lane & 3);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float w0 = __ldg(BW + kOffAlphaWT + col0 + nt * 8);
+      const float w1 = __ldg(BW + kOffAlphaWT + col0 + nt * 8 + 1);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float d0 = s.gr[(mt * 16 + g) * 4 + 3];
+        const float d1 = s.gr[(mt * 16 + g + 8) * 4 + 3];
+        acc[mt][nt][0] = fmaf(d0, w0, acc[mt][nt][0]);
+        acc[mt][nt][1] = fmaf(d0, w1, acc[mt][nt][1]);
+        acc[mt][nt][2] = fmaf(d1, w0, acc[mt][nt][2]);
+        acc[mt][nt][3] = fmaf(d1, w1, acc[mt][nt][3]);
+      }
+    }
+  }
+  const int col0 = (threadIdx.x >> 5) * 32 + 2 * (threadIdx.x & 3);
+  float u[4][4][2][2], lb[4][4];
+  load_u<4, true>(u, U, (threadIdx.x & 31) >> 2, col0);
+  load_lb<4>(lb, LS + o, BI + o, col0);
+  NNC_PROF(2);
+  __syncthreads();
+  NNC_PROF(3);
+  grad_epilogue<4, RELU>(acc, u, lb, s.g, s.part + o, s.part + kU + o, write);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
+                         const float* __restrict__ LS,
+                         const float* __restrict__ BI,
+                         const float* __restrict__ gout,
+                         const float* __restrict__ ws,
+                         float* __restrict__ partials, int n, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdMmaSmem& s = *reinterpret_cast<BwdMmaSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  static_assert(u_offset(kLayerFeature) == kLayerFeature * kW, "u layout");
+  mma::prof_begin();
+  BwdPipe pipe;
+  pipe.start(BW, s.ring);
+  for (int i = tid; i < 2 * kU; i += kThreads) s.part[i] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kM;
+    const float* U = ws + static_cast<size_t>(tile) * (kM * kU);
+    static_assert(kM * 4 == kThreads, "one cotangent per thread");
+    // (the last barrier of the tile before: everyone is done with s.gr)
+    s.gr[tid] = base + tid / 4 < n ? gout[base * 4 + tid] : 0.f;
+    // the view layer's u (128 columns) and the rgb head's next to them
+    prefetch_u(U + u_offset(kLayerViews),
+               (kW / 2 + 3) * static_cast<int>(sizeof(float)));
+    __syncthreads();
+    // the heads, which have no activation: warp c < 3 takes rgb channel c,
+    // warp 3 alpha; their sums, and du = g * ls in place
+    if (warp < 4) {
+      const int o = warp < 3 ? u_offset(kLayerRgb) + warp
+                             : u_offset(kLayerAlpha);
+      const float l = __ldg(LS + o);
+      const float d0 = s.gr[lane * 4 + warp];
+      const float d1 = s.gr[(lane + 32) * 4 + warp];
+      const float u0 = __ldcs(U + static_cast<size_t>(lane) * kU + o);
+      const float u1 = __ldcs(U + static_cast<size_t>(lane + 32) * kU + o);
+      const float sl = mma::warp_sum_all(fmaf(d1, u1, d0 * u0));
+      const float sb = mma::warp_sum_all(d0 + d1);
+      if (lane == 0) {
+        s.part[o] += sl;
+        s.part[kU + o] += sb;
+      }
+      s.gr[lane * 4 + warp] = d0 * l;
+      s.gr[(lane + 32) * 4 + warp] = d1 * l;
+    }
+    __syncthreads();
+    NNC_PROF(0);
+    // dv = du_rgb @ Wr^T (64 x 3 times 3 x 128) on the view layer's
+    // fragments, then the view layer's epilogue -> du_v in s.g cols 0..127
+    {
+      const int g = lane >> 2;
+      const int col0 = warp * 16 + 2 * (lane & 3);
+      float acc[4][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float w[3][2];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            w[c][j] = __ldg(BW + kOffRgbWT + c * (kW / 2) + col0 + nt * 8 + j);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float4 d = *reinterpret_cast<const float4*>(
+                s.gr + (mt * 16 + g + 8 * half) * 4);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              acc[mt][nt][2 * half + j] =
+                  fmaf(d.z, w[2][j], fmaf(d.y, w[1][j], d.x * w[0][j]));
+          }
+      }
+      NNC_PROF(1);
+      constexpr int o = u_offset(kLayerViews);
+      float u[2][4][2][2], lb[2][4];
+      load_u<2, false>(u, U + o, g, col0);
+      load_lb<2>(lb, LS + o, BI + o, col0);
+      grad_epilogue<2, true>(acc, u, lb, s.g, s.part + o, s.part + kU + o,
+                             true);
+    }
+    // dfeature = du_v @ Wv[:256]^T; the feature layer has no activation
+    bwd_layer<false, false>(s, pipe, kW / 2, kLayerFeature, true, BW, LS, BI,
+                            ws, tile);
+    // dh7 = du_f @ Wf^T + du_alpha (x) w_alpha
+    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, tile);
+    // dh_{i} = du_{i+1} @ W_{i+1}^T (layer 5: its 256 rows for h), i = 6..0
+#pragma unroll 1
+    for (int i = 6; i >= 0; --i)
+      bwd_layer<true, false>(s, pipe, kW, i, i > 0, BW, LS, BI, ws, tile);
+    NNC_PROF(8);
+  }
+  pipe.drain();
+  __syncthreads();
+  float* row = partials + static_cast<size_t>(blockIdx.x) * (2 * kU);
+  for (int i = tid; i < 2 * kU; i += kThreads) row[i] = s.part[i];
+  mma::prof_end();
+}
+
+// ------------------------------------------- backward with dW, SIMT float32
+// mlp_train_bwd_kernel<true>: the chain of nerf_mlp.cuh (channel-major
+// activations, weights through L1/L2), reading the workspace the forward
+// above wrote.
+
 
 // acc[r][j] += sum_c x[c][r0 + r] * w[c * ldw + lane + 32 j]: dense's product
 // with a row stride, for the (out, in) weights of the backward.
@@ -534,28 +1015,33 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int G,
   out[col] = acc;
 }
 
-template <bool WITH_DW>
-int launch_bwd(const float* P, const float* PT, const float* LS,
-               const float* pts, const float* dirs, const float* g,
-               const float* ws, float* partials, float* out, int n, int G,
-               cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(BwdSmem)) +
-                   (WITH_DW ? kW * kLd * static_cast<int>(sizeof(float)) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_bwd_kernel<WITH_DW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int stride = (WITH_DW ? kWt : 0) + 2 * kU;
-  if (n > 0) {
-    mlp_train_bwd_kernel<WITH_DW><<<G, kThreads, smem, stream>>>(
-        P, PT, LS, pts, dirs, g, ws, partials, n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    G = 0;
-  }
+int reduce_rows(const float* partials, int G, int stride, float* out,
+                cudaStream_t stream) {
   reduce_rows_kernel<<<(stride + 255) / 256, 256, 0, stream>>>(partials, G,
                                                                stride, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SAVE>
+int launch_fwd(const float* fw, const float* ls, const float* bi,
+               const float* pts, const float* dirs, float* out, float* ws,
+               int n, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(FwdSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_fwd_kernel<SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int tiles = (n + kM - 1) / kM;
+    mlp_train_fwd_kernel<SAVE><<<tiles < sms ? tiles : sms, kThreads, smem,
+                                 stream>>>(fw, ls, bi, pts, dirs, out, ws, n,
+                                           tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,35 +1053,86 @@ extern "C" int nnc_train_sizes(int* u_size, int* wt_size) {
   return 0;
 }
 
-// pts, dirs: (n, 3); out: (n, 4) [rgb logits, sigma]; ws: null, or
-// (ceil(n / 64) * 64, 2,436) for the backward's u.
-extern "C" int nnc_mlp_train_fwd(const float* params, const float* ls,
-                                 const float* pts, const float* dirs,
-                                 float* out, float* ws, int n, void* stream) {
-  const int smem = static_cast<int>(sizeof(FwdSmem));
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    const int grid = (n + kM - 1) / kM;
-    mlp_train_fwd_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        params, ls, pts, dirs, out, ws, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Lengths of the two buffers of pack_train_mma.
+extern "C" int nnc_train_mma_sizes(int* fwd_size, int* bwd_size) {
+  *fwd_size = mma::kMmaParamsSize;
+  *bwd_size = kBwdParamsSize;
+  return 0;
 }
 
-// g: (n, 4) cotangent of out; ws from nnc_mlp_train_fwd; partials:
-// (G, stride) scratch; out: (stride,) = [dW (593,408, each layer (out, in),
-// with_dw only), dls (2,436), db (2,436)].
-extern "C" int nnc_mlp_train_bwd(const float* params, const float* params_t,
-                                 const float* ls, const float* pts,
-                                 const float* dirs, const float* g,
-                                 const float* ws, float* partials, float* out,
-                                 int n, int G, int with_dw, void* stream) {
+#ifdef NNC_MMA_PROFILE
+// Reads the clock sums of the launches so far into out[kProfSlots] and
+// zeroes them (nerf_mlp_mma.cuh, NNC_PROF).
+extern "C" int nnc_train_profile(unsigned long long* out) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(out, mma::prof_total, sizeof(mma::prof_total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[mma::kProfSlots] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(mma::prof_total, zero, sizeof(zero)));
+}
+#endif
+
+// fw: the forward half of pack_train_mma, 16-byte aligned; ls, bi: scales
+// and biases (2,436 each); pts, dirs: (n, 3); out: (n, 4) [rgb logits,
+// sigma]; ws: null, or (ceil(n / 64) * 64, 2,436) for the backward's u.
+extern "C" int nnc_mlp_train_fwd(const float* fw, const float* ls,
+                                 const float* bi, const float* pts,
+                                 const float* dirs, float* out, float* ws,
+                                 int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dw ? launch_bwd<true>(params, params_t, ls, pts, dirs, g, ws,
-                                    partials, out, n, G, st)
-                 : launch_bwd<false>(params, params_t, ls, pts, dirs, g, ws,
-                                     partials, out, n, G, st);
+  return ws != nullptr
+             ? launch_fwd<true>(fw, ls, bi, pts, dirs, out, ws, n, st)
+             : launch_fwd<false>(fw, ls, bi, pts, dirs, out, ws, n, st);
+}
+
+// The backward without dW. bw: the backward half of pack_train_mma, 16-byte
+// aligned; g: (n, 4) cotangent of out; ws from nnc_mlp_train_fwd; partials:
+// (G, 4,872) scratch; out: (4,872,) = [dls (2,436), db (2,436)].
+extern "C" int nnc_mlp_train_bwd_mma(const float* bw, const float* ls,
+                                     const float* bi, const float* g,
+                                     const float* ws, float* partials,
+                                     float* out, int n, int G, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(sizeof(BwdMmaSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    mlp_train_bwd_mma_kernel<<<G, kThreads, smem, st>>>(
+        bw, ls, bi, g, ws, partials, n, (n + kM - 1) / kM);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    G = 0;
+  }
+  return reduce_rows(partials, G, 2 * kU, out, st);
+}
+
+// The backward with dW. params, params_t: the buffers of pack_train; the
+// rest as above, with partials (G, stride) and out (stride,) =
+// [dW (593,408, each layer (out, in)), dls (2,436), db (2,436)].
+extern "C" int nnc_mlp_train_bwd_dw(const float* params,
+                                    const float* params_t, const float* ls,
+                                    const float* pts, const float* dirs,
+                                    const float* g, const float* ws,
+                                    float* partials, float* out, int n, int G,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(sizeof(BwdSmem)) +
+                   kW * kLd * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_bwd_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    mlp_train_bwd_kernel<true><<<G, kThreads, smem, st>>>(
+        params, params_t, ls, pts, dirs, g, ws, partials, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    G = 0;
+  }
+  return reduce_rows(partials, G, kWt + 2 * kU, out, st);
 }

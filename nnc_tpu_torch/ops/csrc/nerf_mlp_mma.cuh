@@ -1,12 +1,16 @@
 // The flagship NeRF MLP (D=8, W=256, skip at layer 4, view head; posenc
 // 10/4 frequencies) on a tile of 64 points with its products on the tensor
-// cores at float32 accuracy. Used by mlp_from_points.cu (K-B3) and
-// render_pass.cu (K-B2).
+// cores at float32 accuracy. Used by mlp_from_points.cu (K-B3),
+// render_pass.cu (K-B2) and mlp_train.cu (K-B1: the training forward and
+// the backward without dW take the ring, the split, the fragment loads and
+// the product loops, mma_segment, from here and bring epilogues of their
+// own, because training keeps u = x @ W apart from its scale and bias).
 //
 // Replaces, for those two kernels, the SIMT chain of nerf_mlp.cuh (dense /
 // accumulate / mlp_tile: float32 FMAs, weights re-read from L1/L2 by __ldg at
 // every k step, three 64 x 256 buffers in shared memory), which
-// mlp_embedded.cu (K-B5) and mlp_tp_pair.cu (K-B6) keep. It computes the same
+// mlp_embedded.cu (K-B5), mlp_tp_pair.cu (K-B6) and K-B1's backward with dW
+// keep. It computes the same
 // function as the Pallas bodies _kernel_pts (nnc_tpu/ops/mlp_pallas.py:238)
 // and _make_kernel (nnc_tpu/ops/render_pallas.py:88).
 //
@@ -183,8 +187,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // copies for the next tile are under way while this one finishes. A warp
 // reads only its own eighth of a slab (its output channels), which is
 // contiguous in the packed buffer, and copies just that eighth itself: the
-// ring needs no barrier across warps, only the warp's own wait.
-struct Pipe {
+// ring needs no barrier across warps, only the warp's own wait. SLABS: the
+// length of the schedule (kSlabs for the forward chain; the training
+// backward of mlp_train.cu walks a schedule of its own).
+template <int SLABS>
+struct PipeT {
   const float* src;   // this lane's first 16 bytes of slab 0
   float* dst;         // the same place in ring stage 0
   int next;           // schedule index of the slab acquire() returns next
@@ -216,12 +223,12 @@ struct Pipe {
     cp_async_wait<kStages - 2>();
     __syncwarp();
     int ahead = next + kStages - 1;
-    if (ahead >= kSlabs) ahead -= kSlabs;
+    if (ahead >= SLABS) ahead -= SLABS;
     int free_stage = stage + kStages - 1;
     if (free_stage >= kStages) free_stage -= kStages;
     issue(ahead, free_stage);
     const float* cur = dst + stage * kSlab - (threadIdx.x & 31) * 4;
-    if (++next == kSlabs) next = 0;
+    if (++next == SLABS) next = 0;
     if (++stage == kStages) stage = 0;
     return cur;
   }
@@ -229,6 +236,7 @@ struct Pipe {
   // Waits for the copies still in flight (before the CTA exits).
   __device__ __forceinline__ void drain() { cp_async_wait<0>(); }
 };
+using Pipe = PipeT<kSlabs>;
 
 // x = hi + lo: hi = x rounded to nearest (ties away from zero) to TF32's
 // 10-bit mantissa, lo the exact float32 rest, of which the tensor core reads
@@ -369,8 +377,9 @@ __device__ __forceinline__ void mma_slab(float (&acc)[4][NT][4],
 
 // acc += x[:, 0..K) @ (the next ceil(K / rows-per-slab) slabs).
 // K % kGroup == 0.
-template <int NT>
-__device__ __forceinline__ void mma_segment(Pipe& pipe, float (&acc)[4][NT][4],
+template <int NT, class PipeType>
+__device__ __forceinline__ void mma_segment(PipeType& pipe,
+                                            float (&acc)[4][NT][4],
                                             const float* __restrict__ x,
                                             int ld, int K) {
   constexpr int kRows = kSlab / (64 * NT);   // 32 (NT = 4) or 64 (NT = 2)

@@ -218,33 +218,40 @@ _MMA_BIASES = tuple(f"pts_linears.{i}" for i in range(8)) + (
     "feature_linear", "views_linears.0")
 
 
+def fragment_index(base, ld, rows, padded, n_out, pad):
+    """Where a run of k steps finds its values: for B (rows, n_out) stored
+    row-major at ``base`` with row stride ``ld``, the index of every float of
+    the run's slabs, in the order [slab][warp][k step of the slab][n-tile
+    pair][lane][nt % 2][r]; ``pad`` for the zero rows rows..padded."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    nt_n = n_out // 64
+    per_slab = 16 // nt_n             # k steps in a slab
+    ks = np.arange(-(-padded // (8 * per_slab)) * per_slab)
+    # [ks][warp][q][lane][nt2][r]; rows past the run are zero padding
+    row = (16 * (ks // 2) + 2 * (ks % 2))[:, None, None, None, None, None] \
+        + (4 * t)[None, None, None, :, None, None] \
+        + np.arange(2)[None, None, None, None, None, :]
+    col = (8 * nt_n * np.arange(8))[None, :, None, None, None, None] \
+        + (16 * np.arange(nt_n // 2))[None, None, :, None, None, None] \
+        + (8 * np.arange(2))[None, None, None, None, :, None] \
+        + g[None, None, None, :, None, None]
+    idx = np.where(row < rows, base + row * ld + col, pad)
+    # -> [slab][warp][k step of the slab][q][lane][nt2][r]
+    return idx.reshape(-1, per_slab, 8, nt_n // 2, 32, 2, 2) \
+        .transpose(0, 2, 1, 3, 4, 5, 6).reshape(-1)
+
+
 def _mma_index():
     """For every float of the fragment-ordered buffer, the index of its value
     in pack_weights' buffer, or PARAMS_SIZE where it is zero padding."""
     segs = {name: (din, dout, off) for name, din, dout, off
             in _segments(FLAGSHIP)[0]}
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
     parts = []
     for name, row0, rows, padded in MMA_RUNS:
         _din, dout, off = segs[name]
-        nt_n = dout // 64
-        per_slab = 16 // nt_n             # k steps in a slab
-        ks = np.arange(-(-padded // (8 * per_slab)) * per_slab)
-        # [ks][warp][q][lane][nt2][r]; rows past the run are zero padding
-        row = (16 * (ks // 2) + 2 * (ks % 2))[:, None, None, None, None, None] \
-            + (4 * t)[None, None, None, :, None, None] \
-            + np.arange(2)[None, None, None, None, None, :]
-        col = (8 * nt_n * np.arange(8))[None, :, None, None, None, None] \
-            + (16 * np.arange(nt_n // 2))[None, None, :, None, None, None] \
-            + (8 * np.arange(2))[None, None, None, None, :, None] \
-            + g[None, None, None, :, None, None]
-        idx = np.where(row < rows, off + (row0 + row) * dout + col,
-                       PARAMS_SIZE)
-        # -> [slab][warp][k step of the slab][q][lane][nt2][r]
-        idx = idx.reshape(-1, per_slab, 8, nt_n // 2, 32, 2, 2) \
-            .transpose(0, 2, 1, 3, 4, 5, 6)
-        parts.append(idx.reshape(-1))
+        parts.append(fragment_index(off + row0 * dout, dout, rows, padded,
+                                    dout, PARAMS_SIZE))
     for name in _MMA_BIASES:
         din, dout, off = segs[name]
         parts.append(off + din * dout + np.arange(dout))

@@ -15,26 +15,42 @@ without any product over the weights. :func:`fused_nerf_mlp_train` is a
 * points and view directions get none (they are data);
 * configurations other than the flagship take the plain MLP.
 
-The kernels (``csrc/mlp_train.cu``) read three packed buffers:
-``params``, the layout of :func:`mlp_fused.pack_weights` without the scales
-folded in; ``params_t``, every layer's weight in torch's (out, in) layout,
-concatenated in layer order, for the backward's input gradients; ``ls``,
-every layer's scales concatenated (the ``U_OFFSETS`` layout, which is also
-that of the forward's per-point workspace of ``u`` and of the gradients).
-The plain versions read the same buffers, so the CPU tests check the layout
-the kernels read. On CPU tensors the wrappers run the plain versions; the
-plain backward recomputes the forward, as the TPU kernel does, where the
-CUDA forward leaves ``u`` in a workspace for its backward.
+The forward and the backward without dW run their products on the tensor
+cores as three TF32 products each (``csrc/mlp_train.cu`` on
+``csrc/nerf_mlp_mma.cuh``) and read the weights in ``mma.sync`` fragment
+order, :func:`pack_train_mma`: the unscaled weights in
+:func:`mlp_fused.repack_mma`'s order for the forward, and torch's (out, in)
+weights, the row-major B of ``dx = du @ W^T``, as a second stream of slabs
+for the backward. Both depend on the twelve weight tensors only, which LSA
+and fine-tuning without dW never change, so :data:`TRAIN_PACKS` keeps them
+from step to step; the scales and biases go in as two vectors in the
+``U_OFFSETS`` layout, which is also that of the forward's per-point
+workspace of ``u`` and of the gradients. The backward with dW keeps the SIMT
+kernel and the three buffers of :func:`pack_train`: ``params``, the layout
+of :func:`mlp_fused.pack_weights` without the scales folded in;
+``params_t``, every layer's weight in (out, in), concatenated in layer
+order; ``ls``. The plain versions read those three too, and
+:func:`unpack_train_mma` reads the fragment order back, so the CPU tests
+check the layouts the kernels read; :func:`mlp_train_fwd_3xtf32_plain` and
+:func:`mlp_train_bwd_3xtf32_plain` model the tensor-core arithmetic. On CPU
+tensors the wrappers run the plain versions; the plain backward recomputes
+the forward, as the TPU kernel does, where the CUDA forward leaves ``u`` in
+a workspace for its backward.
 """
 from __future__ import annotations
 
+import collections
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models import nerf
 from . import _build
-from .mlp_fused import (FLAGSHIP, PARAMS_SIZE, PLAIN_CHUNK, _check, _segments,
-                        supports, unpack_weights)
+from .mlp_fused import (FLAGSHIP, MMA_PARAMS_SIZE, MMA_SLAB, PARAMS_SIZE,
+                        PLAIN_CHUNK, _check, _segments, fragment_index,
+                        matmul_3xtf32_plain, repack_mma, supports,
+                        unpack_weights, unpack_weights_mma)
 from .posenc import positional_encoding
 
 _DIMS = list(nerf._layer_dims(FLAGSHIP).items())   # [(name, (in, out))]
@@ -82,6 +98,124 @@ def pack_train(weights, biases, scales):
     return params, params_t, ls
 
 
+# --- the tensor-core kernels' weights (csrc/mlp_train.cu) ------------------
+# The backward's slab stream, in the order the reverse chain consumes it:
+# (layer, first input column, input columns). dx = du @ W^T reads torch's
+# (out, in) weight as a row-major B of (out rows, in columns); the view layer
+# passes a gradient to its 256 feature inputs only, layer 5 to its 256 inputs
+# from h (not to the embedding), layer 0 to none.
+BWD_RUNS = ([("views_linears.0", 0, 256), ("feature_linear", 0, 256)]
+            + [(f"pts_linears.{i}", 63 if i == 5 else 0, 256)
+               for i in range(7, 0, -1)])
+BWD_SLABS = 68   # then alpha's 256 weights and rgb's (3, 128)
+
+
+def _bwd_index():
+    """For every float of the backward's buffer, the index of its value in
+    ``params_t`` (every run is whole k steps: there is no padding)."""
+    dims = dict(_DIMS)
+    parts = []
+    for name, col0, n_in in BWD_RUNS:
+        din, dout = dims[name]
+        parts.append(fragment_index(WT_OFFSETS[NAMES.index(name)] + col0, din,
+                                    dout, dout, n_in, WT_SIZE))
+    for name in ("alpha_linear", "rgb_linear"):
+        din, dout = dims[name]
+        parts.append(WT_OFFSETS[NAMES.index(name)] + np.arange(din * dout))
+    return np.concatenate(parts).astype(np.int64)
+
+
+BWD_INDEX = _bwd_index()
+BWD_PARAMS_SIZE = BWD_INDEX.size
+assert BWD_PARAMS_SIZE == BWD_SLABS * MMA_SLAB + 256 + 3 * 128 \
+    and BWD_PARAMS_SIZE % 64 == 0 and BWD_INDEX.max() < WT_SIZE
+# every layer's bias in ``params``, in the U_OFFSETS layout
+BIAS_INDEX = np.concatenate([off + din * dout + np.arange(dout)
+                             for _name, din, dout, off
+                             in _segments(FLAGSHIP)[0]]).astype(np.int64)
+_index_on = {}   # (which, device) -> the index as a tensor there
+
+
+def _gather(flat, which, index):
+    key = (which, flat.device)
+    if key not in _index_on:
+        _index_on[key] = torch.from_numpy(index).to(flat.device)
+    return flat[_index_on[key]]
+
+
+def repack_mma_t(params_t: torch.Tensor) -> torch.Tensor:
+    """``params_t`` (every layer's (out, in) weight, concatenated) in the
+    order the backward without dW reads it: one gather."""
+    _check("params_t", params_t, (WT_SIZE,))
+    return _gather(params_t, "bwd", BWD_INDEX)
+
+
+def gather_biases(params: torch.Tensor) -> torch.Tensor:
+    """Every layer's bias out of ``params``, concatenated (U_OFFSETS)."""
+    return _gather(params, "bias", BIAS_INDEX)
+
+
+def pack_train_mma(weights):
+    """(forward buffer, backward buffer) of the tensor-core kernels from each
+    layer's weight (out, in), in layer order: :func:`mlp_fused.repack_mma` of
+    the unscaled weights (its bias block left zero: the biases go to the
+    kernel as a vector) and :func:`repack_mma_t`."""
+    zeros = [w.new_zeros(w.shape[0]) for w in weights]
+    params, params_t, _ = pack_train(weights, zeros, zeros)
+    return repack_mma(params), repack_mma_t(params_t)
+
+
+def unpack_train_mma(packed_fwd, packed_bwd):
+    """({name: w (in, out)}, {name: w (out, in)}) read back from the buffers
+    of :func:`pack_train_mma`. The second holds zeros where the backward has
+    no use for a weight (layer 0, the embedding columns of layer 5 and the
+    view columns of the view layer)."""
+    fwd = {name: w for name, (w, _b)
+           in unpack_weights_mma(packed_fwd).items()}
+    _check("packed_bwd", packed_bwd, (BWD_PARAMS_SIZE,))
+    flat = packed_bwd.new_zeros(WT_SIZE)
+    flat[torch.from_numpy(BWD_INDEX).to(packed_bwd.device)] = packed_bwd
+    return fwd, _views(flat, WT_OFFSETS,
+                       [(dout, din) for _, (din, dout) in _DIMS])
+
+
+class TrainPackCache:
+    """:func:`pack_train_mma` of a model's twelve weight tensors, kept while
+    they stay what they were: the same tensor objects at the same version
+    (``Tensor._version``, which every in-place update bumps), on the same
+    device and storage. Scales and biases are no part of the key, so an LSA
+    run packs once. An entry holds its tensors, so their ids cannot pass to
+    other objects while it lives; the ``size`` most recently used entries are
+    kept. The cached buffers are shared between calls: read them, never
+    write them."""
+
+    def __init__(self, size: int = 8):
+        self._entries = collections.OrderedDict()
+        self._size = size
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, weights):
+        weights = tuple(weights)
+        key = tuple(id(w) for w in weights)
+        state = [(w._version, w.device, w.data_ptr()) for w in weights]
+        entry = self._entries.get(key)
+        if entry is not None and entry[1] == state:
+            self.hits += 1
+            self._entries.move_to_end(key)
+            return entry[2]
+        self.misses += 1
+        value = pack_train_mma(weights)
+        self._entries[key] = (weights, state, value)
+        self._entries.move_to_end(key)   # also when the key was there
+        while len(self._entries) > self._size:
+            self._entries.popitem(last=False)
+        return value
+
+
+TRAIN_PACKS = TrainPackCache()
+
+
 def _layer_tensors(model: nerf.NeRF):
     """Each layer's (weight, bias, scales (out, 1)), ones where a layer has
     no scales, flattened in layer order."""
@@ -124,19 +258,20 @@ def _unpack(params, ls, params_t=None):
     return L, S, WT
 
 
-def _chain(L, S, pe, ve, keep=False):
+def _chain(L, S, pe, ve, keep=False, mm=torch.matmul):
     """The training MLP on embedded points in output-scaling form; with
     ``keep`` also what the reverse chain needs (mlp_train_pallas.py
-    _fwd_chain)."""
+    _fwd_chain). ``mm(x, w)`` computes the products of the ten wide layers,
+    the two small heads are always exact float32."""
     h_list, u_list = [], []
     x = pe
     for i in range(8):
         name = f"pts_linears.{i}"
         w, b = L[name]
         if i == 5:
-            u = pe @ w[:pe.shape[-1]] + x @ w[pe.shape[-1]:]
+            u = mm(pe, w[:pe.shape[-1]]) + mm(x, w[pe.shape[-1]:])
         else:
-            u = x @ w
+            u = mm(x, w)
         x = F.relu(u * S[name] + b)
         h_list.append(x)
         u_list.append(u)
@@ -144,10 +279,10 @@ def _chain(L, S, pe, ve, keep=False):
     u_a = x @ wa
     alpha = u_a * S["alpha_linear"] + ba
     wf, bf = L["feature_linear"]
-    u_f = x @ wf
+    u_f = mm(x, wf)
     feature = u_f * S["feature_linear"] + bf
     wv, bv = L["views_linears.0"]
-    u_v = feature @ wv[:feature.shape[-1]] + ve @ wv[feature.shape[-1]:]
+    u_v = mm(feature, wv[:feature.shape[-1]]) + mm(ve, wv[feature.shape[-1]:])
     v = F.relu(u_v * S["views_linears.0"] + bv)
     wr, br = L["rgb_linear"]
     u_r = v @ wr
@@ -159,21 +294,40 @@ def _chain(L, S, pe, ve, keep=False):
                      u_v=u_v, v=v, u_r=u_r)
 
 
-def mlp_train_fwd_plain(params, ls, pts, dirs):
+def mlp_train_fwd_plain(params, ls, pts, dirs, mm=torch.matmul):
     """Plain PyTorch version of the K-B1 forward: raw (N, 4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L, S, _ = _unpack(params, ls)
     outs = [_chain(L, S, positional_encoding(pts[s:s + PLAIN_CHUNK], 10),
-                   positional_encoding(dirs[s:s + PLAIN_CHUNK], 4))
+                   positional_encoding(dirs[s:s + PLAIN_CHUNK], 4), mm=mm)
             for s in range(0, pts.shape[0], PLAIN_CHUNK)]
     return torch.cat(outs) if outs else pts.new_zeros((0, 4))
 
 
-def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool):
+def mlp_train_fwd_3xtf32_plain(params, ls, pts, dirs):
+    """The K-B1 forward as the tensor-core kernel computes it: every product
+    of the ten wide layers through :func:`mlp_fused.matmul_3xtf32_plain`,
+    the heads in float32. For the tests; nothing on the main path calls it."""
+    return mlp_train_fwd_plain(params, ls, pts, dirs, mm=matmul_3xtf32_plain)
+
+
+def mlp_train_bwd_3xtf32_plain(params, params_t, ls, pts, dirs, g):
+    """The K-B1 backward without dW as the tensor-core kernel computes it:
+    the forward of :func:`mlp_train_fwd_3xtf32_plain` and every ``du @ W^T``
+    of the wide layers through :func:`mlp_fused.matmul_3xtf32_plain` (the
+    rank-1 alpha term and the rgb head's 3 x 128 in float32). Returns
+    [dls, db]."""
+    return mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, False,
+                               mm=matmul_3xtf32_plain)
+
+
+def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
+                        mm=torch.matmul):
     """Plain PyTorch version of the K-B1 backward: the explicit reverse chain
     of mlp_train_pallas.py _make_bwd_kernel (the forward recomputed), summed
     over all points. Returns the flat gradient [dW (with_dw: each layer's
-    (out, in)), dls, db]."""
+    (out, in)), dls, db]. ``mm``: as in :func:`_chain`, for the forward's
+    wide products and the reverse chain's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L, S, WT = _unpack(params, ls, params_t)
     zeros = lambda shape: torch.zeros(shape, device=pts.device)
@@ -185,7 +339,7 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool):
     for s in range(0, pts.shape[0], PLAIN_CHUNK):
         pe = positional_encoding(pts[s:s + PLAIN_CHUNK], 10)
         ve = positional_encoding(dirs[s:s + PLAIN_CHUNK], 4)
-        _out, r = _chain(L, S, pe, ve, keep=True)
+        _out, r = _chain(L, S, pe, ve, keep=True, mm=mm)
         gc = g[s:s + PLAIN_CHUNK]
         h = r["h"]
 
@@ -204,9 +358,10 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool):
         dh = du_a @ WT["alpha_linear"]
         du_v = layer("views_linears.0", dv * (r["v"] > 0), r["u_v"],
                      lambda: torch.cat([r["feature"], ve], -1))
-        dfeature = du_v @ WT["views_linears.0"][:, :r["feature"].shape[-1]]
+        dfeature = mm(du_v,
+                      WT["views_linears.0"][:, :r["feature"].shape[-1]])
         du_f = layer("feature_linear", dfeature, r["u_f"], lambda: h[7])
-        dh = dh + du_f @ WT["feature_linear"]
+        dh = dh + mm(du_f, WT["feature_linear"])
         for i in range(7, -1, -1):
             name = f"pts_linears.{i}"
             x = (lambda: pe) if i == 0 else \
@@ -214,7 +369,7 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool):
                 (lambda i=i: h[i - 1])
             du = layer(name, dh * (h[i] > 0), r["u"][i], x)
             if i > 0:
-                dh = du @ (WT[name][:, n_pe:] if i == 5 else WT[name])
+                dh = mm(du, WT[name][:, n_pe:] if i == 5 else WT[name])
 
     parts = [dW[n].reshape(-1) for n in NAMES] if with_dw else []
     parts += [dls[n] for n in NAMES] + [db[n] for n in NAMES]
@@ -222,27 +377,61 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool):
 
 
 # ------------------------------------------------------------ the kernels
-def _check_inputs(params, ls, pts, dirs):
+def _check_inputs(ls, pts, dirs, *more):
     n = pts.shape[0]
-    _check("params", params, (PARAMS_SIZE,))
     _check("ls", ls, (U_SIZE,))
     _check("pts", pts, (n, 3))
     _check("dirs", dirs, (n, 3))
-    if not (params.device == ls.device == pts.device == dirs.device):
-        raise ValueError("params, ls, pts and dirs must be on one device")
+    if any(t.device != pts.device for t in (ls, dirs, *more)):
+        raise ValueError("the weights, ls, pts and dirs must be on one device")
     if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {pts.device}")
     return n
 
 
-def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False):
+def _kernel_buffer(name, buf, size, made_from, make):
+    """A fragment-ordered buffer a tensor-core kernel launches with: ``buf``
+    checked (``cp.async`` copies it 16 bytes at a time), or, if None, made
+    by ``make`` from the :func:`pack_train` buffer ``made_from``."""
+    if buf is None:
+        if made_from is None:
+            raise ValueError(f"{name}: neither it nor the buffer it is made "
+                             "from was given")
+        buf = make(made_from)
+    _check(name, buf, (size,))
+    if buf.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return buf
+
+
+def _biases(biases, params):
+    if biases is None:
+        biases = gather_biases(params)
+    _check("biases", biases, (U_SIZE,))
+    return biases
+
+
+def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False,
+                  packed_mma=None, biases=None):
     """K-B1 forward wrapper: (raw (N, 4), workspace). With ``save_u`` the
     kernel also writes every layer's u per point, (ceil(N / 64) * 64,
-    U_SIZE), for :func:`mlp_train_bwd`; else the workspace is None. CPU
-    tensors take the plain version (no workspace)."""
-    n = _check_inputs(params, ls, pts, dirs)
+    U_SIZE), for :func:`mlp_train_bwd`; else the workspace is None.
+
+    CUDA tensors launch the kernel, which reads ``packed_mma`` (the forward
+    buffer of :func:`pack_train_mma`) and ``biases`` (U_SIZE,); each is made
+    from ``params`` here if not given, and ``params`` may be None if both
+    are. CPU tensors take the plain version on ``params`` (no workspace)."""
+    given = [t for t in (params, packed_mma, biases) if t is not None]
+    n = _check_inputs(ls, pts, dirs, *given)
+    if params is not None:
+        _check("params", params, (PARAMS_SIZE,))
     if pts.device.type == "cpu":
+        if params is None:
+            raise ValueError("the plain version reads params")
         return mlp_train_fwd_plain(params, ls, pts, dirs), None
+    packed_mma = _kernel_buffer("packed_mma", packed_mma, MMA_PARAMS_SIZE,
+                                params, repack_mma)
+    biases = _biases(biases, params)
     lib = _build.lib()
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     ws = torch.empty((_padded(n), U_SIZE), dtype=torch.float32,
@@ -251,28 +440,48 @@ def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch("mlp_train_fwd")
         _build.check(lib.nnc_mlp_train_fwd(
-            params.data_ptr(), ls.data_ptr(), pts.data_ptr(), dirs.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(), n, stream),
+            packed_mma.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+            pts.data_ptr(), dirs.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, stream),
             "mlp_train_fwd")
     return out, ws
 
 
-def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool):
+def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
+                  packed_mma_t=None, biases=None):
     """K-B1 backward wrapper: the flat gradient [dW (with_dw), dls, db] for
     the raw cotangent ``g`` (N, 4). CUDA tensors need the forward's
-    workspace ``ws``; CPU tensors take the plain version."""
-    n = _check_inputs(params, ls, pts, dirs)
-    _check("params_t", params_t, (WT_SIZE,))
+    workspace ``ws``; CPU tensors take the plain version.
+
+    On CUDA tensors without dW the tensor-core kernel reads ``packed_mma_t``
+    (the backward buffer of :func:`pack_train_mma`) and ``biases``
+    (U_SIZE,), made here from ``params_t`` and ``params`` if not given (each
+    of which may be None if its buffer is); with dW the SIMT kernel reads
+    ``params`` and ``params_t``."""
+    given = [t for t in (params, params_t, packed_mma_t, biases, g)
+             if t is not None]
+    n = _check_inputs(ls, pts, dirs, *given)
+    if params is not None:
+        _check("params", params, (PARAMS_SIZE,))
+    if params_t is not None:
+        _check("params_t", params_t, (WT_SIZE,))
     _check("g", g, (n, 4))
-    if not (params_t.device == g.device == pts.device):
-        raise ValueError("params_t, g and pts must be on one device")
     if pts.device.type == "cpu":
+        if params is None or params_t is None:
+            raise ValueError("the plain version reads params and params_t")
         return mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g,
                                    with_dw)
     if ws is None:
         raise ValueError("the CUDA backward needs the forward's workspace "
                          "(mlp_train_fwd(save_u=True))")
     _check("ws", ws, (_padded(n), U_SIZE))
+    if with_dw:
+        if params is None or params_t is None:
+            raise ValueError("the backward with dW reads params and params_t")
+    else:
+        packed_mma_t = _kernel_buffer("packed_mma_t", packed_mma_t,
+                                      BWD_PARAMS_SIZE, params_t, repack_mma_t)
+        biases = _biases(biases, params)
     lib = _build.lib()
     sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
     grid = min(_padded(n) // TILE, sms)
@@ -283,38 +492,53 @@ def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool):
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch("mlp_train_bwd")
-        _build.check(lib.nnc_mlp_train_bwd(
-            params.data_ptr(), params_t.data_ptr(), ls.data_ptr(),
-            pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), ws.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), n, grid, int(with_dw),
-            stream), "mlp_train_bwd")
+        if with_dw:
+            status = lib.nnc_mlp_train_bwd_dw(
+                params.data_ptr(), params_t.data_ptr(), ls.data_ptr(),
+                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                partials.data_ptr(), out.data_ptr(), n, grid, stream)
+        else:
+            status = lib.nnc_mlp_train_bwd_mma(
+                packed_mma_t.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+                g.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+                out.data_ptr(), n, grid, stream)
+        _build.check(status, "mlp_train_bwd")
     return out
 
 
 class _TrainMLP(torch.autograd.Function):
-    """raw = MLP(pts, dirs) over the flat per-layer (weight, bias, scales)."""
+    """raw = MLP(pts, dirs) over the flat per-layer (weight, bias, scales).
+    ``packs``: :func:`pack_train_mma` of the weights for CUDA tensors (the
+    kernels then need no other packing of them, but for dW), None for CPU
+    tensors, which pack for the plain versions."""
 
     @staticmethod
-    def forward(ctx, pts, dirs, with_dw, *tensors):
-        weights = tensors[0::3]
-        params, _, ls = pack_train(weights, tensors[1::3], tensors[2::3])
+    def forward(ctx, pts, dirs, with_dw, packs, *tensors):
+        weights, biases, scales = tensors[0::3], tensors[1::3], tensors[2::3]
+        params = params_t = b = None
+        if packs is None or with_dw:
+            params, params_t, ls = pack_train(weights, biases, scales)
+        if packs is not None:
+            ls = torch.cat([t.reshape(-1).float() for t in scales])
+            b = torch.cat([t.float() for t in biases])
         raw, ws = mlp_train_fwd(params, ls, pts, dirs,
-                                save_u=pts.device.type == "cuda")
+                                save_u=packs is not None,
+                                packed_mma=packs and packs[0], biases=b)
         ctx.with_dw = with_dw
-        ctx.scale_shapes = [t.shape for t in tensors[2::3]]
-        ctx.save_for_backward(pts, dirs, params, ls, *weights,
-                              *([] if ws is None else [ws]))
+        ctx.scale_shapes = [t.shape for t in scales]
+        ctx.buffers = (params, params_t, b, packs and packs[1], ws)
+        ctx.save_for_backward(pts, dirs, ls, *weights)
         return raw
 
     @staticmethod
     def backward(ctx, g):
-        pts, dirs, params, ls, *rest = ctx.saved_tensors
-        weights, ws = rest[:len(NAMES)], (rest[len(NAMES):] or [None])[0]
-        params_t = torch.cat([w.reshape(-1).float() for w in weights])
+        pts, dirs, ls, *weights = ctx.saved_tensors
+        params, params_t, b, packed_mma_t, ws = ctx.buffers
         flat = mlp_train_bwd(params, params_t, ls, pts, dirs,
-                             g.float().contiguous(), ws, ctx.with_dw)
+                             g.float().contiguous(), ws, ctx.with_dw,
+                             packed_mma_t=packed_mma_t, biases=b)
         dW, dls, db = split_grads(flat, ctx.with_dw)
-        need = ctx.needs_input_grad[3:]
+        need = ctx.needs_input_grad[4:]
         grads = []
         for i, name in enumerate(NAMES):
             gw = dW[name] if dW is not None else torch.zeros_like(weights[i])
@@ -322,7 +546,7 @@ class _TrainMLP(torch.autograd.Function):
                       db[name] if need[3 * i + 1] else None,
                       dls[name].reshape(ctx.scale_shapes[i])
                       if need[3 * i + 2] else None]
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
@@ -332,13 +556,16 @@ def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
     pts: (..., 3); viewdirs broadcastable to pts. Returns raw (..., 4)
     float32, with gradients for every layer's ``weight_scaling`` and
     ``bias``, and for ``weight`` only ``with_dw``. Non-flagship
-    configurations take the plain MLP (output-scaling form)."""
+    configurations take the plain MLP (output-scaling form). On CUDA tensors
+    the weights' fragment-ordered buffers come from :data:`TRAIN_PACKS`."""
     vd = torch.broadcast_to(viewdirs, pts.shape)
     if not supports(model.config):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4), output_scaling=True)
     lead = pts.shape[:-1]
+    tensors = _layer_tensors(model)
+    packs = TRAIN_PACKS.get(tensors[0::3]) if pts.is_cuda else None
     raw = _TrainMLP.apply(pts.detach().reshape(-1, 3).float().contiguous(),
                           vd.detach().reshape(-1, 3).float().contiguous(),
-                          with_dw, *_layer_tensors(model))
+                          with_dw, packs, *tensors)
     return raw.reshape(*lead, 4)

@@ -1,5 +1,6 @@
-"""What holds the tensor-core chain of K-B3 / K-B2 (ops/csrc/nerf_mlp_mma.cuh)
-on the card it runs on. Needs a CUDA device and nvcc:
+"""What holds the tensor-core chain of K-B3 / K-B2 / K-B1
+(ops/csrc/nerf_mlp_mma.cuh) on the card it runs on. Needs a CUDA device and
+nvcc:
 
     python -m nnc_tpu_torch.tools.mma_probe
 
@@ -15,7 +16,14 @@ Prints, after the card's name and power limit:
      clock marks (``-DNNC_MMA_PROFILE``): the two times in turns, and the
      share of a tile's clocks spent in each part of the chain;
   3. the SASS opcode counts of the shipped build (how many instructions ride
-     along with each HMMA).
+     along with each HMMA);
+  4. K-B1 (``mlp_train.cu``) at 196,608 points built three ways: as shipped
+     (u staged through shared memory and stored to the workspace as 16-byte
+     coalesced rows), with ``-DNNC_TRAIN_DIRECT_U`` (u stored straight from
+     the fragments, 8 bytes a lane; outputs and workspace must be bit-equal)
+     and with clock marks: the forward's two times in turns and its time without
+     the workspace, the backward's time, and the share of a tile's clocks in
+     each part of the forward and of the backward without dW.
 Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 
 from ..data import synthetic
 from ..models import nerf
-from ..ops import _build, mlp_fused
+from ..ops import _build, mlp_fused, mlp_train_fused
 
 OUT = os.path.join(_build.BUILD_DIR, "mma_probe")
 N_POINTS = 262_144
@@ -38,6 +46,20 @@ PROFILE_SLOTS = ("stage the points in", "embedding", "product loops",
                  "barrier after the products", "epilogue stores",
                  "barrier after the stores", "alpha head",
                  "rgb head and barrier", "store the logits")
+
+N_TRAIN = 196_608
+TRAIN_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
+                   "barrier after the products",
+                   "epilogue: u staged, workspace rows, activations",
+                   "barrier after the stores", "alpha head",
+                   "rgb head and barrier", "store the logits")
+TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
+                   "product loops (and the alpha term)",
+                   "barrier after the products",
+                   "epilogue: u from the workspace, mask, du",
+                   "epilogue: column sums (shuffles, the CTA's row)",
+                   "du to shared memory", "barrier after the stores",
+                   "end of the tile")
 
 MMA_RATE_CU = r"""
 #include <cuda_runtime.h>
@@ -160,6 +182,87 @@ def chain(libs, dev):
               f"{100 * sums[slot] / total:5.1f}%")
 
 
+def _show_clocks(lib_fn, slots, tiles, what):
+    sums = (ctypes.c_ulonglong * len(slots))()
+    assert lib_fn(sums) == 0
+    total = sum(sums)
+    print(f"[4] {what}: clocks of a tile of 64 points by thread 0's marks, "
+          f"{total / tiles:.0f} in all:")
+    for slot, name in enumerate(slots):
+        print(f"      {name:48s} {sums[slot] / tiles:9.0f}  "
+              f"{100 * sums[slot] / total:5.1f}%")
+
+
+def train_pair(libs, dev):
+    g = torch.Generator().manual_seed(4)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    t = mlp_train_fused._layer_tensors(model)
+    params, _params_t, ls = mlp_train_fused.pack_train(t[0::3], t[1::3],
+                                                       t[2::3])
+    fw, bw = mlp_train_fused.pack_train_mma(t[0::3])
+    bi = mlp_train_fused.gather_biases(params)
+    n = N_TRAIN
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-n // 64)
+    grid = min(tiles, sms)
+    size = mlp_train_fused.grad_size(False)
+    partials = torch.empty(grid, size, device=dev)
+    raws = {k: torch.empty(n, 4, device=dev) for k in libs}
+    wss = {k: torch.empty(tiles * 64, mlp_train_fused.U_SIZE, device=dev)
+           for k in ("train", "train_direct")}
+    wss["train_profile"] = wss["train"]
+    flats = {k: torch.empty(size, device=dev) for k in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fwd(name, save=True):
+        rc = libs[name].nnc_mlp_train_fwd(
+            fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
+            vd.data_ptr(), raws[name].data_ptr(),
+            wss[name].data_ptr() if save else None, n, stream)
+        assert rc == 0, (name, rc)
+
+    def bwd(name):
+        rc = libs[name].nnc_mlp_train_bwd_mma(
+            bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
+            wss[name].data_ptr(), partials.data_ptr(),
+            flats[name].data_ptr(), n, grid, stream)
+        assert rc == 0, (name, rc)
+
+    times = [{name: _ms(lambda: fwd(name))
+              for name in ("train", "train_direct")} for _ in range(2)]
+    assert torch.equal(raws["train"], raws["train_direct"]) and \
+        torch.equal(wss["train"], wss["train_direct"]), \
+        "u staged through shared memory and u from the fragments disagree"
+    shown = {name: [f"{x[name]:.3f}" for x in times] for name in times[0]}
+    no_ws = _ms(lambda: fwd("train", save=False))
+    t_bwd = [_ms(lambda: bwd("train")) for _ in range(2)]
+    print(f"[4] K-B1 forward {n} points in turns, ms: u staged through "
+          f"shared memory (16-byte rows, shipped) {shown['train']}, stored "
+          f"from the fragments (8 bytes a lane) {shown['train_direct']}; outputs "
+          f"and workspace bit-equal; without the workspace {no_ws:.3f}; "
+          f"backward without dW {[f'{x:.3f}' for x in t_bwd]}")
+    prof = libs["train_profile"]
+    fwd("train_profile")
+    torch.cuda.synchronize()
+    sums = (ctypes.c_ulonglong * len(TRAIN_FWD_SLOTS))()
+    assert prof.nnc_train_profile(sums) == 0   # warm-up, discarded
+    fwd("train_profile")
+    torch.cuda.synchronize()
+    _show_clocks(prof.nnc_train_profile, TRAIN_FWD_SLOTS, tiles, "forward")
+    bwd("train_profile")
+    torch.cuda.synchronize()
+    assert prof.nnc_train_profile(sums) == 0
+    bwd("train_profile")
+    torch.cuda.synchronize()
+    _show_clocks(prof.nnc_train_profile, TRAIN_BWD_SLOTS, tiles,
+                 "backward without dW")
+
+
 def sass_counts(so):
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
@@ -181,9 +284,12 @@ def main():
     with open(rate_cu, "w") as f:
         f.write(MMA_RATE_CU)
     kb3 = os.path.join(_build.SRC_DIR, "mlp_from_points.cu")
+    kb1 = os.path.join(_build.SRC_DIR, "mlp_train.cu")
     builds = {"issue_rate": (rate_cu,), "shipped": (kb3,),
               "cvt": (kb3, "-DNNC_SPLIT_CVT"),
-              "profile": (kb3, "-DNNC_MMA_PROFILE")}
+              "profile": (kb3, "-DNNC_MMA_PROFILE"), "train": (kb1,),
+              "train_direct": (kb1, "-DNNC_TRAIN_DIRECT_U"),
+              "train_profile": (kb1, "-DNNC_MMA_PROFILE")}
     procs = {name: _compile(args[0], os.path.join(OUT, name + ".so"),
                             *args[1:]) for name, args in builds.items()}
     libs = {}
@@ -199,9 +305,13 @@ def main():
     libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp]
     for name in ("shipped", "cvt", "profile"):
         libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
+    for name in ("train", "train_direct", "train_profile"):
+        libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
+        libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 7 + [ci, ci, vp]
     issue_rate(libs["issue_rate"], dev)
     chain(libs, dev)
     sass_counts(os.path.join(OUT, "shipped.so"))
+    train_pair({k: v for k, v in libs.items() if k.startswith("train")}, dev)
 
 
 if __name__ == "__main__":

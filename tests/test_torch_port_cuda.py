@@ -79,6 +79,10 @@ def test_cuda_build_and_packed_layout(cuda_device):
     _build.lib().nnc_train_sizes(*[ctypes.byref(s) for s in sizes])
     assert [s.value for s in sizes] == [mlp_train_fused.U_SIZE,
                                         mlp_train_fused.WT_SIZE]
+    sizes = [ctypes.c_int() for _ in range(2)]
+    _build.lib().nnc_train_mma_sizes(*[ctypes.byref(s) for s in sizes])
+    assert [s.value for s in sizes] == [mlp_fused.MMA_PARAMS_SIZE,
+                                        mlp_train_fused.BWD_PARAMS_SIZE]
     sizes = [ctypes.c_int() for _ in range(3)]
     _build.lib().nnc_int8_sizes(*[ctypes.byref(s) for s in sizes])
     assert [s.value for s in sizes] == [mlp_fused.INT8_WQ_SIZE,
@@ -360,10 +364,15 @@ def _grads_close(got, want, what):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,with_dw", [(10_000, False), (10_000, True),
-                                       (4096, False)])
+                                       (4096, False), (33, False),
+                                       (16_401, False), (196_608, False)])
 def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
-    """K-B1 forward and backward against the plain versions; n = 10,000 is
-    not a multiple of the 64-point tile (the ragged tail)."""
+    """K-B1 forward and backward against the plain versions; 33, 10,000 and
+    16,401 are no multiples of the 64-point tile (the ragged tail; the last
+    is a mesh shard's size and a bit), 196,608 is the LSA step's fine pass,
+    more tiles than one wave of persistent CTAs takes 23 times over. The
+    forward and the backward without dW run 3xTF32 products: raw within 3e-5
+    of the exact float32 plain version (TOL of K-B3)."""
     model = _fog_model(cuda_device)
     g = torch.Generator().manual_seed(6)
     pts = (2 * torch.randn(n, 3, generator=g)).to(cuda_device)
@@ -380,8 +389,13 @@ def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
     after = _build.launch_counts()
     assert after["mlp_train_fwd"] == before["mlp_train_fwd"] + 1
     assert after["mlp_train_bwd"] == before["mlp_train_bwd"] + 1
+    assert ws.shape == (-(-n // 64) * 64, mlp_train_fused.U_SIZE)
+    assert torch.isfinite(ws).all()
     raw_p = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
-    assert float((raw - raw_p).abs().max()) <= 1e-3
+    assert float((raw - raw_p).abs().max()) <= 3e-5
+    # without the workspace the forward gives the same bits
+    raw0, none = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd)
+    assert none is None and torch.equal(raw0, raw)
     flat_p = mlp_train_fused.mlp_train_bwd_plain(params, params_t, ls, pts,
                                                  vd, cot, with_dw)
     assert flat.shape == flat_p.shape == (mlp_train_fused.grad_size(with_dw),)
@@ -393,10 +407,67 @@ def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
             continue
         for name in got:
             _grads_close(got[name], want[name], f"{part} {name}")
-    # the sum over CTAs is taken in a fixed order: bit-identical reruns
-    again = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts, vd, cot,
-                                          ws, with_dw)
+    # the sum over CTAs is taken in a fixed order: bit-identical reruns,
+    # also from the cached buffers in place of those made from pack_train's
+    packed_mma, packed_mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    again = mlp_train_fused.mlp_train_bwd(
+        None if not with_dw else params, None if not with_dw else params_t,
+        ls, pts, vd, cot, ws, with_dw, packed_mma_t=packed_mma_t,
+        biases=mlp_train_fused.gather_biases(params))
     assert torch.equal(again, flat)
+    raw_c, ws_c = mlp_train_fused.mlp_train_fwd(
+        None, ls, pts, vd, save_u=True, packed_mma=packed_mma,
+        biases=mlp_train_fused.gather_biases(params))
+    assert torch.equal(raw_c, raw) and torch.equal(ws_c, ws)
+
+
+@pytest.mark.cuda
+def test_cuda_train_wrappers_need_their_buffers(cuda_device):
+    pts, vd = _points(64, cuda_device)
+    ls = torch.ones(mlp_train_fused.U_SIZE, device=cuda_device)
+    with pytest.raises(ValueError, match="neither"):
+        mlp_train_fused.mlp_train_fwd(None, ls, pts, vd)
+    packed = torch.zeros(mlp_fused.MMA_PARAMS_SIZE, device=cuda_device)
+    with pytest.raises(ValueError, match="device"):
+        mlp_train_fused.mlp_train_fwd(None, ls, pts, vd,
+                                      packed_mma=packed.cpu(), biases=ls)
+    raw, ws = mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, save_u=True,
+                                            packed_mma=packed, biases=ls)
+    with pytest.raises(ValueError, match="dW"):
+        mlp_train_fused.mlp_train_bwd(None, None, ls, pts, vd, raw, ws, True)
+
+
+@pytest.mark.cuda
+def test_cuda_lsa_run_packs_the_weights_once(cuda_device):
+    """k LSA steps through K-B1 look each model's weight buffers up once a
+    step: two misses (coarse, fine), 2 (k - 1) hits."""
+    from nnc_tpu_torch.train import lsa, presets
+    k = 4
+    g = torch.Generator().manual_seed(9)
+    teachers = tuple(synthetic.make_solid_mlp(noise_std=1e-2, generator=g,
+                                              device=cuda_device)
+                     for _ in range(2))
+    rc = renderer.RenderConfig(n_samples=16, n_importance=16,
+                               white_bkgd=True)
+    scene, _ = synthetic.make_scene(n_images=3, H=24, W=24, rc=rc, near=2.0,
+                                    far=6.0, teachers=teachers,
+                                    device=cuda_device)
+    scene.update(n_importance=16, raw_noise_std=0.0)
+    ex = presets.create_nerf_model_executer(
+        scene=scene, device=cuda_device, use_fused_mlp=True, n_rand=64,
+        n_samples=16, verbose=False)
+    sd = nerf.params_to_state_dict(teachers[0], "model.")
+    sd.update(nerf.params_to_state_dict(teachers[1], "model_fine."))
+    models = ex._split_params(sd)
+    cache = mlp_train_fused.TRAIN_PACKS
+    hits, misses = cache.hits, cache.misses
+    before = _build.launch_counts()
+    lsa.tune_lsa_scales(*models, ex._make_batcher(), ex.rc, scene["near"],
+                        scene["far"], epochs=1, n_iters=k, verbose=False)
+    after = _build.launch_counts()
+    assert after["mlp_train_fwd"] - before["mlp_train_fwd"] == 2 * k
+    assert after["mlp_train_bwd"] - before["mlp_train_bwd"] == 2 * k
+    assert (cache.misses - misses, cache.hits - hits) == (2, 2 * (k - 1))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,524 @@
+"""K-B1 on the tensor cores (csrc/mlp_train.cu) as far as the CPU reaches it:
+the two fragment-ordered weight buffers, their cache, and the plain models
+of the kernels' arithmetic.
+
+Tolerances.
+  * The buffers are gathers: exact.
+  * The modelled 3xTF32 chains against float64. Each product is off by at
+    most 2^-21 |x||w| per operand (the split) plus float32 sums, so a layer's
+    u carries ~1e-6 of sum |x||w|; twelve layers deep the raw logits are held
+    to 2e-5 of their largest value (measured 2.4e-7; the exact float32 plain
+    version 2.2e-7) and every gradient to 2e-4 of its largest element
+    (measured 3.2e-6 at worst, median 4.5e-7; a gradient is a sum over all
+    points through relu masks, and where a last-bit change of u flips one at
+    a tie it moves further: the float32 plain version reads 1.3e-2 on one of
+    the 24 vectors of these inputs). Both must be at least 20x closer than
+    the same chains with one TF32 product in place of three (2.7e-4 and
+    8e-2).
+  * Modelled against the exact float32 plain versions: raw 1e-5 absolute at
+    values up to 0.23 (measured 7.5e-8; two float32 chains, sums in another
+    order), gradients by the criterion of tests/test_mlp_train_pallas.py:41-50
+    (99.9% of the elements within rtol 5e-2 / atol 5e-3 of the gradient's
+    max, none off by 5% of it), as tests/test_torch_port_train.py holds the
+    plain versions.
+  * Modelled at flagship width against the Pallas pair in interpret mode:
+    the loss to rtol 1e-5, the gradients by the same criterion
+    (tests/test_torch_port_train.py (a), (b)).
+"""
+import copy
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nnc_tpu.models import nerf as jnerf
+from nnc_tpu.ops import mlp_train_pallas
+from nnc_tpu_torch.models import nerf as tnerf
+from nnc_tpu_torch.ops import mlp_fused, mlp_train_fused
+from nnc_tpu_torch.ops.posenc import positional_encoding as tposenc
+from nnc_tpu_torch.train import lsa as tlsa
+
+SLAB = mlp_fused.MMA_SLAB
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """Full-width weights and LSA scales (std 0.05) made with numpy, as JAX
+    pytrees and as the port's model."""
+    cfg = jnerf.NeRFConfig()
+    params = jax.tree.map(np.asarray,
+                          jnerf.init_params(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(5)
+    ls = {name: (1.0 + 0.05 * rng.standard_normal(p["b"].shape[0]))
+          .astype(np.float32) for name, p in params.items()}
+    model = tnerf.from_jax_params(params, tnerf.NeRFConfig(), ls=ls)
+    return (cfg, jax.tree.map(jnp.asarray, params),
+            {k: jnp.asarray(v) for k, v in ls.items()}, model)
+
+
+def _weights(model):
+    return mlp_train_fused._layer_tensors(model)[0::3]
+
+
+def _packed(model):
+    t = mlp_train_fused._layer_tensors(model)
+    return mlp_train_fused.pack_train(t[0::3], t[1::3], t[2::3])
+
+
+def _points(n, seed=1):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, 3)).astype(np.float32)
+    vd = rng.standard_normal((n, 3)).astype(np.float32)
+    tgt = rng.standard_normal((n, 4)).astype(np.float32)
+    return pts, vd, tgt
+
+
+# ------------------------------------------------------------- the buffers
+def test_train_buffers_round_trip(flagship):
+    """Every weight once in the forward buffer (zeros elsewhere: the padding
+    rows, the unused bias block); every weight the reverse chain multiplies
+    by once in the backward buffer, which has no padding at all."""
+    model = flagship[3]
+    weights = _weights(model)
+    fwd, bwd = mlp_train_fused.pack_train_mma(weights)
+    assert fwd.shape == (mlp_fused.MMA_PARAMS_SIZE,) == (601152,)
+    assert bwd.shape == (mlp_train_fused.BWD_PARAMS_SIZE,) == (557696,)
+    assert mlp_train_fused.BWD_SLABS * SLAB + 256 + 3 * 128 == 557696
+    params, params_t, _ls = _packed(model)
+    assert torch.equal(bwd, mlp_train_fused.repack_mma_t(params_t))
+    index = mlp_train_fused.BWD_INDEX
+    assert index.max() < mlp_train_fused.WT_SIZE
+    assert np.unique(index).size == index.size
+    got_f, got_b = mlp_train_fused.unpack_train_mma(fwd, bwd)
+    assert list(got_f) == list(got_b) == mlp_train_fused.NAMES
+    used = {"pts_linears.0": (0, 0), "pts_linears.5": (63, 319),
+            "views_linears.0": (0, 256)}
+    for name, w in zip(mlp_train_fused.NAMES, weights):
+        assert torch.equal(got_f[name], w.detach().t()), name
+        lo, hi = used.get(name, (0, w.shape[1]))
+        assert torch.equal(got_b[name][:, lo:hi], w.detach()[:, lo:hi]), name
+        rest = torch.cat([got_b[name][:, :lo], got_b[name][:, hi:]], dim=1)
+        assert rest.numel() == 0 or float(rest.abs().max()) == 0.0, name
+    # the forward buffer's bias block stays zero: biases go in as a vector
+    o = mlp_fused.MMA_SLABS * SLAB
+    assert float(fwd[o:o + 2432].abs().max()) == 0.0
+    assert torch.equal(fwd[o + 2432:o + 2688],
+                       weights[9].detach().reshape(-1))       # alpha
+    assert torch.equal(fwd[o + 2692:o + 3076].view(128, 3),
+                       weights[11].detach().t())              # rgb (in, out)
+    with pytest.raises(ValueError):
+        mlp_train_fused.repack_mma_t(params_t[:-1])
+    with pytest.raises(ValueError):
+        mlp_train_fused.unpack_train_mma(fwd, bwd[:-1])
+
+
+def test_bias_gather_and_small_vectors(flagship):
+    model = flagship[3]
+    t = mlp_train_fused._layer_tensors(model)
+    params, _pt, ls = _packed(model)
+    b = mlp_train_fused.gather_biases(params)
+    assert b.shape == ls.shape == (mlp_train_fused.U_SIZE,) == (2436,)
+    assert torch.equal(b, torch.cat([x.detach() for x in t[1::3]]))
+    assert torch.equal(ls, torch.cat([x.detach().reshape(-1)
+                                      for x in t[2::3]]))
+    # the view layer's columns start at an odd offset: the kernels use
+    # 4-byte accesses there and 8-byte ones everywhere else
+    offs = dict(zip(mlp_train_fused.NAMES, mlp_train_fused.U_OFFSETS))
+    assert offs["views_linears.0"] == 2305 and offs["alpha_linear"] == 2304
+    assert all(offs[f"pts_linears.{i}"] == 256 * i for i in range(8))
+    assert offs["feature_linear"] == 2048 and offs["rgb_linear"] == 2433
+
+
+def _fragment_product(buf, slab0, k_padded, nt_n, x):
+    """x (64, k_padded) times the rows of a run of k steps, read from the
+    buffer with the index arithmetic of mma_slab / PipeT (nerf_mlp_mma.cuh):
+    lane 4 g + t of warp w holds b0, b1 of n-tile nt at k step ks at
+    slab * 8192 + w * 1024 + (ks % per_slab) * 64 NT + (nt // 2) * 128 +
+    lane * 4 + 2 (nt % 2), and they multiply channels 16 (ks // 2) + 4 t +
+    2 (ks % 2) + {0, 1} into column 8 NT w + 8 nt + g."""
+    w = buf.numpy().astype(np.float64)
+    per_slab = 16 // nt_n
+    out = np.zeros((64, 64 * nt_n))
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for ks in range(k_padded // 8):
+        ch = 16 * (ks // 2) + 4 * t + 2 * (ks % 2)
+        for warp in range(8):
+            base = (slab0 + ks // per_slab) * SLAB + warp * 1024 \
+                + (ks % per_slab) * 64 * nt_n + lane * 4
+            for nt in range(nt_n):
+                at = base + (nt // 2) * 128 + 2 * (nt % 2)
+                cols = warp * 8 * nt_n + nt * 8 + g
+                np.add.at(out, (slice(None), cols),
+                          x[:, ch] * w[at] + x[:, ch + 1] * w[at + 1])
+    return out
+
+
+# (layer, first row, rows, first slab, rows padded, n-tiles a warp): the
+# schedule train_layer walks, which is mma_layer's (kSlabs = 73)
+FWD_RUNS = [("pts_linears.0", 0, 63, 0, 64, 4)] + [
+    (f"pts_linears.{i}", 0, 256, 2 + 8 * (i - 1), 256, 4) for i in (1, 2, 3, 4)
+] + [("pts_linears.5", 0, 63, 34, 64, 4), ("pts_linears.5", 63, 256, 36, 256, 4),
+     ("pts_linears.6", 0, 256, 44, 256, 4), ("pts_linears.7", 0, 256, 52, 256, 4),
+     ("feature_linear", 0, 256, 60, 256, 4),
+     ("views_linears.0", 0, 256, 68, 256, 2),
+     ("views_linears.0", 256, 27, 72, 32, 2)]
+
+
+@pytest.mark.parametrize("name,row0,rows,slab0,k_padded,nt_n", FWD_RUNS)
+def test_forward_buffer_feeds_the_fragments(flagship, name, row0, rows, slab0,
+                                            k_padded, nt_n):
+    """Reading the forward buffer as train_layer's lanes do gives x @ W of
+    the unscaled weights for every run of k steps."""
+    model = flagship[3]
+    fwd, _ = mlp_train_fused.pack_train_mma(_weights(model))
+    w = dict(zip(mlp_train_fused.NAMES, _weights(model)))[name] \
+        .detach().t().numpy().astype(np.float64)
+    x = np.random.default_rng(3).standard_normal((64, k_padded))
+    got = _fragment_product(fwd, slab0, k_padded, nt_n, x)
+    np.testing.assert_allclose(got, x[:, :rows] @ w[row0:row0 + rows],
+                               rtol=0, atol=1e-12)
+
+
+# (layer, first input column, du's width K, first slab): the schedule
+# bwd_layer walks (kBwdSlabs = 68), 4 slabs for K = 128 and 8 for K = 256
+BWD_RUNS = [("views_linears.0", 0, 128, 0), ("feature_linear", 0, 256, 4)] + [
+    (f"pts_linears.{i}", 63 if i == 5 else 0, 256, 12 + 8 * (7 - i))
+    for i in range(7, 0, -1)]
+
+
+@pytest.mark.parametrize("name,col0,k,slab0", BWD_RUNS)
+def test_backward_buffer_feeds_the_fragments(flagship, name, col0, k, slab0):
+    """Reading the backward buffer as bwd_layer's lanes do gives
+    du @ W[:, col0:col0 + 256] of torch's (out, in) weight: dx."""
+    model = flagship[3]
+    assert [r[0] for r in BWD_RUNS] == \
+        [r[0] for r in mlp_train_fused.BWD_RUNS]
+    _, bwd = mlp_train_fused.pack_train_mma(_weights(model))
+    w = dict(zip(mlp_train_fused.NAMES, _weights(model)))[name] \
+        .detach().numpy().astype(np.float64)
+    assert w.shape[0] == k
+    du = np.random.default_rng(4).standard_normal((64, k))
+    got = _fragment_product(bwd, slab0, k, 4, du)
+    np.testing.assert_allclose(got, du @ w[:, col0:col0 + 256], rtol=0,
+                               atol=1e-12)
+
+
+def test_backward_buffer_heads(flagship):
+    model = flagship[3]
+    weights = _weights(model)
+    _, bwd = mlp_train_fused.pack_train_mma(weights)
+    o = mlp_train_fused.BWD_SLABS * SLAB
+    assert BWD_RUNS[-1][3] + 8 == mlp_train_fused.BWD_SLABS
+    assert torch.equal(bwd[o:o + 256], weights[9].detach().reshape(-1))
+    assert torch.equal(bwd[o + 256:o + 640].view(3, 128),
+                       weights[11].detach())
+
+
+def test_kernel_buffer_checks():
+    made = []
+    make = lambda src: made.append(src) or torch.zeros(8)
+    kb = mlp_train_fused._kernel_buffer
+    assert kb("x", None, 8, "src", make).shape == (8,) and made == ["src"]
+    given = torch.ones(8)
+    assert kb("x", given, 8, None, make) is given and made == ["src"]
+    with pytest.raises(ValueError, match="neither"):
+        kb("x", None, 8, None, make)
+    with pytest.raises(ValueError):
+        kb("x", torch.ones(7), 8, None, make)
+    with pytest.raises(ValueError, match="aligned"):
+        kb("x", torch.ones(9)[1:], 8, None, make)
+
+
+# ---------------------------------------------------------------- the cache
+def _small_model(seed):
+    return tnerf.init_lsa_scales(
+        tnerf.init_params(tnerf.NeRFConfig(), torch.Generator()
+                          .manual_seed(seed)), std=0.05,
+        generator=torch.Generator().manual_seed(seed + 1))
+
+
+def test_pack_cache_hits_and_misses():
+    cache = mlp_train_fused.TrainPackCache()
+    model = _small_model(0)
+    w = _weights(model)
+    first = cache.get(w)
+    assert (cache.hits, cache.misses) == (0, 1)
+    assert cache.get(_weights(model)) is first
+    assert (cache.hits, cache.misses) == (1, 1)
+    want = mlp_train_fused.pack_train_mma(w)
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
+    # scales and biases are no part of the key
+    with torch.no_grad():
+        for layer in model.layers().values():
+            layer.bias.add_(1.0)
+            layer.weight_scaling.mul_(1.5)
+    assert cache.get(_weights(model)) is first
+    assert (cache.hits, cache.misses) == (2, 1)
+    # an in-place change of one weight misses, and packs the new value
+    with torch.no_grad():
+        model.layers()["pts_linears.3"].weight.mul_(2.0)
+    second = cache.get(_weights(model))
+    assert (cache.hits, cache.misses) == (2, 2) and second is not first
+    assert all(torch.equal(a, b) for a, b in zip(
+        second, mlp_train_fused.pack_train_mma(_weights(model))))
+    assert not torch.equal(second[0], first[0])
+    assert cache.get(_weights(model)) is second
+    # a swap of .data (what module.to does) keeps object and version
+    layer = model.layers()["pts_linears.0"]
+    layer.weight.data = layer.weight.data.clone()
+    assert cache.get(_weights(model)) is not second
+    assert (cache.hits, cache.misses) == (3, 3)
+    # another model, equal in value: its own entry
+    twin = _small_model(0)
+    cache.get(_weights(twin))
+    assert (cache.hits, cache.misses) == (3, 4)
+    # a copy of the model, as a replica on another device is: new tensors
+    cache.get(_weights(copy.deepcopy(twin)))
+    assert (cache.hits, cache.misses) == (3, 5)
+    cache.get(_weights(twin))
+    assert (cache.hits, cache.misses) == (4, 5)
+
+
+def test_pack_cache_keeps_the_most_recent():
+    cache = mlp_train_fused.TrainPackCache(size=2)
+    models = [_small_model(s) for s in range(3)]
+    for m in models:
+        cache.get(_weights(m))
+    assert cache.misses == 3 and len(cache._entries) == 2
+    cache.get(_weights(models[2]))
+    cache.get(_weights(models[1]))
+    assert cache.hits == 2
+    cache.get(_weights(models[0]))       # dropped as the oldest
+    assert cache.misses == 4
+
+
+@pytest.mark.parametrize("with_dw,misses", [(False, 1), (True, 4)])
+def test_lsa_steps_pack_once(with_dw, misses):
+    """k optimizer steps on the tensors LSA trains (scales, and biases when
+    fine-tuning) look the weights' buffers up as fused_nerf_mlp_train does
+    for CUDA tensors: one miss, k - 1 hits. Training the weights too
+    (with_dw) changes them in place every step: every lookup misses."""
+    k = 4
+    cache = mlp_train_fused.TrainPackCache()
+    model = _small_model(3)
+    trained = tlsa.trained_tensors(model, None, tune_scales=True,
+                                   tune_biases=True)
+    if with_dw:
+        for layer in model.layers().values():
+            layer.weight.requires_grad_(True)
+            trained.append(layer.weight)
+    opt = torch.optim.Adam(trained, lr=1e-3)
+    pts, vd, tgt = (torch.from_numpy(a) for a in _points(16, seed=8))
+    for _ in range(k):
+        cache.get(_weights(model))
+        opt.zero_grad(set_to_none=True)
+        raw = mlp_train_fused.fused_nerf_mlp_train(model, pts, vd,
+                                                   with_dw=with_dw)
+        torch.mean((raw - tgt) ** 2).backward()
+        opt.step()
+    assert (cache.misses, cache.hits) == (misses, k - misses)
+
+
+# ------------------------------------------------ the modelled arithmetic
+def _one_tf32(x, w):
+    return mlp_fused.tf32_round(x) @ mlp_fused.tf32_round(w)
+
+
+def _float64(fn, *tensors, **kw):
+    """fn on the float64 copies of the tensors."""
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return fn(*(t.double() for t in tensors), **kw)
+    finally:
+        torch.set_default_dtype(default)
+
+
+def _parts(flat):
+    _dw, dls, db = mlp_train_fused.split_grads(flat, False)
+    return [(f"dls {n}", dls[n]) for n in dls] + \
+        [(f"db {n}", db[n]) for n in db]
+
+
+@pytest.fixture(scope="module")
+def chains(flagship):
+    """The forward and the backward without dW of 700 points: float64,
+    exact float32 plain, modelled 3xTF32, and one TF32 product."""
+    model = flagship[3]
+    params, params_t, ls = _packed(model)
+    pts, vd, cot = (torch.from_numpy(a) for a in _points(700, seed=3))
+    args = (params, params_t, ls, pts, vd, cot)
+    fwd = lambda mm: mlp_train_fused.mlp_train_fwd_plain(
+        params, ls, pts, vd, mm=mm)
+    bwd = lambda mm: mlp_train_fused.mlp_train_bwd_plain(*args, False, mm=mm)
+    return {
+        "exact": (_float64(mlp_train_fused.mlp_train_fwd_plain, params, ls,
+                           pts, vd),
+                  _float64(mlp_train_fused.mlp_train_bwd_plain, *args,
+                           with_dw=False)),
+        "plain": (mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd),
+                  mlp_train_fused.mlp_train_bwd_plain(*args, False)),
+        "model": (mlp_train_fused.mlp_train_fwd_3xtf32_plain(params, ls, pts,
+                                                             vd),
+                  mlp_train_fused.mlp_train_bwd_3xtf32_plain(*args)),
+        "one": (fwd(_one_tf32), bwd(_one_tf32)),
+    }
+
+
+def test_modelled_forward_against_float64(chains):
+    exact = chains["exact"][0]
+    scale = float(exact.abs().max())
+    err = float((chains["model"][0].double() - exact).abs().max())
+    err_plain = float((chains["plain"][0].double() - exact).abs().max())
+    err_one = float((chains["one"][0].double() - exact).abs().max())
+    assert err <= 2e-5 * scale, (err, scale)
+    assert err <= 4 * err_plain + 1e-7 * scale, (err, err_plain)
+    assert err * 20 <= err_one, (err, err_one)
+
+
+def test_modelled_backward_against_float64(chains):
+    worst, worst_one = 0.0, 0.0
+    for (what, got), (_w, want), (_o, one) in zip(
+            _parts(chains["model"][1]), _parts(chains["exact"][1]),
+            _parts(chains["one"][1])):
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got.double() - want).abs().max()) / scale
+        assert err <= 2e-4, (what, err)
+        worst = max(worst, err)
+        worst_one = max(worst_one,
+                        float((one.double() - want).abs().max()) / scale)
+    assert worst * 20 <= worst_one, (worst, worst_one)
+
+
+def _grads_close(got, want, msg):
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(np.abs(want).max(), 1e-12)
+    close = np.isclose(got, want, rtol=5e-2, atol=5e-3 * scale)
+    assert close.mean() > 0.999, (msg, 1 - close.mean())
+    assert np.abs(got - want).max() < 0.05 * scale, (msg, scale)
+
+
+def test_modelled_against_plain(chains):
+    raw_m, flat_m = chains["model"]
+    raw_p, flat_p = chains["plain"]
+    np.testing.assert_allclose(raw_m.numpy(), raw_p.numpy(), rtol=0,
+                               atol=1e-5)
+    assert flat_m.shape == flat_p.shape == (mlp_train_fused.grad_size(False),)
+    for (what, got), (_w, want) in zip(_parts(flat_m), _parts(flat_p)):
+        _grads_close(got.numpy(), want.numpy(), what)
+
+
+def test_modelled_backward_reads_the_unpacked_buffers(flagship, chains):
+    """The reverse chain needs no weight the backward buffer leaves out: on
+    the (out, in) weights read back from it (zeros elsewhere) the modelled
+    backward gives the same bits."""
+    model = flagship[3]
+    params, _pt, ls = _packed(model)
+    _, got_b = mlp_train_fused.unpack_train_mma(
+        *mlp_train_fused.pack_train_mma(_weights(model)))
+    params_t = torch.cat([got_b[n].reshape(-1)
+                          for n in mlp_train_fused.NAMES])
+    pts, vd, cot = (torch.from_numpy(a) for a in _points(700, seed=3))
+    flat = mlp_train_fused.mlp_train_bwd_3xtf32_plain(params, params_t, ls,
+                                                      pts, vd, cot)
+    assert torch.equal(flat, chains["model"][1])
+
+
+@pytest.mark.parametrize("n", [mlp_train_pallas.TILE,
+                               mlp_train_pallas.TILE + 17])
+def test_modelled_forward_matches_pallas(flagship, n):
+    cfg, jparams, jls, model = flagship
+    pts, vd, tgt = _points(n)
+    raw = mlp_train_pallas.fused_nerf_mlp_train(
+        jparams, jls, jnp.asarray(pts), jnp.asarray(vd), cfg)
+    want = float(jnp.mean((raw - jnp.asarray(tgt)) ** 2))
+    params, _pt, ls = _packed(model)
+    got_raw = mlp_train_fused.mlp_train_fwd_3xtf32_plain(
+        params, ls, torch.from_numpy(pts), torch.from_numpy(vd))
+    got = float(torch.mean((got_raw - torch.from_numpy(tgt)) ** 2))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got_raw.numpy(), np.asarray(raw), rtol=0,
+                               atol=2e-5)
+
+
+def test_modelled_backward_matches_pallas(flagship):
+    cfg, jparams, jls, model = flagship
+    n = mlp_train_pallas.TILE
+    pts, vd, tgt = _points(n, seed=2)
+
+    def loss(ls, params):
+        raw = mlp_train_pallas.fused_nerf_mlp_train(
+            params, ls, jnp.asarray(pts), jnp.asarray(vd), cfg)
+        return jnp.mean((raw - jnp.asarray(tgt)) ** 2)
+
+    g_ls, g_p = jax.grad(loss, argnums=(0, 1))(jls, jparams)
+    params, params_t, ls = _packed(model)
+    tpts, tvd, ttgt = (torch.from_numpy(a) for a in (pts, vd, tgt))
+    raw = mlp_train_fused.mlp_train_fwd_3xtf32_plain(params, ls, tpts, tvd)
+    cot = 2.0 * (raw - ttgt) / raw.numel()
+    flat = mlp_train_fused.mlp_train_bwd_3xtf32_plain(params, params_t, ls,
+                                                      tpts, tvd, cot)
+    _dw, dls, db = mlp_train_fused.split_grads(flat, False)
+    for name in g_ls:
+        _grads_close(dls[name].numpy(), g_ls[name], f"{name} ls")
+        _grads_close(db[name].numpy(), g_p[name]["b"], f"{name} b")
+
+
+# ------------------------------------------------------- CPU tensors: plain
+def test_cpu_tensors_take_the_plain_versions(flagship):
+    """On CPU tensors the wrappers run the exact float32 plain versions
+    whatever buffers they are handed, the cache is not consulted, and the
+    gradients through _TrainMLP equal torch autograd's through
+    nerf.apply_mlp(output_scaling=True)."""
+    model = flagship[3]
+    params, params_t, ls = _packed(model)
+    fwd, bwd = mlp_train_fused.pack_train_mma(_weights(model))
+    b = mlp_train_fused.gather_biases(params)
+    pts, vd, tgt = (torch.from_numpy(a) for a in _points(70, seed=6))
+    want = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
+    raw, ws = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd, save_u=True,
+                                            packed_mma=fwd, biases=b)
+    assert ws is None and torch.equal(raw, want)
+    flat = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts, vd, tgt,
+                                         None, False, packed_mma_t=bwd,
+                                         biases=b)
+    assert torch.equal(flat, mlp_train_fused.mlp_train_bwd_plain(
+        params, params_t, ls, pts, vd, tgt, False))
+    with pytest.raises(ValueError):
+        mlp_train_fused.mlp_train_fwd(params, ls[:-1], pts, vd)
+    with pytest.raises(ValueError, match="plain version"):
+        mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, packed_mma=fwd,
+                                      biases=b)
+    with pytest.raises(ValueError, match="plain version"):
+        mlp_train_fused.mlp_train_bwd(params, None, ls, pts, vd, tgt, None,
+                                      False, packed_mma_t=bwd, biases=b)
+
+    before = (mlp_train_fused.TRAIN_PACKS.hits,
+              mlp_train_fused.TRAIN_PACKS.misses)
+    layers = model.layers().values()
+    for layer in layers:
+        layer.bias.requires_grad_(True)
+        layer.weight_scaling.requires_grad_(True)
+        layer.bias.grad = layer.weight_scaling.grad = None
+    got_raw = mlp_train_fused.fused_nerf_mlp_train(model, pts, vd)
+    assert torch.equal(got_raw.detach(), want)
+    torch.mean((got_raw - tgt) ** 2).backward()
+    got = [(l.bias.grad.clone(), l.weight_scaling.grad.clone())
+           for l in layers]
+    for layer in layers:
+        layer.bias.grad = layer.weight_scaling.grad = None
+    ref = tnerf.apply_mlp(model, tposenc(pts, 10), tposenc(vd, 4),
+                          output_scaling=True)
+    torch.mean((ref - tgt) ** 2).backward()
+    for (name, layer), (gb, gl) in zip(model.layers().items(), got):
+        _grads_close(gb.numpy(), layer.bias.grad.numpy(), f"{name} b")
+        _grads_close(gl.numpy(), layer.weight_scaling.grad.numpy(),
+                     f"{name} ls")
+        layer.bias.requires_grad_(False)
+        layer.weight_scaling.requires_grad_(False)
+        layer.bias.grad = layer.weight_scaling.grad = None
+    assert (mlp_train_fused.TRAIN_PACKS.hits,
+            mlp_train_fused.TRAIN_PACKS.misses) == before
