@@ -63,14 +63,27 @@ Phases:
      draws; one 400x400 test view through render_image(mesh=) against the
      view without a mesh, with culling and early termination off (equal
      bits expected) and on; a joint LSA of 2 scenes against each scene
-     tuned alone.
+     tuned alone;
+ 14. the bf16 kernels: K-B3 bf16 at 262,144 points and three ragged sizes
+     and K-B2 bf16 on phase 3's rays at S=64 and S=192, early termination
+     off and at 1e-4, each against its plain bf16 version in units of the
+     distance between the plain bf16 and the plain float32 version on the
+     same inputs, reruns bit-equal, timed beside the float32 kernel and the
+     plain version;
+ 15. the bf16 serving slice at full width: test_model through an executer
+     built with NeRFConfig(compute_dtype=torch.bfloat16) and use_fused_mlp on
+     phase 4's scene and decoded weights (K-B2 bf16, coarse and fine) against
+     the float32 kernels' render and the plain bf16 render; phase 5's NDC
+     scene through K-B3 bf16; compress_model(ioq=True) with the probe in
+     bf16; graft_entry.entry() in bf16.
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
-phase 10, the tensor-parallel call of phase 12 and the runs of phase 13.
+phase 10, the tensor-parallel call of phase 12, the runs of phase 13 and
+the two test_model renders and the compression of phase 15.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
-products are three TF32 products each, a third of the tensor cores' TF32 peak. The last two lines are the kernel table and the result
+products are three TF32 products each, a third of the tensor cores' TF32 peak; for the bf16 kernels the dense bf16 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
 import contextlib
@@ -134,6 +147,11 @@ KERNEL_ROWS = {
                       "nnc_tpu/ops/mlp_train_pallas.py:300"),
     "mlp_tp_pair": ("nnc_tpu_torch/ops/csrc/mlp_tp_pair.cu",
                     "nnc_tpu/ops/mlp_tp_pallas.py:82"),
+    "mlp_from_points_bf16": (
+        "nnc_tpu_torch/ops/csrc/mlp_from_points_bf16.cu",
+        "nnc_tpu/ops/mlp_pallas.py:280"),
+    "render_pass_bf16": ("nnc_tpu_torch/ops/csrc/render_pass_bf16.cu",
+                         "nnc_tpu/ops/render_pallas.py:169"),
 }
 # K-B6: (K, O2, relu_mid) of the forward's pairs: w0 -> w1; w2 -> w3,
 # w4 -> w5b, w6 -> w7; wf -> wva. S = 256 / M.
@@ -148,6 +166,7 @@ LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
 # TF32 peak.
 PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
+PEAK_BF16 = 989e12   # dense bf16, the bound of K-B3 bf16 and K-B2 bf16
 # K-B3's raw logits against the exact float32 plain version, 10x the 2.4e-6
 # measured at values up to 2.7. One TF32 product instead of three reads
 # 1.6e-3 in the plain model of the arithmetic, a lost correction term half of
@@ -293,10 +312,14 @@ def phase_mlp(dev):
                  "pts": pts, "vd": vd, "raw": got, "raw_plain": want}
 
 
-def phase_render(dev):
+def render_cases(dev):
+    """The inputs of phases 3 and 14, the same from one seed: a solid
+    full-width model, N_RAYS of a lego-geometry view's rays in random order,
+    a quarter of them in dead culling groups, and for S = 64 (with weights)
+    and S = 192 (without) sorted samples. Yields (model, (ro, rd, vd, z,
+    dists, live), S, want_weights)."""
     g = torch.Generator().manual_seed(1)
     model = synthetic.make_solid_mlp(noise_std=1e-2, generator=g, device=dev)
-    packed = mlp_fused.pack_weights(model)
     R = N_RAYS
     c = LEGO_HW / 2
     K = np.array([[LEGO_FOCAL, 0, c], [0, LEGO_FOCAL, c], [0, 0, 1]],
@@ -308,23 +331,51 @@ def phase_render(dev):
     ro, rd = ro[sel].contiguous(), rd[sel].contiguous()
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     live = ((torch.arange(R, device=dev) // 64) % 4 != 3).to(torch.int32)
-    packed_mma = mlp_fused.repack_mma(packed)
-    worst, row = 0.0, None
     for S, want_w in ((64, True), (192, False)):
         z, _ = torch.sort(2 + 4 * torch.rand(R, S, generator=g), dim=-1)
         z = z.to(dev)
         dists = torch.cat([z[:, 1:] - z[:, :-1],
                            torch.full_like(z[:, :1], 1e10)], -1) \
             * torch.linalg.norm(rd, dim=-1, keepdim=True)
+        yield model, (ro, rd, vd, z, dists, live), S, want_w
+
+
+def optical_depth_before(raw, dists):
+    """The optical depth before each sample, from raw (R * S, 4)."""
+    tau = torch.cumsum(torch.relu(raw[:, 3]).reshape(dists.shape) * dists,
+                       dim=-1)
+    return torch.cat([torch.zeros_like(tau[:, :1]), tau[:, :-1]], -1)
+
+
+def points_of(before, live, term, ray_tile):
+    """(points these rays need, points the kernel's tiles compute for them):
+    a sample of a live ray counts while the ray's transmittance before it is
+    still >= eps; a tile computes every block of SAMPLE_BLOCK samples of a
+    live tile of ``ray_tile`` rays at whose start one of its rays is still
+    below the threshold."""
+    R, sb = before.shape[0], render_fused.SAMPLE_BLOCK
+    needed = int(((before < term) & (live[:, None] > 0)).sum())
+    starts = before[:, ::sb].reshape(R // ray_tile, ray_tile, -1).amin(dim=1)
+    tile_live = live.reshape(R // ray_tile, ray_tile).amax(dim=1) > 0
+    computed = int(((starts < term) & tile_live[:, None]).sum()) \
+        * ray_tile * sb
+    return needed, computed
+
+
+def phase_render(dev):
+    R = N_RAYS
+    worst, row = 0.0, None
+    for model, rays, S, want_w in render_cases(dev):
+        ro, rd, vd, z, dists, live = rays
+        packed = mlp_fused.pack_weights(model)
+        packed_mma = mlp_fused.repack_mma(packed)
         # the optical depth before each sample, for the work the rays need
         pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
         raw = mlp_fused.mlp_from_points(
             packed, pts.reshape(-1, 3).contiguous(),
             vd[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous(),
             packed_mma)
-        tau = torch.cumsum(torch.relu(raw[:, 3]).reshape(R, S) * dists,
-                           dim=-1)
-        before = torch.cat([torch.zeros_like(tau[:, :1]), tau[:, :-1]], -1)
+        before = optical_depth_before(raw, dists)
         for eps in (0.0, 1e-4):
             term = -math.log(eps) if eps > 0 else math.inf
             args = (packed, ro, rd, vd, z, dists, live, term, want_w)
@@ -356,19 +407,10 @@ def phase_render(dev):
             ms = cuda_ms(run)
             plain_ms = cuda_ms(
                 lambda: render_fused.fused_render_pass_plain(*args))
-            # the work these rays need: a sample of a live ray counts while
-            # the ray's transmittance before it is still >= eps
-            needed = int(((before < term) & (live[:, None] > 0)).sum())
+            needed, computed = points_of(before, live, term,
+                                         render_fused.RAY_TILE)
             b = bound(nbytes(packed_mma, ro, rd, vd, z, dists, live, maps),
                       2 * MLP_MACS * needed, PEAK_3XTF32)
-            # and what the kernel's tiles compute for it: every block of
-            # SAMPLE_BLOCK samples of a live tile of RAY_TILE rays at whose
-            # start one of its rays is still below the threshold
-            rt, sb = render_fused.RAY_TILE, render_fused.SAMPLE_BLOCK
-            starts = before[:, ::sb].reshape(R // rt, rt, -1).amin(dim=1)
-            tile_live = live.reshape(R // rt, rt).amax(dim=1) > 0
-            computed = int(((starts < term) & tile_live[:, None]).sum()) \
-                * rt * sb
             print(f"[3] K-B2 {R} rays S={S} weights={want_w} eps={eps}: "
                   f"max|d| rgb/acc {d_rgb_acc:.3e} depth {d_depth:.3e} "
                   f"weights {d_w:.3e}, reruns bit-equal; kernel {ms:.3f} ms, "
@@ -484,7 +526,7 @@ def phase_slice(dev):
           f"{teacher_k} dB against its plain ground truth")
     check(psnr_k > 20.0, f"decoded model test PSNR {psnr_k} dB")
     check(ioq_launches["render_pass"] > 0, "IOQ probe ran no K-B2")
-    return scene, sd, tar
+    return scene, sd, tar, dec, psnr_k
 
 
 def phase_llff(dev):
@@ -1286,6 +1328,298 @@ def phase_multi_device(dev, scene, dec0, sets):
     return launches, dry["mlp_tp_pair"]
 
 
+def rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def held_to_bf16_distance(what, got, plain16, plain32):
+    """A bf16 kernel's output against its plain bf16 version, in units of
+    the distance between the plain bf16 and the plain float32 version on the
+    same inputs (one float32 sum that falls the other way flips a bf16
+    rounding, 2^-8 of an activation, so no absolute tolerance means
+    anything): rms error <= 1/8 of the distance's rms, no element beyond the
+    distance's max and at most 1e-4 of them beyond half of it (a few hundred
+    points stay under half; over 10^5 the largest flips reach it), and the
+    kernel three times closer (rms) to the plain bf16 version than to the
+    float32 one. Returns (rms err, max err, rms distance, max distance)."""
+    err, dist = got - plain16, plain16 - plain32
+    e_rms, e_max = rms(err), float(err.abs().max())
+    d_rms, d_max = rms(dist), float(dist.abs().max())
+    beyond = float((err.abs() > d_max / 2).float().mean())
+    check(torch.isfinite(got).all().item(), f"{what}: output not finite")
+    check(d_rms > 0 and e_rms <= d_rms / 8, f"{what}: rms error {e_rms} "
+          f"against a bf16-to-float32 rms of {d_rms}")
+    check(e_max <= d_max and beyond <= 1e-4, f"{what}: max error {e_max} "
+          f"against a bf16-to-float32 max of {d_max}, {beyond} of the "
+          f"elements beyond half of it")
+    check(3 * e_rms <= rms(got - plain32), f"{what}: not three times closer "
+          f"to the plain bf16 version than to the float32 one")
+    return e_rms, e_max, d_rms, d_max
+
+
+def phase_bf16_kernels(dev, ctx):
+    """Phase 14: K-B3 bf16 and K-B2 bf16 against their plain bf16 versions."""
+    lib = _build.lib()
+    check(lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
+          and lib.nnc_bf16_tile_points()
+          == render_fused.RAY_TILE_BF16 * render_fused.SAMPLE_BLOCK,
+          "the bf16 kernels' and the packing's sizes differ")
+    packed, packed_mma = ctx["packed"], ctx["packed_mma"]
+    pts, vd, n = ctx["pts"], ctx["vd"], ctx["pts"].shape[0]
+    buf = mlp_fused.repack_bf16(packed)
+    check(torch.equal(buf, mlp_fused.pack_weights_bf16(ctx["model"])),
+          "repack_bf16 and pack_weights_bf16 differ")
+    run = lambda p=pts, v=vd: mlp_fused.mlp_from_points_bf16(buf, p, v)
+    plain = lambda p=pts, v=vd: \
+        mlp_fused.fused_nerf_mlp_from_points_bf16_plain(buf, p, v)
+    got = run()
+    torch.cuda.synchronize()
+    e_rms, e_max, d_rms, d_max = held_to_bf16_distance(
+        f"K-B3 bf16 {n} points", got, plain(), ctx["raw_plain"])
+    check(torch.equal(run(), got), "K-B3 bf16 reruns differ")
+    g = torch.Generator().manual_seed(14)
+    ragged = {}
+    for m in RAGGED:
+        p = (4 * torch.rand(m, 3, generator=g) - 2).to(dev)
+        v = vd[torch.randint(n, (m,), generator=g).to(dev)].contiguous()
+        ragged[m] = held_to_bf16_distance(
+            f"K-B3 bf16 {m} points", run(p, v), plain(p, v),
+            mlp_fused.fused_nerf_mlp_from_points_plain(packed, p, v))
+    f32 = lambda: mlp_fused.mlp_from_points(packed, pts, vd, packed_mma)
+    times = [[cuda_ms(fn) for fn in (run, f32, plain)] for _ in range(2)]
+    ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
+    flop = 2 * MLP_MACS * n
+    rows = {"mlp_from_points_bf16": {
+        "max_abs_err": e_max, "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes(buf, pts, vd, got), flop, PEAK_BF16),
+        "peak_tflops": PEAK_BF16 / 1e12}}
+    b = rows["mlp_from_points_bf16"]
+    print(f"[14] K-B3 bf16 {n} points against its plain bf16 version: rms "
+          f"{e_rms:.3e} max {e_max:.3e}; bf16-to-float32 distance rms "
+          f"{d_rms:.3e} max {d_max:.3e} ({e_rms / d_rms:.3f} / "
+          f"{e_max / d_max:.3f} of it); ragged "
+          f"{ {m: f'{r[0] / r[2]:.3f} / {r[1] / r[3]:.3f}' for m, r in ragged.items()} }"
+          f", reruns bit-equal")
+    print(f"     in turns, ms: K-B3 bf16 {[f'{t[0]:.3f}' for t in times]}, "
+          f"K-B3 float32 {[f'{t[1]:.3f}' for t in times]}, plain bf16 "
+          f"{[f'{t[2]:.3f}' for t in times]}; {flop / ms / 1e9:.1f} TFLOP/s, "
+          f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} at "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s: {100 * b['bound_ms'] / ms:.1f}% "
+          f"reached")
+
+    R, rt = N_RAYS, render_fused.RAY_TILE_BF16
+    for model, rays, S, want_w in render_cases(dev):
+        ro, rd, vd_r, z, dists, live = rays
+        packed_r = mlp_fused.pack_weights(model)
+        mma_r = mlp_fused.repack_mma(packed_r)
+        buf_r = mlp_fused.repack_bf16(packed_r)
+        raw = mlp_fused.mlp_from_points_bf16(
+            buf_r, (ro[:, None, :] + rd[:, None, :] * z[..., None])
+            .reshape(-1, 3).contiguous(),
+            vd_r[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous())
+        before = optical_depth_before(raw, dists)
+        for eps in (0.0, 1e-4):
+            term = -math.log(eps) if eps > 0 else math.inf
+            tail = (ro, rd, vd_r, z, dists, live, term, want_w)
+            run = lambda: render_fused.render_pass_bf16(buf_r, *tail)
+            maps, w = run()
+            torch.cuda.synchronize()
+            maps_p, w_p = render_fused.fused_render_pass_bf16_plain(buf_r,
+                                                                    *tail)
+            # the float32 plain version stopping rays in the same tiles
+            maps_f, w_f = render_fused.fused_render_pass_plain(
+                packed_r, *tail, ray_tile=rt)
+            # (rgb / acc of a solid scene differ by float32 rounding alone:
+            # phase 3's tolerance of the float32 compositing is the floor)
+            parts = [("rgb/acc", maps[:, :4], maps_p[:, :4], maps_f[:, :4],
+                      2 * eps + 1e-5),
+                     ("depth", maps[:, 4], maps_p[:, 4], maps_f[:, 4],
+                      2 * eps * 6.0)]
+            if want_w:
+                parts.append(("weights", w, w_p, w_f, 2 * eps))
+            shown = []
+            for name, a, b_, c, slack in parts:
+                err, dist = maxabs(a, b_), maxabs(b_, c)
+                shown.append(f"{name} {err:.3e} of {dist:.3e}")
+                # half the bf16-to-float32 distance of the same maps, and
+                # with early termination on the 2 eps by which both
+                # versions may differ at a threshold tie
+                check(dist > 0 and err <= dist / 2 + slack,
+                      f"K-B2 bf16 S={S} eps={eps}: {name} off its plain "
+                      f"version by {err}, bf16-to-float32 distance {dist}")
+            check(torch.isfinite(maps).all().item(),
+                  "K-B2 bf16 maps not finite")
+            check(float(maps[live == 0].abs().max()) == 0.0,
+                  "K-B2 bf16 dead tiles not zero")
+            maps_2, w_2 = run()
+            check(torch.equal(maps_2, maps)
+                  and (not want_w or torch.equal(w_2, w)),
+                  "K-B2 bf16 reruns differ")
+            f32_run = lambda: render_fused.render_pass(packed_r, *tail,
+                                                       packed_mma=mma_r)
+            plain_run = lambda: render_fused.fused_render_pass_bf16_plain(
+                buf_r, *tail)
+            ms, f32_ms, plain_ms = (cuda_ms(fn)
+                                    for fn in (run, f32_run, plain_run))
+            needed, computed = points_of(before, live, term, rt)
+            b = bound(nbytes(buf_r, ro, rd, vd_r, z, dists, live, maps),
+                      2 * MLP_MACS * needed, PEAK_BF16)
+            print(f"[14] K-B2 bf16 {R} rays S={S} weights={want_w} "
+                  f"eps={eps}: max|d| against plain bf16, of the "
+                  f"bf16-to-float32 distance: {', '.join(shown)}; reruns "
+                  f"bit-equal; kernel {ms:.3f} ms, float32 kernel "
+                  f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms; {needed} "
+                  f"of {R * S} points needed ({computed} computed in tiles "
+                  f"of {rt} rays, "
+                  f"{2 * MLP_MACS * computed / ms / 1e9:.1f} TFLOP/s): "
+                  f"{2 * MLP_MACS * needed / ms / 1e9:.1f} TFLOP/s, bound "
+                  f"{b['bound_ms']:.3f} ms by {b['bound_by']} at "
+                  f"{PEAK_BF16 / 1e12:.0f} TFLOP/s: "
+                  f"{100 * b['bound_ms'] / ms:.1f}% reached")
+            if S == 192 and eps > 0:
+                rows["render_pass_bf16"] = {
+                    "max_abs_err": maxabs(maps[:, :4], maps_p[:, :4]),
+                    "ms": ms, "plain_ms": plain_ms, **b,
+                    "peak_tflops": PEAK_BF16 / 1e12}
+    return rows
+
+
+def phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc, sd_ndc, tar):
+    """Phase 15: the bf16 serving slice at full width, on phase 4's scene and
+    decoded weights and phase 5's NDC scene."""
+    bf16 = nerf.NeRFConfig(compute_dtype=torch.bfloat16)
+    make = lambda sc, **kw: presets.create_nerf_model_executer(
+        scene=sc, device=dev, verbose=False, **kw)
+    ex = make(scene, mlp_config=bf16, use_fused_mlp=True)
+    ex_plain = make(scene, mlp_config=bf16, use_fused_mlp=False)
+    ex_f32 = make(scene, use_fused_mlp=True)
+    check(ex.rc.mlp.compute_dtype == torch.bfloat16
+          and ex.rc.use_fused_compositing, "the bf16 config did not reach "
+          "the executer's render config")
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _build.reset_launch_counts()
+    psnr, t_view = timed(ex.test_model, dec)
+    counts = _build.launch_counts()
+    psnr_plain, t_plain = timed(ex_plain.test_model, dec)
+    check(_build.launch_counts() == counts,
+          "the plain bf16 path launched a kernel")
+    _p, t_f32 = timed(ex_f32.test_model, dec)
+    n_chunks = -(-scene["H"] * scene["W"] // ex.rc.chunk)
+    check(counts["render_pass_bf16"] == 2 * n_chunks * len(scene["i_test"])
+          and counts["render_pass"] == 0 and counts["mlp_from_points"] == 0,
+          f"bf16 test_model launches: {counts}")
+    launches = {"render_pass_bf16": counts["render_pass_bf16"]}
+
+    # pixel by pixel: the test view through the bf16 kernels, the float32
+    # kernels and the plain bf16 path
+    view = scene["i_test"][:1]
+    split = ex._split_params(dec)
+    img = ex._render_views(*split, view)[0][0]
+    img_plain = ex_plain._render_views(*split, view)[0][0]
+    img_f32 = ex_f32._render_views(*ex_f32._split_params(dec), view)[0][0]
+    gt = scene["images"][view[0]]
+    psnr_of = lambda a, keep: -10.0 * math.log10(
+        float(np.mean((a[keep] - gt[keep]) ** 2)))
+    d_f32 = np.abs(img - img_f32).max(-1)
+    d_plain = np.abs(img - img_plain).max(-1)
+    # a pixel whose ray grazes the solid takes other fine samples when one
+    # coarse weight moves (sample_pdf, ROADMAP C): bf16 moves such a pixel by
+    # 1e-2 and more, every other by its own rounding noise
+    jumped = d_f32 > 1e-2
+    steady = ~jumped
+    psnr_s, psnr_s_f32, psnr_s_plain = (psnr_of(a, steady)
+                                        for a in (img, img_f32, img_plain))
+    print(f"[15] bf16 serving slice {LEGO_HW}x{LEGO_HW}: decoded test PSNR "
+          f"through the bf16 kernels {psnr:.4f} dB, plain bf16 "
+          f"{psnr_plain:.4f} dB, float32 kernels {psnr_f32:.4f} dB; one "
+          f"view: max|d rgb| {d_f32.max():.3e} from the float32 kernels' "
+          f"(rms {np.sqrt((d_f32 ** 2).mean()):.3e}, {int(jumped.sum())} of "
+          f"{jumped.size} pixels beyond 1e-2), {d_plain.max():.3e} from the "
+          f"plain bf16 path's (rms {np.sqrt((d_plain ** 2).mean()):.3e}, "
+          f"{int((d_plain > 1e-2).sum())} beyond 1e-2); PSNR over the "
+          f"{int(steady.sum())} other pixels: bf16 kernels {psnr_s:.4f}, "
+          f"float32 kernels {psnr_s_f32:.4f}, plain bf16 {psnr_s_plain:.4f} "
+          f"dB")
+    print(f"     launches {counts['render_pass_bf16']} K-B2 bf16, 0 float32; "
+          f"test_model (one view): bf16 kernels {t_view:.2f} s, float32 "
+          f"kernels {t_f32:.2f} s, plain bf16 {t_plain:.2f} s")
+    check(all(np.isfinite([psnr, psnr_plain, psnr_s])) and
+          np.isfinite(img).all(), "bf16 PSNR or image not finite")
+    check(psnr > 20.0, f"bf16 decoded test PSNR {psnr} dB")
+    # within 0.1 dB of the float32 kernels' render and of the plain bf16
+    # render, away from the pixels that jump, which must be few
+    check(jumped.sum() <= 1e-3 * jumped.size
+          and abs(psnr_s - psnr_s_f32) <= 0.1
+          and abs(psnr_s - psnr_s_plain) <= 0.1,
+          f"bf16 render: {int(jumped.sum())} pixels jump, PSNR elsewhere "
+          f"{psnr_s} dB against float32 {psnr_s_f32} dB, plain bf16 "
+          f"{psnr_s_plain} dB")
+
+    # the NDC scene (raw_noise_std = 1): K-B3 bf16
+    ex_ndc = make(scene_ndc, mlp_config=bf16, use_fused_mlp=True)
+    _build.reset_launch_counts()
+    psnr_ndc, t_ndc = timed(ex_ndc.test_model, sd_ndc)
+    counts = _build.launch_counts()
+    psnr_ndc_plain, t_ndc_plain = timed(
+        make(scene_ndc, mlp_config=bf16, use_fused_mlp=False).test_model,
+        sd_ndc)
+    check(counts["mlp_from_points_bf16"] > 0
+          and counts["mlp_from_points"] == 0 and counts["render_pass"] == 0,
+          f"bf16 NDC test_model launches: {counts}")
+    launches["mlp_from_points_bf16"] = counts["mlp_from_points_bf16"]
+    print(f"[15] NDC {FERN_HW[0]}x{FERN_HW[1]}, 64+64 through K-B3 bf16: "
+          f"teacher test PSNR {psnr_ndc:.2f} dB in {t_ndc:.2f} s, "
+          f"{counts['mlp_from_points_bf16']} launches; plain bf16 "
+          f"{psnr_ndc_plain:.2f} dB in {t_ndc_plain:.2f} s")
+    check(np.isfinite(psnr_ndc) and psnr_ndc > 30.0
+          and abs(psnr_ndc - psnr_ndc_plain) <= 1.0,
+          f"NDC render through K-B3 bf16 {psnr_ndc} dB, plain bf16 "
+          f"{psnr_ndc_plain} dB")
+
+    # IOQ with the probe rendering in bf16
+    bs = os.path.join(OUT, "teacher_bf16_probe.nnc")
+    _build.reset_launch_counts()
+    before = _build.launch_counts()
+    _none, t_compress = timed(lambda: nnc_tpu_torch.compress_model(
+        tar, bitstream_path=bs, qp=-20, lsa=False, ioq=True, scene=scene,
+        mlp_config=bf16, use_fused_mlp=True, device=dev, verbose=False))
+    after = _build.launch_counts()
+    check(after["render_pass_bf16"] > before["render_pass_bf16"]
+          and after["render_pass"] == before["render_pass"],
+          "the bf16 IOQ probe did not run K-B2 bf16")
+    launches["render_pass_bf16"] += \
+        after["render_pass_bf16"] - before["render_pass_bf16"]
+    dec_b = nnc_tpu_torch.decompress_model(bs, verbose=False)
+    psnr_b = ex.test_model(dec_b)
+    moved = sum(not np.array_equal(dec_b[k], dec[k]) for k in dec)
+    print(f"[15] compress_model(ioq=True, mlp_config=bf16): "
+          f"{os.path.getsize(bs)} B (107,599 B with the float32 probe; "
+          f"{moved} of {len(dec)} decoded tensors differ) in "
+          f"{t_compress:.1f} s, "
+          f"{after['render_pass_bf16'] - before['render_pass_bf16']} K-B2 "
+          f"bf16 launches; decoded test PSNR through the bf16 kernels "
+          f"{psnr_b:.4f} dB")
+    check(set(dec_b) == set(dec) and np.isfinite(psnr_b) and psnr_b > 20.0,
+          f"the bf16-probed bitstream decodes to {psnr_b} dB")
+
+    fn, args = graft_entry.entry()
+    check(args[0].config.compute_dtype == torch.bfloat16,
+          "graft_entry.entry() is not bf16")
+    rgb, t_entry = timed(fn, *args)
+    check(rgb.shape == (1024, 3) and torch.isfinite(rgb).all().item(),
+          "graft_entry.entry() in bf16: shape or values")
+    print(f"[15] graft_entry.entry() in bf16 (plain MLP, 1,024 rays, "
+          f"64 + 128): finite, {t_entry:.2f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1295,7 +1629,8 @@ def main():
     dev, card = phase_environment()
     row, ctx = phase_mlp(dev)
     rows = {"mlp_from_points": row, "render_pass": phase_render(dev)}
-    scene, sd, tar = phase_slice(dev)   # resets the launch counts first
+    # resets the launch counts first
+    scene, sd, tar, dec, psnr_f32 = phase_slice(dev)
     scene_ndc, sd_ndc, psnr_kb3 = phase_llff(dev)
     launches = {k: _build.launch_counts()[k] for k in RENDER_KERNELS}
     rows.update(phase_train_kernels(dev))
@@ -1303,12 +1638,15 @@ def main():
     launches.update(lsa_launches)
     rows["mlp_embedded"] = phase_embedded(dev, ctx)
     rows["mlp_int8_from_points"] = phase_int8(dev, ctx)
-    del ctx
     launches.update(phase_lowprec_slice(dev, scene_ndc, sd_ndc, psnr_kb3))
     rows["mlp_tp_pair"] = phase_tp_pair(dev)
     launches["mlp_tp_pair"] = phase_tp_slice(dev, scene_ndc, sd_ndc)
     mesh_launches, dry_pairs = phase_multi_device(dev, scene, dec0, sets)
     launches["mlp_tp_pair"] += dry_pairs
+    rows.update(phase_bf16_kernels(dev, ctx))
+    del ctx
+    launches.update(phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc,
+                                     sd_ndc, tar))
     for name, n in mesh_launches.items():
         check(n > 0, f"the multi-device slice did not launch {name}")
     for name, n in launches.items():

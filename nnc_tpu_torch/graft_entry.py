@@ -20,14 +20,16 @@ from .train import lsa
 from .utils.device import resolve_device
 
 
-def entry(n_rays: int = 1024, device=None):
+def entry(n_rays: int = 1024, device=None,
+          compute_dtype: torch.dtype = torch.bfloat16):
     """Returns (fn, example_args): a hierarchical NeRF render step on the
     flagship model (full-size 8x256 MLPs, lego's 64 + 128 samples, white
-    background) over ``n_rays`` rays, float32 (the reference's entry computes
-    in bf16, which the port does not have). ``device`` None means the first
-    CUDA device."""
+    background) over ``n_rays`` rays, computing in bf16 as the reference's
+    entry does (``compute_dtype=torch.float32`` for the float32 MLP). Its
+    render configuration asks for no fused kernel, so it runs the plain MLP.
+    ``device`` None means the first CUDA device."""
     device = resolve_device(device)
-    mlp = nerf.NeRFConfig()
+    mlp = nerf.NeRFConfig(compute_dtype=compute_dtype)
     rc = renderer.RenderConfig(mlp=mlp, n_samples=64, n_importance=128,
                                white_bkgd=True, chunk=1024)
     g = torch.Generator().manual_seed(0)

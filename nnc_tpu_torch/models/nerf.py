@@ -13,7 +13,12 @@ Architecture (D=8, W=256, skip at layer 4, viewdir head):
   alpha_linear: 256 -> 1 ; feature_linear: 256 -> 256
   views_linears[0]: 256+27 -> 128 ; rgb_linear: 128 -> 3
 
-The working dtype is float32 throughout.
+``NeRFConfig.compute_dtype`` is the type of the products' operands:
+float32, or bfloat16 (the reference's ``compute_dtype=jnp.bfloat16``), in
+which every layer rounds its input and its effective weight to bf16, sums the
+products in float32 and adds its float32 bias (``apply_mlp``'s ``dense``,
+nnc_tpu/models/nerf.py:110-116). Parameters, biases and outputs are float32
+either way.
 """
 from __future__ import annotations
 
@@ -35,6 +40,12 @@ class NeRFConfig:
     output_ch: int = 4
     skips: tuple = (4,)
     use_viewdirs: bool = True
+    compute_dtype: torch.dtype = torch.float32   # or torch.bfloat16
+
+    def __post_init__(self):
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {self.compute_dtype}")
 
 
 def layer_names(config: NeRFConfig):
@@ -66,6 +77,12 @@ def _layer_dims(config: NeRFConfig):
     return dims
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest, ties to even, as ``astype``) and
+    held as float32 again."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 class Linear(nn.Module):
     """Linear layer (torch layout: weight (out, in)) with an optional LSA
     scale buffer ``weight_scaling`` (out, 1), absent until attached."""
@@ -82,11 +99,26 @@ class Linear(nn.Module):
             return self.weight
         return self.weight * self.weight_scaling
 
-    def forward(self, x, output_scaling: bool = False):
+    def forward(self, x, output_scaling: bool = False,
+                compute_dtype: torch.dtype = torch.float32):
         """``x @ (ls * W)^T + b``; with ``output_scaling`` the same as
         ``(x @ W^T) * ls + b``, whose autograd takes the scale gradient from
         the unscaled product instead of a full (out, in) weight gradient
-        (training renders; mlp_train_pallas.py:108-110)."""
+        (training renders; mlp_train_pallas.py:108-110).
+
+        With ``compute_dtype`` bfloat16 the input and the effective weight
+        (the scale folded in float32 first) are rounded to bf16, to nearest
+        even, and multiplied as float32: a product of two bf16 values is
+        exact in float32 (and in TF32, so the card's TF32 switch cannot
+        change it), the sum is float32, the bias is added in float32.
+        ``F.linear`` on bf16 tensors would round the sum to bf16 instead."""
+        if compute_dtype == torch.bfloat16:
+            if output_scaling:
+                raise NotImplementedError(
+                    "bf16 training (the output-scaling form) is not ported "
+                    "to nnc_tpu_torch yet (ROADMAP B-1 item 3)")
+            return F.linear(bf16_round(x), bf16_round(self.effective_weight()),
+                            self.bias)
         if output_scaling and self.weight_scaling is not None:
             return F.linear(x, self.weight) * self.weight_scaling.reshape(-1) \
                 + self.bias
@@ -121,22 +153,24 @@ class NeRF(nn.Module):
 
     def forward(self, pts_emb, views_emb=None, output_scaling: bool = False):
         """pts_emb: (..., input_ch); views_emb: (..., input_ch_views).
-        Returns raw (..., 4) = (rgb logits, sigma). ``output_scaling``: see
+        Returns raw (..., 4) = (rgb logits, sigma), float32 whatever
+        ``config.compute_dtype``. ``output_scaling``: see
         :meth:`Linear.forward`."""
         cfg = self.config
+        how = (output_scaling, cfg.compute_dtype)
         h = pts_emb
         for i, layer in enumerate(self.pts_linears):
-            h = F.relu(layer(h, output_scaling))
+            h = F.relu(layer(h, *how))
             if i in cfg.skips:
                 h = torch.cat([pts_emb, h], dim=-1)
         if cfg.use_viewdirs:
-            alpha = self.alpha_linear(h, output_scaling)
-            feature = self.feature_linear(h, output_scaling)
+            alpha = self.alpha_linear(h, *how)
+            feature = self.feature_linear(h, *how)
             h = torch.cat([feature, views_emb], dim=-1)
-            h = F.relu(self.views_linears[0](h, output_scaling))
-            rgb = self.rgb_linear(h, output_scaling)
+            h = F.relu(self.views_linears[0](h, *how))
+            rgb = self.rgb_linear(h, *how)
             return torch.cat([rgb, alpha], dim=-1)
-        return self.output_linear(h, output_scaling)
+        return self.output_linear(h, *how)
 
 
 def init_params(config: NeRFConfig = NeRFConfig(),
@@ -191,7 +225,9 @@ def fold_lsa(model: NeRF) -> NeRF:
 # ---------------------------------------------------------------------------
 def config_from_state_dict(state_dict: Mapping[str, np.ndarray],
                            prefix: str = "model.") -> NeRFConfig:
-    """Infer D/W/skips/viewdirs from a flat torch-layout state dict."""
+    """Infer D/W/skips/viewdirs from a flat torch-layout state dict
+    (``compute_dtype`` is no property of a checkpoint: float32, the
+    default)."""
     pts = sorted(int(k[len(prefix) + 12:-7]) for k in state_dict
                  if k.startswith(prefix + "pts_linears.")
                  and k.endswith(".weight"))

@@ -33,7 +33,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
-           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd", "mlp_tp_pair")
+           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd", "mlp_tp_pair",
+           "mlp_from_points_bf16", "render_pass_bf16")
 
 _lock = threading.Lock()
 _lib = None
@@ -140,6 +141,15 @@ def lib() -> ctypes.CDLL:
         handle.nnc_render_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, cf,
                                            vp, vp, ci, ci, vp]
         handle.nnc_render_pass.restype = ci
+        handle.nnc_bf16_params_size.argtypes = []
+        handle.nnc_bf16_params_size.restype = ci
+        handle.nnc_bf16_tile_points.argtypes = []
+        handle.nnc_bf16_tile_points.restype = ci
+        handle.nnc_mlp_from_points_bf16.argtypes = \
+            handle.nnc_mlp_from_points.argtypes
+        handle.nnc_mlp_from_points_bf16.restype = ci
+        handle.nnc_render_pass_bf16.argtypes = handle.nnc_render_pass.argtypes
+        handle.nnc_render_pass_bf16.restype = ci
         handle.nnc_train_sizes.argtypes = [ctypes.POINTER(ci)] * 2
         handle.nnc_train_sizes.restype = ci
         handle.nnc_train_mma_sizes.argtypes = [ctypes.POINTER(ci)] * 2

@@ -1,0 +1,84 @@
+// The kernel of K-B3, posenc + the NeRF MLP from raw points, over a chain:
+// mma::Chain (float32 as 3xTF32, nerf_mlp_mma.cuh; mlp_from_points.cu) or
+// bf16::Chain<MT> (nerf_mlp_bf16.cuh; mlp_from_points_bf16.cu).
+//
+// Design: persistent CTAs of 256 threads, one per SM, each walking tiles of
+// Chain::kPoints points (tile = blockIdx.x, + gridDim.x, ...). The embedding
+// and the activations stay in shared memory, the layer's accumulators in
+// registers, and the weights stream through a ring of shared-memory slabs
+// that keeps running from one tile into the next; nothing but the points'
+// coordinates in and raw logits out touches device memory. The TPU kernel's
+// 128-lane padding and packed (N, 8) input are not carried over: the input
+// is points (N, 3) and directions (N, 3), the output (N, 4).
+#pragma once
+
+#include "nerf_mlp_mma.cuh"
+
+namespace nerf {
+
+template <class Chain>
+struct PointsSmem {
+  typename Chain::Smem mlp;
+  float xs[Chain::kPoints * 3];
+  float ds[Chain::kPoints * 3];
+};
+
+template <class Chain>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_from_points_kernel(const float* __restrict__ P,
+                       const float* __restrict__ pts,
+                       const float* __restrict__ dirs,
+                       float* __restrict__ out, int n, int tiles) {
+  constexpr int kPoints = Chain::kPoints;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PointsSmem<Chain>& s = *reinterpret_cast<PointsSmem<Chain>*>(smem_raw);
+  const int tid = threadIdx.x;
+  mma::prof_begin();
+  typename Chain::Pipe pipe;
+  Chain::begin(s.mlp, pipe, P);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kPoints;
+    for (int i = tid; i < kPoints * 3; i += kThreads) {
+      const bool valid = base + i / 3 < n;
+      s.xs[i] = valid ? pts[base * 3 + i] : 0.f;
+      s.ds[i] = valid ? dirs[base * 3 + i] : 0.f;
+    }
+    __syncthreads();
+    NNC_PROF(0);
+    Chain::embed(s.mlp, s.xs, s.ds);
+    Chain::mlp(s.mlp, pipe, P);
+    for (int i = tid; i < kPoints * 4; i += kThreads)
+      if (base + i / 4 < n) out[base * 4 + i] = s.mlp.raw[i];
+    NNC_PROF(8);
+  }
+  pipe.drain();
+  mma::prof_end();
+}
+
+// pts, dirs: (n, 3); out: (n, 4) [rgb logits, sigma]; params: the weights as
+// the chain's packing lays them out, 16-byte aligned.
+template <class Chain>
+int launch_mlp_from_points(const float* params, const float* pts,
+                           const float* dirs, float* out, int n,
+                           void* stream) {
+  const int smem = static_cast<int>(sizeof(PointsSmem<Chain>));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_from_points_kernel<Chain>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int tiles = (n + Chain::kPoints - 1) / Chain::kPoints;
+    const int grid = tiles < sms ? tiles : sms;
+    mlp_from_points_kernel<Chain><<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        params, pts, dirs, out, n, tiles);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace nerf

@@ -1,7 +1,8 @@
 // The flagship NeRF MLP (D=8, W=256, skip at layer 4, view head; posenc
 // 10/4 frequencies) on a tile of 64 points with its products on the tensor
 // cores at float32 accuracy. Used by mlp_from_points.cu (K-B3),
-// render_pass.cu (K-B2) and mlp_train.cu (K-B1: the training forward and
+// render_pass.cu (K-B2) (through the kernels of mlp_from_points.cuh and
+// render_pass.cuh, which nerf_mlp_bf16.cuh's chain shares) and mlp_train.cu (K-B1: the training forward and
 // the backward without dW take the ring, the split, the fragment loads and
 // the product loops, mma_segment, from here and bring epilogues of their
 // own, because training keeps u = x @ W apart from its scale and bias).
@@ -154,6 +155,14 @@ __device__ __forceinline__ void prof_end() {
   if (threadIdx.x < kProfSlots)
     atomicAdd(prof_total + threadIdx.x,
               static_cast<unsigned long long>(prof_sum[threadIdx.x]));
+}
+// Reads the clock sums of the launches so far into out[kProfSlots] and
+// zeroes them.
+inline int read_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, prof_total, sizeof(prof_total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kProfSlots] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(prof_total, zero, sizeof(zero)));
 }
 #else
 #define NNC_PROF(slot)
@@ -565,6 +574,27 @@ __device__ __forceinline__ void mlp_tile(MlpSmem& s, Pipe& pipe,
   __syncthreads();
   NNC_PROF(7);
 }
+
+// What mlp_from_points.cuh and render_pass.cuh need of a chain: the tile's
+// size, its shared memory and weight ring, and the three steps of a tile.
+struct Chain {
+  static constexpr int kPoints = kM;
+  using Smem = MlpSmem;
+  using Pipe = mma::Pipe;
+  static __device__ __forceinline__ void begin(Smem& s, Pipe& pipe,
+                                               const float* P) {
+    pipe.start(P, s.ring);
+    zero_embedding_pad(s.emb);
+  }
+  static __device__ __forceinline__ void embed(Smem& s, const float* xs,
+                                               const float* ds) {
+    embed_tile(s.emb, xs, ds);
+  }
+  static __device__ __forceinline__ void mlp(Smem& s, Pipe& pipe,
+                                             const float* P) {
+    mlp_tile(s, pipe, P);
+  }
+};
 
 }  // namespace mma
 }  // namespace nerf

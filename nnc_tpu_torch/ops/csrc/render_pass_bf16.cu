@@ -1,0 +1,32 @@
+// K-B2 in bf16: fused deterministic render pass, the MLP's operands rounded
+// to bf16, its sums and logits and the whole compositing float32.
+//
+// Replaces the Pallas kernel _make_kernel / _fused_render_et_call
+// (nnc_tpu/ops/render_pallas.py:88, :169) as it runs when
+// config.compute_dtype is bfloat16 (render_pallas.py:292-295).
+//
+// Bound on the H100: operations, ~1.2 MFLOP per sample point against ~8
+// bytes of per-sample input and 4 of output, at the tensor cores' dense bf16
+// peak of 989 TFLOP/s (H100 SXM data sheet, 700 W), counted on the points
+// whose ray is still alive.
+//
+// Design: the kernel of render_pass.cuh over tiles of NNC_BF16_MT / 2 rays x
+// 32 samples (4 rays: 128 points, the MLP tile of nerf_mlp_bf16.cuh). A
+// tile twice the float32 kernel's halves the weight bytes read from L2 per
+// point and coarsens early termination: a block runs while any of four
+// rays is alive.
+#include "render_pass.cuh"
+#include "nerf_mlp_bf16.cuh"
+
+// params: the weights as pack_weights_bf16 lays them out.
+extern "C" int nnc_render_pass_bf16(const float* params, const float* rays_o,
+                                    const float* rays_d,
+                                    const float* viewdirs, const float* z,
+                                    const float* dists, const int* live,
+                                    float term_csd, float* maps,
+                                    float* weights, int R, int S,
+                                    void* stream) {
+  return nerf::launch_render_pass<nerf::bf16::Chain<NNC_BF16_MT>>(
+      params, rays_o, rays_d, viewdirs, z, dists, live, term_csd, maps,
+      weights, R, S, stream);
+}

@@ -22,7 +22,13 @@ kernel (``csrc/mlp_int8_from_points.cu``) reads the three buffers of
 :func:`pack_weights_int8`. The plain versions read :func:`pack_weights`'
 and :func:`pack_weights_int8`'s buffers, and :func:`unpack_weights_mma`
 reads the fragment order back, so the CPU tests check the layouts the
-kernels read.
+kernels read. A model with ``config.compute_dtype == torch.bfloat16`` takes
+the bf16 variant of K-B3 (``csrc/mlp_from_points_bf16.cu`` on
+``csrc/nerf_mlp_bf16.cuh``: ``mma.sync`` bf16 products, float32 sums), which
+reads :func:`pack_weights_bf16`'s buffer; its plain version is
+:func:`fused_nerf_mlp_from_points_bf16_plain`. K-B5 has no bf16 kernel yet
+and raises for such a model (ROADMAP B-1 item 4); K-B4 quantizes from the
+float32 weights whatever ``compute_dtype``, as the reference's does.
 
 Packing folds and copies every weight, so the model-level entry points take
 their buffers from :data:`PACKS`, one cache for all of them (and for the
@@ -43,6 +49,14 @@ from .posenc import positional_encoding
 FLAGSHIP = nerf.NeRFConfig()
 _SEG = 64            # layer segments are padded to a multiple of 64 floats
 PLAIN_CHUNK = 1 << 18  # points per plain-version MLP call (bounds memory)
+
+
+def refuse_bf16(model: nerf.NeRF, what: str, item: int) -> None:
+    """Raise for a bf16 model on a route whose bf16 kernel is not ported."""
+    if model.config.compute_dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what} has no bf16 kernel in nnc_tpu_torch yet (ROADMAP B-1 "
+            f"item {item}); the float32 kernel is not run in its place")
 
 
 def supports(config: nerf.NeRFConfig) -> bool:
@@ -347,6 +361,135 @@ def mlp_3xtf32_plain(L, pe, ve):
         L, pe, ve, addmm=lambda b, x, w: b + matmul_3xtf32_plain(x, w))
 
 
+# --- the bf16 chain of K-B3 / K-B2: its packing and its arithmetic -----------
+# csrc/nerf_mlp_bf16.cuh. The same ownership as above (eight warps, 8 * NT
+# output channels each) over mma.sync m16n8k16: a k step is 16 channels, a
+# 32-bit word holds two bf16 values of consecutive rows, the lower row in
+# the low half. Lane 4 g + t of warp w reads, for k step ks and n-tile nt,
+# the words b0 = W[row .. row + 1, col] at row = 16 ks + 2 t and b1 at
+# row = 16 ks + 2 t + 8, col = 8 NT w + 8 nt + g. The buffer is int32: its
+# order is [slab][warp][k step][n-tile pair][lane][nt % 2][r] words, then as
+# float32 bit patterns the biases and the heads of the float32 layout above
+# (the heads' weights rounded to bf16 and widened again).
+BF16_SLABS = 37   # of 8,192 words (32 KB): 64 rows at 256 outputs, 128 at 128
+
+
+def fragment_index_k16(base, ld, rows, padded, n_out, pad):
+    """:func:`fragment_index` for ``mma.sync`` m16n8k16 on 16-bit values:
+    for B (rows, n_out) stored row-major at ``base`` with row stride ``ld``,
+    the index of every value of the run's slabs, in the order [slab][warp]
+    [k step of the slab][n-tile pair][lane][nt % 2][r][j], value j of word r
+    being row 16 ks + 2 t + 8 r + j; ``pad`` for the zero rows
+    rows..padded and for the rest of the run's last slab."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    nt_n = n_out // 64
+    per_slab = 16 // nt_n             # k steps in a slab
+    ks = np.arange(-(-padded // (16 * per_slab)) * per_slab)
+    # [ks][warp][q][lane][nt2][r][j]
+    ax = lambda a, i: np.asarray(a).reshape([-1 if k == i else 1
+                                            for k in range(7)])
+    row = ax(16 * ks, 0) + ax(2 * t, 3) + ax(8 * np.arange(2), 5) \
+        + ax(np.arange(2), 6)
+    col = ax(8 * nt_n * np.arange(8), 1) + ax(16 * np.arange(nt_n // 2), 2) \
+        + ax(8 * np.arange(2), 4) + ax(g, 3)
+    idx = np.where(row < rows, base + row * ld + col, pad)
+    # -> [slab][warp][k step of the slab][q][lane][nt2][r][j]
+    return idx.reshape(-1, per_slab, 8, nt_n // 2, 32, 2, 2, 2) \
+        .transpose(0, 2, 1, 3, 4, 5, 6, 7).reshape(-1)
+
+
+def _bf16_index():
+    """(index of every bf16 value of the slabs, index of every float32 word
+    after them) into pack_weights' buffer, PARAMS_SIZE where it is zero
+    padding."""
+    segs = {name: (din, dout, off) for name, din, dout, off
+            in _segments(FLAGSHIP)[0]}
+    parts = []
+    for name, row0, rows, padded in MMA_RUNS:
+        _din, dout, off = segs[name]
+        parts.append(fragment_index_k16(off + row0 * dout, dout, rows, padded,
+                                        dout, PARAMS_SIZE))
+    slabs = np.concatenate(parts).astype(np.int64)
+    tail = MMA_INDEX[MMA_SLABS * MMA_SLAB:]
+    size = slabs.size // 2 + tail.size
+    tail = np.concatenate([tail, np.full(-size % _SEG, PARAMS_SIZE)])
+    return slabs, tail.astype(np.int64)
+
+
+BF16_SLAB_INDEX, BF16_TAIL_INDEX = _bf16_index()
+BF16_PARAMS_SIZE = BF16_SLAB_INDEX.size // 2 + BF16_TAIL_INDEX.size
+_bf16_index_on = {}   # device -> (BF16_SLAB_INDEX, BF16_TAIL_INDEX) there
+bf16_round = nerf.bf16_round
+
+
+def _bf16_indices(device):
+    index = _bf16_index_on.get(device)
+    if index is None:
+        index = _bf16_index_on[device] = tuple(
+            torch.from_numpy(i).to(device)
+            for i in (BF16_SLAB_INDEX, BF16_TAIL_INDEX))
+    return index
+
+
+def repack_bf16(packed: torch.Tensor) -> torch.Tensor:
+    """The buffer of :func:`pack_weights` (LSA already folded, float32) as
+    the bf16 kernels read it: int32 (BF16_PARAMS_SIZE,). Every weight is
+    rounded to bf16 (nearest even); the slabs hold them two to a word in the
+    fragments' order, the tail holds the float32 biases and the two heads'
+    rounded weights as float32 bit patterns."""
+    _check("packed", packed, (PARAMS_SIZE,))
+    slab_index, tail_index = _bf16_indices(packed.device)
+    segs, _size = _segments(FLAGSHIP)
+    is_bias = torch.zeros(PARAMS_SIZE + 1, dtype=torch.bool,
+                          device=packed.device)
+    for _name, din, dout, off in segs:
+        is_bias[off + din * dout:off + din * dout + dout] = True
+    src = torch.cat([packed, packed.new_zeros(1)])
+    rounded = src.to(torch.bfloat16)
+    slabs = rounded[slab_index].view(torch.int32)
+    tail = torch.where(is_bias, src, rounded.float())[tail_index] \
+        .view(torch.int32)
+    return torch.cat([slabs, tail])
+
+
+def pack_weights_bf16(model: nerf.NeRF) -> torch.Tensor:
+    """The flagship model's weights as the bf16 kernels read them:
+    ``bf16(ls * W)``, the values of the reference's ``_pack_weights(params,
+    ls, bfloat16)`` (mlp_pallas.py:49-96), and float32 biases;
+    :func:`repack_bf16` of the model's cached :func:`pack_weights` buffer."""
+    return repack_bf16(PACKS.get(model, "float32", pack_weights))
+
+
+def packed_bf16_for(model: nerf.NeRF) -> torch.Tensor:
+    """The model's cached :func:`pack_weights_bf16` buffer."""
+    return PACKS.get(model, "bf16_mma", pack_weights_bf16)
+
+
+def unpack_weights_bf16(packed_bf16: torch.Tensor):
+    """{layer name: (w (in, out), b (out,))} read back from a buffer of
+    :func:`repack_bf16`, float32 tensors whose weights hold bf16 values."""
+    _check("packed_bf16", packed_bf16, (BF16_PARAMS_SIZE,), torch.int32)
+    slab_index, tail_index = _bf16_indices(packed_bf16.device)
+    n_slab = BF16_SLAB_INDEX.size // 2
+    flat = torch.zeros(PARAMS_SIZE + 1, device=packed_bf16.device)
+    flat[slab_index] = packed_bf16[:n_slab].view(torch.bfloat16).float()
+    flat[tail_index] = packed_bf16[n_slab:].view(torch.float32)
+    return unpack_weights(flat[:PARAMS_SIZE])
+
+
+def mlp_bf16_plain(L, pe, ve):
+    """The MLP (weights as :func:`unpack_weights_bf16` gives them, any
+    width) on float32 embeddings as the bf16 chain computes it
+    (``_mlp_body``, mlp_pallas.py:162-188): the embeddings and every layer's
+    output after its ReLU rounded to bf16, ``feature`` rounded without one,
+    products of bf16 values (exact in float32) summed in float32, float32
+    biases, the logits float32. Rounding commutes with the ReLU."""
+    return _mlp_packed(
+        L, bf16_round(pe), bf16_round(ve),
+        addmm=lambda b, x, w: bf16_round(torch.addmm(b, x, w)))
+
+
 def pack_weights_int8(model: nerf.NeRF):
     """The flagship model's weights as K-B4 reads them: ``(wq, scales,
     biases)``, three flat tensors.
@@ -515,6 +658,23 @@ def fused_nerf_mlp_from_points_plain(packed, pts, dirs):
     return torch.cat(outs)
 
 
+def fused_nerf_mlp_from_points_bf16_plain(packed_bf16, pts, dirs):
+    """Plain PyTorch version of K-B3 in bf16: pts, dirs (N, 3) -> raw
+    (N, 4). The positional encoding is computed in float32 and rounded once
+    (:func:`mlp_bf16_plain`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = unpack_weights_bf16(packed_bf16)
+    outs = []
+    for start in range(0, pts.shape[0], PLAIN_CHUNK):
+        p = pts[start:start + PLAIN_CHUNK]
+        d = dirs[start:start + PLAIN_CHUNK]
+        outs.append(mlp_bf16_plain(L, positional_encoding(p, 10),
+                                   positional_encoding(d, 4)))
+    if not outs:
+        return pts.new_zeros((0, 4))
+    return torch.cat(outs)
+
+
 def _check(name, t, shape, dtype=torch.float32):
     if t.dtype != dtype or not t.is_contiguous() or \
             tuple(t.shape) != tuple(shape):
@@ -578,6 +738,25 @@ def mlp_from_points(packed, pts, dirs, packed_mma=None):
                 if packed.is_cuda else None)
 
 
+def _check_bf16(packed_bf16):
+    """The buffer the bf16 kernels launch with (``cp.async`` copies it 16
+    bytes at a time)."""
+    _check("packed_bf16", packed_bf16, (BF16_PARAMS_SIZE,), torch.int32)
+    if packed_bf16.is_cuda and packed_bf16.data_ptr() % 16:
+        raise ValueError("packed_bf16 must be 16-byte aligned")
+    return packed_bf16
+
+
+def mlp_from_points_bf16(packed_bf16, pts, dirs):
+    """K-B3 wrapper, bf16: raw (N, 4) float32 for float32 points and view
+    directions (N, 3), the weights as :func:`pack_weights_bf16` gives them.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    return _run("mlp_from_points_bf16", fused_nerf_mlp_from_points_bf16_plain,
+                (_check_bf16(packed_bf16),),
+                {"pts": (pts, 3), "dirs": (dirs, 3)})
+
+
 def mlp_int8_from_points(wq, scales, biases, pts, dirs):
     """K-B4 wrapper: raw (N, 4) for points and view directions (N, 3), the
     weights as :func:`pack_weights_int8` gives them; activations quantized
@@ -603,16 +782,21 @@ def mlp_embedded(packed, pts_emb, views_emb):
 
 def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
     """posenc + MLP from raw points. pts: (..., 3); viewdirs broadcastable
-    to pts. Returns raw (..., 4) float32."""
+    to pts. Returns raw (..., 4) float32. ``model.config.compute_dtype``
+    picks the float32 or the bf16 variant of K-B3."""
     vd = torch.broadcast_to(viewdirs, pts.shape)
     if not supports(model.config):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4))
     lead = pts.shape[:-1]
-    raw = mlp_from_points(PACKS.get(model, "float32", pack_weights),
-                          pts.reshape(-1, 3).float().contiguous(),
-                          vd.reshape(-1, 3).float().contiguous(),
-                          packed_mma=packed_mma_for(model, pts.device))
+    flat = (pts.reshape(-1, 3).float().contiguous(),
+            vd.reshape(-1, 3).float().contiguous())
+    if model.config.compute_dtype == torch.bfloat16:
+        raw = mlp_from_points_bf16(packed_bf16_for(model), *flat)
+    else:
+        raw = mlp_from_points(PACKS.get(model, "float32", pack_weights),
+                              *flat,
+                              packed_mma=packed_mma_for(model, pts.device))
     return raw.reshape(*lead, 4)
 
 
@@ -620,7 +804,8 @@ def fused_nerf_mlp_int8_from_points(model: nerf.NeRF, pts, viewdirs):
     """int8 variant of :func:`fused_nerf_mlp_from_points`: per-channel int8
     weights, activations quantized at run time per block of points, int32
     sums. pts: (..., 3); viewdirs broadcastable to pts. Returns raw (..., 4)
-    float32."""
+    float32. The weights are quantized from float32 whatever
+    ``model.config.compute_dtype`` (mlp_pallas.py:378)."""
     vd = torch.broadcast_to(viewdirs, pts.shape)
     if not supports(model.config):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
@@ -638,6 +823,7 @@ def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
     float32."""
     if not supports(model.config):
         return nerf.apply_mlp(model, pts_emb, views_emb)
+    refuse_bf16(model, "the fused MLP on embeddings (K-B5)", 4)
     lead = pts_emb.shape[:-1]
     raw = mlp_embedded(PACKS.get(model, "float32", pack_weights),
                        pts_emb.reshape(-1, 63).float().contiguous(),

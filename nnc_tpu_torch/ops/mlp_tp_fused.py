@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from .. import parallel
 from ..models import nerf
 from . import _build
-from .mlp_fused import PACKS, _check, supports
+from .mlp_fused import PACKS, _check, refuse_bf16, supports
 
 # column-sharded layer -> (its bias, the row-sharded layer behind it)
 _PAIRS = {"w0": ("b0", "w1"), "w2": ("b2", "w3"), "w4": ("b4", "w5b"),
@@ -202,6 +202,7 @@ def fused_nerf_mlp_tp(model: nerf.NeRF, pts_emb, views_emb,
                          f"{model.config}")
     if "model" not in mesh.axis_names:
         raise ValueError(f"the mesh has no 'model' axis: {mesh}")
+    refuse_bf16(model, "the tensor-parallel fused MLP (K-B6)", 5)
     devices = mesh.axis_devices("model")
     shards, reps = PACKS.get(model, ("tp", tuple(devices)),
                              lambda m: place_tp_weights(m, devices))

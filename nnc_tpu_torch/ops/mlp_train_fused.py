@@ -49,8 +49,8 @@ from ..models import nerf
 from . import _build
 from .mlp_fused import (FLAGSHIP, MMA_PARAMS_SIZE, MMA_SLAB, PARAMS_SIZE,
                         PLAIN_CHUNK, _check, _segments, fragment_index,
-                        matmul_3xtf32_plain, repack_mma, supports,
-                        unpack_weights, unpack_weights_mma)
+                        matmul_3xtf32_plain, refuse_bf16, repack_mma,
+                        supports, unpack_weights, unpack_weights_mma)
 from .posenc import positional_encoding
 
 _DIMS = list(nerf._layer_dims(FLAGSHIP).items())   # [(name, (in, out))]
@@ -562,6 +562,7 @@ def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
     if not supports(model.config):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4), output_scaling=True)
+    refuse_bf16(model, "the fused training MLP (K-B1)", 3)
     lead = pts.shape[:-1]
     tensors = _layer_tensors(model)
     packs = TRAIN_PACKS.get(tensors[0::3]) if pts.is_cuda else None

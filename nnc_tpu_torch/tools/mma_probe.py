@@ -1,5 +1,6 @@
-"""What holds the tensor-core chain of K-B3 / K-B2 / K-B1
-(ops/csrc/nerf_mlp_mma.cuh) on the card it runs on. Needs a CUDA device and
+"""What holds the tensor-core chains of K-B3 / K-B2 / K-B1
+(ops/csrc/nerf_mlp_mma.cuh, float32 as 3xTF32; ops/csrc/nerf_mlp_bf16.cuh,
+bf16) on the card they run on. Needs a CUDA device and
 nvcc:
 
     python -m nnc_tpu_torch.tools.mma_probe
@@ -23,7 +24,14 @@ Prints, after the card's name and power limit:
      the fragments, 8 bytes a lane; outputs and workspace must be bit-equal)
      and with clock marks: the forward's two times in turns and its time without
      the workspace, the backward's time, and the share of a tile's clocks in
-     each part of the forward and of the backward without dW.
+     each part of the forward and of the backward without dW;
+  5. the bf16 chain: the rate at which a sub-partition issues
+     ``mma.sync.m16n8k16 .bf16`` (as in 1), then K-B3 bf16
+     (``mlp_from_points_bf16.cu``) at 262,144 points built with tiles of 128
+     points (``NNC_BF16_MT=8``, shipped) and of 64 (``-DNNC_BF16_MT=4``;
+     the outputs must be bit-equal), each also with clock marks: the two
+     times in turns beside the float32 kernel's, the weight bytes a point
+     reads from L2, and the share of a tile's clocks in each part.
 Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
 from __future__ import annotations
@@ -88,11 +96,41 @@ __global__ void issue_rate(float* out, long long* clk, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
   if (threadIdx.x == 0) clk[blockIdx.x] = t1 - t0;
 }
+template <int NACC>
+__global__ void issue_rate_bf16(float* out, long long* clk, int iters) {
+  uint32_t a[4], b[2];
+  for (int j = 0; j < 4; ++j) a[j] = 0x3f803f80u + (threadIdx.x + j << 16);
+  for (int j = 0; j < 2; ++j) b[j] = 0x3f003f00u + (threadIdx.x + j << 16);
+  float c[NACC][4] = {};
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int i = 0; i < NACC; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) clk[blockIdx.x] = t1 - t0;
+}
 extern "C" int nnc_issue_rate(int nacc, int threads, int blocks, int iters,
-                              float* out, long long* clk) {
-  if (nacc == 8) issue_rate<8><<<blocks, threads>>>(out, clk, iters);
-  else if (nacc == 16) issue_rate<16><<<blocks, threads>>>(out, clk, iters);
-  else issue_rate<32><<<blocks, threads>>>(out, clk, iters);
+                              float* out, long long* clk, int bf16) {
+  if (bf16) {
+    if (nacc == 8) issue_rate_bf16<8><<<blocks, threads>>>(out, clk, iters);
+    else if (nacc == 16) issue_rate_bf16<16><<<blocks, threads>>>(out, clk, iters);
+    else issue_rate_bf16<32><<<blocks, threads>>>(out, clk, iters);
+  } else {
+    if (nacc == 8) issue_rate<8><<<blocks, threads>>>(out, clk, iters);
+    else if (nacc == 16) issue_rate<16><<<blocks, threads>>>(out, clk, iters);
+    else issue_rate<32><<<blocks, threads>>>(out, clk, iters);
+  }
   cudaError_t err = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : cudaDeviceSynchronize());
 }
@@ -119,7 +157,10 @@ def _ms(fn, iters=10, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def issue_rate(lib, dev):
+def issue_rate(lib, dev, bf16=False):
+    """Section 1 (TF32 m16n8k8) or, with ``bf16``, the first part of section
+    5 (bf16 m16n8k16, twice the depth a product)."""
+    section, what, depth = (5, "BF16", 16) if bf16 else (1, "TF32", 8)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(sms * 512, device=dev)
     clk = torch.zeros(sms, dtype=torch.int64, device=dev)
@@ -129,15 +170,15 @@ def issue_rate(lib, dev):
             if nacc * warps > 256:    # more registers than an SM has
                 continue
             args = (nacc, 32 * warps, sms, iters, out.data_ptr(),
-                    clk.data_ptr())
+                    clk.data_ptr(), int(bf16))
             assert lib.nnc_issue_rate(*args) == 0
             ms = _ms(lambda: lib.nnc_issue_rate(*args), iters=3, warmup=1)
             per_part = iters * nacc * warps / 4
-            flop = sms * iters * nacc * warps * 2 * 16 * 8 * 8
-            print(f"[1] {warps // 4} warps a sub-partition, {nacc} "
+            flop = sms * iters * nacc * warps * 2 * 16 * 8 * depth
+            print(f"[{section}] {warps // 4} warps a sub-partition, {nacc} "
                   f"accumulators a warp: {clk.double().mean().item() / per_part:.2f} "
                   f"clocks per mma.sync a sub-partition, "
-                  f"{flop / ms / 1e9:.1f} TF32 TFLOP/s over the card")
+                  f"{flop / ms / 1e9:.1f} {what} TFLOP/s over the card")
 
 
 def chain(libs, dev):
@@ -263,6 +304,65 @@ def train_pair(libs, dev):
                  "backward without dW")
 
 
+def bf16_chain(libs, dev):
+    """Section 5: K-B3 bf16 with tiles of 128 and of 64 points."""
+    g = torch.Generator().manual_seed(0)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    packed = mlp_fused.pack_weights(model)
+    buffers = {"shipped": mlp_fused.repack_mma(packed)}
+    buffers.update({name: mlp_fused.repack_bf16(packed) for name in libs
+                    if name.startswith("bf16")})
+    pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(N_POINTS, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    outs = {}
+
+    def launch(name):
+        out = outs.setdefault(name, torch.empty(N_POINTS, 4, device=dev))
+        fn = libs[name].nnc_mlp_from_points if name == "shipped" \
+            else libs[name].nnc_mlp_from_points_bf16
+        rc = fn(buffers[name].data_ptr(), pts.data_ptr(), vd.data_ptr(),
+                out.data_ptr(), N_POINTS,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    tiles = {"bf16": 128, "bf16_mt4": 64}
+    for name, points in tiles.items():
+        assert libs[name].nnc_bf16_tile_points() == points, name
+    names = ("bf16", "bf16_mt4", "shipped")
+    times = [{name: _ms(lambda: launch(name)) for name in names}
+             for _ in range(2)]
+    assert torch.equal(outs["bf16"], outs["bf16_mt4"]), \
+        "tiles of 128 and of 64 points disagree"
+    shown = {name: [f"{t[name]:.3f}" for t in times] for name in names}
+    slab_bytes = 4 * mlp_fused.BF16_SLABS * mlp_fused.MMA_SLAB
+    print(f"[5] K-B3 bf16 {N_POINTS} points in turns, ms: tiles of 128 "
+          f"points (shipped) {shown['bf16']}, of 64 {shown['bf16_mt4']}, "
+          f"the float32 kernel {shown['shipped']}; the two tiles' outputs "
+          f"bit-equal; weight bytes a point reads from L2: "
+          f"{slab_bytes / 128:.0f} / {slab_bytes / 64:.0f} "
+          f"({slab_bytes * N_POINTS / 128 / 1e9:.2f} / "
+          f"{slab_bytes * N_POINTS / 64 / 1e9:.2f} GB a launch; the float32 "
+          f"kernel {4 * mlp_fused.MMA_SLABS * mlp_fused.MMA_SLAB / 64:.0f})")
+    for name, points in tiles.items():
+        prof = libs[name + "_profile"]
+        buffers[name + "_profile"] = buffers[name]
+        sums = (ctypes.c_ulonglong * len(PROFILE_SLOTS))()
+        for _ in range(2):   # the first is a warm-up, discarded
+            launch(name + "_profile")
+            torch.cuda.synchronize()
+            assert prof.nnc_mma_profile(sums) == 0
+        n_tiles = -(-N_POINTS // points)
+        total = sum(sums)
+        print(f"[5] clocks of a bf16 tile of {points} points by thread 0's "
+              f"marks, {total / n_tiles:.0f} in all "
+              f"({total / N_POINTS:.1f} a point):")
+        for slot, what in enumerate(PROFILE_SLOTS):
+            print(f"      {what:28s} {sums[slot] / n_tiles:9.0f}  "
+                  f"{100 * sums[slot] / total:5.1f}%")
+
+
 def sass_counts(so):
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
@@ -285,11 +385,17 @@ def main():
         f.write(MMA_RATE_CU)
     kb3 = os.path.join(_build.SRC_DIR, "mlp_from_points.cu")
     kb1 = os.path.join(_build.SRC_DIR, "mlp_train.cu")
+    kb3_bf16 = os.path.join(_build.SRC_DIR, "mlp_from_points_bf16.cu")
     builds = {"issue_rate": (rate_cu,), "shipped": (kb3,),
               "cvt": (kb3, "-DNNC_SPLIT_CVT"),
               "profile": (kb3, "-DNNC_MMA_PROFILE"), "train": (kb1,),
               "train_direct": (kb1, "-DNNC_TRAIN_DIRECT_U"),
-              "train_profile": (kb1, "-DNNC_MMA_PROFILE")}
+              "train_profile": (kb1, "-DNNC_MMA_PROFILE"),
+              "bf16": (kb3_bf16,),
+              "bf16_profile": (kb3_bf16, "-DNNC_MMA_PROFILE"),
+              "bf16_mt4": (kb3_bf16, "-DNNC_BF16_MT=4"),
+              "bf16_mt4_profile": (kb3_bf16, "-DNNC_BF16_MT=4",
+                                   "-DNNC_MMA_PROFILE")}
     procs = {name: _compile(args[0], os.path.join(OUT, name + ".so"),
                             *args[1:]) for name, args in builds.items()}
     libs = {}
@@ -302,9 +408,11 @@ def main():
                 print(f"    ptxas, {name}: {line.strip()}")
         libs[name] = ctypes.CDLL(os.path.join(OUT, name + ".so"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp]
+    libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp, ci]
     for name in ("shipped", "cvt", "profile"):
         libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
+    for name in (n for n in libs if n.startswith("bf16")):
+        libs[name].nnc_mlp_from_points_bf16.argtypes = [vp, vp, vp, vp, ci, vp]
     for name in ("train", "train_direct", "train_profile"):
         libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
         libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 7 + [ci, ci, vp]
@@ -312,6 +420,9 @@ def main():
     chain(libs, dev)
     sass_counts(os.path.join(OUT, "shipped.so"))
     train_pair({k: v for k, v in libs.items() if k.startswith("train")}, dev)
+    issue_rate(libs["issue_rate"], dev, bf16=True)
+    bf16_chain({k: v for k, v in libs.items()
+                if k.startswith("bf16") or k == "shipped"}, dev)
 
 
 if __name__ == "__main__":

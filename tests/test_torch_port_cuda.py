@@ -29,7 +29,9 @@ the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
 off by more than 5% of it. K-B6 (two float32 products, sums over at most 256
 terms in another order than cuBLAS's): 1e-4 of max |ref| + 1e-5; the
 tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
-output's scale (tests/test_parallel.py:296).
+output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3 and
+K-B2 are held to the distance between their plain bf16 and plain float32
+versions (the note above their tests).
 """
 import ctypes
 import math
@@ -566,3 +568,177 @@ def test_cuda_dryrun_multichip_and_entry(cuda_device, capsys):
     rgb = fn(*args)
     assert rgb.shape == (1024, 3) and rgb.device == cuda_device
     assert torch.isfinite(rgb).all()
+
+
+# --- the bf16 variants of K-B3 and K-B2 ---------------------------------------
+# A bf16 result is held against its plain bf16 version in units of the
+# distance between the plain bf16 and the plain float32 version on the same
+# network and inputs: one float32 sum rounded the other way flips a bf16
+# rounding (2^-8 of an activation), and the tensor core's cutting accumulate
+# does that to about one activation a point. Measured on an H100 at 262,144
+# points: rms 0.057 of the distance's rms, max 0.45-0.52 of its max. Bars:
+# rms <= 1/8, no element beyond the distance's max, at most 1e-4 of them
+# beyond half of it, and three times closer (rms) to the plain bf16 version
+# than to the plain float32 one.
+def _rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def _held_to_bf16_distance(got, plain16, plain32):
+    err, dist = got - plain16, plain16 - plain32
+    assert _rms(dist) > 0
+    assert _rms(err) <= _rms(dist) / 8, (_rms(err), _rms(dist))
+    top = float(dist.abs().max())
+    assert float(err.abs().max()) <= top, (float(err.abs().max()), top)
+    assert float((err.abs() > top / 2).float().mean()) <= 1e-4
+    assert 3 * _rms(err) <= _rms(got - plain32)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_build_and_layout(cuda_device):
+    lib = _build.lib()
+    assert lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
+    assert lib.nnc_bf16_tile_points() == \
+        render_fused.RAY_TILE_BF16 * render_fused.SAMPLE_BLOCK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64, 10_000, 3_414_016])
+def test_cuda_mlp_from_points_bf16_matches_plain(cuda_device, n):
+    model = _fog_model(cuda_device)
+    pts, vd = _points(n, cuda_device)
+    packed = mlp_fused.pack_weights(model)
+    buf = mlp_fused.pack_weights_bf16(model)
+    assert torch.equal(buf, mlp_fused.repack_bf16(packed))
+    before = _build.launch_counts()
+    got = mlp_fused.mlp_from_points_bf16(buf, pts, vd)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["mlp_from_points_bf16"] == before["mlp_from_points_bf16"] + 1
+    assert after["mlp_from_points"] == before["mlp_from_points"]
+    assert torch.isfinite(got).all()
+    _held_to_bf16_distance(
+        got, mlp_fused.fused_nerf_mlp_from_points_bf16_plain(buf, pts, vd),
+        mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd))
+    assert torch.equal(mlp_fused.mlp_from_points_bf16(buf, pts, vd), got)
+    # the model-level entry picks the variant from the config
+    bf16_model = nerf.NeRF(nerf.NeRFConfig(compute_dtype=torch.bfloat16),
+                           device=cuda_device)
+    bf16_model.load_state_dict(model.state_dict(), strict=False)
+    for src, dst in zip(model.layers().values(),
+                        bf16_model.layers().values()):
+        dst.weight_scaling = src.weight_scaling
+    via = mlp_fused.fused_nerf_mlp_from_points(bf16_model,
+                                               pts.reshape(1, n, 3),
+                                               vd.reshape(1, n, 3))
+    assert via.shape == (1, n, 4) and torch.equal(via[0], got)
+    assert _build.launch_counts()["mlp_from_points"] == \
+        before["mlp_from_points"]
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_buffer_must_be_aligned_and_sized(cuda_device):
+    model = _fog_model(cuda_device)
+    pts, vd = _points(64, cuda_device)
+    buf = mlp_fused.pack_weights_bf16(model)
+    shifted = torch.cat([buf.new_zeros(1), buf])[1:]
+    assert shifted.data_ptr() % 16
+    for bad in (shifted, buf[:-64], buf.cpu(), buf.float()):
+        with pytest.raises(ValueError):
+            mlp_fused.mlp_from_points_bf16(bad, pts, vd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(333, 80), (64, 192), (7, 33)])
+@pytest.mark.parametrize("eps,want_weights", [(0.0, True), (1e-4, True),
+                                              (1e-4, False)])
+def test_cuda_render_pass_bf16_matches_plain(cuda_device, eps, want_weights,
+                                             R, S):
+    model = synthetic.make_solid_mlp(noise_std=1e-2, device=cuda_device,
+                                     generator=torch.Generator()
+                                     .manual_seed(3))
+    ro, rd, vd, z = _rays(R, S, cuda_device)
+    ro = ro + torch.tensor([0.0, 0.0, 4.0], device=cuda_device)
+    dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)],
+                      -1) * torch.linalg.norm(rd, dim=-1, keepdim=True)
+    live = (torch.arange(R, device=cuda_device) % 128 < 64).to(torch.int32)
+    live[R // 2:R // 2 + 8] = 0   # dead ray tiles at every R
+    term = -math.log(eps) if eps > 0 else math.inf
+    packed = mlp_fused.pack_weights(model)
+    buf = mlp_fused.repack_bf16(packed)
+    rays = (ro, rd, vd, z, dists, live, term)
+    before = _build.launch_counts()
+    maps, w = render_fused.render_pass_bf16(buf, *rays, want_weights)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["render_pass_bf16"] == before["render_pass_bf16"] + 1
+    assert after["render_pass"] == before["render_pass"]
+    maps_p, w_p = render_fused.fused_render_pass_bf16_plain(buf, *rays)
+    # the float32 plain version stopping rays in the same tiles of four
+    maps_f, w_f = render_fused.fused_render_pass_plain(
+        packed, *rays, ray_tile=render_fused.RAY_TILE_BF16)
+    assert torch.isfinite(maps).all()
+    for name, a, b, c, slack in (
+            # (the float32 kernel's own 1e-5 is the floor: a solid's rgb / acc
+            # differ by float32 rounding alone)
+            ("rgb/acc", maps[:, :4], maps_p[:, :4], maps_f[:, :4],
+             2 * eps + 1e-5),
+            ("depth", maps[:, 4], maps_p[:, 4], maps_f[:, 4], 20 * eps)) + (
+            (("weights", w, w_p, w_f, 2 * eps),) if want_weights else ()):
+        dist = float((b - c).abs().max())
+        assert dist > 0 and float((a - b).abs().max()) <= dist / 2 + slack, \
+            (name, float((a - b).abs().max()), dist)
+    rt = render_fused.RAY_TILE_BF16
+    dead = torch.nn.functional.pad(live, (0, -R % rt)).reshape(-1, rt) \
+        .amax(dim=1).repeat_interleave(rt)[:R] == 0
+    # (R = 7: the ragged second tile, three rays)
+    assert int(dead.sum()) >= 3 and float(maps[dead].abs().max()) == 0.0
+    assert float(maps[:, 3].max()) > 0.5  # rays reach the solid
+    if want_weights:
+        assert float(w[dead].abs().max()) == 0.0
+    else:
+        assert w is None
+    again = render_fused.render_pass_bf16(buf, *rays, want_weights)
+    assert torch.equal(again[0], maps)
+    assert w is None or torch.equal(again[1], w)
+    for bad in (buf[:-64], buf.cpu(), packed):
+        with pytest.raises(ValueError):
+            render_fused.render_pass_bf16(bad, *rays, want_weights)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_renderer_routes_to_the_bf16_kernels(cuda_device):
+    """render_rays of a bf16 model: K-B2 bf16 for the coarse and the fine
+    pass, K-B3 bf16 with raw_noise_std > 0, none of the float32 kernels; the
+    result within the culled render's bound of the plain bf16 path."""
+    cfg = nerf.NeRFConfig(compute_dtype=torch.bfloat16)
+    models = [synthetic.make_solid_mlp(cfg, noise_std=1e-2,
+                                       device=cuda_device,
+                                       generator=torch.Generator()
+                                       .manual_seed(s)) for s in (4, 5)]
+    assert all(m.config.compute_dtype == torch.bfloat16 for m in models)
+    R = 1000
+    ro, rd, vd, _ = _rays(R, 1, cuda_device)
+    ro = ro + torch.tensor([0.0, 0.0, 4.0], device=cuda_device)
+    common = dict(mlp=cfg, n_samples=64, n_importance=128, perturb=False,
+                  white_bkgd=True)
+    render = lambda **kw: renderer.render_rays(
+        *models, ro, rd, vd, 2.0, 6.0,
+        renderer.RenderConfig(**common, **kw), deterministic=True)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        want = render()
+        assert not any(_build.launch_counts().values())
+        got = render(use_fused_mlp=True, use_fused_compositing=True)
+        assert _build.launch_counts()["render_pass_bf16"] == 2
+        noisy = render(use_fused_mlp=True, use_fused_compositing=True,
+                       raw_noise_std=1.0)
+        counts = _build.launch_counts()
+    assert counts["mlp_from_points_bf16"] == 2
+    assert counts["render_pass"] == 0 and counts["mlp_from_points"] == 0
+    for out in (got, noisy):
+        assert float((out["rgb_map"] - want["rgb_map"]).abs().max()) < 5e-3
+    with pytest.raises(NotImplementedError, match="B-1 item 3"):
+        renderer.render_rays(*models, ro, rd, vd, 2.0, 6.0,
+                             renderer.RenderConfig(**common),
+                             deterministic=False)
