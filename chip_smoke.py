@@ -75,11 +75,25 @@ Phases:
      phase 4's scene and decoded weights (K-B2 bf16, coarse and fine) against
      the float32 kernels' render and the plain bf16 render; phase 5's NDC
      scene through K-B3 bf16; compress_model(ioq=True) with the probe in
-     bf16; graft_entry.entry() in bf16.
+     bf16; graft_entry.entry() in bf16;
+ 16. kernel pair K-B1 in bf16 (forward, backward without dW on the tensor
+     cores; backward with dW, SIMT) against its plain bf16 versions at
+     phase 6's shapes, full width, LSA scales std 0.05: raw and every
+     gradient in units of the distance between the plain bf16 and the plain
+     float32 version on the same inputs, reruns bit-equal, timed in turns
+     beside float32 K-B1 and the plain bf16 versions;
+ 17. the bf16 LSA slice on phase 4's scene and teacher:
+     compress_model(qp=-20, lsa=True, mlp_config=bf16) tuning through K-B1
+     bf16 -> decode -> test render through K-B2 bf16; a 10-step trajectory
+     from phase 7's no-LSA decode through K-B1 bf16 against the same steps
+     through its plain bf16 versions and phase 7's float32 plain run, on
+     phase 7's batches and draws; nnc_tpu_torch.tools.bench_train_step at
+     full width, without and with dW.
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
-phase 10, the tensor-parallel call of phase 12, the runs of phase 13 and
-the two test_model renders and the compression of phase 15.
+phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
+the two test_model renders and the compression of phase 15, and the
+compression and the two bench_train_step runs of phase 17.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
@@ -87,6 +101,7 @@ products are three TF32 products each, a third of the tensor cores' TF32 peak; f
 as JSON. Writes its files under build/chip_smoke/.
 """
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -111,6 +126,7 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
+from nnc_tpu_torch.tools import bench_train_step
 from nnc_tpu_torch.train import lsa, presets
 from nnc_tpu_torch.utils import ckpt
 from nnc_tpu_torch.utils.device import require_cuda
@@ -152,6 +168,12 @@ KERNEL_ROWS = {
         "nnc_tpu/ops/mlp_pallas.py:280"),
     "render_pass_bf16": ("nnc_tpu_torch/ops/csrc/render_pass_bf16.cu",
                          "nnc_tpu/ops/render_pallas.py:169"),
+    "mlp_train_fwd_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train_bf16.cu",
+                           "nnc_tpu/ops/mlp_train_pallas.py:275"),
+    "mlp_train_bwd_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train_bf16.cu",
+                           "nnc_tpu/ops/mlp_train_pallas.py:300"),
+    "mlp_train_bwd_dw_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train.cu",
+                              "nnc_tpu/ops/mlp_train_pallas.py:300"),
 }
 # K-B6: (K, O2, relu_mid) of the forward's pairs: w0 -> w1; w2 -> w3,
 # w4 -> w5b, w6 -> w7; wf -> wva. S = 256 / M.
@@ -159,6 +181,7 @@ PAIR_HEADS = ((63, 256, True), (256, 256, True), (256, 128, False))
 TP_SHARDS = 4
 RENDER_KERNELS = ("render_pass", "mlp_from_points")
 LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
+LSA_BF16_KERNELS = ("mlp_train_fwd_bf16", "mlp_train_bwd_bf16")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # device memory bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s
 # and TF32 FLOP/s of the tensor cores. A float32 product computed as three
@@ -166,7 +189,7 @@ LSA_KERNELS = ("mlp_train_fwd", "mlp_train_bwd")
 # TF32 peak.
 PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
-PEAK_BF16 = 989e12   # dense bf16, the bound of K-B3 bf16 and K-B2 bf16
+PEAK_BF16 = 989e12   # dense bf16, the bound of every bf16 kernel
 # K-B3's raw logits against the exact float32 plain version, 10x the 2.4e-6
 # measured at values up to 2.7. One TF32 product instead of three reads
 # 1.6e-3 in the plain model of the arithmetic, a lost correction term half of
@@ -810,7 +833,7 @@ def phase_lsa(dev, scene, sd, tar):
     check(span > 0.0 and drift <= 1e-2 * span and drift_l2 <= 1e-2,
           f"K-B1 LSA trajectory drifts from the plain one: max {drift} "
           f"(bound 1e-2 x {span}), L2 {drift_l2} (bound 1e-2)")
-    return launches, dec0, sets
+    return launches, dec0, sets, ls_p, psnr_lsa
 
 
 def phase_embedded(dev, ctx):
@@ -1620,6 +1643,309 @@ def phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc, sd_ndc, tar):
     return launches
 
 
+def grads_to_bf16_distance(what, flat, flat16, flat32, with_dw):
+    """Each part of a bf16 K-B1 gradient (dW with_dw, dls, db, over all
+    layers) against the plain bf16 version's, in units of the distance
+    between the plain bf16 and the plain float32 gradient: rms error <= 1/4
+    of the distance's rms, no element beyond 1/2 of its max (dW besides one
+    bf16 step, 2^-7 of the value: both round it once summed, and a last-bit
+    difference of the sum moves it by a step), and three times closer (rms)
+    to the plain bf16 gradient than to the float32 one. Measured on an H100
+    at 196,608 points: 0.06-0.07 of the rms, 0.07-0.09 of the max. Returns
+    {part: (rms err / rms dist, max err / max dist)}."""
+    parts = zip(("dW", "dls", "db"),
+                *(mlp_train_fused.split_grads(f, with_dw)
+                  for f in (flat, flat16, flat32)))
+    out = {}
+    for part, got, want16, want32 in parts:
+        if got is None:
+            continue
+        got, want16, want32 = (torch.cat([v.reshape(-1) for v in d.values()])
+                               for d in (got, want16, want32))
+        err, dist = got - want16, want16 - want32
+        step = 2.0 ** -7 * want16.abs() if part == "dW" else 0.0
+        e_rms, d_rms = rms(err), rms(dist)
+        e_max = float((err.abs() - step).max())
+        d_max = float(dist.abs().max())
+        check(torch.isfinite(got).all().item(), f"{what} {part} not finite")
+        check(d_rms > 0 and e_rms <= d_rms / 4 and e_max <= d_max / 2
+              and 3 * e_rms <= rms(got - want32),
+              f"{what} {part}: rms error {e_rms} and max {e_max} against a "
+              f"bf16-to-float32 distance of rms {d_rms}, max {d_max}")
+        out[part] = (e_rms / d_rms, e_max / d_max)
+    return out
+
+
+def phase_train_bf16_kernels(dev):
+    """Phase 16: K-B1 bf16 against its plain bf16 versions."""
+    sizes = [ctypes.c_int() for _ in range(3)]
+    _build.lib().nnc_train_bf16_sizes(*(ctypes.byref(c) for c in sizes))
+    check([c.value for c in sizes] == [
+        mlp_train_fused.TILE_BF16, mlp_fused.BF16_PARAMS_SIZE,
+        mlp_train_fused.BWD_BF16_PARAMS_SIZE],
+        f"the bf16 K-B1 kernels' and the packing's sizes differ: "
+        f"{[c.value for c in sizes]}")
+    g = torch.Generator().manual_seed(16)
+    model = nerf.init_params(nerf.NeRFConfig(), g)
+    model = synthetic._activate(model, g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    tensors = mlp_train_fused._layer_tensors(model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    # what the kernels read: the bf16 streams of the unscaled weights and
+    # the bias vector, as fused_nerf_mlp_train hands them over
+    fwd_b, bwd_b = mlp_train_fused.pack_train_bf16(tensors[0::3])
+    mma, mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    biases = mlp_train_fused.gather_biases(params)
+    rows = None
+    for n in N_TRAIN:
+        pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
+        vd = torch.randn(n, 3, generator=g)
+        vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+        cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+        fwd = lambda: mlp_train_fused.mlp_train_fwd_bf16(
+            params, ls, pts, vd, True, fwd_b, biases)
+        raw, ws = fwd()
+        torch.cuda.synchronize()
+        raw16 = mlp_train_fused.mlp_train_fwd_bf16_plain(params, ls, pts, vd)
+        raw32 = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
+        f_rms, f_max, fd_rms, fd_max = held_to_bf16_distance(
+            f"K-B1 bf16 forward {n} points", raw, raw16, raw32)
+        raw_2, ws_2 = fwd()
+        made = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd,
+                                                  save_u=True)
+        check(torch.equal(raw_2, raw) and torch.equal(ws_2, ws)
+              and torch.equal(made[0], raw) and torch.equal(made[1], ws),
+              "K-B1 bf16 forward: reruns, or given and made buffers, differ")
+        del raw_2, ws_2, made
+        err = {}
+        for with_dw in (False, True):
+            bwd = lambda: mlp_train_fused.mlp_train_bwd_bf16(
+                params, params_t, ls, pts, vd, cot, ws, with_dw, bwd_b,
+                biases)
+            flat = bwd()
+            torch.cuda.synchronize()
+            err[with_dw] = grads_to_bf16_distance(
+                f"K-B1 bf16 backward {n} points with_dw={with_dw}", flat,
+                mlp_train_fused.mlp_train_bwd_bf16_plain(
+                    params, params_t, ls, pts, vd, cot, with_dw),
+                mlp_train_fused.mlp_train_bwd_plain(
+                    params, params_t, ls, pts, vd, cot, with_dw), with_dw)
+            check(torch.equal(bwd(), flat), "K-B1 bf16 backward reruns "
+                  f"differ (with_dw={with_dw})")
+        print(f"[16] K-B1 bf16 {n} points against its plain bf16 versions, "
+              f"in shares (rms / max) of the bf16-to-float32 distance: raw "
+              f"{f_rms / fd_rms:.3f} / {f_max / fd_max:.3f} (distance rms "
+              f"{fd_rms:.3e} max {fd_max:.3e}); gradients without dW "
+              f"{ {k: f'{a:.3f} / {b:.3f}' for k, (a, b) in err[False].items()} }"
+              f", with dW "
+              f"{ {k: f'{a:.3f} / {b:.3f}' for k, (a, b) in err[True].items()} }"
+              f"; reruns bit-equal")
+        if n != N_TRAIN[-1]:
+            del ws
+            continue
+        # in turns: the bf16 kernel, the float32 kernel, the plain bf16
+        # version (which recomputes the forward in its backward)
+        _raw32, ws32 = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
+                                                     True, mma, biases)
+        fns = {
+            "mlp_train_fwd_bf16": (
+                fwd,
+                lambda: mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
+                                                      True, mma, biases),
+                lambda: mlp_train_fused.mlp_train_fwd_bf16_plain(
+                    params, ls, pts, vd)),
+            "mlp_train_bwd_bf16": (
+                lambda: mlp_train_fused.mlp_train_bwd_bf16(
+                    params, params_t, ls, pts, vd, cot, ws, False, bwd_b,
+                    biases),
+                lambda: mlp_train_fused.mlp_train_bwd(
+                    params, params_t, ls, pts, vd, cot, ws32, False, mma_t,
+                    biases),
+                lambda: mlp_train_fused.mlp_train_bwd_bf16_plain(
+                    params, params_t, ls, pts, vd, cot, False)),
+            "mlp_train_bwd_dw_bf16": (
+                lambda: mlp_train_fused.mlp_train_bwd_bf16(
+                    params, params_t, ls, pts, vd, cot, ws, True),
+                lambda: mlp_train_fused.mlp_train_bwd(
+                    params, params_t, ls, pts, vd, cot, ws32, True),
+                lambda: mlp_train_fused.mlp_train_bwd_bf16_plain(
+                    params, params_t, ls, pts, vd, cot, True))}
+        # what each function must move and do: the workspace of u written
+        # once by the forward and read once by a backward dominates the
+        # bytes; the products of bf16 values at the dense bf16 peak
+        flat = fns["mlp_train_bwd_bf16"][0]()
+        flat_dw = fns["mlp_train_bwd_dw_bf16"][0]()
+        bounds = {
+            "mlp_train_fwd_bf16": bound(
+                nbytes(fwd_b, ls, biases, pts, vd, raw, ws),
+                2 * MLP_MACS * n, PEAK_BF16),
+            "mlp_train_bwd_bf16": bound(
+                nbytes(bwd_b, ls, biases, cot, ws, flat), 2 * BWD_MACS * n,
+                PEAK_BF16),
+            "mlp_train_bwd_dw_bf16": bound(
+                nbytes(params, params_t, ls, pts, vd, cot, ws, flat_dw),
+                2 * (BWD_MACS + INT8_MACS) * n, PEAK_BF16)}
+        errs = {"mlp_train_fwd_bf16": maxabs(raw, raw16),
+                "mlp_train_bwd_bf16": maxabs(flat, mlp_train_fused
+                                             .mlp_train_bwd_bf16_plain(
+                                                 params, params_t, ls, pts,
+                                                 vd, cot, False)),
+                "mlp_train_bwd_dw_bf16": maxabs(
+                    flat_dw, mlp_train_fused.mlp_train_bwd_bf16_plain(
+                        params, params_t, ls, pts, vd, cot, True))}
+        rows = {}
+        for name, (kernel, f32, plain) in fns.items():
+            it = 2 if "dw" in name else 5
+            times = [[cuda_ms(fn, iters=it) for fn in (kernel, f32, plain)]
+                     for _ in range(2)]
+            ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
+            rows[name] = {"max_abs_err": errs[name], "ms": ms,
+                          "plain_ms": plain_ms, **bounds[name],
+                          "float32_ms": f32_ms}
+            b = bounds[name]
+            print(f"[16] {name} {n} points, in turns, ms: kernel "
+                  f"{[f'{t[0]:.3f}' for t in times]}, float32 K-B1 "
+                  f"{[f'{t[1]:.3f}' for t in times]}, plain bf16 "
+                  f"{[f'{t[2]:.3f}' for t in times]}; bound "
+                  f"{b['bound_ms']:.3f} ms by {b['bound_by']}: "
+                  f"{100 * b['bound_ms'] / ms:.1f}% reached")
+        del ws, ws32
+    return rows
+
+
+def _kb1_plain():
+    """A block in which K-B1's wrappers run their plain versions on CUDA
+    tensors (the pack cache handing out no kernel buffers, so that the
+    autograd function packs for the plain versions): the reference of
+    phase 17's trajectory. No kernel of K-B1 launches inside it."""
+    stack = contextlib.ExitStack()
+
+    class NoPacks:
+        def get(self, *_args):
+            return None
+
+    def fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
+        return mlp_train_fused._FORMS[bf16]["fwd_plain"](params, ls, pts,
+                                                         dirs), None
+
+    def bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
+            biases):
+        return mlp_train_fused._FORMS[bf16]["bwd_plain"](
+            params, params_t, ls, pts, dirs, g, with_dw)
+
+    for name, fn in (("TRAIN_PACKS", NoPacks()), ("_fwd", fwd),
+                     ("_bwd", bwd)):
+        stack.enter_context(swapped(mlp_train_fused, name, fn))
+    return stack
+
+
+def phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32, psnr_lsa32):
+    """Phase 17: the bf16 LSA slice on phase 4's scene and teacher."""
+    bf16 = nerf.NeRFConfig(compute_dtype=torch.bfloat16)
+    lsa_dir = os.path.join(OUT, "lsa_bf16")
+    bs = os.path.join(lsa_dir, "bitstream", "lego_lsa_bf16.nnc")
+    os.makedirs(os.path.dirname(bs))
+    steps = 40
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(
+        tar, bitstream_path=bs, qp=-20, ioq=False, lsa=True, scene=scene,
+        mlp_config=bf16, use_fused_mlp=True, learning_rate=LSA_LR,
+        N_iters=steps // 2, epochs=2, i_save=steps // 2, render_factor=4,
+        device=dev, verbose=False)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    dec = nnc_tpu_torch.decompress_model(bs, verbose=False)
+    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                            mlp_config=bf16,
+                                            use_fused_mlp=True,
+                                            learning_rate=LSA_LR,
+                                            verbose=False)
+    before = _build.launch_counts()
+    psnr = ex.test_model(dec)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    _psnrs, loss_log = read_result_file(os.path.join(lsa_dir, "result.txt"))
+    # every training render (coarse and fine of each step) through K-B1
+    # bf16 and none through the float32 pair; the i_save renders and the
+    # test render through K-B2 bf16
+    check(counts["mlp_train_fwd_bf16"] == counts["mlp_train_bwd_bf16"]
+          == 2 * steps and counts["mlp_train_fwd"] == 0
+          and counts["mlp_train_bwd"] == 0
+          and counts["mlp_train_bwd_dw_bf16"] == 0
+          and counts["render_pass_bf16"] > 0 and counts["render_pass"] == 0
+          and after["render_pass_bf16"] > before["render_pass_bf16"]
+          and after["render_pass"] == before["render_pass"],
+          f"bf16 LSA launches: {counts}, test render {after}")
+    check(len(loss_log) == steps and np.isfinite(loss_log).all(),
+          f"bf16 LSA losses: {len(loss_log)} logged")
+    check(set(dec) == set(dec0) and np.isfinite(psnr) and psnr > 20.0,
+          f"the bf16-tuned bitstream decodes to {psnr} dB")
+    launches = {k: counts[k] for k in LSA_BF16_KERNELS}
+
+    # TRAJ_STEPS steps from phase 7's no-LSA decode on its batches and
+    # draws: through K-B1 bf16, through its plain bf16 versions, against
+    # phase 7's plain float32 run
+    ex_k = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                              mlp_config=bf16,
+                                              use_fused_mlp=True,
+                                              learning_rate=LSA_LR,
+                                              verbose=False)
+    draws = lambda i: sets[i]
+    ls_k, ms_k = _lsa_run(ex_k, *ex_k._split_params(dec0), draws)
+    before = _build.launch_counts()
+    with _kb1_plain():
+        ls_p, ms_p = _lsa_run(ex_k, *ex_k._split_params(dec0), draws)
+    check(_build.launch_counts() == before,
+          "the plain bf16 LSA run launched a kernel")
+    err, dist = ls_k - ls_p, ls_p - ls32
+    print(f"[17] bf16 LSA slice {LEGO_HW}x{LEGO_HW}, 64+128, N_rand 1024: "
+          f"compress(lsa, {steps} steps, K-B1 bf16) {t_compress:.1f} s; test "
+          f"PSNR {psnr:.4f} dB (float32, phase 7: {psnr_lsa32:.4f} dB); loss "
+          f"{loss_log[0]:.3e} -> {loss_log[-1]:.3e}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"     {TRAJ_STEPS}-step trajectory: mean LSA step {ms_k:.2f} ms "
+          f"through K-B1 bf16, {ms_p:.2f} ms through its plain versions; "
+          f"|ls kernel - ls plain bf16| rms {rms(err):.3e} max "
+          f"{float(err.abs().max()):.3e}, the plain bf16 run from the float32 "
+          f"one rms {rms(dist):.3e} max {float(dist.abs().max()):.3e}, motion "
+          f"rms {rms(ls_p - 1):.3e}")
+    # Adam's steps follow the gradients' signs, and a channel whose
+    # gradient is near zero flips with one rounding: the kernel's run is
+    # held within 1/2 (rms) of the distance between the plain bf16 and the
+    # float32 run, and twice as close to the plain bf16 run as to the
+    # float32 one (tests/test_torch_port_train_bf16.py's bar)
+    check(rms(dist) > 0 and rms(err) <= rms(dist) / 2
+          and rms(ls_k - ls32) >= 2 * rms(err),
+          f"K-B1 bf16 LSA trajectory: rms {rms(err)} from the plain bf16 run, "
+          f"which lies rms {rms(dist)} from the float32 run")
+
+    # the port's bench_train_step at full width, without and with dW
+    bench = {}
+    for argv in ([], ["--with_dw"]):
+        _build.reset_launch_counts()
+        bench[bool(argv)] = bench_train_step.main(["--iters", "10"] + argv)
+        counts = _build.launch_counts()
+        fused = bench[bool(argv)]["fused"]
+        want = {"mlp_train_fwd_bf16", "mlp_train_bwd_dw_bf16" if argv
+                else "mlp_train_bwd_bf16"}
+        check(set(fused["launches"]) == want
+              and all(np.isfinite([fused["loss"],
+                                   bench[bool(argv)]["plain"]["loss"]]))
+              and counts["mlp_train_fwd"] == counts["mlp_train_bwd"] == 0,
+              f"bench_train_step {argv}: launches {counts}, fused path "
+              f"{fused['launches']}")
+        launches.update({k: launches.get(k, 0) + counts[k] for k in want})
+    print(f"[17] bench_train_step (bf16, 1,024 rays, 64+128, 10 steps): "
+          f"plain {bench[False]['plain']['ms']:.2f} ms/it, K-B1 bf16 "
+          f"{bench[False]['fused']['ms']:.2f} ms/it; with dW: plain "
+          f"{bench[True]['plain']['ms']:.2f}, K-B1 bf16 "
+          f"{bench[True]['fused']['ms']:.2f} ms/it")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1634,7 +1960,9 @@ def main():
     scene_ndc, sd_ndc, psnr_kb3 = phase_llff(dev)
     launches = {k: _build.launch_counts()[k] for k in RENDER_KERNELS}
     rows.update(phase_train_kernels(dev))
-    lsa_launches, dec0, sets = phase_lsa(dev, scene, sd, tar)   # resets first
+    # (resets the launch counts first)
+    lsa_launches, dec0, sets, ls32, psnr_lsa32 = phase_lsa(dev, scene, sd,
+                                                           tar)
     launches.update(lsa_launches)
     rows["mlp_embedded"] = phase_embedded(dev, ctx)
     rows["mlp_int8_from_points"] = phase_int8(dev, ctx)
@@ -1647,6 +1975,9 @@ def main():
     del ctx
     launches.update(phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc,
                                      sd_ndc, tar))
+    rows.update(phase_train_bf16_kernels(dev))
+    launches.update(phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32,
+                                   psnr_lsa32))
     for name, n in mesh_launches.items():
         check(n > 0, f"the multi-device slice did not launch {name}")
     for name, n in launches.items():

@@ -111,12 +111,14 @@ class Linear(nn.Module):
         even, and multiplied as float32: a product of two bf16 values is
         exact in float32 (and in TF32, so the card's TF32 switch cannot
         change it), the sum is float32, the bias is added in float32.
-        ``F.linear`` on bf16 tensors would round the sum to bf16 instead."""
+        ``F.linear`` on bf16 tensors would round the sum to bf16 instead.
+        That is the reference's one bf16 form of the plain MLP, for
+        inference and training alike (nnc_tpu/models/nerf.py:110-116), so
+        ``output_scaling`` changes nothing in bf16. Its gradients are
+        autograd's, which pass a cotangent through each rounding as JAX's
+        transpose of ``astype`` does: the cotangents of the rounded input
+        and of the rounded weight are themselves rounded to bf16."""
         if compute_dtype == torch.bfloat16:
-            if output_scaling:
-                raise NotImplementedError(
-                    "bf16 training (the output-scaling form) is not ported "
-                    "to nnc_tpu_torch yet (ROADMAP B-1 item 3)")
             return F.linear(bf16_round(x), bf16_round(self.effective_weight()),
                             self.bias)
         if output_scaling and self.weight_scaling is not None:

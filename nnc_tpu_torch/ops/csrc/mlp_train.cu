@@ -101,28 +101,13 @@
 // PT, each layer's W in (out, in), concatenated in layer order (offset
 // wt_offset); LS. The workspace row of a point and the gradient rows use
 // the u_offset layout too.
+#include "mlp_train.cuh"
 #include "nerf_mlp_mma.cuh"
-
-#include <cstddef>
 
 namespace {
 
 using namespace nerf;
-
-__host__ __device__ constexpr int u_offset(int i) {
-  int off = 0;
-  for (int j = 0; j < i; ++j) off += layer_out(j);
-  return off;
-}
-__host__ __device__ constexpr int wt_offset(int i) {
-  int off = 0;
-  for (int j = 0; j < i; ++j) off += layer_in(j) * layer_out(j);
-  return off;
-}
-constexpr int kU = u_offset(kLayers);     // 2,436 outputs of the 12 layers
-constexpr int kWt = wt_offset(kLayers);   // 593,408 weights
-constexpr int kLayerFeature = 8, kLayerAlpha = 9, kLayerViews = 10,
-              kLayerRgb = 11;
+using namespace nerf::train;
 
 // ------------------------------------------- forward, on the tensor cores
 
@@ -405,72 +390,12 @@ constexpr int kOffAlphaWT = kBwdSlabs * mma::kSlab;   // 256 weights
 constexpr int kOffRgbWT = kOffAlphaWT + kW;           // (3, 128) row-major
 constexpr int kBwdParamsSize = (kOffRgbWT + 3 * (kW / 2) + 63) / 64 * 64;
 
-// Asks L2 for the tile's 64 workspace rows at one layer's columns (p: row 0
-// at the layer's first column, `bytes` wide), one 128-byte line a request,
-// four threads a row. Issued before the layer's product loop, so that the
-// epilogue's loads find u in L2 instead of waiting for device memory once
-// per n-tile.
-__device__ __forceinline__ void prefetch_u(const float* __restrict__ p,
-                                           int bytes) {
-  const char* row = reinterpret_cast<const char*>(
-      p + static_cast<size_t>(threadIdx.x >> 2) * kU);
-  for (int off = (threadIdx.x & 3) * 128; off < bytes; off += 512)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + off));
-  // rows start 16 bytes off a line's start or more: the last bytes may lie
-  // in one more line
-  if ((threadIdx.x & 3) == 3)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + bytes - 4));
-}
-
 struct BwdMmaSmem {
   float ring[mma::kStages * mma::kSlab];  // transposed slabs in flight
   float g[kM * mma::kLdA];  // du of the layer above, then this layer's
   float gr[kM * 4];         // the tile's raw cotangent, then the heads' du
   float part[2 * kU];       // this CTA's sums: dls, then db
 };
-
-// This thread's scales and biases of a layer: lb[nt] = {ls, ls, b, b} of
-// columns c, c + 1 at c = col0 + 8 nt.
-template <int NT>
-__device__ __forceinline__ void load_lb(float (&lb)[NT][4],
-                                        const float* __restrict__ ls,
-                                        const float* __restrict__ b,
-                                        int col0) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    lb[nt][0] = __ldg(ls + col0 + nt * 8);
-    lb[nt][1] = __ldg(ls + col0 + nt * 8 + 1);
-    lb[nt][2] = __ldg(b + col0 + nt * 8);
-    lb[nt][3] = __ldg(b + col0 + nt * 8 + 1);
-  }
-}
-
-// This thread's u of a layer, from the workspace (U: the tile's first row
-// at the layer's columns): u[nt][mt][half] holds rows mt * 16 + g + 8 half,
-// columns c, c + 1 at c = col0 + 8 nt. U2: the columns start at an even
-// offset, so the two are one 8-byte load.
-template <int NT, bool U2>
-__device__ __forceinline__ void load_u(float (&u)[NT][4][2][2],
-                                       const float* __restrict__ U, int g,
-                                       int col0) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* up = U +
-            static_cast<size_t>(mt * 16 + g + 8 * half) * kU + col0 + nt * 8;
-        if (U2) {
-          const float2 u2 = __ldcs(reinterpret_cast<const float2*>(up));
-          u[nt][mt][half][0] = u2.x;
-          u[nt][mt][half][1] = u2.y;
-        } else {
-          u[nt][mt][half][0] = __ldcs(up);
-          u[nt][mt][half][1] = __ldcs(up + 1);
-        }
-      }
-}
 
 // The accumulators hold the gradient of a layer's output for the tile (the
 // fragment layout of mma_layer). In place they become du = dpre * ls, with
@@ -697,14 +622,22 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
 }
 
 // ------------------------------------------- backward with dW, SIMT float32
-// mlp_train_bwd_kernel<true>: the chain of nerf_mlp.cuh (channel-major
+// mlp_train_bwd_kernel<true, false>: the chain of nerf_mlp.cuh (channel-major
 // activations, weights through L1/L2), reading the workspace the forward
-// above wrote.
+// above wrote. mlp_train_bwd_kernel<true, true> is K-B1's bf16 backward with
+// dW, on the workspace of mlp_train_bf16.cu's forward: the reference's
+// rounding points (mlp_train_pallas.py:181-192, 358) on the same chain,
+// every weight rounded to bf16 as it is loaded, every du rounded where
+// channel_grad writes it (the input of both the dx and the dW products),
+// the rebuilt activations and the embedding rounded, the relu mask taken
+// from the rounded activation, dW rounded once summed (reduce_rows); dls and
+// db stay float32 sums. Products of bf16 values are exact in float32, so
+// the sums are the float32 chain's.
 
 
 // acc[r][j] += sum_c x[c][r0 + r] * w[c * ldw + lane + 32 j]: dense's product
 // with a row stride, for the (out, in) weights of the backward.
-template <int NC>
+template <int NC, bool BF16>
 __device__ __forceinline__ void accumulate_ld(float (&acc)[8][NC],
                                               const float* __restrict__ x,
                                               int K,
@@ -717,7 +650,10 @@ __device__ __forceinline__ void accumulate_ld(float (&acc)[8][NC],
     const float xr[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
     float wv[NC];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) wv[j] = __ldg(w + k * ldw + lane + 32 * j);
+    for (int j = 0; j < NC; ++j) {
+      wv[j] = __ldg(w + k * ldw + lane + 32 * j);
+      if (BF16) wv[j] = bf16_round(wv[j]);
+    }
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -726,8 +662,9 @@ __device__ __forceinline__ void accumulate_ld(float (&acc)[8][NC],
 }
 
 // out[k][m] = sum_c du[c][m] wt[c][k] (+ the same for du2, wt2), k < NOUT:
-// the input gradient of a layer, from its (out, in) weights (row stride ldw).
-template <int NOUT>
+// the input gradient of a layer, from its (out, in) weights (row stride ldw),
+// rounded to bf16 as they are loaded when BF16.
+template <int NOUT, bool BF16>
 __device__ __forceinline__ void dense_t(float* __restrict__ out,
                                         const float* __restrict__ du, int K,
                                         const float* __restrict__ wt, int ldw,
@@ -742,8 +679,8 @@ __device__ __forceinline__ void dense_t(float* __restrict__ out,
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
-  accumulate_ld<NC>(acc, du, K, wt, ldw, r0, lane);
-  if (K2 > 0) accumulate_ld<NC>(acc, du2, K2, wt2, ldw2, r0, lane);
+  accumulate_ld<NC, BF16>(acc, du, K, wt, ldw, r0, lane);
+  if (K2 > 0) accumulate_ld<NC, BF16>(acc, du2, K2, wt2, ldw2, r0, lane);
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     float4* o = reinterpret_cast<float4*>(out + (lane + 32 * j) * kLd + r0);
@@ -756,8 +693,9 @@ __device__ __forceinline__ void dense_t(float* __restrict__ out,
 // thread: the incoming gradient (row, in shared memory) becomes du = dpre * l
 // in place, with dpre = dy masked by the relu (RELU); dpre * u and dpre are
 // summed into the CTA's partial dls and db of the channel. u points at the
-// channel's u of the tile's first point (stride kU).
-template <bool RELU>
+// channel's u of the tile's first point (stride kU). BF16: the mask is the
+// rounded activation's, du is rounded.
+template <bool RELU, bool BF16>
 __device__ __forceinline__ void channel_grad(float* __restrict__ row,
                                              const float* __restrict__ u,
                                              float l, float b,
@@ -772,10 +710,11 @@ __device__ __forceinline__ void channel_grad(float* __restrict__ row,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const float uq = __ldcs(u + static_cast<size_t>(m + q) * kU);
-      if (RELU && !(fmaf(uq, l, b) > 0.f)) d[q] = 0.f;
+      const float p = fmaf(uq, l, b);
+      if (RELU && !((BF16 ? bf16_round(p) : p) > 0.f)) d[q] = 0.f;
       sl = fmaf(d[q], uq, sl);
       sb += d[q];
-      d[q] *= l;
+      d[q] = BF16 ? bf16_round(d[q] * l) : d[q] * l;
     }
     *p = make_float4(d[0], d[1], d[2], d[3]);
   }
@@ -784,7 +723,7 @@ __device__ __forceinline__ void channel_grad(float* __restrict__ row,
 }
 
 // Every output channel of layer L (kThreads >= its width): channel_grad.
-template <int L, bool RELU>
+template <int L, bool RELU, bool BF16>
 __device__ __forceinline__ void layer_grad(float* __restrict__ g,
                                            const float* __restrict__ U,
                                            const float* __restrict__ P,
@@ -793,15 +732,15 @@ __device__ __forceinline__ void layer_grad(float* __restrict__ g,
                                            float* __restrict__ part_b) {
   const int c = threadIdx.x;
   if (c < layer_out(L)) {
-    channel_grad<RELU>(g + c * kLd, U + u_offset(L) + c,
+    channel_grad<RELU, BF16>(g + c * kLd, U + u_offset(L) + c,
                        __ldg(LS + u_offset(L) + c), __ldg(bias<L>(P) + c),
                        part_ls + u_offset(L) + c, part_b + u_offset(L) + c);
   }
 }
 
 // X[k][m] = act(fmaf(u, ls, b)) of layer L for its K outputs: the forward's
-// activation, rebuilt from the workspace.
-template <int L, bool RELU>
+// activation, rebuilt from the workspace (rounded to bf16 when BF16).
+template <int L, bool RELU, bool BF16>
 __device__ __forceinline__ void rebuild(float* __restrict__ X,
                                         const float* __restrict__ U,
                                         const float* __restrict__ P,
@@ -813,7 +752,24 @@ __device__ __forceinline__ void rebuild(float* __restrict__ X,
     const float p =
         fmaf(__ldcs(U + static_cast<size_t>(m) * kU + u_offset(L) + k),
              __ldg(LS + u_offset(L) + k), __ldg(bias<L>(P) + k));
-    X[k * kLd + m] = RELU ? fmaxf(p, 0.f) : p;
+    const float h = RELU ? fmaxf(p, 0.f) : p;
+    X[k * kLd + m] = BF16 ? bf16_round(h) : h;
+  }
+}
+
+// The tile's positional encoding into X (channel-major, embed_tile of
+// nerf_mlp.cuh), rounded to bf16 when BF16. Every thread enters; ends with
+// a barrier when BF16.
+template <bool BF16>
+__device__ __forceinline__ void embed_x(float* __restrict__ X,
+                                        const float* __restrict__ xs,
+                                        const float* __restrict__ ds) {
+  embed_tile(X, xs, ds);
+  if (BF16) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kEmb * kLd; i += kThreads)
+      X[i] = bf16_round(X[i]);
+    __syncthreads();
   }
 }
 
@@ -883,7 +839,7 @@ struct BwdSmem {
 // WITH_DW: a third activation buffer X[kW * kLd] follows, for the layer
 // inputs of x^T du (rebuilt from the workspace, or the tile's posenc).
 
-template <bool WITH_DW>
+template <bool WITH_DW, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_train_bwd_kernel(const float* __restrict__ P, const float* __restrict__ PT,
                      const float* __restrict__ LS,
@@ -923,45 +879,45 @@ mlp_train_bwd_kernel(const float* __restrict__ P, const float* __restrict__ PT,
 
     // heads without activation: rgb (layer 11) rows 0..2, alpha (9) row 3
     if (tid < 3) {
-      channel_grad<false>(s.gr + tid * kLd, U + u_offset(11) + tid,
+      channel_grad<false, BF16>(s.gr + tid * kLd, U + u_offset(11) + tid,
                           __ldg(LS + u_offset(11) + tid),
                           __ldg(bias<11>(P) + tid),
                           part_ls + u_offset(11) + tid,
                           part_b + u_offset(11) + tid);
     } else if (tid == 32) {
-      channel_grad<false>(s.gr + 3 * kLd, U + u_offset(9),
+      channel_grad<false, BF16>(s.gr + 3 * kLd, U + u_offset(9),
                           __ldg(LS + u_offset(9)), __ldg(bias<9>(P)),
                           part_ls + u_offset(9), part_b + u_offset(9));
     }
-    if (WITH_DW) rebuild<10, true>(X, U, P, LS);  // v, the rgb head's input
+    if (WITH_DW) rebuild<10, true, BF16>(X, U, P, LS);  // v, the rgb head's input
     __syncthreads();
     // dv = du_r @ Wr (128 wide) -> g1
-    dense_t<kW / 2>(s.g1, s.gr, 3, PT + wt_offset(11), kW / 2, nullptr, 0,
+    dense_t<kW / 2, BF16>(s.g1, s.gr, 3, PT + wt_offset(11), kW / 2, nullptr, 0,
                     nullptr, 0);
     if (WITH_DW) outer_acc(part + wt_offset(11), kW / 2, s.gr, 3, X, kW / 2);
     __syncthreads();
     // views (layer 10, relu) -> du_v in g1 rows 0..127
-    layer_grad<10, true>(s.g1, U, P, LS, part_ls, part_b);
-    if (WITH_DW) rebuild<8, false>(X, U, P, LS);  // feature, the view input
+    layer_grad<10, true, BF16>(s.g1, U, P, LS, part_ls, part_b);
+    if (WITH_DW) rebuild<8, false, BF16>(X, U, P, LS);  // feature, the view input
     __syncthreads();
     // dfeature = du_v @ Wv[:, :256] -> g2
-    dense_t<kW>(s.g2, s.g1, kW / 2, PT + wt_offset(10), kW + kInViews,
+    dense_t<kW, BF16>(s.g2, s.g1, kW / 2, PT + wt_offset(10), kW + kInViews,
                 nullptr, 0, nullptr, 0);
     if (WITH_DW) {
       outer_acc(part + wt_offset(10), kW + kInViews, s.g1, kW / 2, X, kW);
       __syncthreads();
-      embed_tile(X, s.xs, s.ds);
+      embed_x<BF16>(X, s.xs, s.ds);
       __syncthreads();
       outer_acc(part + wt_offset(10) + kW, kW + kInViews, s.g1, kW / 2,
                 X + kInPts * kLd, kInViews);
     }
     __syncthreads();
     // feature head (layer 8, no activation) -> du_f in g2
-    layer_grad<8, false>(s.g2, U, P, LS, part_ls, part_b);
-    if (WITH_DW) rebuild<7, true>(X, U, P, LS);  // h7, the heads' input
+    layer_grad<8, false, BF16>(s.g2, U, P, LS, part_ls, part_b);
+    if (WITH_DW) rebuild<7, true, BF16>(X, U, P, LS);  // h7, the heads' input
     __syncthreads();
     // dh7 = du_f @ Wf + du_a @ Wa -> g1
-    dense_t<kW>(s.g1, s.g2, kW, PT + wt_offset(8), kW, s.gr + 3 * kLd, 1,
+    dense_t<kW, BF16>(s.g1, s.g2, kW, PT + wt_offset(8), kW, s.gr + 3 * kLd, 1,
                 PT + wt_offset(9), kW);
     if (WITH_DW) {
       outer_acc(part + wt_offset(8), kW, s.g2, kW, X, kW);
@@ -973,19 +929,21 @@ mlp_train_bwd_kernel(const float* __restrict__ P, const float* __restrict__ PT,
     float* cur = s.g1;
     float* nxt = s.g2;
 #define NNC_PTS_LAYER(I)                                                      \
-    layer_grad<I, true>(cur, U, P, LS, part_ls, part_b);                      \
-    if (WITH_DW && I > 0) rebuild<(I > 0 ? I - 1 : 0), true>(X, U, P, LS);     \
-    if (WITH_DW && (I == 0)) embed_tile(X, s.xs, s.ds);                       \
+    layer_grad<I, true, BF16>(cur, U, P, LS, part_ls, part_b);                \
+    if (WITH_DW && I > 0)                                                     \
+      rebuild<(I > 0 ? I - 1 : 0), true, BF16>(X, U, P, LS);                  \
+    if (WITH_DW && (I == 0)) embed_x<BF16>(X, s.xs, s.ds);                    \
     __syncthreads();                                                          \
     if (I > 0)                                                                \
-      dense_t<kW>(nxt, cur, kW, PT + wt_offset(I) + (I == 5 ? kInPts : 0),    \
+      dense_t<kW, BF16>(nxt, cur, kW,                                         \
+                        PT + wt_offset(I) + (I == 5 ? kInPts : 0),            \
                   layer_in(I), nullptr, 0, nullptr, 0);                       \
     if (WITH_DW) {                                                            \
       outer_acc(part + wt_offset(I) + (I == 5 ? kInPts : 0), layer_in(I),     \
                 cur, kW, X, I == 0 ? kInPts : kW);                            \
       if (I == 5) {                                                           \
         __syncthreads();                                                      \
-        embed_tile(X, s.xs, s.ds);                                            \
+        embed_x<BF16>(X, s.xs, s.ds);                                         \
         __syncthreads();                                                      \
         outer_acc(part + wt_offset(5), layer_in(5), cur, kW, X, kInPts);      \
       }                                                                       \
@@ -1002,24 +960,6 @@ mlp_train_bwd_kernel(const float* __restrict__ P, const float* __restrict__ PT,
     NNC_PTS_LAYER(0)
 #undef NNC_PTS_LAYER
   }
-}
-
-// out[col] = sum over the G partial rows, in row order.
-__global__ void reduce_rows_kernel(const float* __restrict__ partials, int G,
-                                   int stride, float* __restrict__ out) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= stride) return;
-  float acc = 0.f;
-  for (int g = 0; g < G; ++g)
-    acc += partials[static_cast<size_t>(g) * stride + col];
-  out[col] = acc;
-}
-
-int reduce_rows(const float* partials, int G, int stride, float* out,
-                cudaStream_t stream) {
-  reduce_rows_kernel<<<(stride + 255) / 256, 256, 0, stream>>>(partials, G,
-                                                               stride, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool SAVE>
@@ -1043,6 +983,28 @@ int launch_fwd(const float* fw, const float* ls, const float* bi,
                                            tiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16>
+int launch_bwd_dw(const float* params, const float* params_t,
+                  const float* ls, const float* pts, const float* dirs,
+                  const float* g, const float* ws, float* partials,
+                  float* out, int n, int G, cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(BwdSmem)) +
+                   kW * kLd * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_bwd_kernel<true, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    mlp_train_bwd_kernel<true, BF16><<<G, kThreads, smem, st>>>(
+        params, params_t, ls, pts, dirs, g, ws, partials, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    G = 0;
+  }
+  return reduce_rows(partials, G, kWt + 2 * kU, out, st, BF16 ? kWt : 0);
 }
 
 }  // namespace
@@ -1110,29 +1072,31 @@ extern "C" int nnc_mlp_train_bwd_mma(const float* bw, const float* ls,
   return reduce_rows(partials, G, 2 * kU, out, st);
 }
 
-// The backward with dW. params, params_t: the buffers of pack_train; the
-// rest as above, with partials (G, stride) and out (stride,) =
-// [dW (593,408, each layer (out, in)), dls (2,436), db (2,436)].
+// The backward with dW (launch_bwd_dw<false>). params, params_t: the buffers
+// of pack_train; the rest as above, with partials (G, stride) and out
+// (stride,) = [dW (593,408, each layer (out, in)), dls (2,436), db (2,436)].
 extern "C" int nnc_mlp_train_bwd_dw(const float* params,
                                     const float* params_t, const float* ls,
                                     const float* pts, const float* dirs,
                                     const float* g, const float* ws,
                                     float* partials, float* out, int n, int G,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = static_cast<int>(sizeof(BwdSmem)) +
-                   kW * kLd * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_bwd_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    mlp_train_bwd_kernel<true><<<G, kThreads, smem, st>>>(
-        params, params_t, ls, pts, dirs, g, ws, partials, n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    G = 0;
-  }
-  return reduce_rows(partials, G, kWt + 2 * kU, out, st);
+  return launch_bwd_dw<false>(params, params_t, ls, pts, dirs, g, ws,
+                              partials, out, n, G,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// K-B1's bf16 backward with dW: the arguments of nnc_mlp_train_bwd_dw, the
+// workspace from nnc_mlp_train_fwd_bf16 (mlp_train_bf16.cu); params and
+// params_t unrounded float32 (the kernel rounds the weights it loads).
+extern "C" int nnc_mlp_train_bwd_dw_bf16(const float* params,
+                                         const float* params_t,
+                                         const float* ls, const float* pts,
+                                         const float* dirs, const float* g,
+                                         const float* ws, float* partials,
+                                         float* out, int n, int G,
+                                         void* stream) {
+  return launch_bwd_dw<true>(params, params_t, ls, pts, dirs, g, ws,
+                             partials, out, n, G,
+                             static_cast<cudaStream_t>(stream));
 }

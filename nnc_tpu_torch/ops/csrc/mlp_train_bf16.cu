@@ -1,0 +1,625 @@
+// K-B1 in bf16: the NeRF MLP's training pass, forward and backward without
+// dW, with bf16 operands on the tensor cores and float32 sums. (The backward
+// with dW is mlp_train.cu's SIMT kernel, instantiated for bf16.)
+//
+// Replaces the Pallas pair _fwd_call / _bwd_call
+// (nnc_tpu/ops/mlp_train_pallas.py:275, :300) as it runs when
+// config.compute_dtype is bfloat16 (mlp_train_pallas.py:380: the weights
+// packed in bf16, _fwd_chain and _make_bwd_kernel with cdt bfloat16): every
+// LSA step of a bf16 model renders its coarse and fine passes through it
+// (renderer.py _query_mlp with use_fused_train).
+//
+// What it computes, with the reference's rounding points (all to nearest
+// even). The UNSCALED weights are rounded (pack_train's astype, :77; the
+// heads' too), the scales and biases stay float32; the plain MLP of a bf16
+// model folds the scale first and is another function (nerf.py:110-116).
+//  - Forward: the embedding computed in float32 and rounded once;
+//    u = x @ W summed in float32; y = u * ls + b in float32 (:108-110);
+//    every hidden layer's relu(y) rounded (:121), feature rounded (:128),
+//    the view layer's relu(y) rounded (:132); the heads' u from the rounded
+//    activations and weights, the logits float32.
+//  - Backward without dW: du = dpre * ls rounded before it enters
+//    dx = du @ W^T (bdot, :181-186); the relu mask from the rounded
+//    activation (:227, :241); dls = colsum(dpre * u) and db = colsum(dpre)
+//    in float32 (:216-217, :229-230, :243-245).
+//
+// Bound on the H100: bytes. A point's u is 2,436 floats, 9,744 bytes,
+// written by the forward and read by the backward: at 196,608 points
+// 1.92 GB, 0.572 ms each way at 3.35 TB/s. The products take 1.19 MFLOP a
+// point forward and 1.12 MFLOP backward, 0.237 / 0.222 ms at the dense bf16
+// peak of 989 TFLOP/s (H100 SXM data sheet, 700 W): in bf16 the workspace,
+// not the tensor cores, is what no kernel of this design can go below.
+//
+// Design: the bf16 chain of nerf_mlp_bf16.cuh with K-B1's epilogues from
+// mlp_train.cu.
+//  - Forward (train_layer, mlp_tile_train): tiles of 16 NNC_BF16_MT points
+//    (128), the 37 slabs of the forward stream through PipeT's cp.async
+//    ring, A by ldmatrix, mma.sync m16n8k16 bf16 into float32 accumulators
+//    that start at zero (the inference chain starts them at the bias: it
+//    folds the scale into the weight, training keeps u apart for dls). The
+//    epilogue writes u from the fragments to the workspace (8-byte stores,
+//    evict-first: a warp's store fills whole 32-byte sectors, and the bf16
+//    activation buffer has no room to stage 128 rows of float32; scalar
+//    stores at the view layer's odd column offset 2,305) and
+//    bf16(act(fmaf(u, ls, b))) to the activation buffer. The heads stay on
+//    the SIMT cores, as in K-B3 bf16, and save their u too. The workspace
+//    has rows for whole 128-point tiles (mlp_train_fused.TILE_BF16); rows
+//    past n hold the u of zero points.
+//  - Backward without dW (bwd_layer, grad_epilogue): tiles of 64 points
+//    (MT = 4), so that a layer's 64 accumulators and the 64 values of u its
+//    epilogue loads fit a thread's registers as in the float32 backward. The
+//    gradient du lives in shared memory as bf16, point-major with the
+//    forward's row stride, and is the A of the next product (ldmatrix); B is
+//    a second stream of 34 slabs, torch's (out, in) weights in the m16n8k16
+//    fragment order (mlp_train_fused.pack_train_bf16: 2 for the view layer's
+//    128 x 256, 4 for the feature layer and each of pts layers 7..1, layer 5
+//    only its 256 rows for h). The epilogue masks, forms dpre, sums
+//    dpre * u and dpre on the accumulator fragments over the thread's rows
+//    and then over g by three shuffles, and writes bf16(dpre * ls). The rgb
+//    head's 3 x 128 and the rank-1 alpha term are FMAs on the fragments.
+//  - dls / db: as in mlp_train.cu, one persistent CTA per SM keeps its sums
+//    in shared memory, one thread a column, and a second kernel sums the
+//    CTAs' rows in a fixed order: reruns are bit-equal.
+#include "mlp_train.cuh"
+#include "nerf_mlp_bf16.cuh"
+
+namespace {
+
+using namespace nerf;
+using namespace nerf::train;
+namespace b16 = nerf::bf16;
+
+constexpr int kFwdMT = NNC_BF16_MT;   // the forward's tile: 16 MT points
+constexpr int kBwdMT = 4;             // the backward's: 64 points (kM)
+static_assert(16 * kBwdMT == kM, "the backward walks tiles of kM points");
+
+// ------------------------------------------------------------- forward
+
+// out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u = x1 @ w (+ x2 @ w2)
+// for the tile's 16 MT points, the unscaled weights from the pipe; u goes
+// to U (the tile's first workspace row at the layer's columns, row stride
+// kU) when SAVE. U2: the layer's workspace columns start at an even offset,
+// so a fragment's two columns are one 8-byte store. out may be x1 or x2.
+// Ends with a barrier.
+template <int MT, int NT, bool RELU, bool SAVE, bool U2>
+__device__ __forceinline__ void train_layer(
+    b16::Pipe& pipe, __nv_bfloat16* out, const __nv_bfloat16* x1, int ld1,
+    int K1, const __nv_bfloat16* x2, int ld2, int K2,
+    const float* __restrict__ ls, const float* __restrict__ b,
+    float* __restrict__ U) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int col0 = warp * 8 * NT + 2 * (lane & 3);
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  b16::mma_run<MT, NT>(pipe, acc, x1, ld1, K1);
+  if (K2 > 0) b16::mma_run<MT, NT>(pipe, acc, x2, ld2, K2);
+  NNC_PROF(2);
+  __syncthreads();
+  NNC_PROF(3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = col0 + nt * 8;
+    const float l0 = __ldg(ls + c), l1 = __ldg(ls + c + 1);
+    const float b0 = __ldg(b + c), b1 = __ldg(b + c + 1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (SAVE) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* w = U + static_cast<size_t>(mt * 16 + g + 8 * half) * kU + c;
+          if (U2) {
+            __stcs(reinterpret_cast<float2*>(w),
+                   make_float2(acc[mt][nt][2 * half],
+                               acc[mt][nt][2 * half + 1]));
+          } else {
+            __stcs(w, acc[mt][nt][2 * half]);
+            __stcs(w + 1, acc[mt][nt][2 * half + 1]);
+          }
+        }
+      }
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p =
+            fmaf(acc[mt][nt][i], i & 1 ? l1 : l0, i & 1 ? b1 : b0);
+        v[i] = RELU ? fmaxf(p, 0.f) : p;
+      }
+      __nv_bfloat16* o = out + (mt * 16 + g) * b16::kLdA + c;
+      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * b16::kLdA) =
+          __floats2bfloat162_rn(v[2], v[3]);
+    }
+  }
+  NNC_PROF(4);
+  __syncthreads();
+  NNC_PROF(5);
+}
+
+// The training MLP on the embedded tile in s.emb; raw logits to s.raw, u of
+// every layer to U (the tile's first workspace row) when SAVE. FW: the
+// buffer of pack_train_bf16's forward half, whose slabs `pipe` streams and
+// whose tail holds the heads' rounded weights. All threads enter; starts
+// (after the embedding's stores) and ends with a barrier.
+template <int MT, bool SAVE>
+__device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
+                                               b16::Pipe& pipe,
+                                               const float* __restrict__ FW,
+                                               const float* __restrict__ LS,
+                                               const float* __restrict__ BI,
+                                               float* __restrict__ U) {
+  constexpr int kLdA = b16::kLdA;
+  constexpr int kPerWarp = 2 * MT;   // points a warp takes in the heads
+  __nv_bfloat16* A = s.act;
+  const __nv_bfloat16* E = s.emb;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  __syncthreads();
+  NNC_PROF(1);
+  train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
+                                       nullptr, 0, 0, LS, BI, U);
+#pragma unroll 1
+  for (int i = 1; i <= 4; ++i)
+    train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
+                                         LS + i * kW, BI + i * kW,
+                                         U + i * kW);
+  // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
+  train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
+                                       A, kLdA, kW, LS + 5 * kW,
+                                       BI + 5 * kW, U + 5 * kW);
+#pragma unroll 1
+  for (int i = 6; i <= 7; ++i)
+    train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
+                                         LS + i * kW, BI + i * kW,
+                                         U + i * kW);
+
+  // alpha head (256 -> 1) on h = A: warp w takes points 2 MT w ..
+  {
+    constexpr int o = u_offset(kLayerAlpha);
+    float wa[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      wa[j] = __ldg(FW + b16::kOffAlphaW + lane + 32 * j);
+    const float la = __ldg(LS + o), ba = __ldg(BI + o);
+#pragma unroll 2
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int m = warp * kPerWarp + i;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc = fmaf(__bfloat162float(A[m * kLdA + lane + 32 * j]), wa[j], acc);
+      acc = mma::warp_sum_all(acc);
+      if (lane == 0) {
+        if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o, acc);
+        s.raw[m * 4 + 3] = fmaf(acc, la, ba);
+      }
+    }
+  }
+  NNC_PROF(6);
+  // feature (no activation) on h = A, in place
+  train_layer<MT, 4, false, SAVE, true>(
+      pipe, A, A, kLdA, kW, nullptr, 0, 0, LS + u_offset(kLayerFeature),
+      BI + u_offset(kLayerFeature), U + u_offset(kLayerFeature));
+  // views: relu(ls * ([feature, view emb] @ wv) + bv) -> A cols 0..127
+  train_layer<MT, 2, true, SAVE, false>(
+      pipe, A, A, kLdA, kW, E + b16::kPtsPad, b16::kLdE, b16::kViewsPad,
+      LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
+      U + u_offset(kLayerViews));
+  // rgb head (128 -> 3)
+  {
+    constexpr int o = u_offset(kLayerRgb);
+    float wr[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        wr[j][c] = __ldg(FW + b16::kOffRgbW + (lane + 32 * j) * 3 + c);
+    float lr = 0.f, br = 0.f;
+    if (lane < 3) {
+      lr = __ldg(LS + o + lane);
+      br = __ldg(BI + o + lane);
+    }
+#pragma unroll 2
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int m = warp * kPerWarp + i;
+      float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float h = __bfloat162float(A[m * kLdA + lane + 32 * j]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[c] = fmaf(h, wr[j][c], acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[c] = mma::warp_sum_all(acc[c]);
+      if (lane < 3) {
+        const float u = lane == 0 ? acc[0] : lane == 1 ? acc[1] : acc[2];
+        if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o + lane, u);
+        s.raw[m * 4 + lane] = fmaf(u, lr, br);
+      }
+    }
+  }
+  __syncthreads();
+  NNC_PROF(7);
+}
+
+template <int MT>
+struct FwdSmem {
+  b16::MlpSmem<MT> mlp;
+  float xs[16 * MT * 3];
+  float ds[16 * MT * 3];
+};
+
+template <int MT, bool SAVE>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
+                          const float* __restrict__ LS,
+                          const float* __restrict__ BI,
+                          const float* __restrict__ pts,
+                          const float* __restrict__ dirs,
+                          float* __restrict__ out, float* __restrict__ ws,
+                          int n, int tiles) {
+  constexpr int kPoints = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<MT>& s = *reinterpret_cast<FwdSmem<MT>*>(smem_raw);
+  const int tid = threadIdx.x;
+  mma::prof_begin();
+  b16::Pipe pipe;
+  pipe.start(FW, s.mlp.ring);
+  b16::zero_embedding_pad<MT>(s.mlp.emb);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kPoints;
+    for (int i = tid; i < kPoints * 3; i += kThreads) {
+      const bool valid = base + i / 3 < n;
+      s.xs[i] = valid ? pts[base * 3 + i] : 0.f;
+      s.ds[i] = valid ? dirs[base * 3 + i] : 0.f;
+    }
+    __syncthreads();
+    NNC_PROF(0);
+    b16::embed_tile<MT>(s.mlp.emb, s.xs, s.ds);
+    mlp_tile_train<MT, SAVE>(s.mlp, pipe, FW, LS, BI,
+                             SAVE ? ws + static_cast<size_t>(base) * kU
+                                  : nullptr);
+    for (int i = tid; i < kPoints * 4; i += kThreads)
+      if (base + i / 4 < n) out[base * 4 + i] = s.mlp.raw[i];
+    NNC_PROF(8);
+  }
+  pipe.drain();
+  mma::prof_end();
+}
+
+// ------------------------------ backward without dW, on the tensor cores
+
+// The transposed slab stream in the order the reverse chain consumes it:
+// the view layer's feature rows (2 slabs of 64 rows), the feature layer (4),
+// pts layers 7..1 (4 each); then, as float32 words, the heads' rounded
+// weights.
+constexpr int kBwdSlabs = 2 + 4 + 7 * 4;
+static_assert(kBwdSlabs == 34, "transposed slab schedule");
+using BwdPipe = mma::PipeT<kBwdSlabs>;
+constexpr int kOffAlphaWT = kBwdSlabs * mma::kSlab;   // 256 weights
+constexpr int kOffRgbWT = kOffAlphaWT + kW;           // (3, 128) row-major
+constexpr int kBwdParamsSize = (kOffRgbWT + 3 * (kW / 2) + 63) / 64 * 64;
+
+struct BwdSmem {
+  float ring[mma::kStages * mma::kSlab];   // transposed slabs in flight
+  __nv_bfloat16 g[kM * b16::kLdA];  // du of the layer above, then this layer's
+  float gr[kM * 4];         // the tile's raw cotangent, then the heads' du
+  float part[2 * kU];       // this CTA's sums: dls, then db
+};
+
+// The accumulators hold the gradient of a layer's output for the tile (the
+// fragment layout of mma_run). They become du = dpre * ls, with dpre the
+// gradient masked by the layer's relu (RELU; the rounded activation
+// bf16(relu(fmaf(u, ls, b))) > 0, rebuilt from the workspace's u as the
+// forward computed it); dpre * u and dpre, summed over the tile's 64 rows,
+// are added to the CTA's dls and db of the layer's columns. bf16(du) goes
+// to G, the next product's A, if `write`. part_ls, part_b: at the layer's
+// columns; u, lb: load_u and load_lb of the layer, started by the caller
+// before its barrier. Every warp must be done reading G; ends with a
+// barrier.
+template <int NT, bool RELU>
+__device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
+                                              const float (&u)[NT][4][2][2],
+                                              const float (&lb)[NT][4],
+                                              __nv_bfloat16* __restrict__ G,
+                                              float* __restrict__ part_ls,
+                                              float* __restrict__ part_b,
+                                              bool write) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int col0 = warp * 8 * NT + 2 * (lane & 3);
+  float sl[NT][2], sb[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float l = lb[nt][j], bb = lb[nt][2 + j];
+      float tl = 0.f, tb = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float uj = u[nt][mt][half][j];
+          float d = acc[mt][nt][2 * half + j];
+          if (RELU && !(bf16_round(fmaf(uj, l, bb)) > 0.f)) d = 0.f;
+          tl = fmaf(d, uj, tl);
+          tb += d;
+          acc[mt][nt][2 * half + j] = d * l;
+        }
+      sl[nt][j] = tl;
+      sb[nt][j] = tb;
+    }
+  NNC_PROF(4);
+  // over g: the eight lanes that share t, in a fixed order
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sl[nt][j] += __shfl_xor_sync(0xffffffffu, sl[nt][j], off);
+        sb[nt][j] += __shfl_xor_sync(0xffffffffu, sb[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        part_ls[col0 + nt * 8 + j] += sl[nt][j];
+        part_b[col0 + nt * 8 + j] += sb[nt][j];
+      }
+  }
+  NNC_PROF(5);
+  if (write) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        __nv_bfloat16* o = G + (mt * 16 + g) * b16::kLdA + col0 + nt * 8;
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * b16::kLdA) =
+            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+  }
+  NNC_PROF(6);
+  __syncthreads();
+  NNC_PROF(7);
+}
+
+// One step of the reverse chain: the gradient of layer L's output,
+// du_above (64 x K, bf16 in s.g) @ (the next K / 64 transposed slabs), plus
+// du_alpha (x) w_alpha when ALPHA (layer 7 feeds the alpha head too), then
+// grad_epilogue of layer L.
+template <bool RELU, bool ALPHA>
+__device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
+                                          int L, bool write,
+                                          const float* __restrict__ BW,
+                                          const float* __restrict__ LS,
+                                          const float* __restrict__ BI,
+                                          const float* __restrict__ ws,
+                                          int tile) {
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  const int o = L * kW;   // u_offset(L) for L <= 8
+  const float* U = ws + static_cast<size_t>(tile) * (kM * kU) + o;
+  prefetch_u(U, kW * static_cast<int>(sizeof(float)));
+  b16::mma_run<kBwdMT, 4>(pipe, acc, s.g, b16::kLdA, K);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int col0 = (threadIdx.x >> 5) * 32 + 2 * (lane & 3);
+  if (ALPHA) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float w0 = __ldg(BW + kOffAlphaWT + col0 + nt * 8);
+      const float w1 = __ldg(BW + kOffAlphaWT + col0 + nt * 8 + 1);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float d0 = s.gr[(mt * 16 + g) * 4 + 3];
+        const float d1 = s.gr[(mt * 16 + g + 8) * 4 + 3];
+        acc[mt][nt][0] = fmaf(d0, w0, acc[mt][nt][0]);
+        acc[mt][nt][1] = fmaf(d0, w1, acc[mt][nt][1]);
+        acc[mt][nt][2] = fmaf(d1, w0, acc[mt][nt][2]);
+        acc[mt][nt][3] = fmaf(d1, w1, acc[mt][nt][3]);
+      }
+    }
+  }
+  float u[4][4][2][2], lb[4][4];
+  load_u<4, true>(u, U, g, col0);
+  load_lb<4>(lb, LS + o, BI + o, col0);
+  NNC_PROF(2);
+  __syncthreads();
+  NNC_PROF(3);
+  grad_epilogue<4, RELU>(acc, u, lb, s.g, s.part + o, s.part + kU + o, write);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
+                          const float* __restrict__ LS,
+                          const float* __restrict__ BI,
+                          const float* __restrict__ gout,
+                          const float* __restrict__ ws,
+                          float* __restrict__ partials, int n, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  static_assert(u_offset(kLayerFeature) == kLayerFeature * kW, "u layout");
+  mma::prof_begin();
+  BwdPipe pipe;
+  pipe.start(BW, s.ring);
+  for (int i = tid; i < 2 * kU; i += kThreads) s.part[i] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kM;
+    const float* U = ws + static_cast<size_t>(tile) * (kM * kU);
+    static_assert(kM * 4 == kThreads, "one cotangent per thread");
+    // (the last barrier of the tile before: everyone is done with s.gr)
+    s.gr[tid] = base + tid / 4 < n ? gout[base * 4 + tid] : 0.f;
+    // the view layer's u (128 columns) and the rgb head's next to them
+    prefetch_u(U + u_offset(kLayerViews),
+               (kW / 2 + 3) * static_cast<int>(sizeof(float)));
+    __syncthreads();
+    // the heads, which have no activation: warp c < 3 takes rgb channel c,
+    // warp 3 alpha; their sums, and bf16(du = g * ls) in place
+    if (warp < 4) {
+      const int o = warp < 3 ? u_offset(kLayerRgb) + warp
+                             : u_offset(kLayerAlpha);
+      const float l = __ldg(LS + o);
+      const float d0 = s.gr[lane * 4 + warp];
+      const float d1 = s.gr[(lane + 32) * 4 + warp];
+      const float u0 = __ldcs(U + static_cast<size_t>(lane) * kU + o);
+      const float u1 = __ldcs(U + static_cast<size_t>(lane + 32) * kU + o);
+      const float sl = mma::warp_sum_all(fmaf(d1, u1, d0 * u0));
+      const float sb = mma::warp_sum_all(d0 + d1);
+      if (lane == 0) {
+        s.part[o] += sl;
+        s.part[kU + o] += sb;
+      }
+      s.gr[lane * 4 + warp] = bf16_round(d0 * l);
+      s.gr[(lane + 32) * 4 + warp] = bf16_round(d1 * l);
+    }
+    __syncthreads();
+    NNC_PROF(0);
+    // dv = du_rgb @ Wr^T (64 x 3 times 3 x 128) on the view layer's
+    // fragments, then the view layer's epilogue -> bf16 du_v in s.g cols
+    // 0..127
+    {
+      const int g = lane >> 2;
+      const int col0 = warp * 16 + 2 * (lane & 3);
+      float acc[4][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float w[3][2];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            w[c][j] = __ldg(BW + kOffRgbWT + c * (kW / 2) + col0 + nt * 8 + j);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float4 d = *reinterpret_cast<const float4*>(
+                s.gr + (mt * 16 + g + 8 * half) * 4);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              acc[mt][nt][2 * half + j] =
+                  fmaf(d.z, w[2][j], fmaf(d.y, w[1][j], d.x * w[0][j]));
+          }
+      }
+      NNC_PROF(1);
+      constexpr int o = u_offset(kLayerViews);
+      float u[2][4][2][2], lb[2][4];
+      load_u<2, false>(u, U + o, g, col0);
+      load_lb<2>(lb, LS + o, BI + o, col0);
+      grad_epilogue<2, true>(acc, u, lb, s.g, s.part + o, s.part + kU + o,
+                             true);
+    }
+    // dfeature = du_v @ Wv[:256]^T; the feature layer has no activation
+    bwd_layer<false, false>(s, pipe, kW / 2, kLayerFeature, true, BW, LS, BI,
+                            ws, tile);
+    // dh7 = du_f @ Wf^T + du_alpha (x) w_alpha
+    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, tile);
+    // dh_{i} = du_{i+1} @ W_{i+1}^T (layer 5: its 256 rows for h), i = 6..0
+#pragma unroll 1
+    for (int i = 6; i >= 0; --i)
+      bwd_layer<true, false>(s, pipe, kW, i, i > 0, BW, LS, BI, ws, tile);
+    NNC_PROF(8);
+  }
+  pipe.drain();
+  __syncthreads();
+  float* row = partials + static_cast<size_t>(blockIdx.x) * (2 * kU);
+  for (int i = tid; i < 2 * kU; i += kThreads) row[i] = s.part[i];
+  mma::prof_end();
+}
+
+template <bool SAVE>
+int launch_fwd(const float* fw, const float* ls, const float* bi,
+               const float* pts, const float* dirs, float* out, float* ws,
+               int n, cudaStream_t stream) {
+  constexpr int kPoints = 16 * kFwdMT;
+  const int smem = static_cast<int>(sizeof(FwdSmem<kFwdMT>));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_fwd_bf16_kernel<kFwdMT, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int tiles = (n + kPoints - 1) / kPoints;
+    mlp_train_fwd_bf16_kernel<kFwdMT, SAVE>
+        <<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
+            fw, ls, bi, pts, dirs, out, ws, n, tiles);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The forward's tile (points; its workspace has rows for whole tiles) and
+// the lengths of the two buffers of pack_train_bf16, in 32-bit words.
+extern "C" int nnc_train_bf16_sizes(int* fwd_tile, int* fwd_size,
+                                    int* bwd_size) {
+  *fwd_tile = 16 * kFwdMT;
+  *fwd_size = b16::kParamsSize;
+  *bwd_size = kBwdParamsSize;
+  return 0;
+}
+
+// fw: the forward half of pack_train_bf16, 16-byte aligned; ls, bi: scales
+// and biases (2,436 each, float32); pts, dirs: (n, 3); out: (n, 4) [rgb
+// logits, sigma]; ws: null, or (ceil(n / 128) * 128, 2,436) for the
+// backward's u.
+extern "C" int nnc_mlp_train_fwd_bf16(const float* fw, const float* ls,
+                                      const float* bi, const float* pts,
+                                      const float* dirs, float* out,
+                                      float* ws, int n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ws != nullptr
+             ? launch_fwd<true>(fw, ls, bi, pts, dirs, out, ws, n, st)
+             : launch_fwd<false>(fw, ls, bi, pts, dirs, out, ws, n, st);
+}
+
+// The backward without dW. bw: the backward half of pack_train_bf16,
+// 16-byte aligned; g: (n, 4) cotangent of out; ws from
+// nnc_mlp_train_fwd_bf16; partials: (G, 4,872) scratch; out: (4,872,) =
+// [dls (2,436), db (2,436)].
+extern "C" int nnc_mlp_train_bwd_bf16(const float* bw, const float* ls,
+                                      const float* bi, const float* g,
+                                      const float* ws, float* partials,
+                                      float* out, int n, int G,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(sizeof(BwdSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    mlp_train_bwd_bf16_kernel<<<G, kThreads, smem, st>>>(
+        bw, ls, bi, g, ws, partials, n, (n + kM - 1) / kM);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    G = 0;
+  }
+  return reduce_rows(partials, G, 2 * kU, out, st);
+}

@@ -143,9 +143,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 // acc += x[:, 0..K) @ (the next ceil(K / rows-per-slab) slabs), for this
 // warp's 8 NT output channels of all 16 MT points. x: point-major bf16 in
-// shared memory with row stride ld. K % 16 == 0.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_run(Pipe& pipe, float (&acc)[MT][NT][4],
+// shared memory with row stride ld. K % 16 == 0. PipeType: the forward's
+// Pipe, or the slab stream of K-B1's bf16 backward (mlp_train_bf16.cu).
+template <int MT, int NT, class PipeType = Pipe>
+__device__ __forceinline__ void mma_run(PipeType& pipe,
+                                        float (&acc)[MT][NT][4],
                                         const __nv_bfloat16* x, int ld,
                                         int K) {
   constexpr int kStepVec = 16 * NT;   // this warp's 16-byte vectors a k step

@@ -36,6 +36,17 @@ check the layouts the kernels read; :func:`mlp_train_fwd_3xtf32_plain` and
 tensors the wrappers run the plain versions; the plain backward recomputes
 the forward, as the TPU kernel does, where the CUDA forward leaves ``u`` in
 a workspace for its backward.
+
+A model with ``config.compute_dtype == torch.bfloat16`` takes K-B1's bf16
+form (mlp_train_pallas.py:380): the UNSCALED weights, the embedding and
+every stored activation rounded to bf16, ``u`` summed in float32 and scaled
+in float32, every du rounded before it enters a product, dW rounded once
+summed. Its kernels (``csrc/mlp_train_bf16.cu``, and ``mlp_train.cu``'s
+SIMT backward with dW) are :func:`mlp_train_fwd_bf16` /
+:func:`mlp_train_bwd_bf16`, reading :func:`pack_train_bf16`'s two int32
+streams, which :data:`TRAIN_PACKS` keeps under the compute type; the plain
+versions :func:`mlp_train_fwd_bf16_plain` / :func:`mlp_train_bwd_bf16_plain`
+are the float32 ones with the rounding hook ``rnd`` on the rounded weights.
 """
 from __future__ import annotations
 
@@ -47,10 +58,12 @@ import torch.nn.functional as F
 
 from ..models import nerf
 from . import _build
-from .mlp_fused import (FLAGSHIP, MMA_PARAMS_SIZE, MMA_SLAB, PARAMS_SIZE,
-                        PLAIN_CHUNK, _check, _segments, fragment_index,
-                        matmul_3xtf32_plain, refuse_bf16, repack_mma,
-                        supports, unpack_weights, unpack_weights_mma)
+from .mlp_fused import (BF16_PARAMS_SIZE, FLAGSHIP, MMA_PARAMS_SIZE,
+                        MMA_SLAB, PARAMS_SIZE, PLAIN_CHUNK, _check, _segments,
+                        bf16_round, fragment_index, fragment_index_k16,
+                        matmul_3xtf32_plain, repack_bf16, repack_mma,
+                        supports, unpack_weights, unpack_weights_bf16,
+                        unpack_weights_mma)
 from .posenc import positional_encoding
 
 _DIMS = list(nerf._layer_dims(FLAGSHIP).items())   # [(name, (in, out))]
@@ -68,10 +81,13 @@ def _offsets(sizes):
 U_OFFSETS, U_SIZE = _offsets([dout for _, (_din, dout) in _DIMS])
 WT_OFFSETS, WT_SIZE = _offsets([din * dout for _, (din, dout) in _DIMS])
 TILE = 64   # points per CTA; the workspace has rows for whole tiles
+# points per CTA of the bf16 forward (csrc/mlp_train_bf16.cu); its workspace
+# has rows for whole tiles of this size, its backward walks tiles of TILE
+TILE_BF16 = 128
 
 
-def _padded(n: int) -> int:
-    return -(-n // TILE) * TILE
+def _padded(n: int, tile: int = TILE) -> int:
+    return -(-n // tile) * tile
 
 
 def grad_size(with_dw: bool) -> int:
@@ -179,15 +195,96 @@ def unpack_train_mma(packed_fwd, packed_bwd):
                        [(dout, din) for _, (din, dout) in _DIMS])
 
 
+# --- the bf16 kernels' weights (csrc/mlp_train_bf16.cu) -----------------------
+# K-B1 in bf16 rounds the UNSCALED weights (mlp_train_pallas.py:77) and scales
+# u in float32 afterwards: its forward reads repack_bf16 of pack_train's
+# buffer (the order of mlp_fused.pack_weights_bf16, whose scales are folded
+# in, so that buffer is not this one), its backward the BWD_RUNS slabs in
+# the m16n8k16 fragment order (mlp_fused.fragment_index_k16; 64 rows of 256
+# outputs a slab: 2 for the view layer, 4 for each of the other eight runs),
+# then alpha's 256 weights and rgb's (3, 128), rounded, as float32 words.
+BWD_BF16_SLABS = 34
+
+
+def _bwd_bf16_index():
+    """(index of every bf16 value of the backward's slabs, index of every
+    float32 word after them) into ``params_t``; WT_SIZE (a zero) for the
+    padding words at the end."""
+    dims = dict(_DIMS)
+    slabs = np.concatenate([
+        fragment_index_k16(WT_OFFSETS[NAMES.index(name)] + col0, din, dout,
+                           dout, n_in, WT_SIZE)
+        for name, col0, n_in in BWD_RUNS
+        for din, dout in [dims[name]]]).astype(np.int64)
+    tail = np.concatenate([WT_OFFSETS[NAMES.index(name)]
+                           + np.arange(np.prod(dims[name]))
+                           for name in ("alpha_linear", "rgb_linear")])
+    tail = np.concatenate([tail, np.full(-(slabs.size // 2 + tail.size) % 64,
+                                         WT_SIZE)])
+    return slabs, tail.astype(np.int64)
+
+
+BWD_BF16_SLAB_INDEX, BWD_BF16_TAIL_INDEX = _bwd_bf16_index()
+BWD_BF16_PARAMS_SIZE = BWD_BF16_SLAB_INDEX.size // 2 + BWD_BF16_TAIL_INDEX.size
+assert BWD_BF16_SLAB_INDEX.size == 2 * BWD_BF16_SLABS * MMA_SLAB \
+    and BWD_BF16_PARAMS_SIZE % 64 == 0
+
+
+def repack_bf16_t(params_t: torch.Tensor) -> torch.Tensor:
+    """``params_t`` as the bf16 backward without dW reads it: int32
+    (BWD_BF16_PARAMS_SIZE,), every weight rounded to bf16 (nearest even),
+    the slabs two values to a word, the heads as float32 bit patterns."""
+    _check("params_t", params_t, (WT_SIZE,))
+    rounded = torch.cat([params_t, params_t.new_zeros(1)]).to(torch.bfloat16)
+    slabs = _gather(rounded, "bwd_bf16", BWD_BF16_SLAB_INDEX)
+    tail = _gather(rounded.float(), "bwd_bf16_tail", BWD_BF16_TAIL_INDEX)
+    return torch.cat([slabs.view(torch.int32), tail.view(torch.int32)])
+
+
+def pack_train_bf16(weights):
+    """(forward buffer, backward buffer) of the bf16 kernels from each
+    layer's weight (out, in), in layer order: :func:`mlp_fused.repack_bf16`
+    of the unscaled weights (its bias block left zero: the biases go to the
+    kernel as a vector) and :func:`repack_bf16_t`. Both int32."""
+    zeros = [w.new_zeros(w.shape[0]) for w in weights]
+    params, params_t, _ = pack_train(weights, zeros, zeros)
+    return repack_bf16(params), repack_bf16_t(params_t)
+
+
+def unpack_train_bf16(packed_fwd, packed_bf16_t):
+    """({name: w (in, out)}, {name: w (out, in)}) read back from the buffers
+    of :func:`pack_train_bf16`, as float32 tensors holding bf16 values; the
+    second with zeros where the backward has no use for a weight, as in
+    :func:`unpack_train_mma`."""
+    fwd = {name: w for name, (w, _b)
+           in unpack_weights_bf16(packed_fwd).items()}
+    _check("packed_bf16_t", packed_bf16_t, (BWD_BF16_PARAMS_SIZE,),
+           torch.int32)
+    n_slab = BWD_BF16_SLAB_INDEX.size // 2
+    dev = packed_bf16_t.device
+    flat = packed_bf16_t.new_zeros(WT_SIZE + 1, dtype=torch.float32)
+    flat[torch.from_numpy(BWD_BF16_SLAB_INDEX).to(dev)] = \
+        packed_bf16_t[:n_slab].view(torch.bfloat16).float()
+    flat[torch.from_numpy(BWD_BF16_TAIL_INDEX).to(dev)] = \
+        packed_bf16_t[n_slab:].view(torch.float32)
+    return fwd, _views(flat[:WT_SIZE], WT_OFFSETS,
+                       [(dout, din) for _, (din, dout) in _DIMS])
+
+
+_PACKERS = {torch.float32: pack_train_mma, torch.bfloat16: pack_train_bf16}
+
+
 class TrainPackCache:
-    """:func:`pack_train_mma` of a model's twelve weight tensors, kept while
-    they stay what they were: the same tensor objects at the same version
-    (``Tensor._version``, which every in-place update bumps), on the same
-    device and storage. Scales and biases are no part of the key, so an LSA
-    run packs once. An entry holds its tensors, so their ids cannot pass to
-    other objects while it lives; the ``size`` most recently used entries are
-    kept. The cached buffers are shared between calls: read them, never
-    write them."""
+    """The kernels' weight buffers of a model's twelve weight tensors for a
+    compute type (:func:`pack_train_mma` for float32, :func:`pack_train_bf16`
+    for bfloat16), kept while the tensors stay what they were: the same
+    tensor objects at the same version (``Tensor._version``, which every
+    in-place update bumps), on the same device and storage. The type is part
+    of the key, so a float32 and a bf16 model over the same tensors never
+    share a buffer; scales and biases are not, so an LSA run packs once. An
+    entry holds its tensors, so their ids cannot pass to other objects while
+    it lives; the ``size`` most recently used entries are kept. The cached
+    buffers are shared between calls: read them, never write them."""
 
     def __init__(self, size: int = 8):
         self._entries = collections.OrderedDict()
@@ -195,9 +292,9 @@ class TrainPackCache:
         self.hits = 0
         self.misses = 0
 
-    def get(self, weights):
+    def get(self, weights, dtype: torch.dtype = torch.float32):
         weights = tuple(weights)
-        key = tuple(id(w) for w in weights)
+        key = (dtype, *(id(w) for w in weights))
         state = [(w._version, w.device, w.data_ptr()) for w in weights]
         entry = self._entries.get(key)
         if entry is not None and entry[1] == state:
@@ -205,7 +302,7 @@ class TrainPackCache:
             self._entries.move_to_end(key)
             return entry[2]
         self.misses += 1
-        value = pack_train_mma(weights)
+        value = _PACKERS[dtype](weights)
         self._entries[key] = (weights, state, value)
         self._entries.move_to_end(key)   # also when the key was there
         while len(self._entries) > self._size:
@@ -258,11 +355,17 @@ def _unpack(params, ls, params_t=None):
     return L, S, WT
 
 
-def _chain(L, S, pe, ve, keep=False, mm=torch.matmul):
+def _chain(L, S, pe, ve, keep=False, mm=torch.matmul, rnd=None):
     """The training MLP on embedded points in output-scaling form; with
     ``keep`` also what the reverse chain needs (mlp_train_pallas.py
     _fwd_chain). ``mm(x, w)`` computes the products of the ten wide layers,
-    the two small heads are always exact float32."""
+    the two small heads are plain float32 products. ``rnd``, if given,
+    rounds what the bf16 chain stores in bf16: every hidden layer's output
+    after its ReLU, ``feature`` and the view layer's output
+    (mlp_train_pallas.py:121, 128, 132); the caller rounds the weights and
+    the embeddings, so that every product, the heads' too, multiplies bf16
+    values, exactly in float32."""
+    q = rnd or (lambda t: t)
     h_list, u_list = [], []
     x = pe
     for i in range(8):
@@ -272,7 +375,7 @@ def _chain(L, S, pe, ve, keep=False, mm=torch.matmul):
             u = mm(pe, w[:pe.shape[-1]]) + mm(x, w[pe.shape[-1]:])
         else:
             u = mm(x, w)
-        x = F.relu(u * S[name] + b)
+        x = q(F.relu(u * S[name] + b))
         h_list.append(x)
         u_list.append(u)
     wa, ba = L["alpha_linear"]
@@ -280,10 +383,10 @@ def _chain(L, S, pe, ve, keep=False, mm=torch.matmul):
     alpha = u_a * S["alpha_linear"] + ba
     wf, bf = L["feature_linear"]
     u_f = mm(x, wf)
-    feature = u_f * S["feature_linear"] + bf
+    feature = q(u_f * S["feature_linear"] + bf)
     wv, bv = L["views_linears.0"]
     u_v = mm(feature, wv[:feature.shape[-1]]) + mm(ve, wv[feature.shape[-1]:])
-    v = F.relu(u_v * S["views_linears.0"] + bv)
+    v = q(F.relu(u_v * S["views_linears.0"] + bv))
     wr, br = L["rgb_linear"]
     u_r = v @ wr
     rgb = u_r * S["rgb_linear"] + br
@@ -294,14 +397,44 @@ def _chain(L, S, pe, ve, keep=False, mm=torch.matmul):
                      u_v=u_v, v=v, u_r=u_r)
 
 
-def mlp_train_fwd_plain(params, ls, pts, dirs, mm=torch.matmul):
-    """Plain PyTorch version of the K-B1 forward: raw (N, 4)."""
+def mlp_train_fwd_plain(params, ls, pts, dirs, mm=torch.matmul, rnd=None):
+    """Plain PyTorch version of the K-B1 forward: raw (N, 4). ``mm``,
+    ``rnd``: as in :func:`_chain`; ``rnd`` also rounds the embeddings."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L, S, _ = _unpack(params, ls)
-    outs = [_chain(L, S, positional_encoding(pts[s:s + PLAIN_CHUNK], 10),
-                   positional_encoding(dirs[s:s + PLAIN_CHUNK], 4), mm=mm)
+    q = rnd or (lambda t: t)
+    outs = [_chain(L, S, q(positional_encoding(pts[s:s + PLAIN_CHUNK], 10)),
+                   q(positional_encoding(dirs[s:s + PLAIN_CHUNK], 4)), mm=mm,
+                   rnd=rnd)
             for s in range(0, pts.shape[0], PLAIN_CHUNK)]
     return torch.cat(outs) if outs else pts.new_zeros((0, 4))
+
+
+_is_bias_on = {}   # device -> bool mask of the biases in ``params``
+
+
+def round_weights_bf16(params, params_t=None):
+    """``params`` with every weight rounded to bf16 and the biases left
+    float32, and ``params_t`` (if given) rounded: the values the bf16
+    kernels read, as float32 tensors."""
+    mask = _is_bias_on.get(params.device)
+    if mask is None:
+        mask = _is_bias_on[params.device] = torch.zeros(
+            PARAMS_SIZE, dtype=torch.bool, device=params.device)
+        mask[torch.from_numpy(BIAS_INDEX).to(params.device)] = True
+    rounded = torch.where(mask, params, bf16_round(params))
+    return rounded, None if params_t is None else bf16_round(params_t)
+
+
+def mlp_train_fwd_bf16_plain(params, ls, pts, dirs):
+    """Plain PyTorch version of the K-B1 forward in bf16 (mlp_train_pallas.py
+    _fwd_chain with cdt bfloat16): raw (N, 4) float32 from ``params`` and
+    ``ls`` as :func:`pack_train` gives them. The unscaled weights and the
+    embeddings (computed in float32) are rounded to bf16, u = x @ W is summed
+    in float32, ``u * ls + b`` in float32, and every activation that the
+    chain stores is rounded (:func:`_chain`'s ``rnd``)."""
+    return mlp_train_fwd_plain(round_weights_bf16(params)[0], ls, pts, dirs,
+                               rnd=bf16_round)
 
 
 def mlp_train_fwd_3xtf32_plain(params, ls, pts, dirs):
@@ -321,14 +454,33 @@ def mlp_train_bwd_3xtf32_plain(params, params_t, ls, pts, dirs, g):
                                mm=matmul_3xtf32_plain)
 
 
+def mlp_train_bwd_bf16_plain(params, params_t, ls, pts, dirs, g,
+                             with_dw: bool):
+    """Plain PyTorch version of the K-B1 backward in bf16 (mlp_train_pallas.py
+    _make_bwd_kernel and _train_op_bwd with cdt bfloat16), with or without
+    dW: the forward of :func:`mlp_train_fwd_bf16_plain` recomputed, the
+    weights rounded, the masks taken from the rounded activations, every du
+    rounded to bf16 before it enters a product (``bdot``, ``tdot``: dx and
+    dW alike), dls and db float32 sums, and dW rounded to bf16 once summed
+    over all points (``dW.astype(bfloat16)``, :358). Returns the flat
+    gradient [dW (with_dw), dls, db]."""
+    params_r, params_t_r = round_weights_bf16(params, params_t)
+    return mlp_train_bwd_plain(params_r, params_t_r, ls, pts, dirs, g,
+                               with_dw, rnd=bf16_round)
+
+
 def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
-                        mm=torch.matmul):
+                        mm=torch.matmul, rnd=None):
     """Plain PyTorch version of the K-B1 backward: the explicit reverse chain
     of mlp_train_pallas.py _make_bwd_kernel (the forward recomputed), summed
     over all points. Returns the flat gradient [dW (with_dw: each layer's
     (out, in)), dls, db]. ``mm``: as in :func:`_chain`, for the forward's
-    wide products and the reverse chain's."""
+    wide products and the reverse chain's. ``rnd``: as in
+    :func:`mlp_train_fwd_plain` for the forward, and it rounds every du
+    before its products and the summed dW (the bf16 form; the caller rounds
+    the weights)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    q = rnd or (lambda t: t)
     L, S, WT = _unpack(params, ls, params_t)
     zeros = lambda shape: torch.zeros(shape, device=pts.device)
     dW = {n: zeros((dout, din)) for n, (din, dout) in _DIMS}
@@ -337,17 +489,18 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
     n_pe = 63
 
     for s in range(0, pts.shape[0], PLAIN_CHUNK):
-        pe = positional_encoding(pts[s:s + PLAIN_CHUNK], 10)
-        ve = positional_encoding(dirs[s:s + PLAIN_CHUNK], 4)
-        _out, r = _chain(L, S, pe, ve, keep=True, mm=mm)
+        pe = q(positional_encoding(pts[s:s + PLAIN_CHUNK], 10))
+        ve = q(positional_encoding(dirs[s:s + PLAIN_CHUNK], 4))
+        _out, r = _chain(L, S, pe, ve, keep=True, mm=mm, rnd=rnd)
         gc = g[s:s + PLAIN_CHUNK]
         h = r["h"]
 
         def layer(name, dy_pre, u, x):
-            """Sums of one layer; returns du = dy_pre * ls."""
+            """Sums of one layer; returns du = dy_pre * ls, as the products
+            take it."""
             dls[name] += (dy_pre * u).sum(0)
             db[name] += dy_pre.sum(0)
-            du = dy_pre * S[name]
+            du = q(dy_pre * S[name])
             if with_dw:
                 dW[name] += du.t() @ x()
             return du
@@ -371,7 +524,7 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
             if i > 0:
                 dh = mm(du, WT[name][:, n_pe:] if i == 5 else WT[name])
 
-    parts = [dW[n].reshape(-1) for n in NAMES] if with_dw else []
+    parts = [q(dW[n]).reshape(-1) for n in NAMES] if with_dw else []
     parts += [dls[n] for n in NAMES] + [db[n] for n in NAMES]
     return torch.cat(parts)
 
@@ -389,7 +542,7 @@ def _check_inputs(ls, pts, dirs, *more):
     return n
 
 
-def _kernel_buffer(name, buf, size, made_from, make):
+def _kernel_buffer(name, buf, size, made_from, make, dtype=torch.float32):
     """A fragment-ordered buffer a tensor-core kernel launches with: ``buf``
     checked (``cp.async`` copies it 16 bytes at a time), or, if None, made
     by ``make`` from the :func:`pack_train` buffer ``made_from``."""
@@ -398,7 +551,7 @@ def _kernel_buffer(name, buf, size, made_from, make):
             raise ValueError(f"{name}: neither it nor the buffer it is made "
                              "from was given")
         buf = make(made_from)
-    _check(name, buf, (size,))
+    _check(name, buf, (size,), dtype)
     if buf.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
     return buf
@@ -411,6 +564,56 @@ def _biases(biases, params):
     return biases
 
 
+# float32 / bf16: (kernel names, plain versions, forward buffer: name, size,
+# made from params by, dtype; backward buffer: the same from params_t;
+# the forward's tile)
+_FORMS = {
+    False: dict(fwd="mlp_train_fwd", bwd="mlp_train_bwd",
+                bwd_dw="mlp_train_bwd", c_bwd="nnc_mlp_train_bwd_mma",
+                c_bwd_dw="nnc_mlp_train_bwd_dw",
+                fwd_plain=mlp_train_fwd_plain, bwd_plain=mlp_train_bwd_plain,
+                buf=("packed_mma", MMA_PARAMS_SIZE, repack_mma,
+                     torch.float32),
+                buf_t=("packed_mma_t", BWD_PARAMS_SIZE, repack_mma_t,
+                       torch.float32), tile=TILE),
+    True: dict(fwd="mlp_train_fwd_bf16", bwd="mlp_train_bwd_bf16",
+               bwd_dw="mlp_train_bwd_dw_bf16", c_bwd="nnc_mlp_train_bwd_bf16",
+               c_bwd_dw="nnc_mlp_train_bwd_dw_bf16",
+               fwd_plain=mlp_train_fwd_bf16_plain,
+               bwd_plain=mlp_train_bwd_bf16_plain,
+               buf=("packed_bf16", BF16_PARAMS_SIZE, repack_bf16, torch.int32),
+               buf_t=("packed_bf16_t", BWD_BF16_PARAMS_SIZE, repack_bf16_t,
+                      torch.int32), tile=TILE_BF16),
+}
+
+
+def _fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
+    form = _FORMS[bf16]
+    given = [t for t in (params, packed, biases) if t is not None]
+    n = _check_inputs(ls, pts, dirs, *given)
+    if params is not None:
+        _check("params", params, (PARAMS_SIZE,))
+    if pts.device.type == "cpu":
+        if params is None:
+            raise ValueError("the plain version reads params")
+        return form["fwd_plain"](params, ls, pts, dirs), None
+    name, size, make, dtype = form["buf"]
+    packed = _kernel_buffer(name, packed, size, params, make, dtype)
+    biases = _biases(biases, params)
+    lib = _build.lib()
+    out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
+    ws = torch.empty((_padded(n, form["tile"]), U_SIZE), dtype=torch.float32,
+                     device=pts.device) if save_u else None
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.count_launch(form["fwd"])
+        _build.check(getattr(lib, "nnc_" + form["fwd"])(
+            packed.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+            pts.data_ptr(), dirs.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, stream), form["fwd"])
+    return out, ws
+
+
 def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False,
                   packed_mma=None, biases=None):
     """K-B1 forward wrapper: (raw (N, 4), workspace). With ``save_u`` the
@@ -421,30 +624,68 @@ def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False,
     buffer of :func:`pack_train_mma`) and ``biases`` (U_SIZE,); each is made
     from ``params`` here if not given, and ``params`` may be None if both
     are. CPU tensors take the plain version on ``params`` (no workspace)."""
-    given = [t for t in (params, packed_mma, biases) if t is not None]
+    return _fwd(False, params, ls, pts, dirs, save_u, packed_mma, biases)
+
+
+def mlp_train_fwd_bf16(params, ls, pts, dirs, save_u: bool = False,
+                       packed_bf16=None, biases=None):
+    """K-B1 forward wrapper in bf16: :func:`mlp_train_fwd` with the bf16
+    kernel, which reads ``packed_bf16`` (the forward buffer of
+    :func:`pack_train_bf16`, made from ``params`` if not given); its
+    workspace has ceil(N / 128) * 128 rows. CPU tensors take
+    :func:`mlp_train_fwd_bf16_plain`."""
+    return _fwd(True, params, ls, pts, dirs, save_u, packed_bf16, biases)
+
+
+def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
+         biases):
+    form = _FORMS[bf16]
+    given = [t for t in (params, params_t, packed_t, biases, g)
+             if t is not None]
     n = _check_inputs(ls, pts, dirs, *given)
     if params is not None:
         _check("params", params, (PARAMS_SIZE,))
+    if params_t is not None:
+        _check("params_t", params_t, (WT_SIZE,))
+    _check("g", g, (n, 4))
     if pts.device.type == "cpu":
-        if params is None:
-            raise ValueError("the plain version reads params")
-        return mlp_train_fwd_plain(params, ls, pts, dirs), None
-    packed_mma = _kernel_buffer("packed_mma", packed_mma, MMA_PARAMS_SIZE,
-                                params, repack_mma)
-    biases = _biases(biases, params)
+        if params is None or params_t is None:
+            raise ValueError("the plain version reads params and params_t")
+        return form["bwd_plain"](params, params_t, ls, pts, dirs, g, with_dw)
+    if ws is None:
+        raise ValueError("the CUDA backward needs the forward's workspace "
+                         f"({form['fwd']}(save_u=True))")
+    _check("ws", ws, (_padded(n, form["tile"]), U_SIZE))
+    if with_dw:
+        if params is None or params_t is None:
+            raise ValueError("the backward with dW reads params and params_t")
+    else:
+        name, size, make, dtype = form["buf_t"]
+        packed_t = _kernel_buffer(name, packed_t, size, params_t, make, dtype)
+        biases = _biases(biases, params)
     lib = _build.lib()
-    out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
-    ws = torch.empty((_padded(n), U_SIZE), dtype=torch.float32,
-                     device=pts.device) if save_u else None
+    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+    grid = min(_padded(n) // TILE, sms)
+    size = grad_size(with_dw)
+    partials = torch.empty((grid, size), dtype=torch.float32,
+                           device=pts.device)
+    out = torch.empty((size,), dtype=torch.float32, device=pts.device)
+    kernel = form["bwd_dw" if with_dw else "bwd"]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.count_launch("mlp_train_fwd")
-        _build.check(lib.nnc_mlp_train_fwd(
-            packed_mma.data_ptr(), ls.data_ptr(), biases.data_ptr(),
-            pts.data_ptr(), dirs.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), n, stream),
-            "mlp_train_fwd")
-    return out, ws
+        _build.count_launch(kernel)
+        if with_dw:
+            status = getattr(lib, form["c_bwd_dw"])(
+                params.data_ptr(), params_t.data_ptr(), ls.data_ptr(),
+                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                partials.data_ptr(), out.data_ptr(), n, grid, stream)
+        else:
+            status = getattr(lib, form["c_bwd"])(
+                packed_t.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+                g.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+                out.data_ptr(), n, grid, stream)
+        _build.check(status, kernel)
+    return out
 
 
 def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
@@ -458,62 +699,31 @@ def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
     (U_SIZE,), made here from ``params_t`` and ``params`` if not given (each
     of which may be None if its buffer is); with dW the SIMT kernel reads
     ``params`` and ``params_t``."""
-    given = [t for t in (params, params_t, packed_mma_t, biases, g)
-             if t is not None]
-    n = _check_inputs(ls, pts, dirs, *given)
-    if params is not None:
-        _check("params", params, (PARAMS_SIZE,))
-    if params_t is not None:
-        _check("params_t", params_t, (WT_SIZE,))
-    _check("g", g, (n, 4))
-    if pts.device.type == "cpu":
-        if params is None or params_t is None:
-            raise ValueError("the plain version reads params and params_t")
-        return mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g,
-                                   with_dw)
-    if ws is None:
-        raise ValueError("the CUDA backward needs the forward's workspace "
-                         "(mlp_train_fwd(save_u=True))")
-    _check("ws", ws, (_padded(n), U_SIZE))
-    if with_dw:
-        if params is None or params_t is None:
-            raise ValueError("the backward with dW reads params and params_t")
-    else:
-        packed_mma_t = _kernel_buffer("packed_mma_t", packed_mma_t,
-                                      BWD_PARAMS_SIZE, params_t, repack_mma_t)
-        biases = _biases(biases, params)
-    lib = _build.lib()
-    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
-    grid = min(_padded(n) // TILE, sms)
-    size = grad_size(with_dw)
-    partials = torch.empty((grid, size), dtype=torch.float32,
-                           device=pts.device)
-    out = torch.empty((size,), dtype=torch.float32, device=pts.device)
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.count_launch("mlp_train_bwd")
-        if with_dw:
-            status = lib.nnc_mlp_train_bwd_dw(
-                params.data_ptr(), params_t.data_ptr(), ls.data_ptr(),
-                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), ws.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), n, grid, stream)
-        else:
-            status = lib.nnc_mlp_train_bwd_mma(
-                packed_mma_t.data_ptr(), ls.data_ptr(), biases.data_ptr(),
-                g.data_ptr(), ws.data_ptr(), partials.data_ptr(),
-                out.data_ptr(), n, grid, stream)
-        _build.check(status, "mlp_train_bwd")
-    return out
+    return _bwd(False, params, params_t, ls, pts, dirs, g, ws, with_dw,
+                packed_mma_t, biases)
+
+
+def mlp_train_bwd_bf16(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
+                       packed_bf16_t=None, biases=None):
+    """K-B1 backward wrapper in bf16: :func:`mlp_train_bwd` with the bf16
+    kernels, on the workspace of :func:`mlp_train_fwd_bf16`. Without dW the
+    tensor-core kernel reads ``packed_bf16_t`` (the backward buffer of
+    :func:`pack_train_bf16`) and ``biases``; with dW the SIMT kernel reads
+    ``params`` and ``params_t`` and rounds the weights as it loads them. CPU
+    tensors take :func:`mlp_train_bwd_bf16_plain`."""
+    return _bwd(True, params, params_t, ls, pts, dirs, g, ws, with_dw,
+                packed_bf16_t, biases)
 
 
 class _TrainMLP(torch.autograd.Function):
-    """raw = MLP(pts, dirs) over the flat per-layer (weight, bias, scales).
-    ``packs``: :func:`pack_train_mma` of the weights for CUDA tensors (the
-    kernels then need no other packing of them, but for dW), None for CPU
-    tensors, which pack for the plain versions."""
+    """raw = MLP(pts, dirs) over the flat per-layer (weight, bias, scales),
+    in the float32 or (``bf16``) the bf16 form. ``packs``: the weights'
+    :data:`TRAIN_PACKS` entry for CUDA tensors (the kernels then need no
+    other packing of them, but for dW), None for CPU tensors, which pack for
+    the plain versions."""
 
     @staticmethod
-    def forward(ctx, pts, dirs, with_dw, packs, *tensors):
+    def forward(ctx, pts, dirs, with_dw, bf16, packs, *tensors):
         weights, biases, scales = tensors[0::3], tensors[1::3], tensors[2::3]
         params = params_t = b = None
         if packs is None or with_dw:
@@ -521,10 +731,9 @@ class _TrainMLP(torch.autograd.Function):
         if packs is not None:
             ls = torch.cat([t.reshape(-1).float() for t in scales])
             b = torch.cat([t.float() for t in biases])
-        raw, ws = mlp_train_fwd(params, ls, pts, dirs,
-                                save_u=packs is not None,
-                                packed_mma=packs and packs[0], biases=b)
-        ctx.with_dw = with_dw
+        raw, ws = _fwd(bf16, params, ls, pts, dirs, packs is not None,
+                       packs and packs[0], b)
+        ctx.with_dw, ctx.bf16 = with_dw, bf16
         ctx.scale_shapes = [t.shape for t in scales]
         ctx.buffers = (params, params_t, b, packs and packs[1], ws)
         ctx.save_for_backward(pts, dirs, ls, *weights)
@@ -533,12 +742,11 @@ class _TrainMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pts, dirs, ls, *weights = ctx.saved_tensors
-        params, params_t, b, packed_mma_t, ws = ctx.buffers
-        flat = mlp_train_bwd(params, params_t, ls, pts, dirs,
-                             g.float().contiguous(), ws, ctx.with_dw,
-                             packed_mma_t=packed_mma_t, biases=b)
+        params, params_t, b, packed_t, ws = ctx.buffers
+        flat = _bwd(ctx.bf16, params, params_t, ls, pts, dirs,
+                    g.float().contiguous(), ws, ctx.with_dw, packed_t, b)
         dW, dls, db = split_grads(flat, ctx.with_dw)
-        need = ctx.needs_input_grad[4:]
+        need = ctx.needs_input_grad[5:]
         grads = []
         for i, name in enumerate(NAMES):
             gw = dW[name] if dW is not None else torch.zeros_like(weights[i])
@@ -546,7 +754,7 @@ class _TrainMLP(torch.autograd.Function):
                       db[name] if need[3 * i + 1] else None,
                       dls[name].reshape(ctx.scale_shapes[i])
                       if need[3 * i + 2] else None]
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
@@ -555,18 +763,21 @@ def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
 
     pts: (..., 3); viewdirs broadcastable to pts. Returns raw (..., 4)
     float32, with gradients for every layer's ``weight_scaling`` and
-    ``bias``, and for ``weight`` only ``with_dw``. Non-flagship
-    configurations take the plain MLP (output-scaling form). On CUDA tensors
-    the weights' fragment-ordered buffers come from :data:`TRAIN_PACKS`."""
+    ``bias``, and for ``weight`` only ``with_dw``. ``model.config.
+    compute_dtype`` picks the float32 or the bf16 form (mlp_train_pallas.py:
+    380); non-flagship configurations take the plain MLP (output-scaling
+    form in float32; in bf16 the reference's one plain form, the scale
+    folded before the rounding). On CUDA tensors the weights'
+    fragment-ordered buffers come from :data:`TRAIN_PACKS`."""
     vd = torch.broadcast_to(viewdirs, pts.shape)
     if not supports(model.config):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4), output_scaling=True)
-    refuse_bf16(model, "the fused training MLP (K-B1)", 3)
+    dtype = model.config.compute_dtype
     lead = pts.shape[:-1]
     tensors = _layer_tensors(model)
-    packs = TRAIN_PACKS.get(tensors[0::3]) if pts.is_cuda else None
+    packs = TRAIN_PACKS.get(tensors[0::3], dtype) if pts.is_cuda else None
     raw = _TrainMLP.apply(pts.detach().reshape(-1, 3).float().contiguous(),
                           vd.detach().reshape(-1, 3).float().contiguous(),
-                          with_dw, packs, *tensors)
+                          with_dw, dtype == torch.bfloat16, packs, *tensors)
     return raw.reshape(*lead, 4)

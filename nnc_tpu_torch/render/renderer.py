@@ -17,11 +17,11 @@ through the differentiable kernel pair K-B1 (``ops/mlp_train_fused.py``),
 else through the plain MLP in output-scaling form.
 
 A model with ``config.compute_dtype == torch.bfloat16`` takes the bf16
-variants of K-B2 and K-B3 on the same routes, and the plain bf16 MLP where
-no kernel is asked for. Its training renders raise: the reference has two
-bf16 training forms (the plain MLP folds the scale and then rounds; K-B1
-rounds the unscaled weight and scales in the epilogue), and both wait for
-K-B1's bf16 pair (ROADMAP B-1 item 3).
+variants of K-B2, K-B3 and K-B1 on the same routes, and the plain bf16 MLP
+where no kernel is asked for. Its training renders keep the reference's two
+bf16 forms apart: through K-B1 (``use_fused_train``) the unscaled weight is
+rounded and u is scaled in float32 afterwards; through the plain MLP the
+scale is folded into the weight before the rounding.
 """
 from __future__ import annotations
 
@@ -85,8 +85,9 @@ def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
     """posenc + MLP over (R, S, 3) points. Returns raw (R, S, 4).
 
     allow_fused=False routes training: the differentiable kernel pair
-    (use_fused_train, posenc 10/4) or the plain MLP in output-scaling form
-    (the inference kernels have no backward)."""
+    (use_fused_train, posenc 10/4) or the plain MLP in output-scaling form,
+    which in bf16 is the reference's folded form (the inference kernels have
+    no backward)."""
     posenc_10_4 = (rc.multires, rc.multires_views) == (10, 4)
     if not allow_fused and rc.use_fused_train and posenc_10_4:
         return mlp_train_fused.fused_nerf_mlp_train(
@@ -119,13 +120,6 @@ def render_rays(model, model_fine, rays_o, rays_d, viewdirs, near, far,
     ``generator``. Returns dict with rgb_map/disp_map/acc_map (+ rgb0/disp0/
     acc0/z_std when n_importance > 0)."""
     check_supported(rc)
-    if not deterministic and torch.bfloat16 in (
-            m.config.compute_dtype for m in (model, model_fine)
-            if m is not None):
-        raise NotImplementedError(
-            "training renders of a bf16 model are not ported to "
-            "nnc_tpu_torch yet (ROADMAP B-1 item 3: K-B1's bf16 pair and "
-            "the plain bf16 training form)")
     n_rays = rays_o.shape[0]
     device = rays_o.device
     perturb = rc.perturb and not deterministic

@@ -2,7 +2,11 @@
 of the step through K-B1 and through the plain MLP. Needs a CUDA device and
 nvcc:
 
-    python -m nnc_tpu_torch.tools.lsa_profile
+    python -m nnc_tpu_torch.tools.lsa_profile [--dtype bfloat16]
+
+``--dtype bfloat16`` tunes models built with
+``NeRFConfig(compute_dtype=torch.bfloat16)``: K-B1's bf16 kernels, and the
+plain bf16 MLP (the scale folded into the weight before rounding).
 
 The scene is lego's geometry (400 x 400, focal 555.6, near 2, far 6, white
 background, 64 + 128 samples, N_rand 1,024) on a solid full-width teacher;
@@ -20,6 +24,7 @@ plain, plain, kernels):
 """
 from __future__ import annotations
 
+import argparse
 import math
 import subprocess
 import time
@@ -87,9 +92,10 @@ def _device_time(evt):
     return 0.0
 
 
-def run(dev, scene, sd, fused):
+def run(dev, scene, sd, fused, mlp):
     ex = presets.create_nerf_model_executer(scene=scene, device=dev,
                                             use_fused_mlp=fused,
+                                            mlp_config=mlp,
                                             learning_rate=LR, verbose=False)
     models = ex._split_params(sd)
     _steps(ex, models, WARMUP)
@@ -104,9 +110,10 @@ def run(dev, scene, sd, fused):
     kb1 = sum(_device_time(e) for e in events
               if "mlp_train" in e.key) / 1e3 / STEPS
     count = sum(e.count for e in events) / STEPS
-    launches = {k: after[k] - before[k] for k in ("mlp_train_fwd",
-                                                  "mlp_train_bwd")}
-    print(f"LSA step, {'K-B1' if fused else 'plain'}: {wall:.3f} ms wall "
+    launches = {k: after[k] - before[k] for k in after
+                if k.startswith("mlp_train")}
+    tag = "" if mlp.compute_dtype == torch.float32 else " bf16"
+    print(f"LSA step, {'K-B1' if fused else 'plain'}{tag}: {wall:.3f} ms wall "
           f"({wall_prof:.3f} ms under the profiler); device busy "
           f"{busy:.3f} ms a step, idle share "
           f"{100 * (1 - busy / wall_prof):.1f}% of the profiled step "
@@ -120,7 +127,12 @@ def run(dev, scene, sd, fused):
         f"{e.count / STEPS:.0f}" for e in top))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    mlp = nerf.NeRFConfig(compute_dtype=getattr(
+        torch, ap.parse_args(argv).dtype))
     dev = torch.device("cuda", 0)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -132,7 +144,7 @@ def main():
     # parent commit too, for a before and after in one call
     cache = getattr(mlp_train_fused, "TRAIN_PACKS", None)
     for fused in (True, False, False, True):
-        run(dev, scene, sd, fused)
+        run(dev, scene, sd, fused, mlp)
     if cache is not None:
         print(f"pack cache over two runs of {WARMUP + 2 * STEPS} kernel "
               f"steps, two models a step, new models in each run: "

@@ -34,8 +34,7 @@ from nnc_tpu.render import renderer as jrenderer
 from nnc_tpu.train import presets as jpresets
 from nnc_tpu_torch import graft_entry, parallel
 from nnc_tpu_torch.models import nerf as tnerf
-from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
-                               mlp_train_fused, render_fused)
+from nnc_tpu_torch.ops import _build, mlp_fused, mlp_tp_fused, render_fused
 from nnc_tpu_torch.render import renderer as trenderer
 from nnc_tpu_torch.train import presets as tpresets
 
@@ -578,10 +577,7 @@ def test_bf16_render_rays_fused_culled_matches_jax():
 
 
 # what raises until the other bf16 kernels are ported ---------------------------------
-@pytest.mark.parametrize("route,item", [("embedded", 4), ("tp", 5),
-                                        ("train_kernel", 3),
-                                        ("train_render", 3),
-                                        ("plain_training_form", 3)])
+@pytest.mark.parametrize("route,item", [("embedded", 4), ("tp", 5)])
 def test_bf16_model_is_refused_where_no_bf16_kernel_is_ported(route, item):
     model = tnerf.init_params(tnerf.NeRFConfig(compute_dtype=BF16_T),
                               torch.Generator().manual_seed(0))
@@ -590,35 +586,13 @@ def test_bf16_model_is_refused_where_no_bf16_kernel_is_ported(route, item):
     with pytest.raises(NotImplementedError, match=f"B-1 item {item}"):
         if route == "embedded":
             mlp_fused.fused_nerf_mlp(model, pe, ve)
-        elif route == "tp":
+        else:
             mesh = parallel.make_mesh(2, ("model",), devices=["cpu"])
             mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
-        elif route == "train_kernel":
-            mlp_train_fused.fused_nerf_mlp_train(model, pts, pts)
-        elif route == "train_render":
-            rc = trenderer.RenderConfig(mlp=model.config, n_samples=4,
-                                        n_importance=0)
-            trenderer.render_rays(model, None, pts, pts + 1.0, pts + 1.0,
-                                  2.0, 6.0, rc, deterministic=False)
-        else:
-            tnerf.apply_mlp(model, pe, ve, output_scaling=True)
     # the int8 route ignores compute_dtype, as the reference's does
     with torch.no_grad():
         raw = mlp_fused.fused_nerf_mlp_int8_from_points(model, pts, pts + 1.0)
     assert raw.shape == (4, 4)
-
-
-def test_bf16_compress_lsa_raises_before_any_step(small_scene, tmp_path):
-    scene, sd = small_scene
-    with pytest.raises(NotImplementedError, match="B-1 item 3"):
-        nnc_tpu_torch.compress_model(
-            sd, bitstream_path=str(tmp_path / "bitstream" / "x.nnc"), qp=-20,
-            lsa=True, ioq=False, scene=scene, mlp_config=MLP_T, N_iters=2,
-            epochs=1, i_save=10, n_samples=N_SAMPLES, device="cpu",
-            verbose=False)
-    _ex_j, ex_t = _executers(scene)
-    with pytest.raises(NotImplementedError, match="B-1 item 3"):
-        ex_t.tune_model(None, dict(sd), None)
 
 
 # the entry ------------------------------------------------------------------------------

@@ -29,9 +29,9 @@ the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
 off by more than 5% of it. K-B6 (two float32 products, sums over at most 256
 terms in another order than cuBLAS's): 1e-4 of max |ref| + 1e-5; the
 tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
-output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3 and
-K-B2 are held to the distance between their plain bf16 and plain float32
-versions (the note above their tests).
+output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3,
+K-B2 and K-B1 are held to the distance between their plain bf16 and plain
+float32 versions (the notes above their tests).
 """
 import ctypes
 import math
@@ -738,7 +738,159 @@ def test_cuda_bf16_renderer_routes_to_the_bf16_kernels(cuda_device):
     assert counts["render_pass"] == 0 and counts["mlp_from_points"] == 0
     for out in (got, noisy):
         assert float((out["rgb_map"] - want["rgb_map"]).abs().max()) < 5e-3
-    with pytest.raises(NotImplementedError, match="B-1 item 3"):
-        renderer.render_rays(*models, ro, rd, vd, 2.0, 6.0,
-                             renderer.RenderConfig(**common),
-                             deterministic=False)
+    # training renders: K-B1 bf16 with use_fused_train, coarse and fine, and
+    # no kernel without it (the folded plain form)
+    for fused in (False, True):
+        _build.reset_launch_counts()
+        out = renderer.render_rays(
+            *models, ro, rd, vd, 2.0, 6.0,
+            renderer.RenderConfig(**common, use_fused_train=fused),
+            deterministic=False)
+        (out["rgb_map"].sum() + out["rgb0"].sum()).backward()
+        counts = _build.launch_counts()
+        assert counts["mlp_train_fwd_bf16"] == counts["mlp_train_bwd_bf16"] \
+            == (2 if fused else 0), counts
+        assert sum(counts.values()) == (4 if fused else 0), counts
+
+
+# K-B1 in bf16 (csrc/mlp_train_bf16.cu, and mlp_train.cu's SIMT backward with
+# dW in bf16) against its plain bf16 versions, in units of the distance
+# between the plain bf16 and the plain float32 version on the same inputs:
+# raw as K-B3 bf16 (_held_to_bf16_distance); each part of the gradient (dW,
+# dls, db over all layers) rms <= 1/4 of the distance's rms and no element
+# beyond 1/2 of its max, dW besides one bf16 step (2^-7 of the value: both
+# round it once summed, and a last-bit difference of the float32 sum moves
+# it by a step). Measured on an H100 at 196,608 points: raw 0.056 / 0.53,
+# gradients 0.06-0.07 / 0.07-0.09; at 1,000 points up to 0.08 / 0.20.
+def _grads_to_bf16_distance(flat, flat16, flat32, with_dw):
+    parts = zip(("dW", "dls", "db"),
+                *(mlp_train_fused.split_grads(f, with_dw)
+                  for f in (flat, flat16, flat32)))
+    for part, got, want16, want32 in parts:
+        if got is None:
+            continue
+        got, want16, want32 = (torch.cat([v.reshape(-1) for v in d.values()])
+                               for d in (got, want16, want32))
+        err, dist = got - want16, want16 - want32
+        step = 2.0 ** -7 * want16.abs() if part == "dW" else 0.0
+        assert torch.isfinite(got).all(), part
+        assert _rms(err) <= _rms(dist) / 4, (part, _rms(err), _rms(dist))
+        assert float((err.abs() - step).max()) <= \
+            float(dist.abs().max()) / 2, part
+
+
+@pytest.mark.cuda
+def test_cuda_train_bf16_build_and_sizes(cuda_device):
+    sizes = [ctypes.c_int() for _ in range(3)]
+    _build.lib().nnc_train_bf16_sizes(*(ctypes.byref(c) for c in sizes))
+    assert [c.value for c in sizes] == [
+        mlp_train_fused.TILE_BF16, mlp_fused.BF16_PARAMS_SIZE,
+        mlp_train_fused.BWD_BF16_PARAMS_SIZE]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,with_dw", [(10_000, False), (10_000, True),
+                                       (33, False), (16_401, True),
+                                       (196_608, False)])
+def test_cuda_mlp_train_bf16_matches_plain(cuda_device, n, with_dw):
+    """K-B1 bf16 forward and backward against the plain bf16 versions; 33,
+    10,000 and 16,401 are no multiples of the forward's 128-point tile or
+    of the backward's 64-point one."""
+    model = _fog_model(cuda_device)
+    g = torch.Generator().manual_seed(6)
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(cuda_device)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(cuda_device)
+    cot = (1e-2 * torch.randn(n, 4, generator=g)).to(cuda_device)
+    tensors = mlp_train_fused._layer_tensors(model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    fwd_b, bwd_b = mlp_train_fused.pack_train_bf16(tensors[0::3])
+    biases = mlp_train_fused.gather_biases(params)
+    before = _build.launch_counts()
+    raw, ws = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd,
+                                                 save_u=True)
+    flat = mlp_train_fused.mlp_train_bwd_bf16(params, params_t, ls, pts, vd,
+                                              cot, ws, with_dw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    bwd = "mlp_train_bwd_dw_bf16" if with_dw else "mlp_train_bwd_bf16"
+    assert after["mlp_train_fwd_bf16"] == before["mlp_train_fwd_bf16"] + 1
+    assert after[bwd] == before[bwd] + 1
+    assert after["mlp_train_fwd"] == before["mlp_train_fwd"]
+    assert after["mlp_train_bwd"] == before["mlp_train_bwd"]
+    assert ws.shape == (-(-n // 128) * 128, mlp_train_fused.U_SIZE)
+    assert torch.isfinite(ws).all()
+    _held_to_bf16_distance(
+        raw, mlp_train_fused.mlp_train_fwd_bf16_plain(params, ls, pts, vd),
+        mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd))
+    raw0, none = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd)
+    assert none is None and torch.equal(raw0, raw)
+    _grads_to_bf16_distance(
+        flat, mlp_train_fused.mlp_train_bwd_bf16_plain(
+            params, params_t, ls, pts, vd, cot, with_dw),
+        mlp_train_fused.mlp_train_bwd_plain(params, params_t, ls, pts, vd,
+                                            cot, with_dw), with_dw)
+    if with_dw:
+        dw = flat[:mlp_train_fused.WT_SIZE]
+        assert torch.equal(dw, mlp_fused.bf16_round(dw))
+    # reruns bit-equal, also from the cached buffers
+    again = mlp_train_fused.mlp_train_bwd_bf16(
+        params, params_t, ls, pts, vd, cot, ws, with_dw, packed_bf16_t=bwd_b,
+        biases=biases)
+    assert torch.equal(again, flat)
+    raw_c, ws_c = mlp_train_fused.mlp_train_fwd_bf16(
+        None, ls, pts, vd, save_u=True, packed_bf16=fwd_b, biases=biases)
+    assert torch.equal(raw_c, raw) and torch.equal(ws_c, ws)
+    # the bf16 backward refuses the float32 forward's workspace shape
+    if n % 128:
+        with pytest.raises(ValueError):
+            mlp_train_fused.mlp_train_bwd_bf16(
+                params, params_t, ls, pts, vd, cot, ws[:-64], with_dw)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_train_bf16_autograd_and_cache(cuda_device):
+    """fused_nerf_mlp_train of a bf16 model through autograd on the card:
+    K-B1 bf16 only, the bf16 buffers from TRAIN_PACKS (a float32 model over
+    the same tensors gets its own), gradients held to the plain bf16
+    versions as above."""
+    model = _fog_model(cuda_device)
+    bf16_model = nerf.NeRF(nerf.NeRFConfig(compute_dtype=torch.bfloat16),
+                           device=cuda_device)
+    for src, dst in zip(model.layers().values(),
+                        bf16_model.layers().values()):
+        dst.weight, dst.bias = src.weight, src.bias
+        dst.weight_scaling = src.weight_scaling
+    pts, vd = _points(5000, cuda_device)
+    cot = 1e-2 * torch.randn(5000, 4, device=cuda_device)
+    for layer in bf16_model.layers().values():
+        layer.weight_scaling.requires_grad_(True)
+        layer.bias.requires_grad_(True)
+    cache = mlp_train_fused.TRAIN_PACKS
+    misses = cache.misses
+    _build.reset_launch_counts()
+    raw = mlp_train_fused.fused_nerf_mlp_train(bf16_model, pts, vd)
+    raw.backward(cot)
+    counts = _build.launch_counts()
+    assert counts["mlp_train_fwd_bf16"] == counts["mlp_train_bwd_bf16"] == 1
+    assert sum(counts.values()) == 2
+    with torch.no_grad():
+        mlp_train_fused.fused_nerf_mlp_train(model, pts, vd)
+    assert cache.misses == misses + 2
+    tensors = mlp_train_fused._layer_tensors(bf16_model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    layers = bf16_model.layers().values()
+    got = torch.cat([torch.cat([x.weight_scaling.grad.reshape(-1)
+                                for x in layers]),
+                     torch.cat([x.bias.grad for x in layers])])
+    _grads_to_bf16_distance(
+        got, mlp_train_fused.mlp_train_bwd_bf16_plain(
+            params, params_t, ls, pts, vd, cot, False),
+        mlp_train_fused.mlp_train_bwd_plain(params, params_t, ls, pts, vd,
+                                            cot, False), False)
+    for layer in bf16_model.layers().values():
+        for t in (layer.weight_scaling, layer.bias):
+            t.requires_grad_(False)
+            t.grad = None
