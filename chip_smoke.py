@@ -88,12 +88,28 @@ Phases:
      from phase 7's no-LSA decode through K-B1 bf16 against the same steps
      through its plain bf16 versions and phase 7's float32 plain run, on
      phase 7's batches and draws; nnc_tpu_torch.tools.bench_train_step at
-     full width, without and with dW.
+     full width, without and with dW;
+ 18. kernels K-B5 bf16 (MLP on embeddings) and K-B6 bf16 (one shard's pair)
+     against their plain bf16 versions in units of the bf16-to-float32
+     distance: K-B5 bf16 on phase 2's net and points embedded by torch and
+     at three ragged sizes, and against K-B3 bf16 on the same points; K-B6
+     bf16 at phase 11's pair shapes; reruns bit-equal, timed beside the
+     float32 kernels and the plain bf16 versions;
+ 19. the bf16 tensor-parallel slice on phase 5's NDC scene and teacher:
+     fused_nerf_mlp_tp of the bf16 model on 4 x cuda:0 on phase 12's
+     embeddings against K-B5 bf16 and the dense plain bf16 MLP, then each of
+     its 20 launches of K-B6 bf16 held against the plain version on the
+     forward's tensors; test_model through a bf16 executer with the MLP
+     called as fused_nerf_mlp (phase 10's swap), K-B5 bf16 on the
+     renderer's chunks, each launch of one more view held against its plain
+     version, the PSNR against phase 15's K-B3 bf16 render;
+     nnc_tpu_torch.tools.tp_mlp_bench in bf16.
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
-the two test_model renders and the compression of phase 15, and the
-compression and the two bench_train_step runs of phase 17.
+the two test_model renders and the compression of phase 15, the
+compression and the two bench_train_step runs of phase 17, and phase 19's
+bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
@@ -126,7 +142,7 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import bench_train_step
+from nnc_tpu_torch.tools import bench_train_step, tp_mlp_bench
 from nnc_tpu_torch.train import lsa, presets
 from nnc_tpu_torch.utils import ckpt
 from nnc_tpu_torch.utils.device import require_cuda
@@ -174,6 +190,10 @@ KERNEL_ROWS = {
                            "nnc_tpu/ops/mlp_train_pallas.py:300"),
     "mlp_train_bwd_dw_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train.cu",
                               "nnc_tpu/ops/mlp_train_pallas.py:300"),
+    "mlp_embedded_bf16": ("nnc_tpu_torch/ops/csrc/mlp_embedded_bf16.cu",
+                          "nnc_tpu/ops/mlp_pallas.py:248"),
+    "mlp_tp_pair_bf16": ("nnc_tpu_torch/ops/csrc/mlp_tp_pair_bf16.cu",
+                         "nnc_tpu/ops/mlp_tp_pallas.py:82"),
 }
 # K-B6: (K, O2, relu_mid) of the forward's pairs: w0 -> w1; w2 -> w3,
 # w4 -> w5b, w6 -> w7; wf -> wva. S = 256 / M.
@@ -1135,20 +1155,17 @@ def phase_tp_pair(dev):
     return row
 
 
-def phase_tp_slice(dev, scene, sd):
-    """fused_nerf_mlp_tp on 4 x cuda:0 at full width on the embeddings of
-    the first launch of one NDC view, as the renderer makes them."""
+def first_launch_embeddings(dev, scene, rc):
+    """The embeddings of the first launch of the NDC scene's first test view,
+    as the renderer makes them: (R, rc.n_samples, 63) and (..., 27) for the
+    launch's R rays, the view embedding broadcast over a ray's samples."""
     H, W, K = scene["H"], scene["W"], np.asarray(scene["K"], np.float32)
-    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
-                                            use_fused_mlp=True, verbose=False)
-    rc = ex.rc
-    model, _fine = ex._split_params(sd)
     ro, rd = get_rays_np(H, W, K, scene["poses"][scene["i_test"][0]][:3, :4])
     vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
     ro_n, rd_n = ndc_rays(H, W, float(K[0][0]), 1.0,
                           torch.as_tensor(ro, device=dev),
                           torch.as_tensor(rd, device=dev))
-    R = rc.chunk
+    R = min(rc.chunk, H * W)
     ro_n, rd_n = ro_n.reshape(-1, 3)[:R], rd_n.reshape(-1, 3)[:R]
     z = stratified_samples(scene["near"], scene["far"], rc.n_samples, R,
                            False, device=dev)
@@ -1156,8 +1173,19 @@ def phase_tp_slice(dev, scene, sd):
     pe = positional_encoding(pts, rc.multires)
     ve = positional_encoding(torch.as_tensor(vd.reshape(-1, 3)[:R],
                                              device=dev), rc.multires_views)
-    ve = ve[:, None, :].expand(R, rc.n_samples, ve.shape[-1])
-    n = R * rc.n_samples
+    return pe, ve[:, None, :].expand(R, rc.n_samples, ve.shape[-1])
+
+
+def phase_tp_slice(dev, scene, sd):
+    """fused_nerf_mlp_tp on 4 x cuda:0 at full width on the embeddings of
+    the first launch of one NDC view, as the renderer makes them."""
+    H, W = scene["H"], scene["W"]
+    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                            use_fused_mlp=True, verbose=False)
+    rc = ex.rc
+    model, _fine = ex._split_params(sd)
+    pe, ve = first_launch_embeddings(dev, scene, rc)
+    n = pe.shape[0] * pe.shape[1]
     mesh = parallel.make_mesh(TP_SHARDS, ("model",))
     check(mesh.shape == {"model": TP_SHARDS}
           and all(d == dev for d in mesh.devices.flat), f"mesh {mesh}")
@@ -1171,7 +1199,7 @@ def phase_tp_slice(dev, scene, sd):
         dense = nerf.apply_mlp(model, pe.reshape(-1, 63), ve.reshape(-1, 27))
     scale = float(want.abs().max())
     err, err_dense = maxabs(got, want), maxabs(got.reshape(-1, 4), dense)
-    check(got.shape == (R, rc.n_samples, 4)
+    check(got.shape == (*pe.shape[:2], 4)
           and torch.isfinite(got).all().item(), "TP output shape or values")
     check(launched == 5 * TP_SHARDS, f"the TP forward launched K-B6 "
           f"{launched} times, not 5 per shard")
@@ -1640,7 +1668,7 @@ def phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc, sd_ndc, tar):
           "graft_entry.entry() in bf16: shape or values")
     print(f"[15] graft_entry.entry() in bf16 (plain MLP, 1,024 rays, "
           f"64 + 128): finite, {t_entry:.2f} s")
-    return launches
+    return launches, psnr_ndc
 
 
 def grads_to_bf16_distance(what, flat, flat16, flat32, with_dw):
@@ -1946,6 +1974,233 @@ def phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32, psnr_lsa32):
     return launches
 
 
+def phase_bf16_tp_kernels(dev, ctx):
+    """Phase 18: K-B5 bf16 and K-B6 bf16 against their plain bf16 versions,
+    in units of the bf16-to-float32 distance (held_to_bf16_distance)."""
+    model, packed, pts, vd = ctx["model"], ctx["packed"], ctx["pts"], ctx["vd"]
+    n = pts.shape[0]
+    buf = mlp_fused.pack_weights_bf16(model)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    run = lambda p=pe, v=ve: mlp_fused.mlp_embedded_bf16(buf, p, v)
+    plain = lambda p=pe, v=ve: mlp_fused.fused_nerf_mlp_bf16_plain(buf, p, v)
+    got = run()
+    torch.cuda.synchronize()
+    e_rms, e_max, d_rms, d_max = held_to_bf16_distance(
+        f"K-B5 bf16 {n} points", got, plain(), ctx["raw_plain"])
+    check(torch.equal(run(), got), "K-B5 bf16 reruns differ")
+    # K-B3 bf16 on the points the embeddings were made of: its sincosf and
+    # torch's sin / cos differ in the last bit of a few embedding values,
+    # which may then round to the other bf16 neighbour
+    kb3 = lambda: mlp_fused.mlp_from_points_bf16(buf, pts, vd)
+    k_rms, k_max, *_ = held_to_bf16_distance(
+        "K-B5 bf16 against K-B3 bf16", got, kb3(), ctx["raw_plain"])
+    g = torch.Generator().manual_seed(18)
+    ragged = {}
+    for m in RAGGED:
+        p = positional_encoding((4 * torch.rand(m, 3, generator=g) - 2)
+                                .to(dev), 10).contiguous()
+        v = ve[torch.randint(n, (m,), generator=g).to(dev)].contiguous()
+        ragged[m] = held_to_bf16_distance(
+            f"K-B5 bf16 {m} points", run(p, v), plain(p, v),
+            mlp_fused.fused_nerf_mlp_plain(packed, p, v))
+    f32 = lambda: mlp_fused.mlp_embedded(packed, pe, ve)
+    times = [[cuda_ms(fn) for fn in (run, kb3, f32, plain)] for _ in range(2)]
+    ms, kb3_ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
+    flop = 2 * MLP_MACS * n
+    rows = {"mlp_embedded_bf16": {
+        "max_abs_err": e_max, "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes(buf, pe, ve, got), flop, PEAK_BF16),
+        "peak_tflops": PEAK_BF16 / 1e12, "float32_ms": f32_ms}}
+    b = rows["mlp_embedded_bf16"]
+    print(f"[18] K-B5 bf16 {n} points against its plain bf16 version: rms "
+          f"{e_rms:.3e} max {e_max:.3e}; bf16-to-float32 distance rms "
+          f"{d_rms:.3e} max {d_max:.3e} ({e_rms / d_rms:.3f} / "
+          f"{e_max / d_max:.3f} of it); against K-B3 bf16 {k_rms / d_rms:.3f}"
+          f" / {k_max / d_max:.3f} of it; ragged "
+          f"{ {m: f'{r[0] / r[2]:.3f} / {r[1] / r[3]:.3f}' for m, r in ragged.items()} }"
+          f", reruns bit-equal")
+    print(f"     in turns, ms: K-B5 bf16 {[f'{t[0]:.3f}' for t in times]}, "
+          f"K-B3 bf16 {[f'{t[1]:.3f}' for t in times]}, K-B5 float32 "
+          f"{[f'{t[2]:.3f}' for t in times]}, plain bf16 "
+          f"{[f'{t[3]:.3f}' for t in times]}; {flop / ms / 1e9:.1f} TFLOP/s, "
+          f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}: "
+          f"{100 * b['bound_ms'] / ms:.1f}% reached (K-B3 bf16 {kb3_ms:.3f} "
+          f"ms)")
+
+    # K-B6 bf16 at phase 11's pair shapes; the float32 pair of the unrounded
+    # operands is the far end of the distance
+    shapes = [(TP_SHARDS, *head) for head in PAIR_HEADS] + \
+        [(m, *head) for m in (1, 8) for head in PAIR_HEADS[:2]]
+    for m, k, o2, relu_mid in shapes:
+        s = 256 // m
+        x, wa, ba, wb = _pair_inputs(n, k, s, o2, g, dev)
+        args = (x, wa.bfloat16(), ba, wb.bfloat16(), relu_mid)
+        run = lambda: mlp_tp_fused.fused_pair_bf16(*args)
+        plain = lambda: mlp_tp_fused.fused_pair_bf16_plain(*args)
+        f32 = lambda: mlp_tp_fused.fused_pair(x, wa, ba, wb, relu_mid)
+        got = run()
+        torch.cuda.synchronize()
+        e_rms, e_max, d_rms, d_max = held_to_bf16_distance(
+            f"K-B6 bf16 M={m} K={k} O2={o2}", got, plain(),
+            mlp_tp_fused.fused_pair_plain(x, wa, ba, wb, relu_mid))
+        check(torch.equal(run(), got), "K-B6 bf16 reruns differ")
+        times = [[cuda_ms(fn) for fn in (run, f32, plain)] for _ in range(2)]
+        ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
+        ops = 2 * n * s * (k + o2)
+        b = bound(nbytes(*args[:4], got), ops, PEAK_BF16)
+        print(f"[18] K-B6 bf16 {n} points M={m} K={k} S={s} O2={o2} "
+              f"relu_mid={relu_mid}: {e_rms / d_rms:.3f} / "
+              f"{e_max / d_max:.3f} of the bf16-to-float32 distance (rms "
+              f"{d_rms:.3e}, max {d_max:.3e}), reruns bit-equal; kernel "
+              f"{ms:.3f} ms ({ops / ms / 1e9:.2f} TFLOP/s), float32 kernel "
+              f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms by {b['bound_by']} "
+              f"({100 * b['bound_ms'] / ms:.1f}% reached)")
+        if (m, k, o2) == (TP_SHARDS, 256, 256):
+            rows["mlp_tp_pair_bf16"] = {
+                "max_abs_err": e_max, "ms": ms, "plain_ms": plain_ms, **b,
+                "peak_tflops": PEAK_BF16 / 1e12, "float32_ms": f32_ms}
+    return rows
+
+
+def phase_bf16_tp_slice(dev, scene, sd, psnr_kb3_bf16):
+    """Phase 19: the bf16 tensor-parallel forward and K-B5 bf16 on the
+    renderer's chunks, on phase 5's NDC scene and teacher."""
+    bf16 = nerf.NeRFConfig(compute_dtype=torch.bfloat16)
+    make = lambda **kw: presets.create_nerf_model_executer(
+        scene=scene, device=dev, use_fused_mlp=True, verbose=False, **kw)
+    ex, ex32 = make(mlp_config=bf16), make()
+    model, fine = ex._split_params(sd)
+    model32, fine32 = ex32._split_params(sd)
+    pe, ve = first_launch_embeddings(dev, scene, ex.rc)
+    n = pe.shape[0] * pe.shape[1]
+    mesh = parallel.make_mesh(TP_SHARDS, ("model",))
+
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+    check(got.shape == (*pe.shape[:2], 4) and counts["mlp_tp_pair_bf16"]
+          == 5 * TP_SHARDS and sum(counts.values()) == 5 * TP_SHARDS,
+          f"the bf16 TP forward's launches: {counts}")
+    launches = {"mlp_tp_pair_bf16": counts["mlp_tp_pair_bf16"]}
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    with torch.no_grad():
+        kb5 = mlp_fused.fused_nerf_mlp(model, pe, ve)
+        dense16 = nerf.apply_mlp(model, flat(pe), flat(ve))
+        dense32 = nerf.apply_mlp(model32, flat(pe), flat(ve))
+    to_kb5 = held_to_bf16_distance("bf16 TP forward against K-B5 bf16",
+                                   flat(got), flat(kb5), dense32)
+    to_dense = held_to_bf16_distance(
+        "bf16 TP forward against the dense plain bf16 MLP", flat(got),
+        dense16, dense32)
+    # each launch of K-B6 bf16 against its plain version on the forward's
+    # tensors; the float32 pair of the float32 model's same shard on the same
+    # x is the far end of the distance (the forward's bf16 shards are the
+    # cached ones, found by their storage)
+    devices = mesh.axis_devices("model")
+    shards16, _r = mlp_fused.PACKS.get(
+        model, ("tp_bf16", tuple(devices)),
+        lambda m: mlp_tp_fused.place_tp_weights(m, devices, torch.bfloat16))
+    shards32, _r = mlp_tp_fused.place_tp_weights(model32, devices)
+    f32_of = {t16.data_ptr(): sh32[key]
+              for (_d, sh16), (_d, sh32) in zip(shards16, shards32)
+              for key, t16 in sh16.items() if t16.dtype == torch.bfloat16}
+    seen = []
+    real = mlp_tp_fused.fused_pair_bf16
+
+    def both(x, wa, ba, wb, relu_mid=True):
+        out = real(x, wa, ba, wb, relu_mid)
+        seen.append((x.shape[0], held_to_bf16_distance(
+            f"K-B6 bf16 launch {len(seen)} of the TP forward", out,
+            mlp_tp_fused.fused_pair_bf16_plain(x, wa, ba, wb, relu_mid),
+            mlp_tp_fused.fused_pair_plain(x, f32_of[wa.data_ptr()], ba,
+                                          f32_of[wb.data_ptr()],
+                                          relu_mid))))
+        return out
+    with swapped(mlp_tp_fused, "fused_pair_bf16", both), torch.no_grad():
+        again = mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
+    check(torch.equal(again, got), "two bf16 TP forwards differ")
+    check(len(seen) == 5 * TP_SHARDS and {r[0] for r in seen} == {n},
+          f"held {len(seen)} launches of {sorted({r[0] for r in seen})} points")
+    share = lambda i: max(r[1][i] / r[1][i + 2] for r in seen)
+    print(f"[19] bf16 TP slice, mesh {mesh.shape} of {dev}, {n} points: "
+          f"against K-B5 bf16 {to_kb5[0] / to_kb5[2]:.3f} / "
+          f"{to_kb5[1] / to_kb5[3]:.3f} of the bf16-to-float32 distance, "
+          f"against the dense plain bf16 MLP {to_dense[0] / to_dense[2]:.3f} "
+          f"/ {to_dense[1] / to_dense[3]:.3f}; {launches['mlp_tp_pair_bf16']} "
+          f"K-B6 bf16 launches, 0 float32; each against its plain version on "
+          f"the forward's tensors: at most {share(0):.3f} / {share(1):.3f} of "
+          f"its distance")
+
+    # one test view with the MLP called as fused_nerf_mlp on the renderer's
+    # embeddings (phase 10's swap): K-B5 bf16 on the renderer's chunks
+    pairs = [(mlp_fused.pack_weights_bf16(m16), mlp_fused.pack_weights(m32))
+             for m16, m32 in ((model, model32), (fine, fine32))]
+    seen5 = []
+    real5 = mlp_fused.mlp_embedded_bf16
+
+    def both5(buf, p, v):
+        out = real5(buf, p, v)
+        packed = next(f32 for b16, f32 in pairs if torch.equal(b16, buf))
+        seen5.append((p.shape[0], held_to_bf16_distance(
+            f"K-B5 bf16 launch {len(seen5)} of the view", out,
+            mlp_fused.fused_nerf_mlp_bf16_plain(buf, p, v),
+            mlp_fused.fused_nerf_mlp_plain(packed, p, v))))
+        return out
+    _build.reset_launch_counts()
+    with swapped(renderer, "_query_mlp", _query_embedded):
+        t0 = time.perf_counter()
+        psnr = ex.test_model(sd)
+        torch.cuda.synchronize()
+        t_view = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        with swapped(mlp_fused, "mlp_embedded_bf16", both5):
+            ex._render_views(model, fine, scene["i_test"][:1])
+    check(counts["mlp_embedded_bf16"] > 0
+          and sum(counts.values()) == counts["mlp_embedded_bf16"],
+          f"the bf16 embedded render's launches: {counts}")
+    launches["mlp_embedded_bf16"] = counts["mlp_embedded_bf16"]
+    rays, rc = scene["H"] * scene["W"], ex.rc
+    sizes = {min(rc.chunk, rays - r0) * s
+             for r0 in range(0, rays, rc.chunk)
+             for s in (rc.n_samples, rc.n_samples + rc.n_importance)}
+    check({r[0] for r in seen5} == sizes
+          and len(seen5) == 2 * -(-rays // rc.chunk),
+          f"K-B5 bf16: held launches of {sorted({r[0] for r in seen5})} "
+          f"points, {len(seen5)} in all; the view has {sorted(sizes)}")
+    share5 = lambda i: max(r[1][i] / r[1][i + 2] for r in seen5)
+    print(f"[19] NDC {FERN_HW[0]}x{FERN_HW[1]}, 64+64, bf16 teacher through "
+          f"K-B5 bf16: test PSNR {psnr:.4f} dB in {t_view:.2f} s, "
+          f"{counts['mlp_embedded_bf16']} launches (through K-B3 bf16, phase "
+          f"15: {psnr_kb3_bf16:.4f} dB, {psnr - psnr_kb3_bf16:+.4f}); "
+          f"{len(seen5)} launches of one view, {min(sizes)} to {max(sizes)} "
+          f"points, each against its plain version: at most {share5(0):.3f} "
+          f"/ {share5(1):.3f} of its distance")
+    check(np.isfinite(psnr) and abs(psnr - psnr_kb3_bf16) <= 0.1,
+          f"K-B5 bf16 render {psnr} dB, K-B3 bf16 render {psnr_kb3_bf16} dB")
+
+    # the port's tools/tp_mlp_bench.py in bf16 (its defaults)
+    before = _build.launch_counts()
+    bench = tp_mlp_bench.main([])
+    after = _build.launch_counts()
+    check(bench["dtype"] == "bfloat16" and set(bench["launches"])
+          == {"mlp_embedded_bf16", "mlp_tp_pair_bf16"}
+          and bench["launches"] == {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]},
+          f"tp_mlp_bench's launches: {bench['launches']}")
+    for name, k in bench["launches"].items():
+        launches[name] += k
+    print(f"[19] tp_mlp_bench (bf16, {bench['n']} points): K-B5 bf16 "
+          f"{bench['kb5_ms']:.3f} ms; one shard's forward "
+          + ", ".join(f"M={m} {ms:.3f} ms (K-B5 / {m} = "
+                      f"{bench['kb5_ms'] / m:.3f})"
+                      for m, ms in bench["shard_ms"].items()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1972,12 +2227,19 @@ def main():
     mesh_launches, dry_pairs = phase_multi_device(dev, scene, dec0, sets)
     launches["mlp_tp_pair"] += dry_pairs
     rows.update(phase_bf16_kernels(dev, ctx))
-    del ctx
-    launches.update(phase_bf16_slice(dev, scene, dec, psnr_f32, scene_ndc,
-                                     sd_ndc, tar))
+    bf16_launches, psnr_ndc16 = phase_bf16_slice(dev, scene, dec, psnr_f32,
+                                                 scene_ndc, sd_ndc, tar)
+    launches.update(bf16_launches)
     rows.update(phase_train_bf16_kernels(dev))
     launches.update(phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32,
                                    psnr_lsa32))
+    t_phase = time.perf_counter()
+    rows.update(phase_bf16_tp_kernels(dev, ctx))
+    del ctx
+    t_18 = time.perf_counter() - t_phase
+    launches.update(phase_bf16_tp_slice(dev, scene_ndc, sd_ndc, psnr_ndc16))
+    print(f"[19] phases 18 / 19 took {t_18:.1f} / "
+          f"{time.perf_counter() - t_phase - t_18:.1f} s")
     for name, n in mesh_launches.items():
         check(n > 0, f"the multi-device slice did not launch {name}")
     for name, n in launches.items():

@@ -35,7 +35,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
            "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd", "mlp_tp_pair",
            "mlp_from_points_bf16", "render_pass_bf16", "mlp_train_fwd_bf16",
-           "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16")
+           "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16", "mlp_embedded_bf16",
+           "mlp_tp_pair_bf16")
 
 _lock = threading.Lock()
 _lib = None
@@ -178,6 +179,11 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_tp_pair.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, vp]
         handle.nnc_mlp_tp_pair.restype = ci
+        handle.nnc_mlp_embedded_bf16.argtypes = \
+            handle.nnc_mlp_embedded.argtypes
+        handle.nnc_mlp_embedded_bf16.restype = ci
+        handle.nnc_mlp_tp_pair_bf16.argtypes = handle.nnc_mlp_tp_pair.argtypes
+        handle.nnc_mlp_tp_pair_bf16.restype = ci
         _lib = handle
         return _lib
 

@@ -1,6 +1,9 @@
 // The kernel of K-B3, posenc + the NeRF MLP from raw points, over a chain:
 // mma::Chain (float32 as 3xTF32, nerf_mlp_mma.cuh; mlp_from_points.cu) or
-// bf16::Chain<MT> (nerf_mlp_bf16.cuh; mlp_from_points_bf16.cu).
+// bf16::Chain<MT> (nerf_mlp_bf16.cuh; mlp_from_points_bf16.cu). Beside it
+// the kernel of K-B5 bf16 (mlp_embedded_bf16.cu), the same walk over tiles
+// with the embedding read from device memory (Chain::load_embedded) in
+// place of the points' coordinates and Chain::embed.
 //
 // Design: persistent CTAs of 256 threads, one per SM, each walking tiles of
 // Chain::kPoints points (tile = blockIdx.x, + gridDim.x, ...). The embedding
@@ -55,16 +58,41 @@ mlp_from_points_kernel(const float* __restrict__ P,
   mma::prof_end();
 }
 
-// pts, dirs: (n, 3); out: (n, 4) [rgb logits, sigma]; params: the weights as
-// the chain's packing lays them out, 16-byte aligned.
+// pts_emb: (n, kInPts), views_emb: (n, kInViews), the embeddings computed
+// outside; the rest as mlp_from_points_kernel. A tile's load of its
+// embedding writes s.emb after the previous tile's last read of it (the
+// barrier that ends Chain::mlp) and before Chain::mlp's first barrier.
 template <class Chain>
-int launch_mlp_from_points(const float* params, const float* pts,
-                           const float* dirs, float* out, int n,
-                           void* stream) {
-  const int smem = static_cast<int>(sizeof(PointsSmem<Chain>));
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_embedded_kernel(const float* __restrict__ P,
+                    const float* __restrict__ pts_emb,
+                    const float* __restrict__ views_emb,
+                    float* __restrict__ out, int n, int tiles) {
+  constexpr int kPoints = Chain::kPoints;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typename Chain::Smem& s =
+      *reinterpret_cast<typename Chain::Smem*>(smem_raw);
+  const int tid = threadIdx.x;
+  typename Chain::Pipe pipe;
+  Chain::begin(s, pipe, P);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kPoints;
+    Chain::load_embedded(s, pts_emb, views_emb, base, n);
+    Chain::mlp(s, pipe, P);
+    for (int i = tid; i < kPoints * 4; i += kThreads)
+      if (base + i / 4 < n) out[base * 4 + i] = s.raw[i];
+  }
+  pipe.drain();
+}
+
+// One persistent CTA per SM (at most one per tile) of `kernel` with `smem`
+// bytes, over the tiles of kPoints points of n; args... then n and the
+// number of tiles are the kernel's arguments.
+template <int kPoints, class Kernel, class... Args>
+int launch_persistent(Kernel kernel, int smem, int n, void* stream,
+                      Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_from_points_kernel<Chain>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -72,13 +100,35 @@ int launch_mlp_from_points(const float* params, const float* pts,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    const int tiles = (n + Chain::kPoints - 1) / Chain::kPoints;
+    const int tiles = (n + kPoints - 1) / kPoints;
     const int grid = tiles < sms ? tiles : sms;
-    mlp_from_points_kernel<Chain><<<grid, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        params, pts, dirs, out, n, tiles);
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        args..., n, tiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// pts, dirs: (n, 3); out: (n, 4) [rgb logits, sigma]; params: the weights as
+// the chain's packing lays them out, 16-byte aligned.
+template <class Chain>
+int launch_mlp_from_points(const float* params, const float* pts,
+                           const float* dirs, float* out, int n,
+                           void* stream) {
+  return launch_persistent<Chain::kPoints>(
+      mlp_from_points_kernel<Chain>,
+      static_cast<int>(sizeof(PointsSmem<Chain>)), n, stream, params, pts,
+      dirs, out);
+}
+
+// pts_emb: (n, kInPts), views_emb: (n, kInViews); the rest as above.
+template <class Chain>
+int launch_mlp_embedded(const float* params, const float* pts_emb,
+                        const float* views_emb, float* out, int n,
+                        void* stream) {
+  return launch_persistent<Chain::kPoints>(
+      mlp_embedded_kernel<Chain>,
+      static_cast<int>(sizeof(typename Chain::Smem)), n, stream, params,
+      pts_emb, views_emb, out);
 }
 
 }  // namespace nerf

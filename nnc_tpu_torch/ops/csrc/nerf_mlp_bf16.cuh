@@ -1,7 +1,9 @@
 // The flagship NeRF MLP (D=8, W=256, skip at layer 4, view head; posenc
 // 10/4 frequencies) on a tile of 16 MT points in bf16: operands rounded to
 // bf16, every product summed in float32 on the tensor cores. Used by
-// mlp_from_points_bf16.cu (K-B3 bf16) and render_pass_bf16.cu (K-B2 bf16).
+// mlp_from_points_bf16.cu (K-B3 bf16), mlp_embedded_bf16.cu (K-B5 bf16, the
+// embedding loaded by load_embedded_tile) and render_pass_bf16.cu (K-B2
+// bf16).
 //
 // Replaces the bf16 body of the Pallas kernels: _mlp_body with
 // emb.dtype == bfloat16 (nnc_tpu/ops/mlp_pallas.py:162-188), reached through
@@ -273,6 +275,49 @@ __device__ __forceinline__ void embed_tile(__nv_bfloat16* __restrict__ emb,
   }
 }
 
+// The second way in (K-B5 bf16): the tile's embeddings, computed by the
+// caller, from device memory into the layout embed_tile writes, each value
+// rounded once to bf16 (nearest even); rows past n become zeros. pts_emb:
+// (n, kInPts), views_emb: (n, kInViews), contiguous float32. Rows of 252 and
+// 108 bytes are not 16-byte aligned, so there is no cp.async here: the
+// tile's pts and then views values are one index space, which consecutive
+// threads walk in coalesced 4-byte loads, in two batches of loads in flight
+// before their stores (23 a thread at 128 points: all 45 at once do not fit
+// in the registers the chain leaves, and spill). The padding channels are
+// never written: they stay as zero_embedding_pad left them.
+template <int MT>
+__device__ __forceinline__ void load_embedded_tile(
+    __nv_bfloat16* __restrict__ emb, const float* __restrict__ pts_emb,
+    const float* __restrict__ views_emb, long long base, int n) {
+  constexpr int kP = 16 * MT * kInPts;
+  constexpr int kAll = kP + 16 * MT * kInViews;
+  constexpr int kIters = (kAll + kThreads - 1) / kThreads;
+  constexpr int kB = (kIters + 1) / 2;
+  const int rows = n - base < 16 * MT ? static_cast<int>(n - base) : 16 * MT;
+  const float* __restrict__ p = pts_emb + base * kInPts;
+  const float* __restrict__ q = views_emb + base * kInViews;
+#pragma unroll
+  for (int j0 = 0; j0 < kIters; j0 += kB) {
+    float v[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      v[j] = i < kP ? (i / kInPts < rows ? __ldg(p + i) : 0.f)
+           : i < kAll && (i - kP) / kInViews < rows ? __ldg(q + (i - kP))
+                                                     : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      if (i < kP)
+        emb[(i / kInPts) * kLdE + i % kInPts] = __float2bfloat16_rn(v[j]);
+      else if (i < kAll)
+        emb[((i - kP) / kInViews) * kLdE + kPtsPad + (i - kP) % kInViews] =
+            __float2bfloat16_rn(v[j]);
+    }
+  }
+}
+
 // The MLP on the embedded tile in s.emb; leaves raw logits in s.raw. P: the
 // buffer of pack_weights_bf16, whose slabs `pipe` streams. All threads
 // enter; starts (after the embedding's stores) and ends with a barrier.
@@ -356,7 +401,8 @@ __device__ __forceinline__ void mlp_tile(MlpSmem<MT>& s, Pipe& pipe,
   NNC_PROF(7);
 }
 
-// What mlp_from_points.cuh and render_pass.cuh need of a chain.
+// What mlp_from_points.cuh and render_pass.cuh need of a chain
+// (load_embedded: only mlp_embedded_kernel).
 template <int MT>
 struct Chain {
   static constexpr int kPoints = 16 * MT;
@@ -370,6 +416,11 @@ struct Chain {
   static __device__ __forceinline__ void embed(Smem& s, const float* xs,
                                                const float* ds) {
     embed_tile<MT>(s.emb, xs, ds);
+  }
+  static __device__ __forceinline__ void load_embedded(
+      Smem& s, const float* pts_emb, const float* views_emb, long long base,
+      int n) {
+    load_embedded_tile<MT>(s.emb, pts_emb, views_emb, base, n);
   }
   static __device__ __forceinline__ void mlp(Smem& s, Pipe& pipe,
                                              const float* P) {

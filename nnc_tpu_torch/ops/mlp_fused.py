@@ -26,9 +26,12 @@ kernels read. A model with ``config.compute_dtype == torch.bfloat16`` takes
 the bf16 variant of K-B3 (``csrc/mlp_from_points_bf16.cu`` on
 ``csrc/nerf_mlp_bf16.cuh``: ``mma.sync`` bf16 products, float32 sums), which
 reads :func:`pack_weights_bf16`'s buffer; its plain version is
-:func:`fused_nerf_mlp_from_points_bf16_plain`. K-B5 has no bf16 kernel yet
-and raises for such a model (ROADMAP B-1 item 4); K-B4 quantizes from the
-float32 weights whatever ``compute_dtype``, as the reference's does.
+:func:`fused_nerf_mlp_from_points_bf16_plain`. Such a model's K-B5 takes its
+bf16 variant (``csrc/mlp_embedded_bf16.cu``: K-B3 bf16's kernel and chain
+with the embedding loaded from device memory and rounded once), on the same
+buffer; its plain version is :func:`fused_nerf_mlp_bf16_plain`. K-B4
+quantizes from the float32 weights whatever ``compute_dtype``, as the
+reference's does.
 
 Packing folds and copies every weight, so the model-level entry points take
 their buffers from :data:`PACKS`, one cache for all of them (and for the
@@ -49,14 +52,6 @@ from .posenc import positional_encoding
 FLAGSHIP = nerf.NeRFConfig()
 _SEG = 64            # layer segments are padded to a multiple of 64 floats
 PLAIN_CHUNK = 1 << 18  # points per plain-version MLP call (bounds memory)
-
-
-def refuse_bf16(model: nerf.NeRF, what: str, item: int) -> None:
-    """Raise for a bf16 model on a route whose bf16 kernel is not ported."""
-    if model.config.compute_dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{what} has no bf16 kernel in nnc_tpu_torch yet (ROADMAP B-1 "
-            f"item {item}); the float32 kernel is not run in its place")
 
 
 def supports(config: nerf.NeRFConfig) -> bool:
@@ -658,6 +653,20 @@ def fused_nerf_mlp_from_points_plain(packed, pts, dirs):
     return torch.cat(outs)
 
 
+def fused_nerf_mlp_bf16_plain(packed_bf16, pts_emb, views_emb):
+    """Plain PyTorch version of K-B5 in bf16: float32 pts_emb (N, 63),
+    views_emb (N, 27) -> raw (N, 4) float32, the embeddings rounded once
+    (:func:`mlp_bf16_plain`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = unpack_weights_bf16(packed_bf16)
+    outs = [mlp_bf16_plain(L, pts_emb[start:start + PLAIN_CHUNK],
+                           views_emb[start:start + PLAIN_CHUNK])
+            for start in range(0, pts_emb.shape[0], PLAIN_CHUNK)]
+    if not outs:
+        return pts_emb.new_zeros((0, 4))
+    return torch.cat(outs)
+
+
 def fused_nerf_mlp_from_points_bf16_plain(packed_bf16, pts, dirs):
     """Plain PyTorch version of K-B3 in bf16: pts, dirs (N, 3) -> raw
     (N, 4). The positional encoding is computed in float32 and rounded once
@@ -697,7 +706,7 @@ def _check_mma(packed, packed_mma):
 
 
 def _run(name, plain, weights, inputs, kernel_weights=None):
-    """Shared body of the three kernel wrappers. ``inputs``: {label: (tensor
+    """Shared body of the kernel wrappers. ``inputs``: {label: (tensor
     (N, width), width)}, float32. The plain version (on ``weights``) for CPU
     tensors, the kernel ``nnc_<name>`` (on ``kernel_weights`` if given, else
     ``weights``) for CUDA tensors, an error for any other device.
@@ -780,6 +789,17 @@ def mlp_embedded(packed, pts_emb, views_emb):
                 {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)})
 
 
+def mlp_embedded_bf16(packed_bf16, pts_emb, views_emb):
+    """K-B5 wrapper, bf16: raw (N, 4) float32 for float32 embedded points
+    (N, 63) and view directions (N, 27), the weights as
+    :func:`pack_weights_bf16` gives them.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    return _run("mlp_embedded_bf16", fused_nerf_mlp_bf16_plain,
+                (_check_bf16(packed_bf16),),
+                {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)})
+
+
 def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
     """posenc + MLP from raw points. pts: (..., 3); viewdirs broadcastable
     to pts. Returns raw (..., 4) float32. ``model.config.compute_dtype``
@@ -820,12 +840,15 @@ def fused_nerf_mlp_int8_from_points(model: nerf.NeRF, pts, viewdirs):
 def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
     """Drop-in for ``nerf.apply_mlp`` on the flagship config (inference
     only). pts_emb: (..., 63); views_emb: (..., 27). Returns raw (..., 4)
-    float32."""
+    float32. ``model.config.compute_dtype`` picks the float32 or the bf16
+    variant of K-B5."""
     if not supports(model.config):
         return nerf.apply_mlp(model, pts_emb, views_emb)
-    refuse_bf16(model, "the fused MLP on embeddings (K-B5)", 4)
     lead = pts_emb.shape[:-1]
-    raw = mlp_embedded(PACKS.get(model, "float32", pack_weights),
-                       pts_emb.reshape(-1, 63).float().contiguous(),
-                       views_emb.reshape(-1, 27).float().contiguous())
+    flat = (pts_emb.reshape(-1, 63).float().contiguous(),
+            views_emb.reshape(-1, 27).float().contiguous())
+    if model.config.compute_dtype == torch.bfloat16:
+        raw = mlp_embedded_bf16(packed_bf16_for(model), *flat)
+    else:
+        raw = mlp_embedded(PACKS.get(model, "float32", pack_weights), *flat)
     return raw.reshape(*lead, 4)

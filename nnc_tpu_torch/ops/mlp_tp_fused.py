@@ -14,9 +14,22 @@ in plain torch, as the reference runs them outside its Pallas kernel
 The reference's 128-wide packed embedding and 128-wide output heads are its
 kernel's layout, not the function's: here the embeddings are ``(N, 63)`` and
 ``(N, 27)`` as the caller has them and the heads are (256, 1) and (128, 3).
-Float32 throughout. The sum over the shards runs in another order than the
-dense sum over 256 channels, so the result equals the dense MLP's to a
-tolerance (rtol 1e-4, atol 1e-5 in the tests), never bit for bit.
+The sum over the shards runs in another order than the dense sum over 256
+channels, so the result equals the dense MLP's to a tolerance (rtol 1e-4,
+atol 1e-5 in the tests), never bit for bit.
+
+A model with ``config.compute_dtype == torch.bfloat16`` runs the reference's
+bf16 forward (mlp_tp_pallas.py:108-135 with ``cdt`` bfloat16): the weights
+``bf16(ls * W)`` (``shard_tp_weights(..., torch.bfloat16)`` holds them as
+``torch.bfloat16`` tensors, the biases float32), each pair's input rounded to
+bf16 and its hidden tile rounded after the activation, in K-B6's bf16 variant
+(``csrc/mlp_tp_pair_bf16.cu``: ``mma.sync`` bf16, float32 sums); the psum'd
+partials, ``relu(psum + b)`` and the replicated products' sums float32. The
+replicated pieces multiply the rounded embeddings (or the rounded ``h7`` /
+``v``) by their bf16 weights, which :func:`place_tp_weights` keeps as float32
+tensors holding bf16 values: a float32 product of bf16 values is exact, as
+``preferred_element_type=f32`` is, where ``torch.mm`` of two bf16 tensors on
+the card would round its result to bf16.
 """
 from __future__ import annotations
 
@@ -28,7 +41,7 @@ import torch.nn.functional as F
 from .. import parallel
 from ..models import nerf
 from . import _build
-from .mlp_fused import PACKS, _check, refuse_bf16, supports
+from .mlp_fused import PACKS, _check, bf16_round, supports
 
 # column-sharded layer -> (its bias, the row-sharded layer behind it)
 _PAIRS = {"w0": ("b0", "w1"), "w2": ("b2", "w3"), "w4": ("b4", "w5b"),
@@ -40,11 +53,15 @@ _LAYER = {"w0": "pts_linears.0", "w2": "pts_linears.2", "w4": "pts_linears.4",
 KERNEL_S = (32, 64, 128, 256)
 KERNEL_HEADS = ((256, True), (128, False))   # (O2, relu_mid)
 KERNEL_MAX_K = 256
+KERNEL_K_BF16 = (63, 256)   # csrc/mlp_tp_pair_bf16.cu: the forward's depths
 
 
-def shard_tp_weights(model: nerf.NeRF, n_shards: int):
+def shard_tp_weights(model: nerf.NeRF, n_shards: int,
+                     dtype: torch.dtype = torch.float32):
     """``(shards, reps)`` of the flagship model for M = ``n_shards``, LSA
-    scales folded in, float32, on the model's device.
+    scales folded in (float32), on the model's device; every weight then in
+    ``dtype`` (float32 or bfloat16, rounded to nearest even), every bias
+    float32, as the reference's ``shard_tp_weights(params, ls, M, dtype)``.
 
     ``shards``: stacks over the shard axis 0: the column shards
     ``w0 (M, 63, S)``, ``w2 / w4 / w6 / wf (M, 256, S)`` with their biases
@@ -56,13 +73,15 @@ def shard_tp_weights(model: nerf.NeRF, n_shards: int):
     if not supports(model.config):
         raise ValueError(f"TP fused path: flagship architecture only, got "
                          f"{model.config}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"TP weights are float32 or bfloat16, not {dtype}")
     m = int(n_shards)
     if m < 1 or 256 % m:
         raise ValueError(f"{m} shards do not divide the hidden width 256")
     s = 256 // m
     layers = model.layers()
     with torch.no_grad():
-        w = {name: layer.effective_weight().t().float()
+        w = {name: layer.effective_weight().t().float().to(dtype)
              for name, layer in layers.items()}           # (in, out)
         b = {name: layer.bias.float().clone() for name, layer in layers.items()}
         full = {key: w[name] for key, name in _LAYER.items()}
@@ -96,6 +115,52 @@ def fused_pair_plain(x, wa, ba, wb, relu_mid: bool = True):
     return torch.mm(F.relu(h) if relu_mid else h, wb)
 
 
+def fused_pair_bf16_plain(x, wa, ba, wb, relu_mid: bool = True):
+    """Plain PyTorch version of K-B6 in bf16: ``bf16(act(bf16(x) @ wa +
+    ba)) @ wb`` (mlp_tp_pallas.py:69-74) for float32 x and ba, bf16 wa and
+    wb: products of bf16 values (exact in float32) summed in float32, the
+    hidden tile rounded after the activation, a float32 result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h = torch.addmm(ba, bf16_round(x), wa.float())
+    return torch.mm(bf16_round(F.relu(h) if relu_mid else h), wb.float())
+
+
+def _pair_call(name, plain, x, wa, ba, wb, relu_mid, wdtype):
+    """Shared body of the two K-B6 wrappers: checks, the plain version for
+    CPU tensors, the kernel ``nnc_<name>`` for CUDA tensors."""
+    n, k = x.shape
+    s, o2 = wb.shape
+    _check("x", x, (n, k))
+    _check("wa", wa, (k, s), wdtype)
+    _check("ba", ba, (s,))
+    _check("wb", wb, (s, o2), wdtype)
+    device = x.device
+    if any(t.device != device for t in (wa, ba, wb)):
+        raise ValueError(f"{name}: weights and input must be on one device")
+    if device.type == "cpu":
+        return plain(x, wa, ba, wb, relu_mid)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    ks = KERNEL_K_BF16 if wdtype == torch.bfloat16 else \
+        range(1, KERNEL_MAX_K + 1)
+    if k not in ks or s not in KERNEL_S or \
+            (o2, bool(relu_mid)) not in KERNEL_HEADS:
+        raise ValueError(f"{name}: no kernel for K={k}, S={s}, O2={o2}, "
+                         f"relu_mid={relu_mid}")
+    if wdtype == torch.bfloat16 and (wa.data_ptr() % 16 or
+                                     wb.data_ptr() % 16):
+        raise ValueError(f"{name}: wa and wb must be 16-byte aligned")
+    lib = _build.lib()
+    out = torch.empty((n, o2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.count_launch(name)
+        _build.check(getattr(lib, "nnc_" + name)(
+            x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(),
+            out.data_ptr(), n, k, s, o2, int(bool(relu_mid)), stream), name)
+    return out
+
+
 def fused_pair(x, wa, ba, wb, relu_mid: bool = True):
     """K-B6 wrapper: one shard's fused column + row pair, a partial sum.
 
@@ -103,33 +168,19 @@ def fused_pair(x, wa, ba, wb, relu_mid: bool = True):
     on one device. CUDA tensors launch the kernel, which is compiled for
     K <= 256, S in {32, 64, 128, 256} and (O2, relu_mid) = (256, True) or
     (128, False); CPU tensors take the plain version."""
-    n, k = x.shape
-    s, o2 = wb.shape
-    _check("x", x, (n, k))
-    _check("wa", wa, (k, s))
-    _check("ba", ba, (s,))
-    _check("wb", wb, (s, o2))
-    device = x.device
-    if any(t.device != device for t in (wa, ba, wb)):
-        raise ValueError("fused_pair: weights and input must be on one device")
-    if device.type == "cpu":
-        return fused_pair_plain(x, wa, ba, wb, relu_mid)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if k > KERNEL_MAX_K or s not in KERNEL_S or \
-            (o2, bool(relu_mid)) not in KERNEL_HEADS:
-        raise ValueError(f"fused_pair: no kernel for K={k}, S={s}, O2={o2}, "
-                         f"relu_mid={relu_mid}")
-    lib = _build.lib()
-    out = torch.empty((n, o2), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.count_launch("mlp_tp_pair")
-        _build.check(lib.nnc_mlp_tp_pair(
-            x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(),
-            out.data_ptr(), n, k, s, o2, int(bool(relu_mid)), stream),
-            "mlp_tp_pair")
-    return out
+    return _pair_call("mlp_tp_pair", fused_pair_plain, x, wa, ba, wb,
+                      relu_mid, torch.float32)
+
+
+def fused_pair_bf16(x, wa, ba, wb, relu_mid: bool = True):
+    """K-B6 wrapper, bf16: x (N, K) and ba (S,) float32, wa (K, S) and
+    wb (S, O2) torch.bfloat16 (16-byte aligned on the card) -> (N, O2)
+    float32 partial sums of :func:`fused_pair_bf16_plain`'s function. CUDA
+    tensors launch the kernel, which is compiled for K in {63, 256}, S in
+    {32, 64, 128, 256} and (O2, relu_mid) = (256, True) or (128, False);
+    CPU tensors take the plain version."""
+    return _pair_call("mlp_tp_pair_bf16", fused_pair_bf16_plain, x, wa, ba,
+                      wb, relu_mid, torch.bfloat16)
 
 
 Shard = Tuple[torch.device, Dict[str, torch.Tensor]]
@@ -148,21 +199,29 @@ def _tp_forward(embs: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]],
     the replicated pieces run once per distinct device. ``psum(parts,
     devices) -> {device: sum}`` defaults to :func:`parallel.psum`; a caller
     that times one shard's compute alone passes one shard and the identity.
+    bf16 shards (:func:`place_tp_weights` with torch.bfloat16) run the bf16
+    forward: the embeddings rounded once, the pairs through
+    :func:`fused_pair_bf16`, ``h7`` and ``v`` rounded before their heads.
     Returns raw (N, 4) on the first shard's device."""
     psum = psum or parallel.psum
     devices = [d for d, _sh in shards]
+    bf16 = shards[0][1]["w0"].dtype == torch.bfloat16
+    fused = fused_pair_bf16 if bf16 else fused_pair
+    rnd = bf16_round if bf16 else (lambda t: t)
+    if bf16:
+        torch.backends.cuda.matmul.allow_tf32 = False
 
     def pair(xs, wc, relu=True):
         bk, wr = _PAIRS[wc]
-        return psum([fused_pair(xs[d], sh[wc], sh[bk], sh[wr], relu)
+        return psum([fused(xs[d], sh[wc], sh[bk], sh[wr], relu)
                      for d, sh in shards], devices)
 
     def each(fn, *per_device):
         return {d: fn(reps[d], *(t[d] for t in per_device))
                 for d in per_device[0]}
 
-    pe = {d: e[0] for d, e in embs.items()}
-    ve = {d: e[1] for d, e in embs.items()}
+    pe = {d: rnd(e[0]) for d, e in embs.items()}
+    ve = {d: rnd(e[1]) for d, e in embs.items()}
     h1 = each(lambda r, t: F.relu(t + r["b1"]), pair(pe, "w0"))
     h3 = each(lambda r, t: F.relu(t + r["b3"]), pair(h1, "w2"))
     h5 = each(lambda r, t, p: F.relu(t + torch.mm(p, r["w5a"]) + r["b5"]),
@@ -172,18 +231,22 @@ def _tp_forward(embs: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]],
              pair(h7, "wf", relu=False), ve)
     first = devices[0]
     r = reps[first]
-    alpha = torch.addmm(r["ba"], h7[first], r["wa"])
-    rgb = torch.addmm(r["br"], v[first], r["wr"])
+    alpha = torch.addmm(r["ba"], rnd(h7[first]), r["wa"])
+    rgb = torch.addmm(r["br"], rnd(v[first]), r["wr"])
     return torch.cat([rgb, alpha], dim=-1)
 
 
-def place_tp_weights(model: nerf.NeRF, devices: Sequence[torch.device]):
+def place_tp_weights(model: nerf.NeRF, devices: Sequence[torch.device],
+                     dtype: torch.dtype = torch.float32):
     """``(shards, reps)`` as :func:`_tp_forward` takes them: shard i of
-    M = len(devices) on ``devices[i]``, the remainder on each distinct one."""
-    stacks, reps = shard_tp_weights(model, len(devices))
+    M = len(devices) on ``devices[i]``, the remainder on each distinct one,
+    weights in ``dtype``. In bf16 the shards keep :func:`shard_tp_weights`'
+    bf16 tensors (K-B6 bf16's operands) and the remainder's weights become
+    float32 tensors holding the same bf16 values."""
+    stacks, reps = shard_tp_weights(model, len(devices), dtype)
     shards = [(d, {k: v[i].to(d) for k, v in stacks.items()})
               for i, d in enumerate(devices)]
-    return shards, {d: {k: v.to(d) for k, v in reps.items()}
+    return shards, {d: {k: v.to(d).float() for k, v in reps.items()}
                     for d in dict.fromkeys(devices)}
 
 
@@ -196,16 +259,18 @@ def fused_nerf_mlp_tp(model: nerf.NeRF, pts_emb, views_emb,
     first model device). The weights shard by width over the 'model' group;
     the point batch is replicated over it (a 'data' axis, if the mesh has
     one, is for the caller to split the batch over: every data row would
-    compute the same here, so only the first one does)."""
+    compute the same here, so only the first one does).
+    ``model.config.compute_dtype`` picks the float32 or the bf16 forward."""
     if not supports(model.config):
         raise ValueError(f"TP fused path: flagship architecture only, got "
                          f"{model.config}")
     if "model" not in mesh.axis_names:
         raise ValueError(f"the mesh has no 'model' axis: {mesh}")
-    refuse_bf16(model, "the tensor-parallel fused MLP (K-B6)", 5)
     devices = mesh.axis_devices("model")
-    shards, reps = PACKS.get(model, ("tp", tuple(devices)),
-                             lambda m: place_tp_weights(m, devices))
+    dtype = model.config.compute_dtype
+    kind = "tp_bf16" if dtype == torch.bfloat16 else "tp"
+    shards, reps = PACKS.get(model, (kind, tuple(devices)),
+                             lambda m: place_tp_weights(m, devices, dtype))
     lead = pts_emb.shape[:-1]
     pe = pts_emb.reshape(-1, 63).float().contiguous()
     ve = views_emb.reshape(-1, 27).float().contiguous()

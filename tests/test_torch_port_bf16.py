@@ -32,9 +32,9 @@ from nnc_tpu.models import nerf as jnerf
 from nnc_tpu.ops import mlp_pallas, render_pallas
 from nnc_tpu.render import renderer as jrenderer
 from nnc_tpu.train import presets as jpresets
-from nnc_tpu_torch import graft_entry, parallel
+from nnc_tpu_torch import graft_entry
 from nnc_tpu_torch.models import nerf as tnerf
-from nnc_tpu_torch.ops import _build, mlp_fused, mlp_tp_fused, render_fused
+from nnc_tpu_torch.ops import _build, mlp_fused, render_fused
 from nnc_tpu_torch.render import renderer as trenderer
 from nnc_tpu_torch.train import presets as tpresets
 
@@ -574,25 +574,6 @@ def test_bf16_render_rays_fused_culled_matches_jax():
         assert np.abs(err).max() <= np.abs(dist).max(), k
     np.testing.assert_allclose(got["acc_map"].numpy(),
                                np.asarray(want16["acc_map"]), atol=5e-3)
-
-
-# what raises until the other bf16 kernels are ported ---------------------------------
-@pytest.mark.parametrize("route,item", [("embedded", 4), ("tp", 5)])
-def test_bf16_model_is_refused_where_no_bf16_kernel_is_ported(route, item):
-    model = tnerf.init_params(tnerf.NeRFConfig(compute_dtype=BF16_T),
-                              torch.Generator().manual_seed(0))
-    pe, ve = torch.zeros(4, 63), torch.zeros(4, 27)
-    pts = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match=f"B-1 item {item}"):
-        if route == "embedded":
-            mlp_fused.fused_nerf_mlp(model, pe, ve)
-        else:
-            mesh = parallel.make_mesh(2, ("model",), devices=["cpu"])
-            mlp_tp_fused.fused_nerf_mlp_tp(model, pe, ve, mesh)
-    # the int8 route ignores compute_dtype, as the reference's does
-    with torch.no_grad():
-        raw = mlp_fused.fused_nerf_mlp_int8_from_points(model, pts, pts + 1.0)
-    assert raw.shape == (4, 4)
 
 
 # the entry ------------------------------------------------------------------------------

@@ -30,8 +30,8 @@ off by more than 5% of it. K-B6 (two float32 products, sums over at most 256
 terms in another order than cuBLAS's): 1e-4 of max |ref| + 1e-5; the
 tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
 output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3,
-K-B2 and K-B1 are held to the distance between their plain bf16 and plain
-float32 versions (the notes above their tests).
+K-B2, K-B1, K-B5 and K-B6 are held to the distance between their plain bf16
+and plain float32 versions (the notes above their tests).
 """
 import ctypes
 import math
@@ -894,3 +894,114 @@ def test_cuda_fused_train_bf16_autograd_and_cache(cuda_device):
         for t in (layer.weight_scaling, layer.bias):
             t.requires_grad_(False)
             t.grad = None
+
+
+# --- K-B5 and K-B6 in bf16 -----------------------------------------------------
+# Held to the distance between the plain bf16 and the plain float32 version on
+# the same inputs, as K-B3 bf16 (_held_to_bf16_distance).
+def _bf16_twin(model):
+    """A bf16 model over the same weight, bias and scale tensors."""
+    twin = nerf.NeRF(nerf.NeRFConfig(compute_dtype=torch.bfloat16),
+                     device=next(model.parameters()).device)
+    for src, dst in zip(model.layers().values(), twin.layers().values()):
+        dst.weight, dst.bias = src.weight, src.bias
+        dst.weight_scaling = src.weight_scaling
+    return twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64, 10_000, 3_414_016])
+def test_cuda_mlp_embedded_bf16_matches_plain(cuda_device, n):
+    """K-B5 bf16 against its plain bf16 version, against K-B3 bf16 on the
+    points the embeddings were made of, and through fused_nerf_mlp."""
+    model = _fog_model(cuda_device)
+    pts, vd = _points(n, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    packed = mlp_fused.pack_weights(model)
+    buf = mlp_fused.pack_weights_bf16(model)
+    before = _build.launch_counts()
+    got = mlp_fused.mlp_embedded_bf16(buf, pe, ve)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["mlp_embedded_bf16"] == before["mlp_embedded_bf16"] + 1
+    assert after["mlp_embedded"] == before["mlp_embedded"]
+    assert got.shape == (n, 4) and torch.isfinite(got).all()
+    plain32 = mlp_fused.fused_nerf_mlp_plain(packed, pe, ve)
+    _held_to_bf16_distance(
+        got, mlp_fused.fused_nerf_mlp_bf16_plain(buf, pe, ve), plain32)
+    # K-B3 bf16 computes the same embedding with sincosf: the two differ
+    # where a last-bit difference of an embedding value flips its rounding
+    _held_to_bf16_distance(got, mlp_fused.mlp_from_points_bf16(buf, pts, vd),
+                           plain32)
+    assert torch.equal(mlp_fused.mlp_embedded_bf16(buf, pe, ve), got)
+    with torch.no_grad():
+        via = mlp_fused.fused_nerf_mlp(_bf16_twin(model), pe[None], ve[None])
+    assert via.shape == (1, n, 4) and torch.equal(via[0], got)
+    assert _build.launch_counts()["mlp_embedded"] == before["mlp_embedded"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [262_144, 10_001])
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_cuda_mlp_tp_pair_bf16_matches_plain(cuda_device, m, n):
+    """K-B6 bf16 at every (K, S, O2, relu_mid) the forward uses with M
+    shards, against its plain bf16 version and the float32 pair of the
+    unrounded weights."""
+    g = torch.Generator().manual_seed(9)
+    s = 256 // m
+    for k, o2, relu_mid in PAIR_HEADS:
+        x = torch.randn(n, k, generator=g).to(cuda_device)
+        wa = (torch.randn(k, s, generator=g) / k ** 0.5).to(cuda_device)
+        ba = torch.randn(s, generator=g).to(cuda_device)
+        wb = (torch.randn(s, o2, generator=g) / s ** 0.5).to(cuda_device)
+        args = (x, wa.bfloat16(), ba, wb.bfloat16(), relu_mid)
+        before = _build.launch_counts()
+        got = mlp_tp_fused.fused_pair_bf16(*args)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert after["mlp_tp_pair_bf16"] == before["mlp_tp_pair_bf16"] + 1
+        assert after["mlp_tp_pair"] == before["mlp_tp_pair"]
+        assert got.shape == (n, o2) and torch.isfinite(got).all()
+        _held_to_bf16_distance(
+            got, mlp_tp_fused.fused_pair_bf16_plain(*args),
+            mlp_tp_fused.fused_pair_plain(x, wa, ba, wb, relu_mid))
+        assert torch.equal(mlp_tp_fused.fused_pair_bf16(*args), got)
+    with pytest.raises(ValueError, match="no kernel"):
+        mlp_tp_fused.fused_pair_bf16(x, args[1], ba, args[3], True)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.cat([args[3].reshape(-1).new_zeros(1),
+                             args[3].reshape(-1)])[1:].reshape(s, o2)
+        mlp_tp_fused.fused_pair_bf16(x, args[1], ba, shifted, relu_mid)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mlp_tp_fused.fused_pair_bf16(x, wa, ba, wb, relu_mid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_cuda_fused_nerf_mlp_tp_bf16_matches_dense(cuda_device, m):
+    """The bf16 tensor-parallel forward on a mesh of M x cuda:0: 5 launches
+    of K-B6 bf16 per shard and none of the float32 kernel, the result against
+    the dense plain bf16 MLP and against K-B5 bf16."""
+    model = _fog_model(cuda_device)
+    twin = _bf16_twin(model)
+    n = 20_001
+    pts, vd = _points(n, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    mesh = parallel.make_mesh(m, ("model",))
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = mlp_tp_fused.fused_nerf_mlp_tp(twin, pe, ve, mesh)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        assert counts["mlp_tp_pair_bf16"] == 5 * m
+        assert counts["mlp_tp_pair"] == 0
+        dense16 = nerf.apply_mlp(twin, pe, ve)
+        dense32 = nerf.apply_mlp(model, pe, ve)
+        kb5 = mlp_fused.fused_nerf_mlp(twin, pe, ve)
+    for want in (dense16, kb5):
+        _held_to_bf16_distance(got, want, dense32)
+    with torch.no_grad():
+        assert torch.equal(mlp_tp_fused.fused_nerf_mlp_tp(twin, pe, ve, mesh),
+                           got)
