@@ -5,7 +5,8 @@
 
 Phases:
   1. environment: the card, torch/CUDA versions, and the kernel build
-     (nvcc, sm_90a) from the sources in this checkout;
+     (nvcc, sm_90a) from the sources in this checkout, with the codec's
+     CABAC library (g++) built beside it;
   2. kernel K-B3 (posenc + MLP from points, 3xTF32 products on the tensor
      cores) against its exact float32 plain PyTorch version, full-width
      8x256 net with LSA scales, 262,144 points and three ragged sizes, reruns
@@ -116,6 +117,7 @@ peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
 products are three TF32 products each, a third of the tensor cores' TF32 peak; for the bf16 kernels the dense bf16 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -188,7 +190,7 @@ KERNEL_ROWS = {
                            "nnc_tpu/ops/mlp_train_pallas.py:275"),
     "mlp_train_bwd_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train_bf16.cu",
                            "nnc_tpu/ops/mlp_train_pallas.py:300"),
-    "mlp_train_bwd_dw_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train.cu",
+    "mlp_train_bwd_dw_bf16": ("nnc_tpu_torch/ops/csrc/mlp_train_dw.cu",
                               "nnc_tpu/ops/mlp_train_pallas.py:300"),
     "mlp_embedded_bf16": ("nnc_tpu_torch/ops/csrc/mlp_embedded_bf16.cu",
                           "nnc_tpu/ops/mlp_pallas.py:248"),
@@ -276,9 +278,16 @@ def phase_environment():
           f"count {torch.cuda.device_count()} nvcc {_build._nvcc()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    seconds = _build.build(force=True)
+    # the codec's CABAC library (g++) is built beside the kernels, on a core
+    # that nvcc's longest sources leave idle
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        codec = pool.submit(lambda: (cabac._load(), time.perf_counter() - t0))
+        seconds = _build.build(force=True)
+        t_cabac = codec.result()[1]
     _build.lib()
-    print(f"[1] kernels built in {seconds:.1f} s -> {_build.LIB_PATH}")
+    print(f"[1] kernels built in {seconds:.1f} s -> {_build.LIB_PATH}; the "
+          f"CABAC library beside them in {t_cabac:.1f} s")
     with open(_build.BUILD_LOG) as f:
         for line in f:
             if "registers" in line or "spill" in line:
@@ -495,11 +504,6 @@ def phase_slice(dev):
     bs = os.path.join(OUT, "teacher.nnc")
     pt = os.path.join(OUT, "decoded.pt")
 
-    # the codec's CABAC library is compiled (g++) on first use: before the
-    # clock starts, so that the two compressions below are timed alike
-    t0 = time.perf_counter()
-    cabac._load()
-    t_cabac = time.perf_counter() - t0
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     nnc_tpu_torch.compress_model(tar, bitstream_path=bs, qp=-20, lsa=False,
@@ -557,8 +561,7 @@ def phase_slice(dev):
           f"{teacher_k:.2f} dB")
     print(f"    launches during IOQ {ioq_launches}, after test_model "
           f"{after_k}")
-    print(f"    times: ground truth {t_gt:.1f} s, CABAC library build "
-          f"{t_cabac:.1f} s, compress (IOQ) "
+    print(f"    times: ground truth {t_gt:.1f} s, compress (IOQ) "
           f"{t_compress:.1f} s (plain probe {t_compress_p:.1f} s), decode "
           f"{t_decode:.2f} s, test_model (one {LEGO_HW}x{LEGO_HW} view) "
           f"kernels {t_test_k:.2f} s, plain {t_test_p:.2f} s")
@@ -2207,39 +2210,49 @@ def main():
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
     t_start = time.perf_counter()
-    dev, card = phase_environment()
-    row, ctx = phase_mlp(dev)
-    rows = {"mlp_from_points": row, "render_pass": phase_render(dev)}
+    seconds = []
+
+    def phase(fn, *args):
+        """fn(*args), its wall seconds appended to ``seconds``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    dev, card = phase(phase_environment)
+    row, ctx = phase(phase_mlp, dev)
+    rows = {"mlp_from_points": row, "render_pass": phase(phase_render, dev)}
     # resets the launch counts first
-    scene, sd, tar, dec, psnr_f32 = phase_slice(dev)
-    scene_ndc, sd_ndc, psnr_kb3 = phase_llff(dev)
+    scene, sd, tar, dec, psnr_f32 = phase(phase_slice, dev)
+    scene_ndc, sd_ndc, psnr_kb3 = phase(phase_llff, dev)
     launches = {k: _build.launch_counts()[k] for k in RENDER_KERNELS}
-    rows.update(phase_train_kernels(dev))
+    rows.update(phase(phase_train_kernels, dev))
     # (resets the launch counts first)
-    lsa_launches, dec0, sets, ls32, psnr_lsa32 = phase_lsa(dev, scene, sd,
-                                                           tar)
+    lsa_launches, dec0, sets, ls32, psnr_lsa32 = phase(phase_lsa, dev, scene,
+                                                       sd, tar)
     launches.update(lsa_launches)
-    rows["mlp_embedded"] = phase_embedded(dev, ctx)
-    rows["mlp_int8_from_points"] = phase_int8(dev, ctx)
-    launches.update(phase_lowprec_slice(dev, scene_ndc, sd_ndc, psnr_kb3))
-    rows["mlp_tp_pair"] = phase_tp_pair(dev)
-    launches["mlp_tp_pair"] = phase_tp_slice(dev, scene_ndc, sd_ndc)
-    mesh_launches, dry_pairs = phase_multi_device(dev, scene, dec0, sets)
+    rows["mlp_embedded"] = phase(phase_embedded, dev, ctx)
+    rows["mlp_int8_from_points"] = phase(phase_int8, dev, ctx)
+    launches.update(phase(phase_lowprec_slice, dev, scene_ndc, sd_ndc,
+                          psnr_kb3))
+    rows["mlp_tp_pair"] = phase(phase_tp_pair, dev)
+    launches["mlp_tp_pair"] = phase(phase_tp_slice, dev, scene_ndc, sd_ndc)
+    mesh_launches, dry_pairs = phase(phase_multi_device, dev, scene, dec0,
+                                     sets)
     launches["mlp_tp_pair"] += dry_pairs
-    rows.update(phase_bf16_kernels(dev, ctx))
-    bf16_launches, psnr_ndc16 = phase_bf16_slice(dev, scene, dec, psnr_f32,
-                                                 scene_ndc, sd_ndc, tar)
+    rows.update(phase(phase_bf16_kernels, dev, ctx))
+    bf16_launches, psnr_ndc16 = phase(phase_bf16_slice, dev, scene, dec,
+                                      psnr_f32, scene_ndc, sd_ndc, tar)
     launches.update(bf16_launches)
-    rows.update(phase_train_bf16_kernels(dev))
-    launches.update(phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32,
-                                   psnr_lsa32))
-    t_phase = time.perf_counter()
-    rows.update(phase_bf16_tp_kernels(dev, ctx))
+    rows.update(phase(phase_train_bf16_kernels, dev))
+    launches.update(phase(phase_lsa_bf16, dev, scene, tar, dec0, sets, ls32,
+                          psnr_lsa32))
+    rows.update(phase(phase_bf16_tp_kernels, dev, ctx))
     del ctx
-    t_18 = time.perf_counter() - t_phase
-    launches.update(phase_bf16_tp_slice(dev, scene_ndc, sd_ndc, psnr_ndc16))
-    print(f"[19] phases 18 / 19 took {t_18:.1f} / "
-          f"{time.perf_counter() - t_phase - t_18:.1f} s")
+    launches.update(phase(phase_bf16_tp_slice, dev, scene_ndc, sd_ndc,
+                          psnr_ndc16))
+    print("seconds per phase: " + ", ".join(
+        f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():
         check(n > 0, f"the multi-device slice did not launch {name}")
     for name, n in launches.items():

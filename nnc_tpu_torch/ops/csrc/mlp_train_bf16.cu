@@ -1,6 +1,6 @@
 // K-B1 in bf16: the NeRF MLP's training pass, forward and backward without
 // dW, with bf16 operands on the tensor cores and float32 sums. (The backward
-// with dW is mlp_train.cu's SIMT kernel, instantiated for bf16.)
+// with dW is mlp_train_dw.cu's SIMT kernel, instantiated for bf16.)
 //
 // Replaces the Pallas pair _fwd_call / _bwd_call
 // (nnc_tpu/ops/mlp_train_pallas.py:275, :300) as it runs when

@@ -625,32 +625,29 @@ def fused_nerf_mlp_int8_from_points_plain(wq, scales, biases, pts, dirs,
     return torch.cat(outs)
 
 
+def _chunked(fn, a, b):
+    """``fn(a_rows, b_rows) -> (rows, 4)`` over ``PLAIN_CHUNK`` rows of
+    ``a`` and ``b`` at a time, concatenated to (N, 4)."""
+    outs = [fn(a[start:start + PLAIN_CHUNK], b[start:start + PLAIN_CHUNK])
+            for start in range(0, a.shape[0], PLAIN_CHUNK)]
+    return torch.cat(outs) if outs else a.new_zeros((0, 4))
+
+
 def fused_nerf_mlp_plain(packed, pts_emb, views_emb):
     """Plain PyTorch version of K-B5: pts_emb (N, 63), views_emb (N, 27) ->
     raw (N, 4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L = unpack_weights(packed)
-    outs = [_mlp_packed(L, pts_emb[start:start + PLAIN_CHUNK],
-                        views_emb[start:start + PLAIN_CHUNK])
-            for start in range(0, pts_emb.shape[0], PLAIN_CHUNK)]
-    if not outs:
-        return pts_emb.new_zeros((0, 4))
-    return torch.cat(outs)
+    return _chunked(lambda pe, ve: _mlp_packed(L, pe, ve), pts_emb, views_emb)
 
 
 def fused_nerf_mlp_from_points_plain(packed, pts, dirs):
     """Plain PyTorch version of K-B3: pts, dirs (N, 3) -> raw (N, 4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L = unpack_weights(packed)
-    outs = []
-    for start in range(0, pts.shape[0], PLAIN_CHUNK):
-        p = pts[start:start + PLAIN_CHUNK]
-        d = dirs[start:start + PLAIN_CHUNK]
-        outs.append(_mlp_packed(L, positional_encoding(p, 10),
-                                positional_encoding(d, 4)))
-    if not outs:
-        return pts.new_zeros((0, 4))
-    return torch.cat(outs)
+    return _chunked(lambda p, d: _mlp_packed(L, positional_encoding(p, 10),
+                                             positional_encoding(d, 4)),
+                    pts, dirs)
 
 
 def fused_nerf_mlp_bf16_plain(packed_bf16, pts_emb, views_emb):
@@ -659,12 +656,8 @@ def fused_nerf_mlp_bf16_plain(packed_bf16, pts_emb, views_emb):
     (:func:`mlp_bf16_plain`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L = unpack_weights_bf16(packed_bf16)
-    outs = [mlp_bf16_plain(L, pts_emb[start:start + PLAIN_CHUNK],
-                           views_emb[start:start + PLAIN_CHUNK])
-            for start in range(0, pts_emb.shape[0], PLAIN_CHUNK)]
-    if not outs:
-        return pts_emb.new_zeros((0, 4))
-    return torch.cat(outs)
+    return _chunked(lambda pe, ve: mlp_bf16_plain(L, pe, ve),
+                    pts_emb, views_emb)
 
 
 def fused_nerf_mlp_from_points_bf16_plain(packed_bf16, pts, dirs):
@@ -673,15 +666,9 @@ def fused_nerf_mlp_from_points_bf16_plain(packed_bf16, pts, dirs):
     (:func:`mlp_bf16_plain`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L = unpack_weights_bf16(packed_bf16)
-    outs = []
-    for start in range(0, pts.shape[0], PLAIN_CHUNK):
-        p = pts[start:start + PLAIN_CHUNK]
-        d = dirs[start:start + PLAIN_CHUNK]
-        outs.append(mlp_bf16_plain(L, positional_encoding(p, 10),
-                                   positional_encoding(d, 4)))
-    if not outs:
-        return pts.new_zeros((0, 4))
-    return torch.cat(outs)
+    return _chunked(lambda p, d: mlp_bf16_plain(L, positional_encoding(p, 10),
+                                                positional_encoding(d, 4)),
+                    pts, dirs)
 
 
 def _check(name, t, shape, dtype=torch.float32):

@@ -148,8 +148,10 @@ def _pair_call(name, plain, x, wa, ba, wb, relu_mid, wdtype):
         raise ValueError(f"{name}: no kernel for K={k}, S={s}, O2={o2}, "
                          f"relu_mid={relu_mid}")
     if wdtype == torch.bfloat16 and (wa.data_ptr() % 16 or
-                                     wb.data_ptr() % 16):
-        raise ValueError(f"{name}: wa and wb must be 16-byte aligned")
+                                     wb.data_ptr() % 16 or
+                                     (k % 4 == 0 and x.data_ptr() % 16)):
+        raise ValueError(f"{name}: wa, wb and (for K = 256) x must be "
+                         "16-byte aligned")
     lib = _build.lib()
     out = torch.empty((n, o2), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -174,11 +176,12 @@ def fused_pair(x, wa, ba, wb, relu_mid: bool = True):
 
 def fused_pair_bf16(x, wa, ba, wb, relu_mid: bool = True):
     """K-B6 wrapper, bf16: x (N, K) and ba (S,) float32, wa (K, S) and
-    wb (S, O2) torch.bfloat16 (16-byte aligned on the card) -> (N, O2)
-    float32 partial sums of :func:`fused_pair_bf16_plain`'s function. CUDA
-    tensors launch the kernel, which is compiled for K in {63, 256}, S in
-    {32, 64, 128, 256} and (O2, relu_mid) = (256, True) or (128, False);
-    CPU tensors take the plain version."""
+    wb (S, O2) torch.bfloat16 -> (N, O2) float32 partial sums of
+    :func:`fused_pair_bf16_plain`'s function. CUDA tensors launch the
+    kernel, which is compiled for K in {63, 256}, S in {32, 64, 128, 256}
+    and (O2, relu_mid) = (256, True) or (128, False), and needs wa, wb and
+    (for K = 256, read as float4) x 16-byte aligned; CPU tensors take the
+    plain version."""
     return _pair_call("mlp_tp_pair_bf16", fused_pair_bf16_plain, x, wa, ba,
                       wb, relu_mid, torch.bfloat16)
 

@@ -41,7 +41,7 @@ A model with ``config.compute_dtype == torch.bfloat16`` takes K-B1's bf16
 form (mlp_train_pallas.py:380): the UNSCALED weights, the embedding and
 every stored activation rounded to bf16, ``u`` summed in float32 and scaled
 in float32, every du rounded before it enters a product, dW rounded once
-summed. Its kernels (``csrc/mlp_train_bf16.cu``, and ``mlp_train.cu``'s
+summed. Its kernels (``csrc/mlp_train_bf16.cu``, and ``mlp_train_dw.cu``'s
 SIMT backward with dW) are :func:`mlp_train_fwd_bf16` /
 :func:`mlp_train_bwd_bf16`, reading :func:`pack_train_bf16`'s two int32
 streams, which :data:`TRAIN_PACKS` keeps under the compute type; the plain

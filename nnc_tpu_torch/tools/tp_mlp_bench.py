@@ -1,7 +1,7 @@
 """Tensor against data parallelism for the fused MLP, measured on one card.
 
     python -m nnc_tpu_torch.tools.tp_mlp_bench [n_points] [--dtype float32]
-        [--iters 10] [--device cpu]
+        [--device cpu]
 
 The port's counterpart of ``tools/tp_mlp_bench.py``. One card cannot show
 what the sums over shards cost, so this times the part that comes first:
@@ -16,9 +16,9 @@ bfloat16 by default as in the reference, its weights random from
 ``torch.Generator`` seed 0 (``nerf.init_params``), its LSA scales absent;
 the embeddings (n, 63) and (n, 27) are N(0, 1) from seed 1. It runs on
 ``cuda:0`` unless ``--device`` says otherwise; there it first prints the
-card's name and power limit and times with CUDA events over ``--iters``
-calls after two warm-ups. With ``--device cpu`` it times the kernels' plain
-versions on the host clock.
+card's name and power limit and times with CUDA events over ``ITERS`` = 10
+calls after two warm-ups, as the reference times 10 calls. With
+``--device cpu`` it times the kernels' plain versions on the host clock.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from ..utils.device import require_cuda
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SHARDS = (1, 2, 4)
+ITERS = 10
 
 
 def build_parser():
@@ -41,31 +42,30 @@ def build_parser():
     ap.add_argument("n", type=int, nargs="?", default=262144,
                     help="points (default 262,144)")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
-    ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the kernels), cuda:<i>, or cpu "
                          "(their plain versions)")
     return ap
 
 
-def timed_ms(fn, device, iters):
-    """Mean milliseconds of fn() over ``iters`` calls after two warm-ups."""
+def timed_ms(fn, device):
+    """Mean milliseconds of fn() over ``ITERS`` calls after two warm-ups."""
     for _ in range(2):
         fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
-        for _ in range(iters):
+        for _ in range(ITERS):
             fn()
-        return 1e3 * (time.perf_counter() - t0) / iters
+        return 1e3 * (time.perf_counter() - t0) / ITERS
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     start.record()
-    for _ in range(iters):
+    for _ in range(ITERS):
         fn()
     end.record()
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / ITERS
 
 
 def main(argv=None):
@@ -95,8 +95,7 @@ def main(argv=None):
            "shard_ms": {}}
     with torch.no_grad():
         kb5 = out["kb5_ms"] = timed_ms(
-            lambda: mlp_fused.fused_nerf_mlp(model, pe, ve), device,
-            args.iters)
+            lambda: mlp_fused.fused_nerf_mlp(model, pe, ve), device)
         print(f"K-B5 over the full width (one call): {kb5:8.3f} ms "
               f"({args.n / kb5 / 1e3:.2f} Mpts/s)")
         for m in SHARDS:
@@ -106,7 +105,7 @@ def main(argv=None):
                 lambda: mlp_tp_fused._tp_forward({device: (pe, ve)},
                                                  shards[:1], reps,
                                                  psum=alone),
-                device, args.iters)
+                device)
             print(f"TP shard M={m} (5 pair calls + the replicated torch "
                   f"pieces, no sum over shards): {ms:8.3f} ms; K-B5 / {m} = "
                   f"{kb5 / m:.3f} ms")

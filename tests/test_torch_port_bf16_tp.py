@@ -291,8 +291,7 @@ def test_tp_bf16_placement_and_cache(flagship):
 # the tool --------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_tp_mlp_bench_runs_on_cpu(dtype, capsys):
-    out = tp_mlp_bench.main(["3000", "--device", "cpu", "--iters", "1",
-                             "--dtype", dtype])
+    out = tp_mlp_bench.main(["3000", "--device", "cpu", "--dtype", dtype])
     text = capsys.readouterr().out
     assert out["n"] == 3000 and out["dtype"] == dtype
     assert set(out["shard_ms"]) == {1, 2, 4}

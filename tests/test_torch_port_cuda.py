@@ -753,7 +753,7 @@ def test_cuda_bf16_renderer_routes_to_the_bf16_kernels(cuda_device):
         assert sum(counts.values()) == (4 if fused else 0), counts
 
 
-# K-B1 in bf16 (csrc/mlp_train_bf16.cu, and mlp_train.cu's SIMT backward with
+# K-B1 in bf16 (csrc/mlp_train_bf16.cu, and mlp_train_dw.cu's SIMT backward with
 # dW in bf16) against its plain bf16 versions, in units of the distance
 # between the plain bf16 and the plain float32 version on the same inputs:
 # raw as K-B3 bf16 (_held_to_bf16_distance); each part of the gradient (dW,
@@ -973,6 +973,9 @@ def test_cuda_mlp_tp_pair_bf16_matches_plain(cuda_device, m, n):
         shifted = torch.cat([args[3].reshape(-1).new_zeros(1),
                              args[3].reshape(-1)])[1:].reshape(s, o2)
         mlp_tp_fused.fused_pair_bf16(x, args[1], ba, shifted, relu_mid)
+    with pytest.raises(ValueError, match="aligned"):   # K = 256: float4 loads
+        shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].reshape(n, k)
+        mlp_tp_fused.fused_pair_bf16(shifted, *args[1:])
     with pytest.raises(ValueError, match="bfloat16"):
         mlp_tp_fused.fused_pair_bf16(x, wa, ba, wb, relu_mid)
 
