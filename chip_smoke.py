@@ -22,12 +22,13 @@ Phases:
      same compression with the probe on the plain path, for its bytes;
   5. the LLFF-style path (NDC, raw_noise_std=1, 378x504, 64+64 samples),
      whose deterministic renders run K-B3, beside the plain path;
-  6. kernel pair K-B1 (training MLP forward + backward; the forward and the
-     backward without dW as 3xTF32 products on the tensor cores) against its
-     plain versions at the LSA step's shapes, 65,536 (coarse) and 196,608
-     (fine) points, full width, LSA scales std 0.05, with_dw off and on,
-     reruns bit-equal, timed against the plain forward + torch autograd
-     backward;
+  6. kernel pair K-B1 (training MLP forward + backward, 3xTF32 products on
+     the tensor cores; with dW the backward writes every du to a workspace
+     and a GEMM over the points sums dW) against its plain versions at the
+     LSA step's shapes, 65,536 (coarse) and 196,608 (fine) points, full
+     width, LSA scales std 0.05, with_dw off and on, reruns bit-equal, timed
+     against the plain forward + torch autograd backward, with dW beside the
+     SIMT kernel it replaced (its time from PERF.md);
   7. the LSA slice on phase 4's scene and teacher: compress_model(qp=-20,
      lsa=True) tuning the scales through K-B1 -> decode -> test render,
      beside the same qp without LSA, and a 10-step kernel-vs-plain LSA
@@ -66,19 +67,21 @@ Phases:
      bits expected) and on; a joint LSA of 2 scenes against each scene
      tuned alone;
  14. the bf16 kernels: K-B3 bf16 at 262,144 points and three ragged sizes
-     and K-B2 bf16 on phase 3's rays at S=64 and S=192, early termination
-     off and at 1e-4, each against its plain bf16 version in units of the
-     distance between the plain bf16 and the plain float32 version on the
-     same inputs, reruns bit-equal, timed beside the float32 kernel and the
-     plain version;
+     and K-B2 bf16 (early termination per ray, persistent CTAs on a ray
+     queue) on phase 3's rays at S=64 and S=192, early termination off and
+     at 1e-4, each against its plain bf16 version in units of the distance
+     between the plain bf16 and the plain float32 version on the same
+     inputs, reruns bit-equal, timed beside the float32 kernel and the plain
+     version, K-B2 bf16's points and time beside those of the tiles of four
+     rays it replaced (from PERF.md);
  15. the bf16 serving slice at full width: test_model through an executer
      built with NeRFConfig(compute_dtype=torch.bfloat16) and use_fused_mlp on
      phase 4's scene and decoded weights (K-B2 bf16, coarse and fine) against
      the float32 kernels' render and the plain bf16 render; phase 5's NDC
      scene through K-B3 bf16; compress_model(ioq=True) with the probe in
      bf16; graft_entry.entry() in bf16;
- 16. kernel pair K-B1 in bf16 (forward, backward without dW on the tensor
-     cores; backward with dW, SIMT) against its plain bf16 versions at
+ 16. kernel pair K-B1 in bf16 (forward, backward without and with dW, the
+     latter's GEMM too, on the tensor cores) against its plain bf16 versions at
      phase 6's shapes, full width, LSA scales std 0.05: raw and every
      gradient in units of the distance between the plain bf16 and the plain
      float32 version on the same inputs, reruns bit-equal, timed in turns
@@ -89,7 +92,7 @@ Phases:
      from phase 7's no-LSA decode through K-B1 bf16 against the same steps
      through its plain bf16 versions and phase 7's float32 plain run, on
      phase 7's batches and draws; nnc_tpu_torch.tools.bench_train_step at
-     full width, without and with dW;
+     full width, without and with dW, and once in float32 with dW;
  18. kernels K-B5 bf16 (MLP on embeddings) and K-B6 bf16 (one shard's pair)
      against their plain bf16 versions in units of the bf16-to-float32
      distance: K-B5 bf16 on phase 2's net and points embedded by torch and
@@ -109,11 +112,11 @@ The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
 the two test_model renders and the compression of phase 15, the
-compression and the two bench_train_step runs of phase 17, and phase 19's
+compression and the three bench_train_step runs of phase 17, and phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
-peak for their type: for K-B1 (without dW), K-B2 and K-B3, whose float32
+peak for their type: for K-B1, K-B2 and K-B3, whose float32
 products are three TF32 products each, a third of the tensor cores' TF32 peak; for the bf16 kernels the dense bf16 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
@@ -179,6 +182,8 @@ KERNEL_ROWS = {
                       "nnc_tpu/ops/mlp_train_pallas.py:275"),
     "mlp_train_bwd": ("nnc_tpu_torch/ops/csrc/mlp_train.cu",
                       "nnc_tpu/ops/mlp_train_pallas.py:300"),
+    "mlp_train_bwd_dw": ("nnc_tpu_torch/ops/csrc/mlp_train_dw.cu",
+                         "nnc_tpu/ops/mlp_train_pallas.py:300"),
     "mlp_tp_pair": ("nnc_tpu_torch/ops/csrc/mlp_tp_pair.cu",
                     "nnc_tpu/ops/mlp_tp_pallas.py:82"),
     "mlp_from_points_bf16": (
@@ -218,6 +223,15 @@ PEAK_BF16 = 989e12   # dense bf16, the bound of every bf16 kernel
 # that, and the three products summed straight into the layer's accumulator
 # (the tensor core cuts where float32 rounds) read 1.4e-5.
 TOL_RAW = 3e-5
+# The kernels that K-B1's tensor-core backward with dW and K-B2 bf16's ray
+# queue replaced, at chip_smoke's shapes (PERF.md's kernel table, chip_smoke
+# on an NVIDIA H100 80GB HBM3 at 700 W): K-B1's SIMT backward with dW at
+# 196,608 points, float32 and bf16; K-B2 bf16 on tiles of four rays, phase
+# 14's 4,096 rays at S = 192 with early termination at 1e-4, and the points
+# those tiles computed
+REPLACED_MS = {"mlp_train_bwd_dw": 32.737, "mlp_train_bwd_dw_bf16": 34.796,
+               "render_pass_bf16": 2.056}
+REPLACED_POINTS_BF16 = 568_448
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
 # int8 products (no biases); and the backward's dx products, which skip the
@@ -648,7 +662,7 @@ def phase_train_kernels(dev):
     # and the bias vector, as fused_nerf_mlp_train hands them over
     packed_mma, packed_mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
     biases = mlp_train_fused.gather_biases(params)
-    row = None
+    row = {}
     for n in N_TRAIN:
         pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
         vd = torch.randn(n, 3, generator=g)
@@ -712,35 +726,36 @@ def phase_train_kernels(dev):
                 for t in (layer.weight, layer.bias, layer.weight_scaling):
                     t.requires_grad_(False)
                     t.grad = None
-            # the forward and the backward without dW: 3xTF32 on the tensor
-            # cores; the backward with dW (the dx and the x^T du products):
-            # float32 FMAs outside them
+            # every product on the tensor cores as three TF32 products: the
+            # forward, the backward's dx products and with dW the x^T du
+            # products of the GEMM too (every weight once more)
+            bwd_name = "mlp_train_bwd_dw" if with_dw else "mlp_train_bwd"
             rows = {"mlp_train_fwd": {
                         "max_abs_err": err_raw, "ms": fwd_ms,
                         "plain_ms": plain_fwd_ms,
                         **bound(nbytes(packed_mma, ls, biases, pts, vd, raw,
                                        ws), 2 * MLP_MACS * n, PEAK_3XTF32)},
-                    "mlp_train_bwd": {
+                    bwd_name: {
                         "max_abs_err": err_g_abs, "ms": bwd_ms,
                         "plain_ms": plain_bwd_ms,
-                        **(bound(nbytes(params, params_t, ls, pts, vd, cot,
-                                        ws, flat),
-                                 2 * (BWD_MACS + INT8_MACS) * n, PEAK_FP32)
-                           if with_dw else
-                           bound(nbytes(packed_mma_t, ls, biases, cot, ws,
-                                        flat), 2 * BWD_MACS * n,
-                                 PEAK_3XTF32))}}
+                        **bound(nbytes(packed_mma_t, ls, biases, cot, ws,
+                                       flat) + (nbytes(pts, vd) if with_dw
+                                                else 0),
+                                2 * (BWD_MACS + (INT8_MACS if with_dw
+                                                 else 0)) * n, PEAK_3XTF32)}}
+            replaced = f" (the SIMT kernel it replaced: " \
+                f"{REPLACED_MS[bwd_name]:.3f} ms, PERF.md)" \
+                if with_dw and n == N_TRAIN[-1] else ""
             print(f"[6] K-B1 {n} points with_dw={with_dw}: max|draw| "
                   f"{err_raw:.3e}, worst gradient error {err_g:.3e} of its "
                   f"max ({err_g_abs:.3e} absolute); kernel fwd "
-                  f"{fwd_ms:.3f} ms + bwd {bwd_ms:.3f} ms, "
+                  f"{fwd_ms:.3f} ms + bwd {bwd_ms:.3f} ms{replaced}, "
                   f"plain fwd {plain_fwd_ms:.3f} ms + autograd bwd "
                   f"{plain_bwd_ms:.3f} ms; bounds fwd "
                   f"{rows['mlp_train_fwd']['bound_ms']:.3f} ms, bwd "
-                  f"{rows['mlp_train_bwd']['bound_ms']:.3f} ms "
-                  f"({'SIMT float32' if with_dw else '3xTF32'} peak)")
-            if n == N_TRAIN[-1] and not with_dw:
-                row = rows
+                  f"{rows[bwd_name]['bound_ms']:.3f} ms (3xTF32 peak)")
+            if n == N_TRAIN[-1]:
+                row.update(rows)
         del ws
     return row
 
@@ -1416,7 +1431,7 @@ def phase_bf16_kernels(dev, ctx):
     lib = _build.lib()
     check(lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
           and lib.nnc_bf16_tile_points()
-          == render_fused.RAY_TILE_BF16 * render_fused.SAMPLE_BLOCK,
+          == render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK,
           "the bf16 kernels' and the packing's sizes differ")
     packed, packed_mma = ctx["packed"], ctx["packed_mma"]
     pts, vd, n = ctx["pts"], ctx["vd"], ctx["pts"].shape[0]
@@ -1480,7 +1495,7 @@ def phase_bf16_kernels(dev, ctx):
             torch.cuda.synchronize()
             maps_p, w_p = render_fused.fused_render_pass_bf16_plain(buf_r,
                                                                     *tail)
-            # the float32 plain version stopping rays in the same tiles
+            # the float32 plain version stopping each ray alone, as the kernel
             maps_f, w_f = render_fused.fused_render_pass_plain(
                 packed_r, *tail, ray_tile=rt)
             # (rgb / acc of a solid scene differ by float32 rounding alone:
@@ -1516,6 +1531,8 @@ def phase_bf16_kernels(dev, ctx):
             ms, f32_ms, plain_ms = (cuda_ms(fn)
                                     for fn in (run, f32_run, plain_run))
             needed, computed = points_of(before, live, term, rt)
+            # what tiles of four rays computed (the kernel this one replaced)
+            _, in_fours = points_of(before, live, term, 4)
             b = bound(nbytes(buf_r, ro, rd, vd_r, z, dists, live, maps),
                       2 * MLP_MACS * needed, PEAK_BF16)
             print(f"[14] K-B2 bf16 {R} rays S={S} weights={want_w} "
@@ -1523,14 +1540,18 @@ def phase_bf16_kernels(dev, ctx):
                   f"bf16-to-float32 distance: {', '.join(shown)}; reruns "
                   f"bit-equal; kernel {ms:.3f} ms, float32 kernel "
                   f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms; {needed} "
-                  f"of {R * S} points needed ({computed} computed in tiles "
-                  f"of {rt} rays, "
+                  f"of {R * S} points needed ({computed} computed in blocks "
+                  f"of {rt} ray, tiles of four rays {in_fours}, "
                   f"{2 * MLP_MACS * computed / ms / 1e9:.1f} TFLOP/s): "
                   f"{2 * MLP_MACS * needed / ms / 1e9:.1f} TFLOP/s, bound "
                   f"{b['bound_ms']:.3f} ms by {b['bound_by']} at "
                   f"{PEAK_BF16 / 1e12:.0f} TFLOP/s: "
                   f"{100 * b['bound_ms'] / ms:.1f}% reached")
             if S == 192 and eps > 0:
+                print(f"     per ray on a queue: {computed} points computed, "
+                      f"{ms:.3f} ms; tiles of four rays (the kernel it "
+                      f"replaced; PERF.md): {REPLACED_POINTS_BF16} points, "
+                      f"{REPLACED_MS['render_pass_bf16']:.3f} ms")
                 rows["render_pass_bf16"] = {
                     "max_abs_err": maxabs(maps[:, :4], maps_p[:, :4]),
                     "ms": ms, "plain_ms": plain_ms, **b,
@@ -1797,9 +1818,11 @@ def phase_train_bf16_kernels(dev):
                     params, params_t, ls, pts, vd, cot, False)),
             "mlp_train_bwd_dw_bf16": (
                 lambda: mlp_train_fused.mlp_train_bwd_bf16(
-                    params, params_t, ls, pts, vd, cot, ws, True),
+                    params, params_t, ls, pts, vd, cot, ws, True, bwd_b,
+                    biases),
                 lambda: mlp_train_fused.mlp_train_bwd(
-                    params, params_t, ls, pts, vd, cot, ws32, True),
+                    params, params_t, ls, pts, vd, cot, ws32, True, mma_t,
+                    biases),
                 lambda: mlp_train_fused.mlp_train_bwd_bf16_plain(
                     params, params_t, ls, pts, vd, cot, True))}
         # what each function must move and do: the workspace of u written
@@ -1815,7 +1838,7 @@ def phase_train_bf16_kernels(dev):
                 nbytes(bwd_b, ls, biases, cot, ws, flat), 2 * BWD_MACS * n,
                 PEAK_BF16),
             "mlp_train_bwd_dw_bf16": bound(
-                nbytes(params, params_t, ls, pts, vd, cot, ws, flat_dw),
+                nbytes(bwd_b, ls, biases, pts, vd, cot, ws, flat_dw),
                 2 * (BWD_MACS + INT8_MACS) * n, PEAK_BF16)}
         errs = {"mlp_train_fwd_bf16": maxabs(raw, raw16),
                 "mlp_train_bwd_bf16": maxabs(flat, mlp_train_fused
@@ -1835,12 +1858,15 @@ def phase_train_bf16_kernels(dev):
                           "plain_ms": plain_ms, **bounds[name],
                           "float32_ms": f32_ms}
             b = bounds[name]
+            replaced = f"; the SIMT kernel it replaced " \
+                f"{REPLACED_MS[name]:.3f} ms (PERF.md)" \
+                if name in REPLACED_MS else ""
             print(f"[16] {name} {n} points, in turns, ms: kernel "
                   f"{[f'{t[0]:.3f}' for t in times]}, float32 K-B1 "
                   f"{[f'{t[1]:.3f}' for t in times]}, plain bf16 "
                   f"{[f'{t[2]:.3f}' for t in times]}; bound "
                   f"{b['bound_ms']:.3f} ms by {b['bound_by']}: "
-                  f"{100 * b['bound_ms'] / ms:.1f}% reached")
+                  f"{100 * b['bound_ms'] / ms:.1f}% reached{replaced}")
         del ws, ws32
     return rows
 
@@ -1953,27 +1979,29 @@ def phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32, psnr_lsa32):
           f"K-B1 bf16 LSA trajectory: rms {rms(err)} from the plain bf16 run, "
           f"which lies rms {rms(dist)} from the float32 run")
 
-    # the port's bench_train_step at full width, without and with dW
+    # the port's bench_train_step at full width, without and with dW, and
+    # in float32 with dW
     bench = {}
-    for argv in ([], ["--with_dw"]):
+    for key, argv, want in (
+            ("bf16", [], {"mlp_train_fwd_bf16", "mlp_train_bwd_bf16"}),
+            ("bf16 dW", ["--with_dw"], {"mlp_train_fwd_bf16",
+                                        "mlp_train_bwd_dw_bf16"}),
+            ("float32 dW", ["--with_dw", "--dtype", "float32"],
+             {"mlp_train_fwd", "mlp_train_bwd_dw"})):
         _build.reset_launch_counts()
-        bench[bool(argv)] = bench_train_step.main(["--iters", "10"] + argv)
+        bench[key] = bench_train_step.main(["--iters", "10"] + argv)
         counts = _build.launch_counts()
-        fused = bench[bool(argv)]["fused"]
-        want = {"mlp_train_fwd_bf16", "mlp_train_bwd_dw_bf16" if argv
-                else "mlp_train_bwd_bf16"}
+        fused = bench[key]["fused"]
         check(set(fused["launches"]) == want
-              and all(np.isfinite([fused["loss"],
-                                   bench[bool(argv)]["plain"]["loss"]]))
-              and counts["mlp_train_fwd"] == counts["mlp_train_bwd"] == 0,
+              and all(np.isfinite([fused["loss"], bench[key]["plain"]["loss"]]))
+              and {k for k, v in counts.items()
+                   if v and k.startswith("mlp_train")} == want,
               f"bench_train_step {argv}: launches {counts}, fused path "
               f"{fused['launches']}")
         launches.update({k: launches.get(k, 0) + counts[k] for k in want})
-    print(f"[17] bench_train_step (bf16, 1,024 rays, 64+128, 10 steps): "
-          f"plain {bench[False]['plain']['ms']:.2f} ms/it, K-B1 bf16 "
-          f"{bench[False]['fused']['ms']:.2f} ms/it; with dW: plain "
-          f"{bench[True]['plain']['ms']:.2f}, K-B1 bf16 "
-          f"{bench[True]['fused']['ms']:.2f} ms/it")
+    print(f"[17] bench_train_step (1,024 rays, 64+128, 10 steps), ms/it: "
+          + "; ".join(f"{k}: plain {b['plain']['ms']:.2f}, K-B1 "
+                      f"{b['fused']['ms']:.2f}" for k, b in bench.items()))
     return launches
 
 
@@ -2245,8 +2273,10 @@ def main():
                                       psnr_f32, scene_ndc, sd_ndc, tar)
     launches.update(bf16_launches)
     rows.update(phase(phase_train_bf16_kernels, dev))
-    launches.update(phase(phase_lsa_bf16, dev, scene, tar, dec0, sets, ls32,
-                          psnr_lsa32))
+    # (its float32 bench_train_step launches the float32 forward once more)
+    for name, n in phase(phase_lsa_bf16, dev, scene, tar, dec0, sets, ls32,
+                         psnr_lsa32).items():
+        launches[name] = launches.get(name, 0) + n
     rows.update(phase(phase_bf16_tp_kernels, dev, ctx))
     del ctx
     launches.update(phase(phase_bf16_tp_slice, dev, scene_ndc, sd_ndc,

@@ -33,7 +33,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
-           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd", "mlp_tp_pair",
+           "mlp_embedded", "mlp_train_fwd", "mlp_train_bwd",
+           "mlp_train_bwd_dw", "mlp_tp_pair",
            "mlp_from_points_bf16", "render_pass_bf16", "mlp_train_fwd_bf16",
            "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16", "mlp_embedded_bf16",
            "mlp_tp_pair_bf16")
@@ -150,7 +151,9 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_from_points_bf16.argtypes = \
             handle.nnc_mlp_from_points.argtypes
         handle.nnc_mlp_from_points_bf16.restype = ci
-        handle.nnc_render_pass_bf16.argtypes = handle.nnc_render_pass.argtypes
+        # (the bf16 kernel takes its ray queue's counter after the weights)
+        handle.nnc_render_pass_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                cf, vp, vp, vp, ci, ci, vp]
         handle.nnc_render_pass_bf16.restype = ci
         handle.nnc_train_sizes.argtypes = [ctypes.POINTER(ci)] * 2
         handle.nnc_train_sizes.restype = ci
@@ -160,11 +163,11 @@ def lib() -> ctypes.CDLL:
                                              vp]
         handle.nnc_mlp_train_fwd.restype = ci
         handle.nnc_mlp_train_bwd_mma.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                                 ci, ci, vp]
+                                                 vp, ci, ci, vp]
         handle.nnc_mlp_train_bwd_mma.restype = ci
-        handle.nnc_mlp_train_bwd_dw.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                                vp, vp, ci, ci, vp]
-        handle.nnc_mlp_train_bwd_dw.restype = ci
+        handle.nnc_mlp_train_dw.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                            ci, ci, vp]
+        handle.nnc_mlp_train_dw.restype = ci
         handle.nnc_train_bf16_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         handle.nnc_train_bf16_sizes.restype = ci
         handle.nnc_mlp_train_fwd_bf16.argtypes = \
@@ -173,9 +176,9 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_train_bwd_bf16.argtypes = \
             handle.nnc_mlp_train_bwd_mma.argtypes
         handle.nnc_mlp_train_bwd_bf16.restype = ci
-        handle.nnc_mlp_train_bwd_dw_bf16.argtypes = \
-            handle.nnc_mlp_train_bwd_dw.argtypes
-        handle.nnc_mlp_train_bwd_dw_bf16.restype = ci
+        handle.nnc_mlp_train_dw_bf16.argtypes = \
+            handle.nnc_mlp_train_dw.argtypes
+        handle.nnc_mlp_train_dw_bf16.restype = ci
         handle.nnc_mlp_tp_pair.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, vp]
         handle.nnc_mlp_tp_pair.restype = ci

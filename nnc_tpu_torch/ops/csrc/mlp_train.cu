@@ -20,9 +20,11 @@
 // TFLOP/s float32-equivalent (H100 SXM data sheet, dense TF32, at 700 W):
 // 196,608 points cannot take less than 1.42 ms forward and 1.33 ms backward;
 // the workspace is 0.57 ms of device memory traffic each way. The backward
-// with dW (no preset turns it on; mlp_train_dw.cu) keeps the SIMT chain of
-// nerf_mlp.cuh and is bound by the 67 TFLOP/s float32 peak outside the
-// tensor cores.
+// with dW (RenderConfig.train_with_dw, fine-tuning) is two passes: this
+// backward, writing every layer's du to a second workspace of the same
+// layout, and mlp_train_dw.cu's GEMM of X^T dU over the points; its dW
+// products, every weight once more, make it 1,151,104 multiply-adds a
+// point: 196,608 points cannot take less than 2.74 ms at 165 TFLOP/s.
 //
 // Design.
 // - The reverse chain needs, per point, every layer's u (2,436 floats): far
@@ -97,11 +99,8 @@
 // kernels: FW, the unscaled weights in pack_weights_mma's order (slabs, an
 // unused bias block, the heads' weights); BW, the transposed slabs and the
 // heads' weights (pack_train_mma); LS and BI, every layer's scales and
-// biases concatenated (offset u_offset). The with_dw kernel: P, the forward
-// layout of nerf_mlp.cuh (each layer W (in, out) and its bias, unscaled);
-// PT, each layer's W in (out, in), concatenated in layer order (offset
-// wt_offset); LS. The workspace row of a point and the gradient rows use
-// the u_offset layout too.
+// biases concatenated (offset u_offset). The workspace row of a point, the
+// du workspace's and the gradient rows use the u_offset layout too.
 #include "mlp_train.cuh"
 #include "nerf_mlp_mma.cuh"
 
@@ -398,6 +397,32 @@ struct BwdMmaSmem {
   float part[2 * kU];       // this CTA's sums: dls, then db
 };
 
+// This thread's du fragments (rows mt * 16 + g and + 8, columns c and
+// c + 1 of n-tile nt at c = col0 + 8 nt) to the du workspace (DU: the
+// tile's first row at the layer's columns, row stride kU), evict-first. U2:
+// the columns start at an even offset, so the two are one 8-byte store.
+template <int NT, bool U2>
+__device__ __forceinline__ void store_du(float* __restrict__ DU,
+                                         const float (&acc)[4][NT][4], int g,
+                                         int col0) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float* w = DU + static_cast<size_t>(mt * 16 + g + 8 * half) * kU +
+                   col0 + nt * 8;
+        if (U2) {
+          __stcs(reinterpret_cast<float2*>(w),
+                 make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]));
+        } else {
+          __stcs(w, acc[mt][nt][2 * half]);
+          __stcs(w + 1, acc[mt][nt][2 * half + 1]);
+        }
+      }
+}
+
 // The accumulators hold the gradient of a layer's output for the tile (the
 // fragment layout of mma_layer). In place they become du = dpre * ls, with
 // dpre the gradient masked by the layer's relu (RELU; the forward's
@@ -407,7 +432,9 @@ struct BwdMmaSmem {
 // part_b: at the layer's columns; u, lb: load_u and load_lb of the layer,
 // which the caller starts before its barrier, so that one trip to L2 is
 // waited for and not one per n-tile. Every warp must be done reading G; ends
-// with a barrier.
+// with a barrier. DU: the tile's first row of the du workspace at the
+// layer's columns (the backward with dW), or null: du goes there too, with
+// evict-first stores like u's.
 template <int NT, bool RELU>
 __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
                                               const float (&u)[NT][4][2][2],
@@ -415,7 +442,8 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
                                               float* __restrict__ G,
                                               float* __restrict__ part_ls,
                                               float* __restrict__ part_b,
-                                              bool write) {
+                                              bool write,
+                                              float* __restrict__ DU) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -464,6 +492,8 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
   }
   NNC_PROF(5);
   if (write) store_fragments<NT>(G, acc, g, col0);
+  // (the view layer, NT = 2, starts at the odd column 2,305)
+  if (DU) store_du<NT, NT == 4>(DU, acc, g, col0);
   NNC_PROF(6);
   __syncthreads();
   NNC_PROF(7);
@@ -480,7 +510,7 @@ __device__ __forceinline__ void bwd_layer(BwdMmaSmem& s, BwdPipe& pipe, int K,
                                           const float* __restrict__ LS,
                                           const float* __restrict__ BI,
                                           const float* __restrict__ ws,
-                                          int tile) {
+                                          float* __restrict__ du, int tile) {
   float acc[4][4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -518,7 +548,9 @@ __device__ __forceinline__ void bwd_layer(BwdMmaSmem& s, BwdPipe& pipe, int K,
   NNC_PROF(2);
   __syncthreads();
   NNC_PROF(3);
-  grad_epilogue<4, RELU>(acc, u, lb, s.g, s.part + o, s.part + kU + o, write);
+  grad_epilogue<4, RELU>(
+      acc, u, lb, s.g, s.part + o, s.part + kU + o, write,
+      du ? du + static_cast<size_t>(tile) * (kM * kU) + o : nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -527,6 +559,7 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
                          const float* __restrict__ BI,
                          const float* __restrict__ gout,
                          const float* __restrict__ ws,
+                         float* __restrict__ du,
                          float* __restrict__ partials, int n, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdMmaSmem& s = *reinterpret_cast<BwdMmaSmem*>(smem_raw);
@@ -542,6 +575,7 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long base = static_cast<long long>(tile) * kM;
     const float* U = ws + static_cast<size_t>(tile) * (kM * kU);
+    float* DU = du ? du + static_cast<size_t>(tile) * (kM * kU) : nullptr;
     static_assert(kM * 4 == kThreads, "one cotangent per thread");
     // (the last barrier of the tile before: everyone is done with s.gr)
     s.gr[tid] = base + tid / 4 < n ? gout[base * 4 + tid] : 0.f;
@@ -550,7 +584,7 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
                (kW / 2 + 3) * static_cast<int>(sizeof(float)));
     __syncthreads();
     // the heads, which have no activation: warp c < 3 takes rgb channel c,
-    // warp 3 alpha; their sums, and du = g * ls in place
+    // warp 3 alpha; their sums, and du = g * ls in place (and to DU)
     if (warp < 4) {
       const int o = warp < 3 ? u_offset(kLayerRgb) + warp
                              : u_offset(kLayerAlpha);
@@ -567,6 +601,10 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
       }
       s.gr[lane * 4 + warp] = d0 * l;
       s.gr[(lane + 32) * 4 + warp] = d1 * l;
+      if (DU) {
+        __stcs(DU + static_cast<size_t>(lane) * kU + o, d0 * l);
+        __stcs(DU + static_cast<size_t>(lane + 32) * kU + o, d1 * l);
+      }
     }
     __syncthreads();
     NNC_PROF(0);
@@ -602,17 +640,18 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
       load_u<2, false>(u, U + o, g, col0);
       load_lb<2>(lb, LS + o, BI + o, col0);
       grad_epilogue<2, true>(acc, u, lb, s.g, s.part + o, s.part + kU + o,
-                             true);
+                             true, DU ? DU + o : nullptr);
     }
     // dfeature = du_v @ Wv[:256]^T; the feature layer has no activation
     bwd_layer<false, false>(s, pipe, kW / 2, kLayerFeature, true, BW, LS, BI,
-                            ws, tile);
+                            ws, du, tile);
     // dh7 = du_f @ Wf^T + du_alpha (x) w_alpha
-    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, tile);
+    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, du, tile);
     // dh_{i} = du_{i+1} @ W_{i+1}^T (layer 5: its 256 rows for h), i = 6..0
+    // (layer 0's du feeds no product; with dW it goes to the du workspace)
 #pragma unroll 1
     for (int i = 6; i >= 0; --i)
-      bwd_layer<true, false>(s, pipe, kW, i, i > 0, BW, LS, BI, ws, tile);
+      bwd_layer<true, false>(s, pipe, kW, i, i > 0, BW, LS, BI, ws, du, tile);
     NNC_PROF(8);
   }
   pipe.drain();
@@ -686,13 +725,17 @@ extern "C" int nnc_mlp_train_fwd(const float* fw, const float* ls,
              : launch_fwd<false>(fw, ls, bi, pts, dirs, out, ws, n, st);
 }
 
-// The backward without dW. bw: the backward half of pack_train_mma, 16-byte
-// aligned; g: (n, 4) cotangent of out; ws from nnc_mlp_train_fwd; partials:
-// (G, 4,872) scratch; out: (4,872,) = [dls (2,436), db (2,436)].
+// The backward without dW, and the first pass of the backward with dW. bw:
+// the backward half of pack_train_mma, 16-byte aligned; g: (n, 4) cotangent
+// of out; ws from nnc_mlp_train_fwd; du: null, or a workspace of ws's shape
+// that takes every layer's du = dpre * ls per point (rows up to
+// ceil(n / 64) * 64; nnc_mlp_train_dw, mlp_train_dw.cu, reads it);
+// partials: (G, 4,872) scratch; out: (4,872,) = [dls (2,436), db (2,436)].
 extern "C" int nnc_mlp_train_bwd_mma(const float* bw, const float* ls,
                                      const float* bi, const float* g,
-                                     const float* ws, float* partials,
-                                     float* out, int n, int G, void* stream) {
+                                     const float* ws, float* du,
+                                     float* partials, float* out, int n,
+                                     int G, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(sizeof(BwdMmaSmem));
   cudaError_t err = cudaFuncSetAttribute(
@@ -701,7 +744,7 @@ extern "C" int nnc_mlp_train_bwd_mma(const float* bw, const float* ls,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     mlp_train_bwd_mma_kernel<<<G, kThreads, smem, st>>>(
-        bw, ls, bi, g, ws, partials, n, (n + kM - 1) / kM);
+        bw, ls, bi, g, ws, du, partials, n, (n + kM - 1) / kM);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {

@@ -1,8 +1,9 @@
 // What K-B1's kernels share, in float32 (mlp_train.cu) and in bf16
-// (mlp_train_bf16.cu): the layout of the per-point workspace of u and of the
-// gradients, the loads of u and of a layer's scales and biases onto the
-// accumulator fragments of a 64-point tile, and the fixed-order sum of the
-// CTAs' partial gradients.
+// (mlp_train_bf16.cu), and its weight gradient's GEMM (mlp_train_dw.cu): the
+// layout of the per-point workspaces of u and du and of the gradients, the
+// loads of u and of a layer's scales and biases onto the accumulator
+// fragments of a 64-point tile, and the fixed-order sum of the CTAs'
+// partial gradients.
 //
 // Layouts (nnc_tpu_torch/ops/mlp_train_fused.py): a workspace row, the
 // scale and bias vectors and the dls / db parts of the gradient hold every
@@ -31,6 +32,9 @@ __host__ __device__ constexpr int wt_offset(int i) {
   return off;
 }
 constexpr int kU = u_offset(kLayers);     // 2,436 outputs of the 12 layers
+// row stride of the bf16 du workspace (the backward with dW): kU rounded up
+// to 8 values, so that every row starts 16-byte aligned
+constexpr int kDuLdBf16 = (kU + 7) / 8 * 8;
 constexpr int kWt = wt_offset(kLayers);   // 593,408 weights
 constexpr int kLayerFeature = 8, kLayerAlpha = 9, kLayerViews = 10,
               kLayerRgb = 11;

@@ -1,6 +1,7 @@
 // K-B1 in bf16: the NeRF MLP's training pass, forward and backward without
 // dW, with bf16 operands on the tensor cores and float32 sums. (The backward
-// with dW is mlp_train_dw.cu's SIMT kernel, instantiated for bf16.)
+// with dW is this backward writing every layer's bf16(du) to a workspace,
+// then mlp_train_dw.cu's GEMM of X^T dU.)
 //
 // Replaces the Pallas pair _fwd_call / _bwd_call
 // (nnc_tpu/ops/mlp_train_pallas.py:275, :300) as it runs when
@@ -314,6 +315,13 @@ struct BwdSmem {
   float part[2 * kU];       // this CTA's sums: dls, then db
 };
 
+// An evict-first store of a bf16 value (the du workspace).
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, __nv_bfloat16 v) {
+  asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p),
+               "h"(*reinterpret_cast<const unsigned short*>(&v))
+               : "memory");
+}
+
 // The accumulators hold the gradient of a layer's output for the tile (the
 // fragment layout of mma_run). They become du = dpre * ls, with dpre the
 // gradient masked by the layer's relu (RELU; the rounded activation
@@ -323,7 +331,13 @@ struct BwdSmem {
 // to G, the next product's A, if `write`. part_ls, part_b: at the layer's
 // columns; u, lb: load_u and load_lb of the layer, started by the caller
 // before its barrier. Every warp must be done reading G; ends with a
-// barrier.
+// barrier. DU: the tile's first row of the bf16 du workspace at the layer's
+// columns (the backward with dW), or null: bf16(du) goes there too, with
+// evict-first stores; at the 256-wide layers (NT = 4) it is copied from G
+// after the barrier in 16-byte pieces (their fragments are 4-byte pieces of
+// 16-byte runs: stored from the registers they took 1.0 ms more at 196,608
+// points where 0.96 GB need 0.29; NVIDIA H100 80GB HBM3, 700 W,
+// nnc_tpu_torch/tools/kb1_dw_bench.py), so `write` must be set with DU there.
 template <int NT, bool RELU>
 __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
                                               const float (&u)[NT][4][2][2],
@@ -331,7 +345,8 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
                                               __nv_bfloat16* __restrict__ G,
                                               float* __restrict__ part_ls,
                                               float* __restrict__ part_b,
-                                              bool write) {
+                                              bool write,
+                                              __nv_bfloat16* __restrict__ DU) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -390,9 +405,35 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
             __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
       }
   }
+  if (DU && NT == 2) {
+    // (the view layer starts at the odd column 2,305)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          __nv_bfloat16* w = DU +
+              static_cast<size_t>(mt * 16 + g + 8 * half) * kDuLdBf16 + col0 +
+              nt * 8;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+          store_cs(w, __low2bfloat16(v));
+          store_cs(w + 1, __high2bfloat16(v));
+        }
+  }
   NNC_PROF(6);
   __syncthreads();
   NNC_PROF(7);
+  if (DU && NT == 4) {
+    // G's 64 rows x 256 columns in 16-byte pieces
+    for (int i = threadIdx.x; i < kM * (kW / 8); i += kThreads) {
+      const int r = i / (kW / 8), c = 8 * (i % (kW / 8));
+      __stcs(reinterpret_cast<uint4*>(DU + static_cast<size_t>(r) * kDuLdBf16 +
+                                      c),
+             *reinterpret_cast<const uint4*>(G + r * b16::kLdA + c));
+    }
+  }
 }
 
 // One step of the reverse chain: the gradient of layer L's output,
@@ -406,6 +447,7 @@ __device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
                                           const float* __restrict__ LS,
                                           const float* __restrict__ BI,
                                           const float* __restrict__ ws,
+                                          __nv_bfloat16* __restrict__ du,
                                           int tile) {
   float acc[4][4][4];
 #pragma unroll
@@ -443,7 +485,9 @@ __device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
   NNC_PROF(2);
   __syncthreads();
   NNC_PROF(3);
-  grad_epilogue<4, RELU>(acc, u, lb, s.g, s.part + o, s.part + kU + o, write);
+  grad_epilogue<4, RELU>(
+      acc, u, lb, s.g, s.part + o, s.part + kU + o, write,
+      du ? du + static_cast<size_t>(tile) * (kM * kDuLdBf16) + o : nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -452,6 +496,7 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
                           const float* __restrict__ BI,
                           const float* __restrict__ gout,
                           const float* __restrict__ ws,
+                          __nv_bfloat16* __restrict__ du,
                           float* __restrict__ partials, int n, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
@@ -467,6 +512,8 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long base = static_cast<long long>(tile) * kM;
     const float* U = ws + static_cast<size_t>(tile) * (kM * kU);
+    __nv_bfloat16* DU =
+        du ? du + static_cast<size_t>(tile) * (kM * kDuLdBf16) : nullptr;
     static_assert(kM * 4 == kThreads, "one cotangent per thread");
     // (the last barrier of the tile before: everyone is done with s.gr)
     s.gr[tid] = base + tid / 4 < n ? gout[base * 4 + tid] : 0.f;
@@ -475,7 +522,7 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
                (kW / 2 + 3) * static_cast<int>(sizeof(float)));
     __syncthreads();
     // the heads, which have no activation: warp c < 3 takes rgb channel c,
-    // warp 3 alpha; their sums, and bf16(du = g * ls) in place
+    // warp 3 alpha; their sums, and bf16(du = g * ls) in place (and to DU)
     if (warp < 4) {
       const int o = warp < 3 ? u_offset(kLayerRgb) + warp
                              : u_offset(kLayerAlpha);
@@ -492,6 +539,12 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
       }
       s.gr[lane * 4 + warp] = bf16_round(d0 * l);
       s.gr[(lane + 32) * 4 + warp] = bf16_round(d1 * l);
+      if (DU) {
+        store_cs(DU + static_cast<size_t>(lane) * kDuLdBf16 + o,
+                 __float2bfloat16_rn(d0 * l));
+        store_cs(DU + static_cast<size_t>(lane + 32) * kDuLdBf16 + o,
+                 __float2bfloat16_rn(d1 * l));
+      }
     }
     __syncthreads();
     NNC_PROF(0);
@@ -528,17 +581,19 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
       load_u<2, false>(u, U + o, g, col0);
       load_lb<2>(lb, LS + o, BI + o, col0);
       grad_epilogue<2, true>(acc, u, lb, s.g, s.part + o, s.part + kU + o,
-                             true);
+                             true, DU ? DU + o : nullptr);
     }
     // dfeature = du_v @ Wv[:256]^T; the feature layer has no activation
     bwd_layer<false, false>(s, pipe, kW / 2, kLayerFeature, true, BW, LS, BI,
-                            ws, tile);
+                            ws, du, tile);
     // dh7 = du_f @ Wf^T + du_alpha (x) w_alpha
-    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, tile);
+    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, du, tile);
     // dh_{i} = du_{i+1} @ W_{i+1}^T (layer 5: its 256 rows for h), i = 6..0
+    // (layer 0's du feeds no product; with dW it goes to the du workspace)
 #pragma unroll 1
     for (int i = 6; i >= 0; --i)
-      bwd_layer<true, false>(s, pipe, kW, i, i > 0, BW, LS, BI, ws, tile);
+      bwd_layer<true, false>(s, pipe, kW, i, i > 0 || du, BW, LS, BI, ws, du,
+                             tile);
     NNC_PROF(8);
   }
   pipe.drain();
@@ -598,15 +653,19 @@ extern "C" int nnc_mlp_train_fwd_bf16(const float* fw, const float* ls,
              : launch_fwd<false>(fw, ls, bi, pts, dirs, out, ws, n, st);
 }
 
-// The backward without dW. bw: the backward half of pack_train_bf16,
-// 16-byte aligned; g: (n, 4) cotangent of out; ws from
-// nnc_mlp_train_fwd_bf16; partials: (G, 4,872) scratch; out: (4,872,) =
+// The backward without dW, and the first pass of the backward with dW. bw:
+// the backward half of pack_train_bf16, 16-byte aligned; g: (n, 4)
+// cotangent of out; ws from nnc_mlp_train_fwd_bf16; du: null, or a bf16
+// workspace (rows of ws, 2,440 columns: u's layout, rows 16-byte aligned)
+// that takes every layer's bf16(du)
+// per point (rows up to ceil(n / 64) * 64; nnc_mlp_train_dw_bf16,
+// mlp_train_dw.cu, reads it); partials: (G, 4,872) scratch; out: (4,872,) =
 // [dls (2,436), db (2,436)].
 extern "C" int nnc_mlp_train_bwd_bf16(const float* bw, const float* ls,
                                       const float* bi, const float* g,
-                                      const float* ws, float* partials,
-                                      float* out, int n, int G,
-                                      void* stream) {
+                                      const float* ws, void* du,
+                                      float* partials, float* out, int n,
+                                      int G, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(sizeof(BwdSmem));
   cudaError_t err = cudaFuncSetAttribute(
@@ -615,7 +674,8 @@ extern "C" int nnc_mlp_train_bwd_bf16(const float* bw, const float* ls,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     mlp_train_bwd_bf16_kernel<<<G, kThreads, smem, st>>>(
-        bw, ls, bi, g, ws, partials, n, (n + kM - 1) / kM);
+        bw, ls, bi, g, ws, static_cast<__nv_bfloat16*>(du), partials, n,
+        (n + kM - 1) / kM);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {

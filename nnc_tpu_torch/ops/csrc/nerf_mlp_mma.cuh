@@ -10,8 +10,7 @@
 // Replaces, for those two kernels, the SIMT chain of nerf_mlp.cuh (dense /
 // accumulate / mlp_tile: float32 FMAs, weights re-read from L1/L2 by __ldg at
 // every k step, three 64 x 256 buffers in shared memory), which
-// mlp_embedded.cu (K-B5), mlp_tp_pair.cu (K-B6) and K-B1's backward with dW
-// keep. It computes the same
+// mlp_embedded.cu (K-B5) and mlp_tp_pair.cu (K-B6) keep. It computes the same
 // function as the Pallas bodies _kernel_pts (nnc_tpu/ops/mlp_pallas.py:238)
 // and _make_kernel (nnc_tpu/ops/render_pallas.py:88).
 //

@@ -1,10 +1,13 @@
-// The kernel of K-B2, the fused deterministic render pass, over a chain:
+// The kernels of K-B2, the fused deterministic render pass, over a chain:
 // mma::Chain (float32 as 3xTF32, nerf_mlp_mma.cuh; render_pass.cu) or
 // bf16::Chain<MT> (nerf_mlp_bf16.cuh; render_pass_bf16.cu). In-kernel points
 // pts = o + d * z, positional encoding, the NeRF MLP and alpha compositing
 // with a running optical depth, with early ray termination and skipping of
 // culled rays and of sample blocks whose dists are all zero. The
 // compositing is float32 whatever the chain.
+//
+// render_pass_kernel (the float32 K-B2) decides early termination per tile
+// of rays; render_queue_kernel (below; K-B2 bf16) per ray.
 //
 // Design: one CTA of 256 threads owns a tile of kRT = Chain::kPoints / 32
 // rays (2 for the float32 chain's 64 points, 4 for the bf16 chain's 128) and
@@ -178,6 +181,225 @@ render_pass_kernel(const float* __restrict__ P,
   pipe.drain();
   if (tid < n_rays * 5)
     maps[static_cast<long long>(ray0) * 5 + tid] = s.maps[tid / 5][tid % 5];
+}
+
+// ------------------------------------------------------------------------
+// The same render pass with early termination per ray, on a persistent ray
+// queue (render_queue_kernel; K-B2 bf16 takes it, render_pass_bf16.cu).
+//
+// One CTA per SM. Its MLP tile of Chain::kPoints points is kRT slots of kSB
+// samples; a slot carries one ray's next sample block. Warp w < kRT owns
+// slot w: it composites the slot's block, and then refills the slot: a ray
+// that has terminated (optical depth >= term_csd before the block: its
+// remaining weights are written as 0), has run out of samples, or was
+// culled (live == 0: maps and weights 0) leaves the slot, which takes the
+// next ray from the queue (an atomic counter over ray indices), and a
+// block whose dists are all 0 is skipped (its weights written as 0) until
+// the slot holds a block that does work or the queue is empty. The ray's
+// state (o, d, viewdir, the block, the optical depth, the rgb / acc / depth
+// sums) lives in shared memory across the MLP, in the owner's registers
+// while it composites and refills. The tile runs while any slot holds a
+// block; idle slots feed the MLP zero points, which nothing reads. Every
+// point's MLP row depends on its own inputs alone, and a ray's blocks are
+// composited in order by one warp, so a ray's result does not depend on
+// the slot or the CTA that ran it: reruns are bit-equal although the
+// queue's order varies. The compositing is render_pass_kernel's.
+// A slot's ray.
+struct SlotRay {
+  int ray;       // -1: empty; R: the queue is drained
+  int blk;       // the next sample block
+  float csd;     // optical depth before it
+  float o[3], d[3], v[3];
+  float maps[5];
+};
+
+template <class Chain>
+struct QueueSmem {
+  static constexpr int kRT = Chain::kPoints / kSB;   // slots of a tile
+  typename Chain::Smem mlp;
+  float xs[Chain::kPoints * 3];
+  float ds[Chain::kPoints * 3];
+  float zb[Chain::kPoints];
+  float db[Chain::kPoints];
+  SlotRay slot[kRT];
+};
+
+template <class Chain>
+__global__ void __launch_bounds__(kThreads, 1)
+render_queue_kernel(const float* __restrict__ P,
+                    const float* __restrict__ rays_o,
+                    const float* __restrict__ rays_d,
+                    const float* __restrict__ viewdirs,
+                    const float* __restrict__ z,
+                    const float* __restrict__ dists,
+                    const int* __restrict__ live, float term_csd,
+                    float* __restrict__ maps, float* __restrict__ weights,
+                    int* __restrict__ queue, int R, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QueueSmem<Chain>& s = *reinterpret_cast<QueueSmem<Chain>*>(smem_raw);
+  constexpr int kRT = QueueSmem<Chain>::kRT;
+  static_assert(kRT * kSB == Chain::kPoints && kRT <= kThreads / 32,
+                "a slot is one warp's block");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nblk = (S + kSB - 1) / kSB;
+  const bool owner = warp < kRT;
+  const int m = warp * kSB + lane;   // the slot's point of this lane
+
+  // weights [from, S) of ray r written as 0, by the warp
+  auto zero_weights = [&](int r, int from) {
+    if (weights)
+      for (int si = from + lane; si < S; si += 32)
+        weights[static_cast<long long>(r) * S + si] = 0.f;
+  };
+  // Run by the owner's warp: composite the slot's block (`composite`: the
+  // tile computed it), then stage the slot's next block that does work.
+  // Returns whether the slot holds one. The ray's state goes through
+  // registers here and lives in shared memory across the MLP.
+  auto advance = [&](bool composite) -> bool {
+    SlotRay sr = s.slot[warp];
+    if (composite) {
+      // lane = sample within the block (render_pass_kernel's compositing)
+      const float* raw = s.mlp.raw + m * 4;
+      const float sd = fmaxf(raw[3], 0.f) * s.db[m];
+      float incl = sd;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      float excl = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float total = __shfl_sync(kFull, incl, 31);
+      const float trans = expf(-(sr.csd + excl));
+      const float alpha = 1.f - expf(-sd);
+      const float w = alpha * trans;
+      float v[5];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c] = w * (1.f / (1.f + expf(-raw[c])));
+      v[3] = w;
+      v[4] = w * s.zb[m];
+#pragma unroll
+      for (int c = 0; c < 5; ++c) sr.maps[c] += warp_sum(v[c]);
+      const int si = sr.blk * kSB + lane;
+      if (weights && si < S)
+        weights[static_cast<long long>(sr.ray) * S + si] = w;
+      sr.csd += total;
+      ++sr.blk;
+    }
+    bool work = false;
+    while (sr.ray < R) {
+      if (sr.ray < 0) {
+        int r = 0;
+        if (lane == 0) r = atomicAdd(queue, 1);
+        sr.ray = __shfl_sync(kFull, r, 0);
+        if (sr.ray >= R) break;
+        const long long r3 = static_cast<long long>(sr.ray) * 3;
+        if (live[sr.ray] == 0) {
+          // culled: zeros
+          if (lane < 5) maps[static_cast<long long>(sr.ray) * 5 + lane] = 0.f;
+          zero_weights(sr.ray, 0);
+          sr.ray = -1;
+          continue;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sr.o[c] = rays_o[r3 + c];
+          sr.d[c] = rays_d[r3 + c];
+          sr.v[c] = viewdirs[r3 + c];
+        }
+        sr.blk = 0;
+        sr.csd = 0.f;
+#pragma unroll
+        for (int c = 0; c < 5; ++c) sr.maps[c] = 0.f;
+      }
+      const bool alive = sr.csd < term_csd;
+      if (!alive || sr.blk == nblk) {
+        // early-terminated (this and every later block contribute
+        // nothing) or through all its samples: the ray leaves the slot
+        if (!alive) zero_weights(sr.ray, sr.blk * kSB);
+        if (lane < 5)
+          maps[static_cast<long long>(sr.ray) * 5 + lane] = sr.maps[lane];
+        sr.ray = -1;
+        continue;
+      }
+      const int si = sr.blk * kSB + lane;
+      const bool valid = si < S;
+      const long long idx = static_cast<long long>(sr.ray) * S + si;
+      const float zz = valid ? z[idx] : 0.f;
+      const float dd = valid ? dists[idx] : 0.f;
+      if (!__any_sync(kFull, dd > 0.f)) {
+        // all dists zero: this block alone contributes nothing
+        if (weights && valid) weights[idx] = 0.f;
+        ++sr.blk;
+        continue;
+      }
+      s.zb[m] = zz;
+      s.db[m] = dd;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        // o + d * z rounded as two operations, like the plain version
+        s.xs[m * 3 + c] =
+            valid ? __fadd_rn(sr.o[c], __fmul_rn(sr.d[c], zz)) : 0.f;
+        s.ds[m * 3 + c] = valid ? sr.v[c] : 0.f;
+      }
+      work = true;
+      break;
+    }
+    if (!work) {
+      // the queue is drained: the slot feeds the MLP zero points
+      s.zb[m] = s.db[m] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s.xs[m * 3 + c] = s.ds[m * 3 + c] = 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) s.slot[warp] = sr;
+    __syncwarp();
+    return work;
+  };
+
+  typename Chain::Pipe pipe;
+  Chain::begin(s.mlp, pipe, P);
+  if (owner && lane == 0) s.slot[warp].ray = -1;
+  __syncwarp();
+  bool work = owner && advance(false);
+  while (__syncthreads_or(work)) {
+    Chain::embed(s.mlp, s.xs, s.ds);
+    Chain::mlp(s.mlp, pipe, P);
+    // (the MLP's last barrier: every warp is done with the staged block)
+    if (owner) work = advance(work);
+  }
+  pipe.drain();
+}
+
+// rays_o, rays_d, viewdirs: (R, 3); z, dists: (R, S) (dists already scaled by
+// |rays_d|); live: (R,) int32; maps: (R, 5); weights: (R, S) or null; params:
+// the weights as the chain's packing lays them out, 16-byte aligned; queue:
+// one int, 0 (the kernel counts the rays it hands out there).
+template <class Chain>
+int launch_render_queue(const float* params, const float* rays_o,
+                        const float* rays_d, const float* viewdirs,
+                        const float* z, const float* dists, const int* live,
+                        float term_csd, float* maps, float* weights,
+                        int* queue, int R, int S, void* stream) {
+  constexpr int kRT = QueueSmem<Chain>::kRT;
+  const int smem = static_cast<int>(sizeof(QueueSmem<Chain>));
+  cudaError_t err = cudaFuncSetAttribute(
+      render_queue_kernel<Chain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0 && S > 0) {
+    const int tiles = (R + kRT - 1) / kRT;
+    render_queue_kernel<Chain><<<tiles < sms ? tiles : sms, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        params, rays_o, rays_d, viewdirs, z, dists, live, term_csd, maps,
+        weights, queue, R, S);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // rays_o, rays_d, viewdirs: (R, 3); z, dists: (R, S) (dists already scaled by

@@ -10,23 +10,26 @@
 // peak of 989 TFLOP/s (H100 SXM data sheet, 700 W), counted on the points
 // whose ray is still alive.
 //
-// Design: the kernel of render_pass.cuh over tiles of NNC_BF16_MT / 2 rays x
-// 32 samples (4 rays: 128 points, the MLP tile of nerf_mlp_bf16.cuh). A
-// tile twice the float32 kernel's halves the weight bytes read from L2 per
-// point and coarsens early termination: a block runs while any of four
-// rays is alive.
+// Design: render_pass.cuh's render_queue_kernel: early termination per ray,
+// one persistent CTA per SM whose MLP tile of NNC_BF16_MT / 2 slots x 32
+// samples (4 slots: 128 points, the tile of nerf_mlp_bf16.cuh) each carry
+// one ray's next sample block and refill from a ray queue. It replaced
+// render_pass_kernel on tiles of 4 rays, which ran a block while any of
+// the four rays was alive: 568,448 points computed for 398,660 needed on
+// chip_smoke.py phase 14's rays (NVIDIA H100 80GB HBM3, 700 W).
 #include "render_pass.cuh"
 #include "nerf_mlp_bf16.cuh"
 
-// params: the weights as pack_weights_bf16 lays them out.
+// params: the weights as pack_weights_bf16 lays them out; queue: one int,
+// zero, which the kernel counts the rays it hands out on.
 extern "C" int nnc_render_pass_bf16(const float* params, const float* rays_o,
                                     const float* rays_d,
                                     const float* viewdirs, const float* z,
                                     const float* dists, const int* live,
                                     float term_csd, float* maps,
-                                    float* weights, int R, int S,
+                                    float* weights, int* queue, int R, int S,
                                     void* stream) {
-  return nerf::launch_render_pass<nerf::bf16::Chain<NNC_BF16_MT>>(
+  return nerf::launch_render_queue<nerf::bf16::Chain<NNC_BF16_MT>>(
       params, rays_o, rays_d, viewdirs, z, dists, live, term_csd, maps,
-      weights, R, S, stream);
+      weights, queue, R, S, stream);
 }

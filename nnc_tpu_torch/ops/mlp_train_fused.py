@@ -15,8 +15,8 @@ without any product over the weights. :func:`fused_nerf_mlp_train` is a
 * points and view directions get none (they are data);
 * configurations other than the flagship take the plain MLP.
 
-The forward and the backward without dW run their products on the tensor
-cores as three TF32 products each (``csrc/mlp_train.cu`` on
+The forward and the backward run their products on the tensor cores as
+three TF32 products each (``csrc/mlp_train.cu`` on
 ``csrc/nerf_mlp_mma.cuh``) and read the weights in ``mma.sync`` fragment
 order, :func:`pack_train_mma`: the unscaled weights in
 :func:`mlp_fused.repack_mma`'s order for the forward, and torch's (out, in)
@@ -25,24 +25,28 @@ for the backward. Both depend on the twelve weight tensors only, which LSA
 and fine-tuning without dW never change, so :data:`TRAIN_PACKS` keeps them
 from step to step; the scales and biases go in as two vectors in the
 ``U_OFFSETS`` layout, which is also that of the forward's per-point
-workspace of ``u`` and of the gradients. The backward with dW keeps the SIMT
-kernel and the three buffers of :func:`pack_train`: ``params``, the layout
-of :func:`mlp_fused.pack_weights` without the scales folded in;
+workspace of ``u`` and of the gradients. The backward with dW is two
+passes: the same backward also writes every layer's du to a second
+workspace, and a GEMM over the points (``csrc/mlp_train_dw.cu``) sums
+dW = X^T dU from it and from the workspace of u, in fixed chunks of
+DW_CHUNK points (:func:`mlp_train_dw_plain` is its plain version). The
+plain versions read the buffers of :func:`pack_train`: ``params``, the
+layout of :func:`mlp_fused.pack_weights` without the scales folded in;
 ``params_t``, every layer's weight in (out, in), concatenated in layer
-order; ``ls``. The plain versions read those three too, and
-:func:`unpack_train_mma` reads the fragment order back, so the CPU tests
-check the layouts the kernels read; :func:`mlp_train_fwd_3xtf32_plain` and
-:func:`mlp_train_bwd_3xtf32_plain` model the tensor-core arithmetic. On CPU
-tensors the wrappers run the plain versions; the plain backward recomputes
-the forward, as the TPU kernel does, where the CUDA forward leaves ``u`` in
-a workspace for its backward.
+order; ``ls``. :func:`unpack_train_mma` reads the fragment order back, so
+the CPU tests check the layouts the kernels read;
+:func:`mlp_train_fwd_3xtf32_plain` and :func:`mlp_train_bwd_3xtf32_plain`
+model the tensor-core arithmetic. On CPU tensors the wrappers run the
+plain versions; the plain backward recomputes the forward, as the TPU
+kernel does, where the CUDA forward leaves ``u`` in a workspace for its
+backward.
 
 A model with ``config.compute_dtype == torch.bfloat16`` takes K-B1's bf16
 form (mlp_train_pallas.py:380): the UNSCALED weights, the embedding and
 every stored activation rounded to bf16, ``u`` summed in float32 and scaled
 in float32, every du rounded before it enters a product, dW rounded once
-summed. Its kernels (``csrc/mlp_train_bf16.cu``, and ``mlp_train_dw.cu``'s
-SIMT backward with dW) are :func:`mlp_train_fwd_bf16` /
+summed. Its kernels (``csrc/mlp_train_bf16.cu``, and with dW the same
+GEMM on a bf16 du workspace) are :func:`mlp_train_fwd_bf16` /
 :func:`mlp_train_bwd_bf16`, reading :func:`pack_train_bf16`'s two int32
 streams, which :data:`TRAIN_PACKS` keeps under the compute type; the plain
 versions :func:`mlp_train_fwd_bf16_plain` / :func:`mlp_train_bwd_bf16_plain`
@@ -84,6 +88,13 @@ TILE = 64   # points per CTA; the workspace has rows for whole tiles
 # points per CTA of the bf16 forward (csrc/mlp_train_bf16.cu); its workspace
 # has rows for whole tiles of this size, its backward walks tiles of TILE
 TILE_BF16 = 128
+# points of a CTA of the weight gradient's GEMM (csrc/mlp_train_dw.cu): its
+# partial dW are summed over chunks of this size, in chunk order
+DW_CHUNK = 4096
+DW_BLOCK = 32   # points whose products sum in a tile of their own
+# columns of the bf16 du workspace: U_SIZE rounded up to 8, so that every row
+# starts 16-byte aligned (the float32 one has U_SIZE)
+DU_COLS_BF16 = -(-U_SIZE // 8) * 8
 
 
 def _padded(n: int, tile: int = TILE) -> int:
@@ -470,7 +481,7 @@ def mlp_train_bwd_bf16_plain(params, params_t, ls, pts, dirs, g,
 
 
 def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
-                        mm=torch.matmul, rnd=None):
+                        mm=torch.matmul, rnd=None, workspaces=None):
     """Plain PyTorch version of the K-B1 backward: the explicit reverse chain
     of mlp_train_pallas.py _make_bwd_kernel (the forward recomputed), summed
     over all points. Returns the flat gradient [dW (with_dw: each layer's
@@ -478,7 +489,8 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
     wide products and the reverse chain's. ``rnd``: as in
     :func:`mlp_train_fwd_plain` for the forward, and it rounds every du
     before its products and the summed dW (the bf16 form; the caller rounds
-    the weights)."""
+    the weights). ``workspaces``: None, or (ws, du) tensors of (N, U_SIZE)
+    or more rows that take every layer's u and du per point."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q = rnd or (lambda t: t)
     L, S, WT = _unpack(params, ls, params_t)
@@ -503,6 +515,10 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
             du = q(dy_pre * S[name])
             if with_dw:
                 dW[name] += du.t() @ x()
+            if workspaces is not None:
+                c = U_OFFSETS[NAMES.index(name)]
+                for t, v in zip(workspaces, (u, du)):
+                    t[s:s + v.shape[0], c:c + v.shape[1]] = v
             return du
 
         du_r = layer("rgb_linear", gc[:, :3], r["u_r"], lambda: r["v"])
@@ -527,6 +543,72 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
     parts = [q(dW[n]).reshape(-1) for n in NAMES] if with_dw else []
     parts += [dls[n] for n in NAMES] + [db[n] for n in NAMES]
     return torch.cat(parts)
+
+
+# --- the backward with dW in two passes (csrc/mlp_train_dw.cu) ---------------
+def train_workspaces_plain(params, params_t, ls, pts, dirs, g,
+                           bf16: bool = False):
+    """(ws, du): the forward's workspace of u and the first pass's du
+    workspace as the kernels leave them for the weight gradient's GEMM,
+    (ceil(N / 64) * 64, U_SIZE) each, from the plain chain (in bf16 its
+    bf16 form; du then holds bf16 values). Rows past N are those of zero
+    points with a zero cotangent: their du is zero."""
+    n = pts.shape[0]
+    pad = lambda t: F.pad(t, (0, 0, 0, _padded(n) - n))
+    ws = pts.new_zeros((_padded(n), U_SIZE))
+    du = torch.zeros_like(ws)
+    if bf16:
+        params, params_t = round_weights_bf16(params, params_t)
+    mlp_train_bwd_plain(params, params_t, ls, pad(pts), pad(dirs), pad(g),
+                        False, rnd=bf16_round if bf16 else None,
+                        workspaces=(ws, du))
+    return ws, du
+
+
+def mlp_train_dw_plain(ws, du, ls, biases, pts, dirs, bf16: bool = False,
+                       chunk: int = DW_CHUNK):
+    """Plain version of the weight gradient's GEMM: every layer's dW (out,
+    in), flat in the WT_OFFSETS layout, from the workspaces of u and du
+    (:func:`train_workspaces_plain`, or the kernels'), with the GEMM's
+    arithmetic: X rebuilt as act(u * ls + b) of the layer below (rounded to
+    bf16 in bf16) or the positional encoding of the points, dU^T X summed
+    over blocks of DW_BLOCK points, each block's sum started from zero and
+    added to its chunk's partial, the chunks' partials added in chunk order,
+    dW rounded to bf16 once summed in bf16."""
+    n = pts.shape[0]
+    rows = _padded(n)
+    q = bf16_round if bf16 else (lambda t: t)
+    pad = lambda t: F.pad(t, (0, 0, 0, rows - n))
+    pe = q(positional_encoding(pad(pts), 10))
+    ve = q(positional_encoding(pad(dirs), 4))
+    col = dict(zip(NAMES, U_OFFSETS))
+    dims = dict(_DIMS)
+
+    def h(name):
+        c, w = col[name], dims[name][1]
+        u = ws[:rows, c:c + w] * ls[c:c + w] + biases[c:c + w]
+        return q(u if name == "feature_linear" else F.relu(u))
+
+    inputs = {"pts_linears.0": pe, "pts_linears.5": torch.cat(
+        [pe, h("pts_linears.4")], -1), "feature_linear": h("pts_linears.7"),
+        "alpha_linear": h("pts_linears.7"), "views_linears.0": torch.cat(
+            [h("feature_linear"), ve], -1), "rgb_linear": h("views_linears.0")}
+    for i in (1, 2, 3, 4, 6, 7):
+        inputs[f"pts_linears.{i}"] = h(f"pts_linears.{i - 1}")
+    out = []
+    for name in NAMES:
+        x, c = inputs[name], col[name]
+        d = du[:rows, c:c + dims[name][1]]
+        total = None
+        for s in range(0, rows, chunk):
+            xb = x[s:s + chunk].reshape(-1, DW_BLOCK, x.shape[1])
+            db = d[s:s + chunk].reshape(-1, DW_BLOCK, d.shape[1])
+            part = None
+            for block in torch.bmm(db.transpose(1, 2), xb):
+                part = block if part is None else part + block
+            total = part if total is None else total + part
+        out.append(q(total).reshape(-1))
+    return torch.cat(out)
 
 
 # ------------------------------------------------------------ the kernels
@@ -566,11 +648,11 @@ def _biases(biases, params):
 
 # float32 / bf16: (kernel names, plain versions, forward buffer: name, size,
 # made from params by, dtype; backward buffer: the same from params_t;
-# the forward's tile)
+# the forward's tile; the du workspace's type)
 _FORMS = {
     False: dict(fwd="mlp_train_fwd", bwd="mlp_train_bwd",
-                bwd_dw="mlp_train_bwd", c_bwd="nnc_mlp_train_bwd_mma",
-                c_bwd_dw="nnc_mlp_train_bwd_dw",
+                bwd_dw="mlp_train_bwd_dw", c_bwd="nnc_mlp_train_bwd_mma",
+                c_dw="nnc_mlp_train_dw", du=(torch.float32, U_SIZE),
                 fwd_plain=mlp_train_fwd_plain, bwd_plain=mlp_train_bwd_plain,
                 buf=("packed_mma", MMA_PARAMS_SIZE, repack_mma,
                      torch.float32),
@@ -578,7 +660,8 @@ _FORMS = {
                        torch.float32), tile=TILE),
     True: dict(fwd="mlp_train_fwd_bf16", bwd="mlp_train_bwd_bf16",
                bwd_dw="mlp_train_bwd_dw_bf16", c_bwd="nnc_mlp_train_bwd_bf16",
-               c_bwd_dw="nnc_mlp_train_bwd_dw_bf16",
+               c_dw="nnc_mlp_train_dw_bf16",
+               du=(torch.bfloat16, DU_COLS_BF16),
                fwd_plain=mlp_train_fwd_bf16_plain,
                bwd_plain=mlp_train_bwd_bf16_plain,
                buf=("packed_bf16", BF16_PARAMS_SIZE, repack_bf16, torch.int32),
@@ -638,9 +721,9 @@ def mlp_train_fwd_bf16(params, ls, pts, dirs, save_u: bool = False,
 
 
 def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
-         biases):
+         biases, du=None):
     form = _FORMS[bf16]
-    given = [t for t in (params, params_t, packed_t, biases, g)
+    given = [t for t in (params, params_t, packed_t, biases, g, du)
              if t is not None]
     n = _check_inputs(ls, pts, dirs, *given)
     if params is not None:
@@ -657,76 +740,89 @@ def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
                          f"({form['fwd']}(save_u=True))")
     _check("ws", ws, (_padded(n, form["tile"]), U_SIZE))
     if with_dw:
-        if params is None or params_t is None:
-            raise ValueError("the backward with dW reads params and params_t")
-    else:
-        name, size, make, dtype = form["buf_t"]
-        packed_t = _kernel_buffer(name, packed_t, size, params_t, make, dtype)
-        biases = _biases(biases, params)
+        du_dtype, du_cols = form["du"]
+        if du is None:
+            du = torch.empty((ws.shape[0], du_cols), dtype=du_dtype,
+                             device=pts.device)
+        _check("du", du, (ws.shape[0], du_cols), du_dtype)
+    elif du is not None:
+        raise ValueError("the du workspace is for the backward with dW")
+    name, size, make, dtype = form["buf_t"]
+    packed_t = _kernel_buffer(name, packed_t, size, params_t, make, dtype)
+    biases = _biases(biases, params)
     lib = _build.lib()
     sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
     grid = min(_padded(n) // TILE, sms)
-    size = grad_size(with_dw)
-    partials = torch.empty((grid, size), dtype=torch.float32,
-                           device=pts.device)
-    out = torch.empty((size,), dtype=torch.float32, device=pts.device)
+    chunks = -(-_padded(n) // DW_CHUNK)
+    dw_size = WT_SIZE if with_dw else 0
+    partials = torch.empty((max(grid * 2 * U_SIZE,
+                                chunks * dw_size if n else 0),),
+                           dtype=torch.float32, device=pts.device)
+    out = torch.empty((grad_size(with_dw),), dtype=torch.float32,
+                      device=pts.device)
     kernel = form["bwd_dw" if with_dw else "bwd"]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch(kernel)
+        # the tensor-core backward: dls and db (and every du with dW)
+        _build.check(getattr(lib, form["c_bwd"])(
+            packed_t.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+            g.data_ptr(), ws.data_ptr(), None if du is None else du.data_ptr(),
+            partials.data_ptr(), out[dw_size:].data_ptr(), n, grid, stream),
+            kernel)
         if with_dw:
-            status = getattr(lib, form["c_bwd_dw"])(
-                params.data_ptr(), params_t.data_ptr(), ls.data_ptr(),
-                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), ws.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), n, grid, stream)
-        else:
-            status = getattr(lib, form["c_bwd"])(
-                packed_t.data_ptr(), ls.data_ptr(), biases.data_ptr(),
-                g.data_ptr(), ws.data_ptr(), partials.data_ptr(),
-                out.data_ptr(), n, grid, stream)
-        _build.check(status, kernel)
+            # the weight gradient's GEMM over the two workspaces
+            _build.check(getattr(lib, form["c_dw"])(
+                ws.data_ptr(), du.data_ptr(), ls.data_ptr(),
+                biases.data_ptr(), pts.data_ptr(), dirs.data_ptr(),
+                partials.data_ptr(), out.data_ptr(), n, DW_CHUNK, stream),
+                kernel)
     return out
 
 
 def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
-                  packed_mma_t=None, biases=None):
+                  packed_mma_t=None, biases=None, du=None):
     """K-B1 backward wrapper: the flat gradient [dW (with_dw), dls, db] for
     the raw cotangent ``g`` (N, 4). CUDA tensors need the forward's
     workspace ``ws``; CPU tensors take the plain version.
 
-    On CUDA tensors without dW the tensor-core kernel reads ``packed_mma_t``
-    (the backward buffer of :func:`pack_train_mma`) and ``biases``
-    (U_SIZE,), made here from ``params_t`` and ``params`` if not given (each
-    of which may be None if its buffer is); with dW the SIMT kernel reads
-    ``params`` and ``params_t``."""
+    On CUDA tensors the tensor-core kernel reads ``packed_mma_t`` (the
+    backward buffer of :func:`pack_train_mma`) and ``biases`` (U_SIZE,),
+    made here from ``params_t`` and ``params`` if not given (each of which
+    may be None if its buffer is). With dW it also writes every layer's du
+    to a workspace of ``ws``'s shape (``du``, made here if not given), from
+    which, with ``ws``, the weight gradient's GEMM (csrc/mlp_train_dw.cu)
+    sums dW; rows past the first pass's whole 64-point tiles are neither
+    written nor read."""
     return _bwd(False, params, params_t, ls, pts, dirs, g, ws, with_dw,
-                packed_mma_t, biases)
+                packed_mma_t, biases, du)
 
 
 def mlp_train_bwd_bf16(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
-                       packed_bf16_t=None, biases=None):
+                       packed_bf16_t=None, biases=None, du=None):
     """K-B1 backward wrapper in bf16: :func:`mlp_train_bwd` with the bf16
-    kernels, on the workspace of :func:`mlp_train_fwd_bf16`. Without dW the
-    tensor-core kernel reads ``packed_bf16_t`` (the backward buffer of
-    :func:`pack_train_bf16`) and ``biases``; with dW the SIMT kernel reads
-    ``params`` and ``params_t`` and rounds the weights as it loads them. CPU
-    tensors take :func:`mlp_train_bwd_bf16_plain`."""
+    kernels, on the workspace of :func:`mlp_train_fwd_bf16`; the tensor-core
+    kernel reads ``packed_bf16_t`` (the backward buffer of
+    :func:`pack_train_bf16`) and ``biases``, and with dW writes every
+    layer's bf16(du) to a bf16 workspace ``du`` (``ws``'s rows, DU_COLS_BF16
+    columns) for the GEMM, which rounds dW once summed. CPU tensors take
+    :func:`mlp_train_bwd_bf16_plain`."""
     return _bwd(True, params, params_t, ls, pts, dirs, g, ws, with_dw,
-                packed_bf16_t, biases)
+                packed_bf16_t, biases, du)
 
 
 class _TrainMLP(torch.autograd.Function):
     """raw = MLP(pts, dirs) over the flat per-layer (weight, bias, scales),
     in the float32 or (``bf16``) the bf16 form. ``packs``: the weights'
     :data:`TRAIN_PACKS` entry for CUDA tensors (the kernels then need no
-    other packing of them, but for dW), None for CPU tensors, which pack for
-    the plain versions."""
+    other packing of them), None for CPU tensors, which pack for the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, pts, dirs, with_dw, bf16, packs, *tensors):
         weights, biases, scales = tensors[0::3], tensors[1::3], tensors[2::3]
         params = params_t = b = None
-        if packs is None or with_dw:
+        if packs is None:
             params, params_t, ls = pack_train(weights, biases, scales)
         if packs is not None:
             ls = torch.cat([t.reshape(-1).float() for t in scales])

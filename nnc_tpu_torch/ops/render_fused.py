@@ -17,8 +17,11 @@ zeros. The culling granularity ``r_t`` (the renderer's
 
 A model with ``config.compute_dtype == torch.bfloat16`` takes the bf16
 variant (``csrc/render_pass_bf16.cu``: the bf16 chain of
-``csrc/nerf_mlp_bf16.cuh`` under the same float32 compositing), whose tiles
-hold ``RAY_TILE_BF16`` rays, and :func:`fused_render_pass_bf16_plain`.
+``csrc/nerf_mlp_bf16.cuh`` under the same float32 compositing), and
+:func:`fused_render_pass_bf16_plain`. It decides early termination per ray
+(``RAY_TILE_BF16`` = 1): its persistent CTAs fill each MLP tile's
+``SLOTS_BF16`` slots of a sample block with the next blocks of rays taken
+from a queue, so that a ray stops alone.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from .mlp_fused import (PACKS, PARAMS_SIZE, _check, _check_bf16, _check_mma,
                         packed_bf16_for, packed_mma_for)
 
 RAY_TILE = 2        # rays of a tile of the float32 kernel (64 points)
-RAY_TILE_BF16 = 4   # and of the bf16 kernel (128 points)
+RAY_TILE_BF16 = 1   # rays that stop together in the bf16 kernel
+SLOTS_BF16 = 4      # its MLP tile's sample blocks (128 points), one ray each
 SAMPLE_BLOCK = 32
 
 
@@ -85,7 +89,7 @@ def fused_render_pass_bf16_plain(packed_bf16, rays_o, rays_d, viewdirs,
                                  z_vals, dists, live, term_csd: float,
                                  want_weights: bool = True):
     """Plain PyTorch version of K-B2 in bf16: the bf16 plain MLP under the
-    same float32 compositing, in tiles of ``RAY_TILE_BF16`` rays."""
+    same float32 compositing, every ray stopping alone (``RAY_TILE_BF16``)."""
     return fused_render_pass_plain(
         packed_bf16, rays_o, rays_d, viewdirs, z_vals, dists, live, term_csd,
         want_weights, mlp_plain=fused_nerf_mlp_from_points_bf16_plain,
@@ -93,10 +97,12 @@ def fused_render_pass_bf16_plain(packed_bf16, rays_o, rays_d, viewdirs,
 
 
 def _render_pass(name, plain, weights, kernel_weights, rays_o, rays_d,
-                 viewdirs, z_vals, dists, live, term_csd, want_weights):
+                 viewdirs, z_vals, dists, live, term_csd, want_weights,
+                 queue=False):
     """Shared body of the two K-B2 wrappers: the plain version (on
     ``weights``) for CPU tensors, the kernel ``nnc_<name>`` (on
-    ``kernel_weights()``) for CUDA tensors."""
+    ``kernel_weights()``) for CUDA tensors; with ``queue`` the kernel takes
+    a zeroed int32 counter for its ray queue after the weights."""
     R, S = z_vals.shape
     for label, t in (("rays_o", rays_o), ("rays_d", rays_d),
                      ("viewdirs", viewdirs)):
@@ -120,6 +126,8 @@ def _render_pass(name, plain, weights, kernel_weights, rays_o, rays_d,
     maps = torch.empty((R, 5), dtype=torch.float32, device=device)
     out_w = torch.empty((R, S), dtype=torch.float32, device=device) \
         if want_weights else None
+    counter = torch.zeros(1, dtype=torch.int32, device=device) \
+        if queue else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch(name)
@@ -127,8 +135,9 @@ def _render_pass(name, plain, weights, kernel_weights, rays_o, rays_d,
             kernel_weights.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
             viewdirs.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
             live.data_ptr(), float(term_csd), maps.data_ptr(),
-            None if out_w is None else out_w.data_ptr(), R, S, stream),
-            name)
+            None if out_w is None else out_w.data_ptr(),
+            *([] if counter is None else [counter.data_ptr()]), R, S,
+            stream), name)
     return maps, out_w
 
 
@@ -151,12 +160,14 @@ def render_pass(packed, rays_o, rays_d, viewdirs, z_vals, dists, live,
 def render_pass_bf16(packed_bf16, rays_o, rays_d, viewdirs, z_vals, dists,
                      live, term_csd: float, want_weights: bool = True):
     """K-B2 wrapper, bf16: as :func:`render_pass` on the buffer of
-    ``mlp_fused.pack_weights_bf16``. CUDA tensors launch the kernel; CPU
+    ``mlp_fused.pack_weights_bf16``, early termination per ray. CUDA tensors
+    launch the kernel (on a ray queue whose counter is made here); CPU
     tensors take :func:`fused_render_pass_bf16_plain`."""
     _check_bf16(packed_bf16)
     return _render_pass("render_pass_bf16", fused_render_pass_bf16_plain,
                         packed_bf16, lambda: packed_bf16, rays_o, rays_d,
-                        viewdirs, z_vals, dists, live, term_csd, want_weights)
+                        viewdirs, z_vals, dists, live, term_csd, want_weights,
+                        queue=True)
 
 
 def unpack_maps(maps):

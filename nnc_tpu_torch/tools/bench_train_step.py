@@ -1,10 +1,11 @@
 """LSA train-step time of a bf16 model: the plain MLP against K-B1.
 
     python -m nnc_tpu_torch.tools.bench_train_step [--n_rand 1024]
-        [--iters 20] [--with_dw] [--device cpu]
+        [--iters 20] [--with_dw] [--dtype float32] [--device cpu]
 
 The port's counterpart of ``tools/bench_train_step.py``: both networks are
-``make_solid_mlp`` in ``NeRFConfig(compute_dtype=torch.bfloat16)``, their
+``make_solid_mlp`` in ``NeRFConfig(compute_dtype=torch.bfloat16)`` (with
+``--dtype float32``, the reference's float32 configuration), their
 LSA scales start at one, and a step renders 64 + 128 samples along each of
 ``n_rand`` rays (origins N(0, 0.1^2), directions N(0, 0.2^2) + (0, 0, -1),
 targets U(0, 1), near 2, far 6), takes the double MSE loss, its backward
@@ -48,6 +49,9 @@ def build_parser():
     ap.add_argument("--n_rand", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--with_dw", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="the networks' compute type")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the kernels) or cpu (their "
                          "plain versions)")
@@ -70,7 +74,7 @@ def run(use_fused: bool, args, device, rays, draws):
     """``args.iters`` steps after a first one; returns a dict of the path's
     numbers (step ms, rays/s, first step s, final loss, ls[0][:3], the
     kernel launches of the timed steps)."""
-    mlp = nerf.NeRFConfig(compute_dtype=torch.bfloat16)
+    mlp = nerf.NeRFConfig(compute_dtype=getattr(torch, args.dtype))
     models = [nerf.init_lsa_scales(synthetic.make_solid_mlp(mlp,
                                                             device=device))
               for _ in range(2)]

@@ -270,7 +270,7 @@ def train_pair(libs, dev):
     def bwd(name):
         rc = libs[name].nnc_mlp_train_bwd_mma(
             bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
-            wss[name].data_ptr(), partials.data_ptr(),
+            wss[name].data_ptr(), None, partials.data_ptr(),
             flats[name].data_ptr(), n, grid, stream)
         assert rc == 0, (name, rc)
 
@@ -415,7 +415,7 @@ def main():
         libs[name].nnc_mlp_from_points_bf16.argtypes = [vp, vp, vp, vp, ci, vp]
     for name in ("train", "train_direct", "train_profile"):
         libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
-        libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 7 + [ci, ci, vp]
+        libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 8 + [ci, ci, vp]
     issue_rate(libs["issue_rate"], dev)
     chain(libs, dev)
     sass_counts(os.path.join(OUT, "shipped.so"))

@@ -382,30 +382,83 @@ def test_render_pass_bf16_plain_matches_pallas_interpret(flagship, S, eps,
 
 
 def test_render_pass_bf16_plain_stops_rays_in_tiles_of_four(flagship):
-    """The bf16 kernel's tile is 4 rays x 32 samples; its plain version
+    """The bf16 kernel's MLP tile is 4 slots x 32 samples, but each slot
+    carries one ray's block: a ray stops alone (RAY_TILE_BF16 = 1, no longer
+    with the other three rays of a tile of four), and its plain version
     skips the same blocks."""
     model = flagship[-1]
-    assert render_fused.RAY_TILE_BF16 == 4 and render_fused.RAY_TILE == 2
+    assert render_fused.RAY_TILE_BF16 == 1 and render_fused.RAY_TILE == 2
+    assert render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK == 128
     R, S = 8, 64
     ro, rd, vd, z = (torch.from_numpy(a) for a in _rays(R, S, seed=5))
     dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full((R, 1), 1e10)], -1)
     live = torch.ones(R, dtype=torch.int32)
     buf = mlp_fused.packed_bf16_for(model)
-    # an opaque first block for rays 0..2 and 4..7: tile 0 (rays 0..3) goes
-    # on because ray 3 is alive, tile 1 stops after its first block
+    # an opaque first block for rays 0..2 and 4..7: they stop after it,
+    # ray 3 goes on (in a tile of four, rays 0..2 went on with it)
     dense = dists.clone()
     dense[[0, 1, 2, 4, 5, 6, 7], :32] = 1e4
     maps, w = render_fused.render_pass_bf16(buf, ro, rd, vd, z, dense, live,
                                             term_csd=5.0)
-    assert bool((w[4:, 32:] == 0).all()) and bool((w[:4, 32:] != 0).any())
+    stopped = [0, 1, 2, 4, 5, 6, 7]
+    assert bool((w[stopped, 32:] == 0).all()) and bool((w[3, 32:] != 0).any())
     exact, w_exact = render_fused.render_pass_bf16(buf, ro, rd, vd, z, dense,
                                                    live, term_csd=np.inf)
     assert float((maps[:, :4] - exact[:, :4]).abs().max()) <= np.exp(-5.0)
-    with pytest.raises(ValueError):
-        render_fused.fused_render_pass(model, ro, rd, vd, z, r_t=6)
+    # any culling granularity is a multiple of one ray
+    with torch.no_grad():
+        a, b = (render_fused.fused_render_pass(model, ro, rd, vd, z, r_t=r_t)
+                for r_t in (6, 64))
+    assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError):
         render_fused.render_pass_bf16(mlp_fused.pack_weights(model), ro, rd,
                                       vd, z, dists, live, 1.0)
+
+
+def test_render_pass_bf16_plain_stops_each_ray_alone(flagship):
+    """The bf16 plain version at ray_tile=1 (what the kernel stops by)
+    against the reference's exact bf16 render, at the eps bars of
+    tests/test_torch_port_fused.py: within eps of the port's own exact render
+    (depth 6 eps), within 2 eps plus half the bf16-to-float32 distance of the
+    reference's; and, on a batch where no tile of four rays mixes live and
+    terminated rays, bit for bit the result of tiles of four."""
+    cfg32, cfg16, jparams, jls, model = flagship
+    R, S, eps = 64, 64, 1e-3
+    ro, rd, vd, z = _rays(R, S, seed=7)
+    j, t = jnp.asarray, torch.from_numpy
+    want16, want32 = (render_pallas.fused_render_pass(
+        jparams, jls, j(ro), j(rd), j(vd), j(z), cfg, early_term_eps=0.0)
+        for cfg in (cfg16, cfg32))
+    with torch.no_grad():
+        got, exact = (render_fused.fused_render_pass(
+            model, t(ro), t(rd), t(vd), t(z), early_term_eps=e)
+            for e in (eps, 0.0))
+    far = ro + rd * z[:, -1:]
+    far16, far32 = (np.asarray(mlp_pallas.fused_nerf_mlp_from_points(
+        jparams, jls, j(far), j(vd), cfg))[:, 3] for cfg in (cfg16, cfg32))
+    steady = np.abs(far32) > 4 * np.abs(far16 - far32).max()
+    assert steady.sum() >= 16
+    for k, tol in (("rgb_map", eps), ("acc_map", eps),
+                   ("depth_map", 6.0 * eps)):
+        a = got[k].numpy()
+        assert np.abs(a - exact[k].numpy()).max() <= tol, k
+        w16, w32 = (np.asarray(w[k]) for w in (want16, want32))
+        dist = np.abs(w16 - w32)[steady].max()
+        assert np.abs(a - w16)[steady].max() <= dist / 2 + 2 * tol, k
+    # tiles of four that stop together: rays 0..3 and 8..11 opaque in their
+    # first block, the others never terminate early
+    dists = torch.cat([t(z)[:, 1:] - t(z)[:, :-1],
+                       torch.full((R, 1), 1e10)], -1)
+    dists[list(range(4)) + list(range(8, 12)), :32] = 1e4
+    args = (mlp_fused.packed_bf16_for(model), t(ro), t(rd), t(vd), t(z),
+            dists, torch.ones(R, dtype=torch.int32), 5.0)
+    alone = render_fused.fused_render_pass_bf16_plain(*args)
+    fours = render_fused.fused_render_pass_plain(
+        *args, mlp_plain=mlp_fused.fused_nerf_mlp_from_points_bf16_plain,
+        ray_tile=4)
+    assert torch.equal(alone[0], fours[0]) and torch.equal(alone[1], fours[1])
+    assert bool((alone[1][:4, 32:] == 0).all())
+    assert bool((alone[1][4:8, 32:] != 0).any())
 
 
 # the slice as a whole ---------------------------------------------------------------

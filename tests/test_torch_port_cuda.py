@@ -389,8 +389,9 @@ def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
                                          ws, with_dw)
     torch.cuda.synchronize()
     after = _build.launch_counts()
+    bwd = "mlp_train_bwd_dw" if with_dw else "mlp_train_bwd"
     assert after["mlp_train_fwd"] == before["mlp_train_fwd"] + 1
-    assert after["mlp_train_bwd"] == before["mlp_train_bwd"] + 1
+    assert after[bwd] == before[bwd] + 1
     assert ws.shape == (-(-n // 64) * 64, mlp_train_fused.U_SIZE)
     assert torch.isfinite(ws).all()
     raw_p = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
@@ -424,6 +425,85 @@ def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("n", [0, 33, 16_401, 196_608])
+def test_cuda_mlp_train_dw_two_passes(cuda_device, bf16, n):
+    """K-B1's backward with dW in two passes: the du workspace, then the
+    GEMM over the points (csrc/mlp_train_dw.cu), against the plain versions
+    at the gradients' bars (float32: the criterion above; bf16: the
+    bf16-to-float32 distance's, dW a bf16 value), and the GEMM on the
+    kernels' own workspaces against its plain version. The du workspace has
+    du = 0 in the rows past n of the first pass's whole 64-point tiles, and
+    the rows past those are neither written nor read (NaN in, NaN out, no
+    NaN in dW), nor the bf16 workspace's padding columns (its rows are
+    DU_COLS_BF16 long). Reruns are bit-equal. n = 0: zeros."""
+    model = _fog_model(cuda_device)
+    g = torch.Generator().manual_seed(16)
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(cuda_device)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True).clamp(min=1e-6)) \
+        .to(cuda_device)
+    cot = (1e-2 * torch.randn(n, 4, generator=g)).to(cuda_device)
+    tensors = mlp_train_fused._layer_tensors(model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    biases = mlp_train_fused.gather_biases(params)
+    M = mlp_train_fused
+    fwd, bwd = (M.mlp_train_fwd_bf16, M.mlp_train_bwd_bf16) if bf16 else \
+        (M.mlp_train_fwd, M.mlp_train_bwd)
+    packed, packed_t = (M.pack_train_bf16 if bf16 else
+                        M.pack_train_mma)(tensors[0::3])
+    _raw, ws = fwd(params, ls, pts, vd, True, packed, biases)
+    du = torch.full((ws.shape[0], M.DU_COLS_BF16 if bf16 else M.U_SIZE),
+                    float("nan"), device=cuda_device,
+                    dtype=torch.bfloat16 if bf16 else torch.float32)
+    name = "mlp_train_bwd_dw_bf16" if bf16 else "mlp_train_bwd_dw"
+    before = _build.launch_counts()[name]
+    flat = bwd(None, None, ls, pts, vd, cot, ws, True, packed_t, biases,
+               du=du)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    assert flat.shape == (M.grad_size(True),) and torch.isfinite(flat).all()
+    rows = -(-n // 64) * 64
+    U = M.U_SIZE
+    assert torch.isfinite(du[:rows, :U]).all() and \
+        bool((du[n:rows, :U] == 0).all())
+    # the rows past the first pass's tiles, and the bf16 rows' padding
+    assert bool(du[rows:].isnan().all()) and bool(du[:, U:].isnan().all())
+    again = bwd(None, None, ls, pts, vd, cot, ws, True, packed_t, biases)
+    assert torch.equal(again, flat)
+    # dls and db are those of the backward without dW, bit for bit
+    without = bwd(None, None, ls, pts, vd, cot, ws, False, packed_t, biases)
+    assert torch.equal(flat[M.WT_SIZE:], without)
+    if n == 0:
+        assert float(flat.abs().max()) == 0.0
+        return
+    # the GEMM against its plain version on the kernels' workspaces
+    dw_plain = M.mlp_train_dw_plain(ws, du.float(), ls, biases, pts, vd,
+                                    bf16=bf16)
+    if bf16:
+        dw = flat[:M.WT_SIZE]
+        assert torch.equal(dw, mlp_fused.bf16_round(dw))
+        step = 2.0 ** -7 * dw_plain.abs()
+        assert float(((dw - dw_plain).abs() - step).max()) <= \
+            1e-5 * float(dw_plain.abs().max())
+        _grads_to_bf16_distance(
+            flat, M.mlp_train_bwd_bf16_plain(params, params_t, ls, pts, vd,
+                                             cot, True),
+            M.mlp_train_bwd_plain(params, params_t, ls, pts, vd, cot, True),
+            True)
+    else:
+        assert float((flat[:M.WT_SIZE] - dw_plain).abs().max()) <= \
+            1e-5 * float(dw_plain.abs().max())
+        want = M.mlp_train_bwd_plain(params, params_t, ls, pts, vd, cot, True)
+        for part, got_d, want_d in zip(("dW", "dls", "db"),
+                                       M.split_grads(flat, True),
+                                       M.split_grads(want, True)):
+            for layer in got_d:
+                _grads_close(got_d[layer], want_d[layer], f"{part} {layer}")
+
+
+@pytest.mark.cuda
 def test_cuda_train_wrappers_need_their_buffers(cuda_device):
     pts, vd = _points(64, cuda_device)
     ls = torch.ones(mlp_train_fused.U_SIZE, device=cuda_device)
@@ -435,8 +515,12 @@ def test_cuda_train_wrappers_need_their_buffers(cuda_device):
                                       packed_mma=packed.cpu(), biases=ls)
     raw, ws = mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, save_u=True,
                                             packed_mma=packed, biases=ls)
-    with pytest.raises(ValueError, match="dW"):
+    # with dW as without: the backward's buffer, or params_t to make it from
+    with pytest.raises(ValueError, match="neither"):
         mlp_train_fused.mlp_train_bwd(None, None, ls, pts, vd, raw, ws, True)
+    with pytest.raises(ValueError, match="du workspace"):
+        mlp_train_fused.mlp_train_bwd(None, None, ls, pts, vd, raw, ws, False,
+                                      du=torch.empty_like(ws))
 
 
 @pytest.mark.cuda
@@ -599,7 +683,7 @@ def test_cuda_bf16_build_and_layout(cuda_device):
     lib = _build.lib()
     assert lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
     assert lib.nnc_bf16_tile_points() == \
-        render_fused.RAY_TILE_BF16 * render_fused.SAMPLE_BLOCK
+        render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK
 
 
 @pytest.mark.cuda
@@ -649,11 +733,17 @@ def test_cuda_bf16_buffer_must_be_aligned_and_sized(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S", [(333, 80), (64, 192), (7, 33)])
+@pytest.mark.parametrize("R,S", [(333, 80), (64, 192), (7, 33),
+                                 (20_000, 64)])
 @pytest.mark.parametrize("eps,want_weights", [(0.0, True), (1e-4, True),
                                               (1e-4, False)])
 def test_cuda_render_pass_bf16_matches_plain(cuda_device, eps, want_weights,
                                              R, S):
+    """K-B2 bf16 (early termination per ray, persistent CTAs on a ray
+    queue; 20,000 rays are many more than the slots of one CTA per SM)
+    against its plain version at ray_tile = RAY_TILE_BF16 = 1; culled rays
+    write zeros; reruns bit-equal whatever order the queue hands rays out
+    in."""
     model = synthetic.make_solid_mlp(noise_std=1e-2, device=cuda_device,
                                      generator=torch.Generator()
                                      .manual_seed(3))
@@ -674,7 +764,7 @@ def test_cuda_render_pass_bf16_matches_plain(cuda_device, eps, want_weights,
     assert after["render_pass_bf16"] == before["render_pass_bf16"] + 1
     assert after["render_pass"] == before["render_pass"]
     maps_p, w_p = render_fused.fused_render_pass_bf16_plain(buf, *rays)
-    # the float32 plain version stopping rays in the same tiles of four
+    # the float32 plain version stopping each ray alone, as the kernel
     maps_f, w_f = render_fused.fused_render_pass_plain(
         packed, *rays, ray_tile=render_fused.RAY_TILE_BF16)
     assert torch.isfinite(maps).all()
@@ -691,7 +781,6 @@ def test_cuda_render_pass_bf16_matches_plain(cuda_device, eps, want_weights,
     rt = render_fused.RAY_TILE_BF16
     dead = torch.nn.functional.pad(live, (0, -R % rt)).reshape(-1, rt) \
         .amax(dim=1).repeat_interleave(rt)[:R] == 0
-    # (R = 7: the ragged second tile, three rays)
     assert int(dead.sum()) >= 3 and float(maps[dead].abs().max()) == 0.0
     assert float(maps[:, 3].max()) > 0.5  # rays reach the solid
     if want_weights:

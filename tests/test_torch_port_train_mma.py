@@ -467,6 +467,52 @@ def test_modelled_backward_matches_pallas(flagship):
         _grads_close(db[name].numpy(), g_p[name]["b"], f"{name} b")
 
 
+def _dw_views(flat):
+    return mlp_train_fused.split_grads(
+        torch.cat([flat, flat.new_zeros(2 * mlp_train_fused.U_SIZE)]),
+        True)[0]
+
+
+def test_two_pass_dw_plain_matches_pallas(flagship):
+    """The backward with dW in the kernels' two passes, plain: the first
+    pass's du workspace, then X^T dU over blocks of DW_BLOCK points in
+    DW_CHUNK chunks (chunks of 256 here, so that 1,000 points make four,
+    the last ragged), against jax.vjp of fused_nerf_mlp_train with_dw (the
+    Pallas _bwd_call in interpret mode), by the gradients' criterion, and
+    against the one-pass plain version to float32 reassociation. Rows past
+    the points (1,000 to 1,024) hold du = 0."""
+    cfg, jparams, jls, model = flagship
+    n = 1000
+    pts, vd, _tgt = _points(n, seed=9)
+    g = (1e-2 * np.random.default_rng(10).standard_normal((n, 4))) \
+        .astype(np.float32)
+    _raw, vjp = jax.vjp(lambda p: mlp_train_pallas.fused_nerf_mlp_train(
+        p, jls, jnp.asarray(pts), jnp.asarray(vd), cfg, with_dw=True),
+        jparams)
+    (want,) = vjp(jnp.asarray(g))
+    params, params_t, ls = _packed(model)
+    tpts, tvd, tg = (torch.from_numpy(a) for a in (pts, vd, g))
+    ws, du = mlp_train_fused.train_workspaces_plain(params, params_t, ls,
+                                                    tpts, tvd, tg)
+    assert ws.shape == du.shape == (1024, mlp_train_fused.U_SIZE)
+    assert float(du[n:].abs().max()) == 0.0 and du[:n].abs().max() > 0
+    biases = mlp_train_fused.gather_biases(params)
+    flat = mlp_train_fused.mlp_train_dw_plain(ws, du, ls, biases, tpts, tvd,
+                                              chunk=256)
+    assert flat.shape == (mlp_train_fused.WT_SIZE,)
+    one_pass = mlp_train_fused.split_grads(mlp_train_fused.mlp_train_bwd_plain(
+        params, params_t, ls, tpts, tvd, tg, True), True)[0]
+    for name, dw in _dw_views(flat).items():
+        _grads_close(dw.numpy().T, want[name]["w"], f"dW {name}")
+        scale = float(one_pass[name].abs().max())
+        assert float((dw - one_pass[name]).abs().max()) <= 1e-5 * scale, name
+    # the chunks are summed in a fixed order: the chunk size is part of the
+    # function only through float32 reassociation
+    whole = mlp_train_fused.mlp_train_dw_plain(ws, du, ls, biases, tpts, tvd)
+    assert float((whole - flat).abs().max()) <= \
+        1e-5 * float(flat.abs().max())
+
+
 # ------------------------------------------------------- CPU tensors: plain
 def test_cpu_tensors_take_the_plain_versions(flagship):
     """On CPU tensors the wrappers run the exact float32 plain versions
