@@ -35,9 +35,11 @@ Phases:
      trajectory with the same batches and draws;
   8. kernel K-B5 (MLP on embeddings made outside) against its plain version
      and against K-B3, phase 2's net and points embedded by torch;
-  9. kernel K-B4 (int8 MLP from points) against its plain version at
-     INT8_ACT_BLOCK points per activation scale, and against the float MLP
-     under the reference's bound, same net and points;
+  9. kernel K-B4 (int8 MLP from points, s8 mma.sync products on the tensor
+     cores) against its plain version at INT8_ACT_BLOCK points per
+     activation scale, and against the float MLP under the reference's
+     bound, same net and points, reruns bit-equal, IMMA and no IDP.4A in its
+     SASS, timed beside the __dp4a kernel it replaced (from PERF.md);
  10. the low-precision slice on phase 5's scene: test_model with
      use_int8_mlp (K-B4) on the teacher, a test view of random full-width
      models through K-B4 against the float render of the same models, and
@@ -84,8 +86,10 @@ Phases:
      latter's GEMM too, on the tensor cores) against its plain bf16 versions at
      phase 6's shapes, full width, LSA scales std 0.05: raw and every
      gradient in units of the distance between the plain bf16 and the plain
-     float32 version on the same inputs, reruns bit-equal, timed in turns
-     beside float32 K-B1 and the plain bf16 versions;
+     float32 version on the same inputs, reruns bit-equal, the forward
+     without its workspace giving the same raw, timed in turns beside
+     float32 K-B1 and the plain bf16 versions, and beside the kernels they
+     replaced (from PERF.md);
  17. the bf16 LSA slice on phase 4's scene and teacher:
      compress_model(qp=-20, lsa=True, mlp_config=bf16) tuning through K-B1
      bf16 -> decode -> test render through K-B2 bf16; a 10-step trajectory
@@ -147,7 +151,7 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import bench_train_step, tp_mlp_bench
+from nnc_tpu_torch.tools import bench_train_step, mma_probe, tp_mlp_bench
 from nnc_tpu_torch.train import lsa, presets
 from nnc_tpu_torch.utils import ckpt
 from nnc_tpu_torch.utils.device import require_cuda
@@ -223,14 +227,16 @@ PEAK_BF16 = 989e12   # dense bf16, the bound of every bf16 kernel
 # that, and the three products summed straight into the layer's accumulator
 # (the tensor core cuts where float32 rounds) read 1.4e-5.
 TOL_RAW = 3e-5
-# The kernels that K-B1's tensor-core backward with dW and K-B2 bf16's ray
-# queue replaced, at chip_smoke's shapes (PERF.md's kernel table, chip_smoke
-# on an NVIDIA H100 80GB HBM3 at 700 W): K-B1's SIMT backward with dW at
-# 196,608 points, float32 and bf16; K-B2 bf16 on tiles of four rays, phase
-# 14's 4,096 rays at S = 192 with early termination at 1e-4, and the points
-# those tiles computed
+# The kernels that later designs replaced, at chip_smoke's shapes (PERF.md's
+# kernel table, chip_smoke on an NVIDIA H100 80GB HBM3 at 700 W): K-B1's
+# SIMT backward with dW at 196,608 points, float32 and bf16; K-B2 bf16 on
+# tiles of four rays, phase 14's 4,096 rays at S = 192 with early
+# termination at 1e-4, and the points those tiles computed; K-B1 bf16's
+# forward storing u from the fragments at 196,608 points; K-B4 on __dp4a at
+# 262,144 points
 REPLACED_MS = {"mlp_train_bwd_dw": 32.737, "mlp_train_bwd_dw_bf16": 34.796,
-               "render_pass_bf16": 2.056}
+               "render_pass_bf16": 2.056, "mlp_train_fwd_bf16": 2.574,
+               "mlp_int8_from_points": 4.976}
 REPLACED_POINTS_BF16 = 568_448
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
@@ -903,8 +909,12 @@ def phase_int8(dev, ctx):
     pts, vd, ref = ctx["pts"], ctx["vd"], ctx["raw_plain"]
     n = pts.shape[0]
     wq, scales, biases = mlp_fused.pack_weights_int8(ctx["model"])
+    packed_s8 = mlp_fused.pack_weights_int8_mma(ctx["model"])
+    check(_build.lib().nnc_int8_mma_size() == mlp_fused.INT8_MMA_SIZE,
+          "K-B4's and the int8 packing's buffer sizes differ")
     args = (wq, scales, biases, pts, vd)
-    got = mlp_fused.mlp_int8_from_points(*args)
+    run = lambda: mlp_fused.mlp_int8_from_points(*args, packed_s8=packed_s8)
+    got = run()
     torch.cuda.synchronize()
     want = mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args)
     # The integer sums are exact and the float32 steps are single rounded
@@ -924,20 +934,29 @@ def phase_int8(dev, ctx):
     check(err < limit, f"K-B4 max |draw| {err} against plain, bound {limit}")
     check(0 < err_f32 < limit, f"K-B4 max |draw| {err_f32} against the float "
           f"MLP, bound {limit}")
-    ms = cuda_ms(lambda: mlp_fused.mlp_int8_from_points(*args))
+    check(torch.equal(run(), got), "K-B4 reruns differ")
+    # its products on the tensor cores: IMMA in its SASS, no IDP.4A
+    ops = mma_probe.opcodes(_build.LIB_PATH, "mlp_int8_from_points_kernel")
+    check(ops["IMMA"] > 0 and ops["IDP"] == 0,
+          f"K-B4's SASS: {ops['IMMA']} IMMA, {ops['IDP']} IDP.4A")
+    ms = cuda_ms(run)
     plain_ms = cuda_ms(
         lambda: mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args))
     kb3_ms = cuda_ms(lambda: mlp_fused.mlp_from_points(
         ctx["packed"], pts, vd, ctx["packed_mma"]))
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes(*args, got), 2 * INT8_MACS * n, PEAK_INT8)}
+           **bound(nbytes(packed_s8, pts, vd, got), 2 * INT8_MACS * n,
+                   PEAK_INT8)}
     print(f"[9] K-B4 {n} points, {mlp_fused.INT8_ACT_BLOCK} per activation "
           f"scale: max|draw| {err:.3e} against plain ({share:.2e} of the "
           f"elements beyond 1e-5), {err_f32:.3e} against the float MLP "
-          f"(bound {limit:.3f}); kernel {ms:.3f} ms "
-          f"({2 * INT8_MACS * n / ms / 1e9:.2f} TOP/s), plain "
-          f"{plain_ms:.3f} ms, K-B3 {kb3_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms by {row['bound_by']}")
+          f"(bound {limit:.3f}), reruns bit-equal; SASS {ops['IMMA']} IMMA, "
+          f"0 IDP.4A; kernel {ms:.3f} ms "
+          f"({2 * INT8_MACS * n / ms / 1e9:.2f} TOP/s; the __dp4a kernel it "
+          f"replaced {REPLACED_MS['mlp_int8_from_points']:.3f} ms, PERF.md), "
+          f"plain {plain_ms:.3f} ms, K-B3 {kb3_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms by {row['bound_by']}: "
+          f"{100 * row['bound_ms'] / ms:.1f}% reached")
     return row
 
 
@@ -1026,7 +1045,8 @@ def phase_lowprec_slice(dev, scene, sd, psnr_kb3):
                             seen["mlp_int8_from_points"]):
         rgb8_again, _ = ex8._render_views(fog_c, fog_f, view)
     with swapped(mlp_fused, "mlp_int8_from_points",
-                 mlp_fused.fused_nerf_mlp_int8_from_points_plain):
+                 lambda *args, **kernel_only:
+                 mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args)):
         rgb8_plain, _ = ex8._render_views(fog_c, fog_f, view)
     d_plain = np.abs(rgb8 - rgb8_plain)[0].max(-1).reshape(-1)
     share_plain = float((d_plain > 1e-5).mean())
@@ -1766,10 +1786,14 @@ def phase_train_bf16_kernels(dev):
         raw_2, ws_2 = fwd()
         made = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd,
                                                   save_u=True)
+        unsaved = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd,
+                                                     False, fwd_b, biases)
         check(torch.equal(raw_2, raw) and torch.equal(ws_2, ws)
-              and torch.equal(made[0], raw) and torch.equal(made[1], ws),
-              "K-B1 bf16 forward: reruns, or given and made buffers, differ")
-        del raw_2, ws_2, made
+              and torch.equal(made[0], raw) and torch.equal(made[1], ws)
+              and torch.equal(unsaved[0], raw) and unsaved[1] is None,
+              "K-B1 bf16 forward: reruns, given and made buffers, or the "
+              "forward without the workspace differ")
+        del raw_2, ws_2, made, unsaved
         err = {}
         for with_dw in (False, True):
             bwd = lambda: mlp_train_fused.mlp_train_bwd_bf16(
@@ -1858,7 +1882,7 @@ def phase_train_bf16_kernels(dev):
                           "plain_ms": plain_ms, **bounds[name],
                           "float32_ms": f32_ms}
             b = bounds[name]
-            replaced = f"; the SIMT kernel it replaced " \
+            replaced = f"; the kernel it replaced " \
                 f"{REPLACED_MS[name]:.3f} ms (PERF.md)" \
                 if name in REPLACED_MS else ""
             print(f"[16] {name} {n} points, in turns, ms: kernel "

@@ -138,8 +138,9 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_embedded.restype = ci
         handle.nnc_int8_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         handle.nnc_int8_sizes.restype = ci
-        handle.nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, vp, vp,
-                                                    ci, vp]
+        handle.nnc_int8_mma_size.argtypes = []
+        handle.nnc_int8_mma_size.restype = ci
+        handle.nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
         handle.nnc_mlp_int8_from_points.restype = ci
         handle.nnc_render_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, cf,
                                            vp, vp, ci, ci, vp]

@@ -37,15 +37,23 @@
 //    (128), the 37 slabs of the forward stream through PipeT's cp.async
 //    ring, A by ldmatrix, mma.sync m16n8k16 bf16 into float32 accumulators
 //    that start at zero (the inference chain starts them at the bias: it
-//    folds the scale into the weight, training keeps u apart for dls). The
-//    epilogue writes u from the fragments to the workspace (8-byte stores,
-//    evict-first: a warp's store fills whole 32-byte sectors, and the bf16
-//    activation buffer has no room to stage 128 rows of float32; scalar
-//    stores at the view layer's odd column offset 2,305) and
-//    bf16(act(fmaf(u, ls, b))) to the activation buffer. The heads stay on
-//    the SIMT cores, as in K-B3 bf16, and save their u too. The workspace
-//    has rows for whole 128-point tiles (mlp_train_fused.TILE_BF16); rows
-//    past n hold the u of zero points.
+//    folds the scale into the weight, training keeps u apart for dls). u
+//    leaves off the product path: right after its products each warp
+//    stages its 32 columns of u one m-tile (2 KB) at a time in two buffers
+//    of its own (32 KB for the CTA, in the ~34 KB the chain leaves free)
+//    and hands each to the tensor memory accelerator as one 2-D bulk store
+//    (stage_u), then meets the other warps at the barrier and writes
+//    bf16(act(fmaf(u, ls, b))) to the activation buffer; the stores drain
+//    while the next layer's products run. Before, u went from the
+//    fragments to the workspace as 8-byte stores between the two barriers
+//    of the epilogue: 65% of a tile's clocks, with the tensor cores idle
+//    (2.58 ms against 0.71 ms without the workspace, NVIDIA H100 80GB
+//    HBM3, 700 W; nnc_tpu_torch/tools/mma_probe.py section 7). The view
+//    layer's columns start at the odd offset 2,305, which a bulk copy
+//    cannot address, so its u and the heads' stay scalar stores. The heads
+//    stay on the SIMT cores, as in K-B3 bf16. The workspace has rows for
+//    whole 128-point tiles (mlp_train_fused.TILE_BF16); rows past n hold the
+//    u of zero points.
 //  - Backward without dW (bwd_layer, grad_epilogue): tiles of 64 points
 //    (MT = 4), so that a layer's 64 accumulators and the 64 values of u its
 //    epilogue loads fit a thread's registers as in the float32 backward. The
@@ -61,6 +69,8 @@
 //  - dls / db: as in mlp_train.cu, one persistent CTA per SM keeps its sums
 //    in shared memory, one thread a column, and a second kernel sums the
 //    CTAs' rows in a fixed order: reruns are bit-equal.
+#include <cuda.h>   // CUtensorMap and its enums (no libcuda is linked)
+
 #include "mlp_train.cuh"
 #include "nerf_mlp_bf16.cuh"
 
@@ -76,18 +86,109 @@ static_assert(16 * kBwdMT == kM, "the backward walks tiles of kM points");
 
 // ------------------------------------------------------------- forward
 
+// u's way to the workspace in the 256-wide layers: each warp stages one
+// m-tile of its 32 columns (16 rows x 128 bytes, 2 KB) at a time in one of
+// two buffers of its own, and its lane 0 hands the chunk to the tensor
+// memory accelerator as one 2-D bulk store (the workspace as a tensor map
+// of kU float32 columns, boxes of 32 x 16), then goes on. Before a buffer
+// is written again, lane 0 waits until the store two chunks back has read
+// it (wait_group.read 1), so at most two chunks a warp are in flight and
+// the stores drain while the warps run their next products.
+struct UStore {
+  float* stage;   // this warp's two buffers, 2 x 16 x 32 floats
+  int row0;       // the tile's first workspace row
+};
+constexpr int kStageFloats = 16 * 32;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// col, row: the box's first workspace column and row
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const float* src, int col,
+                                          int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2}], [%3];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_u32(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This warp's u of a 256-wide layer (acc: its 32 columns of the tile's
+// 16 MT rows, the mma fragments) to the workspace's columns col.. by the
+// staging buffers. A fragment holds two columns of a row; lanes t and
+// t ^ 1 swap half of theirs (one shuffle a value), so that each lane holds
+// two whole 16-byte pieces of a row: lane t keeps n-tiles 2 (t & 1) and
+// 2 (t & 1) + 1, the pieces 4 (t & 1) + 2 k + (t >> 1) of the row's eight.
+// Rows g and g + 8 store them in opposite orders, so that every quarter
+// warp's eight 16-byte stores hit eight distinct bank groups.
+template <int MT>
+__device__ __forceinline__ void stage_u(const float (&acc)[MT][4][4],
+                                        const UStore& us,
+                                        const CUtensorMap* map, int col) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const bool odd = lane & 1;
+  const int h = (lane >> 1) & 1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#ifndef NNC_PROBE_U_NO_WAIT   // (mma_probe.py: what the waits cost; u wrong)
+    if (lane == 0) bulk_wait_read1();
+#endif
+    __syncwarp();
+    float* buf = us.stage + (mt & 1) * kStageFloats;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float4 v[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float k0 = odd ? acc[mt][2 + k][2 * hf] : acc[mt][k][2 * hf];
+        const float k1 =
+            odd ? acc[mt][2 + k][2 * hf + 1] : acc[mt][k][2 * hf + 1];
+        const float g0 = odd ? acc[mt][k][2 * hf] : acc[mt][2 + k][2 * hf];
+        const float g1 =
+            odd ? acc[mt][k][2 * hf + 1] : acc[mt][2 + k][2 * hf + 1];
+        const float r0 = __shfl_xor_sync(0xffffffffu, g0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, g1, 1);
+        v[k] = odd ? make_float4(r0, r1, k0, k1) : make_float4(k0, k1, r0, r1);
+      }
+      float* row = buf + (g + 8 * hf) * 32 + 4 * (4 * odd + h);
+      const bool swap = g & 1;
+      *reinterpret_cast<float4*>(row + 8 * swap) = swap ? v[1] : v[0];
+      *reinterpret_cast<float4*>(row + 8 * !swap) = swap ? v[0] : v[1];
+    }
+    // the generic proxy's stores, visible to the bulk copy's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) tma_store(map, buf, col, us.row0 + 16 * mt);
+  }
+}
+
 // out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u = x1 @ w (+ x2 @ w2)
 // for the tile's 16 MT points, the unscaled weights from the pipe; u goes
-// to U (the tile's first workspace row at the layer's columns, row stride
-// kU) when SAVE. U2: the layer's workspace columns start at an even offset,
-// so a fragment's two columns are one 8-byte store. out may be x1 or x2.
-// Ends with a barrier.
-template <int MT, int NT, bool RELU, bool SAVE, bool U2>
+// to the workspace when SAVE: with TMA (NT = 4, the layer's columns start
+// at ucol, 16-byte aligned) by stage_u before the barrier, so that this
+// warp's stores are under way while the other warps finish their products;
+// else (the view layer, whose columns start at the odd offset 2,305) from
+// the fragments to U (the tile's first workspace row at the layer's
+// columns, row stride kU), one float a store. out may be x1 or x2. Ends
+// with a barrier.
+template <int MT, int NT, bool RELU, bool SAVE, bool TMA>
 __device__ __forceinline__ void train_layer(
     b16::Pipe& pipe, __nv_bfloat16* out, const __nv_bfloat16* x1, int ld1,
     int K1, const __nv_bfloat16* x2, int ld2, int K2,
     const float* __restrict__ ls, const float* __restrict__ b,
+    const UStore& us, const CUtensorMap* map, int ucol,
     float* __restrict__ U) {
+  static_assert(!TMA || NT == 4, "TMA stores take 32 columns a warp");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -102,6 +203,10 @@ __device__ __forceinline__ void train_layer(
   b16::mma_run<MT, NT>(pipe, acc, x1, ld1, K1);
   if (K2 > 0) b16::mma_run<MT, NT>(pipe, acc, x2, ld2, K2);
   NNC_PROF(2);
+  if constexpr (SAVE && TMA) {
+    stage_u<MT>(acc, us, map, ucol + 32 * warp);
+    NNC_PROF(4);
+  }
   __syncthreads();
   NNC_PROF(3);
 #pragma unroll
@@ -111,18 +216,12 @@ __device__ __forceinline__ void train_layer(
     const float b0 = __ldg(b + c), b1 = __ldg(b + c + 1);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      if (SAVE) {
+      if constexpr (SAVE && !TMA) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float* w = U + static_cast<size_t>(mt * 16 + g + 8 * half) * kU + c;
-          if (U2) {
-            __stcs(reinterpret_cast<float2*>(w),
-                   make_float2(acc[mt][nt][2 * half],
-                               acc[mt][nt][2 * half + 1]));
-          } else {
-            __stcs(w, acc[mt][nt][2 * half]);
-            __stcs(w + 1, acc[mt][nt][2 * half + 1]);
-          }
+          __stcs(w, acc[mt][nt][2 * half]);
+          __stcs(w + 1, acc[mt][nt][2 * half + 1]);
         }
       }
       float v[4];
@@ -154,6 +253,8 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
                                                const float* __restrict__ FW,
                                                const float* __restrict__ LS,
                                                const float* __restrict__ BI,
+                                               const UStore& us,
+                                               const CUtensorMap* map,
                                                float* __restrict__ U) {
   constexpr int kLdA = b16::kLdA;
   constexpr int kPerWarp = 2 * MT;   // points a warp takes in the heads
@@ -165,21 +266,21 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
   __syncthreads();
   NNC_PROF(1);
   train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
-                                       nullptr, 0, 0, LS, BI, U);
+                                       nullptr, 0, 0, LS, BI, us, map, 0, U);
 #pragma unroll 1
   for (int i = 1; i <= 4; ++i)
     train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
-                                         LS + i * kW, BI + i * kW,
-                                         U + i * kW);
+                                         LS + i * kW, BI + i * kW, us, map,
+                                         i * kW, U);
   // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
   train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
                                        A, kLdA, kW, LS + 5 * kW,
-                                       BI + 5 * kW, U + 5 * kW);
+                                       BI + 5 * kW, us, map, 5 * kW, U);
 #pragma unroll 1
   for (int i = 6; i <= 7; ++i)
     train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
-                                         LS + i * kW, BI + i * kW,
-                                         U + i * kW);
+                                         LS + i * kW, BI + i * kW, us, map,
+                                         i * kW, U);
 
   // alpha head (256 -> 1) on h = A: warp w takes points 2 MT w ..
   {
@@ -207,11 +308,11 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
   // feature (no activation) on h = A, in place
   train_layer<MT, 4, false, SAVE, true>(
       pipe, A, A, kLdA, kW, nullptr, 0, 0, LS + u_offset(kLayerFeature),
-      BI + u_offset(kLayerFeature), U + u_offset(kLayerFeature));
+      BI + u_offset(kLayerFeature), us, map, u_offset(kLayerFeature), U);
   // views: relu(ls * ([feature, view emb] @ wv) + bv) -> A cols 0..127
   train_layer<MT, 2, true, SAVE, false>(
       pipe, A, A, kLdA, kW, E + b16::kPtsPad, b16::kLdE, b16::kViewsPad,
-      LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
+      LS + u_offset(kLayerViews), BI + u_offset(kLayerViews), us, map, 0,
       U + u_offset(kLayerViews));
   // rgb head (128 -> 3)
   {
@@ -255,8 +356,11 @@ struct FwdSmem {
   b16::MlpSmem<MT> mlp;
   float xs[16 * MT * 3];
   float ds[16 * MT * 3];
+  alignas(128) float stage[kThreads / 32][2 * kStageFloats];   // UStore's
 };
 
+// ws_map: the workspace (rows of kU float32) as a tensor map with boxes of
+// 32 columns x 16 rows, when SAVE.
 template <int MT, bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
@@ -265,15 +369,32 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
                           const float* __restrict__ pts,
                           const float* __restrict__ dirs,
                           float* __restrict__ out, float* __restrict__ ws,
+                          const __grid_constant__ CUtensorMap ws_map,
                           int n, int tiles) {
   constexpr int kPoints = 16 * MT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  FwdSmem<MT>& s = *reinterpret_cast<FwdSmem<MT>*>(smem_raw);
+  // (the TMA stores read their staging buffers at 128-byte aligned
+  // addresses)
+  extern __shared__ __align__(128) unsigned char fwd_smem_raw[];
+  FwdSmem<MT>& s = *reinterpret_cast<FwdSmem<MT>*>(fwd_smem_raw);
   const int tid = threadIdx.x;
   mma::prof_begin();
   b16::Pipe pipe;
   pipe.start(FW, s.mlp.ring);
   b16::zero_embedding_pad<MT>(s.mlp.emb);
+  UStore us{s.stage[tid >> 5], 0};
+#ifdef NNC_FWD_STAGGER_NS
+  // (an experiment of nnc_tpu_torch/tools/mma_probe.py: CTAs start
+  // NNC_FWD_STAGGER_NS apart in eight groups, so that their epilogues'
+  // stores do not all fall in one window)
+  if (SAVE) {
+    uint64_t t0, t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+    do {
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    } while (t - t0 < static_cast<uint64_t>(blockIdx.x & 7) *
+                          NNC_FWD_STAGGER_NS);
+  }
+#endif
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long base = static_cast<long long>(tile) * kPoints;
     for (int i = tid; i < kPoints * 3; i += kThreads) {
@@ -284,7 +405,8 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
     __syncthreads();
     NNC_PROF(0);
     b16::embed_tile<MT>(s.mlp.emb, s.xs, s.ds);
-    mlp_tile_train<MT, SAVE>(s.mlp, pipe, FW, LS, BI,
+    us.row0 = static_cast<int>(base);
+    mlp_tile_train<MT, SAVE>(s.mlp, pipe, FW, LS, BI, us, &ws_map,
                              SAVE ? ws + static_cast<size_t>(base) * kU
                                   : nullptr);
     for (int i = tid; i < kPoints * 4; i += kThreads)
@@ -292,6 +414,8 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
     NNC_PROF(8);
   }
   pipe.drain();
+  // the last chunks' stores done before the CTA's shared memory goes
+  if (SAVE && (tid & 31) == 0) bulk_wait_all();
   mma::prof_end();
 }
 
@@ -603,6 +727,31 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
   mma::prof_end();
 }
 
+// The driver's cuTensorMapEncodeTiled, found through the runtime (the
+// library links no libcuda), or null.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The error code returned when the tensor map cannot be made (outside
+// cudaError_t's values).
+constexpr int kTensorMapError = 10001;
+
 template <bool SAVE>
 int launch_fwd(const float* fw, const float* ls, const float* bi,
                const float* pts, const float* dirs, float* out, float* ws,
@@ -620,9 +769,24 @@ int launch_fwd(const float* fw, const float* ls, const float* bi,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const int tiles = (n + kPoints - 1) / kPoints;
+    CUtensorMap map{};
+    if (SAVE) {
+      const EncodeTiled encode = encode_tiled();
+      if (encode == nullptr) return kTensorMapError;
+      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kU),
+                                  static_cast<cuuint64_t>(tiles) * kPoints};
+      const cuuint64_t strides[1] = {kU * sizeof(float)};
+      const cuuint32_t box[2] = {32, 16};
+      const cuuint32_t steps[2] = {1, 1};
+      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims, strides,
+                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return kTensorMapError;
+    }
     mlp_train_fwd_bf16_kernel<kFwdMT, SAVE>
         <<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
-            fw, ls, bi, pts, dirs, out, ws, n, tiles);
+            fw, ls, bi, pts, dirs, out, ws, map, n, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -638,6 +802,15 @@ extern "C" int nnc_train_bf16_sizes(int* fwd_tile, int* fwd_size,
   *bwd_size = kBwdParamsSize;
   return 0;
 }
+
+#ifdef NNC_MMA_PROFILE
+// Reads the clock sums of the launches so far into out[kProfSlots] and
+// zeroes them (nerf_mlp_mma.cuh, NNC_PROF), for
+// nnc_tpu_torch/tools/mma_probe.py.
+extern "C" int nnc_train_bf16_profile(unsigned long long* out) {
+  return mma::read_profile(out);
+}
+#endif
 
 // fw: the forward half of pack_train_bf16, 16-byte aligned; ls, bi: scales
 // and biases (2,436 each, float32); pts, dirs: (n, 3); out: (n, 4) [rgb

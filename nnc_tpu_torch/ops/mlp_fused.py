@@ -18,11 +18,12 @@ products on the tensor cores as three TF32 products each
 ``mma.sync`` fragments want them, :func:`pack_weights_mma` /
 :func:`repack_mma`; :func:`tf32_round`, :func:`matmul_3xtf32_plain` and
 :func:`mlp_3xtf32_plain` model that arithmetic in plain PyTorch. The int8
-kernel (``csrc/mlp_int8_from_points.cu``) reads the three buffers of
-:func:`pack_weights_int8`. The plain versions read :func:`pack_weights`'
-and :func:`pack_weights_int8`'s buffers, and :func:`unpack_weights_mma`
-reads the fragment order back, so the CPU tests check the layouts the
-kernels read. A model with ``config.compute_dtype == torch.bfloat16`` takes
+kernel (``csrc/mlp_int8_from_points.cu``: ``mma.sync`` s8 products)
+reads :func:`pack_weights_int8`'s values in fragment order,
+:func:`pack_weights_int8_mma` / :func:`repack_int8_mma`. The plain versions
+read :func:`pack_weights`' and :func:`pack_weights_int8`'s buffers, and
+:func:`unpack_weights_mma` / :func:`unpack_weights_int8_mma` read the
+fragment orders back, so the CPU tests check the layouts the kernels read. A model with ``config.compute_dtype == torch.bfloat16`` takes
 the bf16 variant of K-B3 (``csrc/mlp_from_points_bf16.cu`` on
 ``csrc/nerf_mlp_bf16.cuh``: ``mma.sync`` bf16 products, float32 sums), which
 reads :func:`pack_weights_bf16`'s buffer; its plain version is
@@ -544,6 +545,131 @@ def unpack_weights_int8(wq, scales, biases):
     return blocks, rows_b
 
 
+# --- K-B4 on the tensor cores: its fragment order -----------------------------
+# csrc/mlp_int8_from_points.cu: mma.sync m16n8k32 on s8 operands, the bf16
+# chain's ownership (eight warps, 8 * NT output channels each) with a k step
+# of 32 channels: a 32-bit word holds four int8 weights of consecutive rows
+# of one column, the lowest row in the low byte. Lane 4 g + t of warp w
+# reads, for k step ks and n-tile nt, b0 = W[32 ks + 4 t .. + 3, col] and
+# b1 = W[32 ks + 16 + 4 t .. + 3, col] at col = 8 NT w + 8 nt + g. The
+# buffer is int32: the slabs (8,192 words, 32 KB; 4 k steps of a 256-wide
+# block, 8 of the 128-wide ones) in the order [slab][warp][k step][n-tile
+# pair][lane][nt % 2][r] words; then the heads' weights one int32 each
+# (alpha's 256; rgb's (128, 4), the fourth column zero); then
+# pack_weights_int8's scales and biases as float32 bit patterns.
+# (block, rows padded to whole k steps) in the order the kernel streams
+# them: the skip's and the view layer's large product before their small one
+INT8_MMA_RUNS = (("w0", 64), ("w1", 256), ("w2", 256), ("w3", 256),
+                 ("w4", 256), ("w5b", 256), ("w5a", 64), ("w6", 256),
+                 ("w7", 256), ("wf", 256), ("wva", 256), ("wvb", 32))
+INT8_MMA_SLABS = 20
+_INT8_BLOCK_AT = {}   # key -> (first byte in wq, rows, out)
+_off = 0
+for _key, _name, _row0, _rows, _out in INT8_BLOCKS:
+    _INT8_BLOCK_AT[_key] = (_off, _rows, _out)
+    _off += -(-_rows // 4) * 4 * _out
+del _key, _name, _row0, _rows, _out, _off
+
+
+def _int8_byte(key, row, col):
+    """Where pack_weights_int8's wq holds block ``key``'s weight (row, col):
+    blocks laid out as (rows / 4, out, 4)."""
+    off, _rows, out = _INT8_BLOCK_AT[key]
+    return off + 4 * ((row // 4) * out + col) + row % 4
+
+
+def fragment_index_k32(key, padded):
+    """For block ``key`` of pack_weights_int8 (``padded`` rows: its depth
+    in whole k steps of 32), the index into wq of every byte of its run of
+    slabs, in the order [slab][warp][k step of the slab][n-tile pair][lane]
+    [nt % 2][r][j], byte j of word r being row 32 ks + 4 t + 16 r + j;
+    INT8_WQ_SIZE for zero padding (rows past the block's and the rest of
+    the run's last slab)."""
+    _off, rows, n_out = _INT8_BLOCK_AT[key]
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    nt_n = n_out // 64
+    per_slab = 16 // nt_n             # k steps in a slab
+    ks = np.arange(-(-padded // (32 * per_slab)) * per_slab)
+    ax = lambda a, i: np.asarray(a).reshape([-1 if k == i else 1
+                                            for k in range(7)])
+    # [ks][warp][q][lane][nt2][r][j]
+    row = ax(32 * ks, 0) + ax(4 * t, 3) + ax(16 * np.arange(2), 5) \
+        + ax(np.arange(4), 6)
+    col = ax(8 * nt_n * np.arange(8), 1) + ax(16 * np.arange(nt_n // 2), 2) \
+        + ax(8 * np.arange(2), 4) + ax(g, 3)
+    row, col = np.broadcast_arrays(row, col)
+    idx = np.where(row < rows, _int8_byte(key, np.minimum(row, rows - 1), col),
+                   INT8_WQ_SIZE)
+    # -> [slab][warp][k step of the slab][q][lane][nt2][r][j]
+    return idx.reshape(-1, per_slab, 8, nt_n // 2, 32, 2, 2, 4) \
+        .transpose(0, 2, 1, 3, 4, 5, 6, 7).reshape(-1)
+
+
+INT8_MMA_INDEX = np.concatenate(
+    [fragment_index_k32(key, padded) for key, padded in INT8_MMA_RUNS]
+).astype(np.int64)
+assert INT8_MMA_INDEX.size == INT8_MMA_SLABS * 4 * MMA_SLAB
+# the heads' int8 weights, one int32 each: alpha (256,), rgb (128, 4)
+INT8_MMA_HEADS = np.concatenate([
+    _int8_byte("wa", np.arange(256), 0),
+    np.where(np.arange(4)[None, :] < 3,
+             _int8_byte("wr", np.arange(128)[:, None],
+                        np.minimum(np.arange(4), 2)[None, :]),
+             INT8_WQ_SIZE).reshape(-1)]).astype(np.int64)
+_INT8_MMA_USED = INT8_MMA_INDEX.size // 4 + INT8_MMA_HEADS.size \
+    + INT8_SCALES_SIZE + INT8_BIASES_SIZE
+INT8_MMA_SIZE = -(-_INT8_MMA_USED // _SEG) * _SEG
+_int8_mma_index_on = {}   # device -> (INT8_MMA_INDEX, INT8_MMA_HEADS) there
+
+
+def _int8_mma_indices(device):
+    index = _int8_mma_index_on.get(device)
+    if index is None:
+        index = _int8_mma_index_on[device] = tuple(
+            torch.from_numpy(i).to(device)
+            for i in (INT8_MMA_INDEX, INT8_MMA_HEADS))
+    return index
+
+
+def repack_int8_mma(wq, scales, biases) -> torch.Tensor:
+    """The three buffers of :func:`pack_weights_int8` as K-B4 reads them:
+    one int32 (INT8_MMA_SIZE,) buffer, the weights in the fragment order of
+    ``mma.sync`` m16n8k32 (one gather), the heads' weights widened to int32,
+    the scales and biases as their float32 bits."""
+    unpack_weights_int8(wq, scales, biases)   # checks the three buffers
+    slab_index, head_index = _int8_mma_indices(wq.device)
+    src = torch.cat([wq, wq.new_zeros(1)])
+    tail = [src[head_index].int(), scales.view(torch.int32),
+            biases.view(torch.int32)]
+    tail.append(tail[0].new_zeros(INT8_MMA_SIZE - _INT8_MMA_USED))
+    return torch.cat([src[slab_index].view(torch.int32), *tail])
+
+
+def unpack_weights_int8_mma(packed: torch.Tensor):
+    """``(wq, scales, biases)`` of :func:`pack_weights_int8` read back from a
+    buffer of :func:`repack_int8_mma`."""
+    _check("packed_s8", packed, (INT8_MMA_SIZE,), torch.int32)
+    slab_index, head_index = _int8_mma_indices(packed.device)
+    n_slab = INT8_MMA_INDEX.size // 4
+    wq = torch.zeros(INT8_WQ_SIZE + 1, dtype=torch.int8, device=packed.device)
+    wq[slab_index] = packed[:n_slab].view(torch.int8)
+    heads = packed[n_slab:n_slab + head_index.numel()]
+    wq[head_index] = heads.to(torch.int8)
+    rest = packed[n_slab + head_index.numel():]
+    return (wq[:INT8_WQ_SIZE],
+            rest[:INT8_SCALES_SIZE].view(torch.float32).clone(),
+            rest[INT8_SCALES_SIZE:INT8_SCALES_SIZE + INT8_BIASES_SIZE]
+            .view(torch.float32).clone())
+
+
+def pack_weights_int8_mma(model: nerf.NeRF) -> torch.Tensor:
+    """The flagship model's int8 weights as K-B4 reads them:
+    :func:`repack_int8_mma` of the model's cached :func:`pack_weights_int8`
+    buffers."""
+    return repack_int8_mma(*PACKS.get(model, "int8", pack_weights_int8))
+
+
 def _div(a, b):
     """a / b as one correctly rounded float32 division, whichever of the two
     is the scalar. (``tensor / scalar`` may multiply by the scalar's
@@ -753,17 +879,29 @@ def mlp_from_points_bf16(packed_bf16, pts, dirs):
                 {"pts": (pts, 3), "dirs": (dirs, 3)})
 
 
-def mlp_int8_from_points(wq, scales, biases, pts, dirs):
+def mlp_int8_from_points(wq, scales, biases, pts, dirs, packed_s8=None):
     """K-B4 wrapper: raw (N, 4) for points and view directions (N, 3), the
     weights as :func:`pack_weights_int8` gives them; activations quantized
     per :data:`INT8_ACT_BLOCK` points.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which reads ``packed_s8``
+    (:func:`repack_int8_mma` of the three buffers, made here if not given);
+    CPU tensors take the plain version."""
     _check("wq", wq, (INT8_WQ_SIZE,), torch.int8)
     _check("scales", scales, (INT8_SCALES_SIZE,))
     _check("biases", biases, (INT8_BIASES_SIZE,))
+    kernel_weights = None
+    if wq.is_cuda:
+        if packed_s8 is None:
+            packed_s8 = repack_int8_mma(wq, scales, biases)
+        _check("packed_s8", packed_s8, (INT8_MMA_SIZE,), torch.int32)
+        if packed_s8.device != wq.device or packed_s8.data_ptr() % 16:
+            raise ValueError("packed_s8 must lie on wq's device, 16-byte "
+                             "aligned")
+        kernel_weights = (packed_s8,)
     return _run("mlp_int8_from_points", fused_nerf_mlp_int8_from_points_plain,
-                (wq, scales, biases), {"pts": (pts, 3), "dirs": (dirs, 3)})
+                (wq, scales, biases), {"pts": (pts, 3), "dirs": (dirs, 3)},
+                kernel_weights=kernel_weights)
 
 
 def mlp_embedded(packed, pts_emb, views_emb):
@@ -818,9 +956,12 @@ def fused_nerf_mlp_int8_from_points(model: nerf.NeRF, pts, viewdirs):
         return nerf.apply_mlp(model, positional_encoding(pts, 10),
                               positional_encoding(vd, 4))
     lead = pts.shape[:-1]
+    packed_s8 = PACKS.get(model, "int8_mma", pack_weights_int8_mma) \
+        if pts.is_cuda else None
     raw = mlp_int8_from_points(*PACKS.get(model, "int8", pack_weights_int8),
                                pts.reshape(-1, 3).float().contiguous(),
-                               vd.reshape(-1, 3).float().contiguous())
+                               vd.reshape(-1, 3).float().contiguous(),
+                               packed_s8=packed_s8)
     return raw.reshape(*lead, 4)
 
 

@@ -31,11 +31,21 @@ Prints, after the card's name and power limit:
      points (``NNC_BF16_MT=8``, shipped) and of 64 (``-DNNC_BF16_MT=4``;
      the outputs must be bit-equal), each also with clock marks: the two
      times in turns beside the float32 kernel's, the weight bytes a point
-     reads from L2, and the share of a tile's clocks in each part.
-Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
+     reads from L2, and the share of a tile's clocks in each part;
+  6. the int8 path: the rate at which a sub-partition issues
+     ``mma.sync.m16n8k32 .s8`` (as in 1, in TOP/s), and the SASS opcode
+     counts of K-B4 (``mlp_int8_from_points.cu``) as shipped;
+  7. K-B1's forward in bf16 (``mlp_train_bf16.cu``) at 196,608 points: its
+     time as shipped in turns with its time without the workspace of u
+     (``ws`` null, which launches the build without stores of u), the
+     backward without dW on that workspace, and, built with clock marks,
+     the share of a tile's clocks in each part of the forward.
+``--sections 6,7`` runs only those sections (and builds only what they
+need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import os
@@ -61,6 +71,17 @@ TRAIN_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
                    "epilogue: u staged, workspace rows, activations",
                    "barrier after the stores", "alpha head",
                    "rgb head and barrier", "store the logits")
+TRAIN_BF16_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
+                        "barrier after the products",
+                        "epilogue: u to the workspace, activations",
+                        "barrier after the stores", "alpha head",
+                        "rgb head and barrier", "store the logits")
+INT8_SLOTS = ("stage the points in", "embedding and its quantization",
+              "waiting for the group's turn", "product loops",
+              "epilogue: float values, block maximum",
+              "the group's barrier for the maximum",
+              "quantize, store, heads", "the group's barrier after the stores",
+              "the logits, end of the tile")
 TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
                    "product loops (and the alpha term)",
                    "barrier after the products",
@@ -120,9 +141,38 @@ __global__ void issue_rate_bf16(float* out, long long* clk, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
   if (threadIdx.x == 0) clk[blockIdx.x] = t1 - t0;
 }
+template <int NACC>
+__global__ void issue_rate_s8(float* out, long long* clk, int iters) {
+  uint32_t a[4], b[2];
+  for (int j = 0; j < 4; ++j) a[j] = 0x01020304u * (threadIdx.x + j + 1);
+  for (int j = 0; j < 2; ++j) b[j] = 0x04030201u * (threadIdx.x + j + 1);
+  int c[NACC][4] = {};
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(c[i][0]), "+r"(c[i][1]), "+r"(c[i][2]), "+r"(c[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  int s = 0;
+  for (int i = 0; i < NACC; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = static_cast<float>(s);
+  if (threadIdx.x == 0) clk[blockIdx.x] = t1 - t0;
+}
+// kind: 0 TF32 m16n8k8, 1 bf16 m16n8k16, 2 s8 m16n8k32
 extern "C" int nnc_issue_rate(int nacc, int threads, int blocks, int iters,
-                              float* out, long long* clk, int bf16) {
-  if (bf16) {
+                              float* out, long long* clk, int kind) {
+  if (kind == 2) {
+    if (nacc == 8) issue_rate_s8<8><<<blocks, threads>>>(out, clk, iters);
+    else if (nacc == 16) issue_rate_s8<16><<<blocks, threads>>>(out, clk, iters);
+    else issue_rate_s8<32><<<blocks, threads>>>(out, clk, iters);
+  } else if (kind == 1) {
     if (nacc == 8) issue_rate_bf16<8><<<blocks, threads>>>(out, clk, iters);
     else if (nacc == 16) issue_rate_bf16<16><<<blocks, threads>>>(out, clk, iters);
     else issue_rate_bf16<32><<<blocks, threads>>>(out, clk, iters);
@@ -157,10 +207,16 @@ def _ms(fn, iters=10, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def issue_rate(lib, dev, bf16=False):
-    """Section 1 (TF32 m16n8k8) or, with ``bf16``, the first part of section
-    5 (bf16 m16n8k16, twice the depth a product)."""
-    section, what, depth = (5, "BF16", 16) if bf16 else (1, "TF32", 8)
+ISSUE_KINDS = {"tf32": (0, 1, "TF32 TFLOP/s", 8),
+               "bf16": (1, 5, "BF16 TFLOP/s", 16),
+               "s8": (2, 6, "int8 TOP/s", 32)}
+
+
+def issue_rate(lib, dev, kind="tf32"):
+    """Section 1 (TF32 m16n8k8), the first part of section 5 (bf16
+    m16n8k16, twice the depth a product) or of section 6 (s8 m16n8k32, four
+    times the depth)."""
+    code, section, what, depth = ISSUE_KINDS[kind]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(sms * 512, device=dev)
     clk = torch.zeros(sms, dtype=torch.int64, device=dev)
@@ -170,7 +226,7 @@ def issue_rate(lib, dev, bf16=False):
             if nacc * warps > 256:    # more registers than an SM has
                 continue
             args = (nacc, 32 * warps, sms, iters, out.data_ptr(),
-                    clk.data_ptr(), int(bf16))
+                    clk.data_ptr(), code)
             assert lib.nnc_issue_rate(*args) == 0
             ms = _ms(lambda: lib.nnc_issue_rate(*args), iters=3, warmup=1)
             per_part = iters * nacc * warps / 4
@@ -178,7 +234,7 @@ def issue_rate(lib, dev, bf16=False):
             print(f"[{section}] {warps // 4} warps a sub-partition, {nacc} "
                   f"accumulators a warp: {clk.double().mean().item() / per_part:.2f} "
                   f"clocks per mma.sync a sub-partition, "
-                  f"{flop / ms / 1e9:.1f} {what} TFLOP/s over the card")
+                  f"{flop / ms / 1e9:.1f} {what} over the card")
 
 
 def chain(libs, dev):
@@ -304,6 +360,86 @@ def train_pair(libs, dev):
                  "backward without dW")
 
 
+def train_bf16_fwd(libs, dev):
+    """Section 7: K-B1's bf16 forward as shipped, without its workspace, and
+    with clock marks; the backward without dW beside it."""
+    g = torch.Generator().manual_seed(4)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    t = mlp_train_fused._layer_tensors(model)
+    params, _params_t, ls = mlp_train_fused.pack_train(t[0::3], t[1::3],
+                                                       t[2::3])
+    fw, bw = mlp_train_fused.pack_train_bf16(t[0::3])
+    bi = mlp_train_fused.gather_biases(params)
+    n = N_TRAIN
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+    tile = mlp_train_fused.TILE_BF16
+    ws = torch.empty(-(-n // tile) * tile, mlp_train_fused.U_SIZE, device=dev)
+    raws = {k: torch.empty(n, 4, device=dev) for k in ("ws", "no_ws", "prof")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(-(-n // mlp_train_fused.TILE), sms)
+    partials = torch.empty(grid, mlp_train_fused.grad_size(False), device=dev)
+    flat = torch.empty(mlp_train_fused.grad_size(False), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fwd(lib, raw, save=True):
+        rc = lib.nnc_mlp_train_fwd_bf16(
+            fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
+            vd.data_ptr(), raw.data_ptr(), ws.data_ptr() if save else None, n,
+            stream)
+        assert rc == 0, rc
+
+    def bwd():
+        rc = libs["train_bf16"].nnc_mlp_train_bwd_bf16(
+            bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
+            ws.data_ptr(), None, partials.data_ptr(), flat.data_ptr(), n, grid,
+            stream)
+        assert rc == 0, rc
+
+    shipped = libs["train_bf16"]
+    runs = {"with the workspace (shipped)": lambda: fwd(shipped, raws["ws"]),
+            "without it": lambda: fwd(shipped, raws["no_ws"], save=False)}
+    # builds with their CTAs' starts staggered (NNC_FWD_STAGGER_NS), each
+    # with a workspace of its own, held bit-equal to the shipped one
+    extra = {k: v for k, v in libs.items() if k.startswith("train_bf16_stag")}
+    wss = {k: torch.empty_like(ws) for k in extra}
+    for k, lib in extra.items():
+        raws[k] = torch.empty(n, 4, device=dev)
+        runs[k] = lambda lib=lib, k=k: lib.nnc_mlp_train_fwd_bf16(
+            fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
+            vd.data_ptr(), raws[k].data_ptr(), wss[k].data_ptr(), n, stream)
+    times = [{k: _ms(fn) for k, fn in runs.items()} for _ in range(2)]
+    assert torch.equal(raws["ws"], raws["no_ws"]), \
+        "the forward's raw depends on whether it saves u"
+    for k in extra:
+        print(f"[7] {k}: raw equal {torch.equal(raws[k], raws['ws'])}, "
+              f"workspace equal {torch.equal(wss[k], ws)}")
+    del wss
+    t_bwd = [_ms(bwd) for _ in range(2)]
+    print(f"[7] K-B1 bf16 forward {n} points in turns, ms: "
+          + "; ".join(f"{k} {[f'{x[k]:.3f}' for x in times]}" for k in runs)
+          + f" (raw bit-equal); the backward without dW on its workspace "
+          f"{[f'{x:.3f}' for x in t_bwd]}")
+    prof = libs["train_bf16_profile"]
+    sums = (ctypes.c_ulonglong * len(TRAIN_BF16_FWD_SLOTS))()
+    for _ in range(2):   # the first is a warm-up, discarded
+        fwd(prof, raws["prof"])
+        torch.cuda.synchronize()
+        assert prof.nnc_train_bf16_profile(sums) == 0
+    assert torch.equal(raws["prof"], raws["ws"]), \
+        "the build with clock marks computes another raw"
+    tiles = -(-n // tile)
+    total = sum(sums)
+    print(f"[7] clocks of a forward tile of {tile} points by thread 0's "
+          f"marks, {total / tiles:.0f} in all:")
+    for slot, what in enumerate(TRAIN_BF16_FWD_SLOTS):
+        print(f"      {what:48s} {sums[slot] / tiles:9.0f}  "
+              f"{100 * sums[slot] / total:5.1f}%")
+
+
 def bf16_chain(libs, dev):
     """Section 5: K-B3 bf16 with tiles of 128 and of 64 points."""
     g = torch.Generator().manual_seed(0)
@@ -363,17 +499,83 @@ def bf16_chain(libs, dev):
                   f"{100 * sums[slot] / total:5.1f}%")
 
 
-def sass_counts(so):
+def opcodes(so, function=""):
+    """Counter of the SASS opcodes (without modifiers: ``IDP`` for
+    ``IDP.4A``) in a built library, of the kernels whose (mangled) name
+    contains ``function``."""
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
-         so], capture_output=True, text=True, check=True).stdout
-    ops = collections.Counter(
-        m.group(1).split(".")[0] for m in re.finditer(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)", sass))
-    print(f"[3] SASS opcodes of the shipped K-B3: {ops.most_common(16)}")
+         so], capture_output=True, text=True, check=True, timeout=300).stdout
+    ops = collections.Counter()
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            ops.update(m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)",
+                part))
+    return ops
 
 
-def main():
+def sass_counts(so):
+    print(f"[3] SASS opcodes of the shipped K-B3: "
+          f"{opcodes(so).most_common(16)}")
+
+
+def int8_sass(so):
+    """Section 6, second part: K-B4's opcodes, its products' instructions
+    first."""
+    ops = opcodes(so, "mlp_int8_from_points_kernel")
+    print(f"[6] SASS of K-B4: IMMA {ops['IMMA']}, IDP.4A {ops['IDP']}, "
+          f"HMMA {ops['HMMA']}; most common {ops.most_common(12)}")
+
+
+def int8_kernel(libs, dev):
+    """Section 6, third part: K-B4 at 262,144 points as shipped and with
+    clock marks (outputs bit-equal), the share of a tile's clocks in each
+    part."""
+    g = torch.Generator().manual_seed(0)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    buf = mlp_fused.pack_weights_int8_mma(model)
+    pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(N_POINTS, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    names = [k for k in libs if k.startswith("int8")]
+    outs = {k: torch.empty(N_POINTS, 4, device=dev) for k in names}
+
+    def launch(name):
+        rc = libs[name].nnc_mlp_int8_from_points(
+            buf.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+            outs[name].data_ptr(), N_POINTS,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    timed = [k for k in names if k != "int8_profile"]
+    times = [{k: _ms(lambda: launch(k)) for k in timed} for _ in range(2)]
+    sums = (ctypes.c_ulonglong * len(INT8_SLOTS))()
+    for _ in range(2):   # the first is a warm-up, discarded
+        launch("int8_profile")
+        torch.cuda.synchronize()
+        assert libs["int8_profile"].nnc_int8_profile(sums) == 0
+    for k in names:
+        assert torch.equal(outs[k], outs["int8"]), f"{k} computes another raw"
+    print(f"[6] K-B4 {N_POINTS} points in turns, ms: "
+          + "; ".join(f"{k} {[f'{x[k]:.3f}' for x in times]}" for k in timed)
+          + " (outputs bit-equal)")
+    tiles = -(-N_POINTS // 128)
+    total = sum(sums)
+    print(f"[6] clocks of a K-B4 tile of 128 points by thread 0's marks "
+          f"(group 0), "
+          f"{total / tiles:.0f} in all:")
+    for slot, what in enumerate(INT8_SLOTS):
+        print(f"      {what:40s} {sums[slot] / tiles:9.0f}  "
+              f"{100 * sums[slot] / total:5.1f}%")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sections", default="1,2,3,4,5,6,7",
+                    help="comma-separated section numbers to run")
+    sections = {int(x) for x in ap.parse_args(argv).sections.split(",")}
     dev = torch.device("cuda", 0)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -386,18 +588,32 @@ def main():
     kb3 = os.path.join(_build.SRC_DIR, "mlp_from_points.cu")
     kb1 = os.path.join(_build.SRC_DIR, "mlp_train.cu")
     kb3_bf16 = os.path.join(_build.SRC_DIR, "mlp_from_points_bf16.cu")
-    builds = {"issue_rate": (rate_cu,), "shipped": (kb3,),
-              "cvt": (kb3, "-DNNC_SPLIT_CVT"),
-              "profile": (kb3, "-DNNC_MMA_PROFILE"), "train": (kb1,),
-              "train_direct": (kb1, "-DNNC_TRAIN_DIRECT_U"),
-              "train_profile": (kb1, "-DNNC_MMA_PROFILE"),
-              "bf16": (kb3_bf16,),
-              "bf16_profile": (kb3_bf16, "-DNNC_MMA_PROFILE"),
-              "bf16_mt4": (kb3_bf16, "-DNNC_BF16_MT=4"),
-              "bf16_mt4_profile": (kb3_bf16, "-DNNC_BF16_MT=4",
-                                   "-DNNC_MMA_PROFILE")}
-    procs = {name: _compile(args[0], os.path.join(OUT, name + ".so"),
-                            *args[1:]) for name, args in builds.items()}
+    kb1_bf16 = os.path.join(_build.SRC_DIR, "mlp_train_bf16.cu")
+    kb4 = os.path.join(_build.SRC_DIR, "mlp_int8_from_points.cu")
+    # (section numbers that need it, source, flags)
+    builds = {"issue_rate": ({1, 5, 6}, rate_cu),
+              "shipped": ({2, 3, 5}, kb3),
+              "cvt": ({2}, kb3, "-DNNC_SPLIT_CVT"),
+              "profile": ({2}, kb3, "-DNNC_MMA_PROFILE"),
+              "train": ({4}, kb1),
+              "train_direct": ({4}, kb1, "-DNNC_TRAIN_DIRECT_U"),
+              "train_profile": ({4}, kb1, "-DNNC_MMA_PROFILE"),
+              "bf16": ({5}, kb3_bf16),
+              "bf16_profile": ({5}, kb3_bf16, "-DNNC_MMA_PROFILE"),
+              "bf16_mt4": ({5}, kb3_bf16, "-DNNC_BF16_MT=4"),
+              "bf16_mt4_profile": ({5}, kb3_bf16, "-DNNC_BF16_MT=4",
+                                   "-DNNC_MMA_PROFILE"),
+              "int8": ({6}, kb4),
+              "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
+              "train_bf16_stagger1000": ({7}, kb1_bf16,
+                                         "-DNNC_FWD_STAGGER_NS=1000"),
+              "train_bf16_stagnowait": ({7}, kb1_bf16,
+                                        "-DNNC_PROBE_U_NO_WAIT"),
+              "train_bf16": ({7}, kb1_bf16),
+              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE")}
+    procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
+                            *args[2:]) for name, args in builds.items()
+             if args[0] & sections}
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -408,21 +624,48 @@ def main():
                 print(f"    ptxas, {name}: {line.strip()}")
         libs[name] = ctypes.CDLL(os.path.join(OUT, name + ".so"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp, ci]
+    if "issue_rate" in libs:
+        libs["issue_rate"].nnc_issue_rate.argtypes = [ci, ci, ci, ci, vp, vp,
+                                                      ci]
     for name in ("shipped", "cvt", "profile"):
-        libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci, vp]
+        if name in libs:
+            libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci,
+                                                       vp]
     for name in (n for n in libs if n.startswith("bf16")):
         libs[name].nnc_mlp_from_points_bf16.argtypes = [vp, vp, vp, vp, ci, vp]
     for name in ("train", "train_direct", "train_profile"):
-        libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
-        libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 8 + [ci, ci, vp]
-    issue_rate(libs["issue_rate"], dev)
-    chain(libs, dev)
-    sass_counts(os.path.join(OUT, "shipped.so"))
-    train_pair({k: v for k, v in libs.items() if k.startswith("train")}, dev)
-    issue_rate(libs["issue_rate"], dev, bf16=True)
-    bf16_chain({k: v for k, v in libs.items()
-                if k.startswith("bf16") or k == "shipped"}, dev)
+        if name in libs:
+            libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
+            libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 8 + [ci, ci,
+                                                                   vp]
+    for name in (n for n in libs if n.startswith("int8")):
+        libs[name].nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, ci,
+                                                        vp]
+    for name in (n for n in libs if n.startswith("train_bf16")):
+        if name in libs:
+            libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
+            libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci,
+                                                                    vp]
+    if 1 in sections:
+        issue_rate(libs["issue_rate"], dev)
+    if 2 in sections:
+        chain(libs, dev)
+    if 3 in sections:
+        sass_counts(os.path.join(OUT, "shipped.so"))
+    if 4 in sections:
+        train_pair({k: v for k, v in libs.items()
+                    if k in ("train", "train_direct", "train_profile")}, dev)
+    if 5 in sections:
+        issue_rate(libs["issue_rate"], dev, "bf16")
+        bf16_chain({k: v for k, v in libs.items()
+                    if k.startswith("bf16") or k == "shipped"}, dev)
+    if 6 in sections:
+        issue_rate(libs["issue_rate"], dev, "s8")
+        int8_sass(os.path.join(OUT, "int8.so"))
+        int8_kernel({k: v for k, v in libs.items() if k.startswith("int8")},
+                    dev)
+    if 7 in sections:
+        train_bf16_fwd(libs, dev)
 
 
 if __name__ == "__main__":

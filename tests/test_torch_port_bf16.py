@@ -381,7 +381,7 @@ def test_render_pass_bf16_plain_matches_pallas_interpret(flagship, S, eps,
     assert got["weights"].shape == (R, S)
 
 
-def test_render_pass_bf16_plain_stops_rays_in_tiles_of_four(flagship):
+def test_render_pass_bf16_plain_stops_each_ray_in_its_own_slot(flagship):
     """The bf16 kernel's MLP tile is 4 slots x 32 samples, but each slot
     carries one ray's block: a ray stops alone (RAY_TILE_BF16 = 1, no longer
     with the other three rays of a tile of four), and its plain version

@@ -90,6 +90,7 @@ def test_cuda_build_and_packed_layout(cuda_device):
     assert [s.value for s in sizes] == [mlp_fused.INT8_WQ_SIZE,
                                         mlp_fused.INT8_SCALES_SIZE,
                                         mlp_fused.INT8_BIASES_SIZE]
+    assert _build.lib().nnc_int8_mma_size() == mlp_fused.INT8_MMA_SIZE
 
 
 def _points(n, device, seed=2):
@@ -194,6 +195,39 @@ def test_cuda_mlp_int8_from_points_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 127, 129, 20_000 + 64])
+def test_cuda_mlp_int8_tensor_cores_reruns_and_blocks(cuda_device, n):
+    """K-B4 on the tensor cores at sizes that end inside, or exactly after,
+    the first of a 128-point tile's two activation-scale blocks: against
+    the plain version, bit-equal reruns, a given buffer and the one the
+    wrapper makes alike, and each 64-point block's output the same as that
+    block launched alone (its scale is its own)."""
+    model = _fog_model(cuda_device, seed=3)
+    pts, vd = _points(n, cuda_device, seed=5)
+    packed = mlp_fused.pack_weights_int8(model)
+    buf = mlp_fused.pack_weights_int8_mma(model)
+    assert torch.equal(buf, mlp_fused.repack_int8_mma(*packed))
+    got = mlp_fused.mlp_int8_from_points(*packed, pts, vd, packed_s8=buf)
+    torch.cuda.synchronize()
+    assert torch.equal(mlp_fused.mlp_int8_from_points(*packed, pts, vd), got)
+    assert torch.equal(mlp_fused.mlp_int8_from_points(
+        *packed, pts, vd, packed_s8=buf), got)
+    want = mlp_fused.fused_nerf_mlp_int8_from_points_plain(*packed, pts, vd)
+    d = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert float((d > 1e-5).float().mean()) <= 1e-3
+    blk = mlp_fused.INT8_ACT_BLOCK
+    for lo in range(0, min(n, 3 * blk), blk):
+        hi = min(lo + blk, n)
+        alone = mlp_fused.mlp_int8_from_points(
+            *packed, pts[lo:hi].contiguous(), vd[lo:hi].contiguous(),
+            packed_s8=buf)
+        assert torch.equal(alone, got[lo:hi]), (lo, hi)
+    with pytest.raises(ValueError):
+        mlp_fused.mlp_int8_from_points(*packed, pts, vd, packed_s8=buf[1:])
+
+
+@pytest.mark.cuda
 def test_cuda_renderer_int8_and_embedded_routes(cuda_device):
     """use_int8_mlp launches K-B4 and stays within the reference's bound of
     the float render (tests/test_mlp_pallas.py:274) on every ray whose far
@@ -225,8 +259,10 @@ def test_cuda_renderer_int8_and_embedded_routes(cuda_device):
     # the kernel against the same render through its plain version: they
     # agree bit for bit but for a flipped tie, far-sample steps included
     real = mlp_fused.mlp_int8_from_points
-    mlp_fused.mlp_int8_from_points = \
-        mlp_fused.fused_nerf_mlp_int8_from_points_plain
+    # (the plain version takes the wrapper's tensors, not the kernel's
+    # buffer, which the model-level entry passes as packed_s8)
+    mlp_fused.mlp_int8_from_points = lambda *args, **kernel_only: \
+        mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args)
     try:
         plain = render(renderer.RenderConfig(**common, use_int8_mlp=True))
     finally:
@@ -936,6 +972,45 @@ def test_cuda_mlp_train_bf16_matches_plain(cuda_device, n, with_dw):
         with pytest.raises(ValueError):
             mlp_train_fused.mlp_train_bwd_bf16(
                 params, params_t, ls, pts, vd, cot, ws[:-64], with_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 16_401, 196_608 + 5])
+def test_cuda_mlp_train_fwd_bf16_workspace_matches_plain_u(cuda_device, n):
+    """Every u that K-B1 bf16's forward stores (by TMA bulk stores in the
+    256-wide layers, from the fragments in the view layer and the heads)
+    lies where the backward reads it: the workspace's rows of the points
+    against the plain bf16 chain's u, in units of the bf16-to-float32
+    distance; rows past N hold finite values; a rerun writes the same bits,
+    and the forward without the workspace the same raw."""
+    model = _fog_model(cuda_device, seed=7)
+    g = torch.Generator().manual_seed(8)
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(cuda_device)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(cuda_device)
+    tensors = mlp_train_fused._layer_tensors(model)
+    params, params_t, ls = mlp_train_fused.pack_train(
+        tensors[0::3], tensors[1::3], tensors[2::3])
+    fwd_b, _bwd_b = mlp_train_fused.pack_train_bf16(tensors[0::3])
+    biases = mlp_train_fused.gather_biases(params)
+    raw, ws = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd, True,
+                                                 fwd_b, biases)
+    torch.cuda.synchronize()
+    assert ws.shape == (-(-n // mlp_train_fused.TILE_BF16)
+                        * mlp_train_fused.TILE_BF16, mlp_train_fused.U_SIZE)
+    assert torch.isfinite(ws).all()
+    cot = torch.zeros(n, 4, device=cuda_device)
+    ws16, _ = mlp_train_fused.train_workspaces_plain(
+        params, params_t, ls, pts, vd, cot, bf16=True)
+    ws32, _ = mlp_train_fused.train_workspaces_plain(
+        params, params_t, ls, pts, vd, cot)
+    _held_to_bf16_distance(ws[:n], ws16[:n], ws32[:n])
+    raw2, ws2 = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd, True,
+                                                   fwd_b, biases)
+    assert torch.equal(raw2, raw) and torch.equal(ws2, ws)
+    raw0, none = mlp_train_fused.mlp_train_fwd_bf16(params, ls, pts, vd,
+                                                    False, fwd_b, biases)
+    assert none is None and torch.equal(raw0, raw)
 
 
 @pytest.mark.cuda

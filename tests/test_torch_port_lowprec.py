@@ -186,6 +186,87 @@ def test_pack_weights_int8_layout_and_zero_columns():
         mlp_fused.pack_weights_int8(tnerf.NeRF(tnerf.NeRFConfig(W=32)))
 
 
+def _zero_column_model():
+    """A model with an all-zero output column in pts_linears.1 and in the
+    alpha head (scale 0, integers 0)."""
+    model = tnerf.init_params(tnerf.NeRFConfig(),
+                              torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model.layers()["pts_linears.1"].weight[5].zero_()
+        model.layers()["alpha_linear"].weight.zero_()
+    return model
+
+
+@pytest.mark.parametrize("which", ["flagship", "zero_column"])
+def test_int8_mma_buffer_unpacks_to_pack_weights_int8(flagship, which):
+    """The tensor-core kernel's buffer holds pack_weights_int8's integers,
+    scales and biases and nothing else: read back, all three are equal bit
+    for bit, the zero column's scale and integers included."""
+    model = flagship[-1] if which == "flagship" else _zero_column_model()
+    wq, scales, biases = mlp_fused.pack_weights_int8(model)
+    buf = mlp_fused.pack_weights_int8_mma(model)
+    assert buf.dtype == torch.int32 and buf.shape == (mlp_fused.INT8_MMA_SIZE,)
+    back = mlp_fused.unpack_weights_int8_mma(buf)
+    for got, want in zip(back, (wq, scales, biases)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    if which == "zero_column":
+        W, _B = mlp_fused.unpack_weights_int8(*back)
+        assert W["w1"][1][5] == 0 and (W["w1"][0][:, 5] == 0).all()
+        assert (W["wa"][1] == 0).all() and (W["wa"][0] == 0).all()
+    # every byte of the buffer past what it holds is zero
+    n_used = mlp_fused._INT8_MMA_USED
+    assert (buf[n_used:] == 0).all()
+    pads = np.flatnonzero(mlp_fused.INT8_MMA_INDEX == mlp_fused.INT8_WQ_SIZE)
+    assert (buf[:mlp_fused.INT8_MMA_INDEX.size // 4].view(torch.int8)
+            [torch.from_numpy(pads)] == 0).all()
+
+
+def _fragment_product_s8(buf, slab0, k_padded, nt_n, x):
+    """x (16, k_padded) int times the rows of a run of k steps, read from the
+    buffer with the index arithmetic of mma_run / PipeT
+    (csrc/mlp_int8_from_points.cu): lane 4 g + t of warp w finds word r of
+    n-tile nt at k step ks at slab * 8192 + w * 1024 + (ks % per_slab) *
+    64 NT + (nt // 2) * 128 + lane * 4 + 2 (nt % 2) + r, and its byte j
+    multiplies channel 32 ks + 4 t + 16 r + j (the m16n8k32 B fragment)."""
+    words = buf.numpy()
+    per_slab = 16 // nt_n
+    out = np.zeros((x.shape[0], 64 * nt_n), dtype=np.int64)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for ks in range(k_padded // 32):
+        for warp in range(8):
+            base = (slab0 + ks // per_slab) * 8192 + warp * 1024 \
+                + (ks % per_slab) * 64 * nt_n + lane * 4
+            for nt in range(nt_n):
+                cols = warp * 8 * nt_n + nt * 8 + g
+                for r in range(2):
+                    w = words[base + (nt // 2) * 128 + 2 * (nt % 2) + r]
+                    for j in range(4):
+                        byte = ((w >> (8 * j)) & 0xFF).astype(np.int64)
+                        byte = np.where(byte > 127, byte - 256, byte)
+                        ch = 32 * ks + 4 * t + 16 * r + j
+                        np.add.at(out, (slice(None), cols), x[:, ch] * byte)
+    return out
+
+
+@pytest.mark.parametrize("key,slab0,k_padded,nt_n", [
+    ("w0", 0, 64, 4), ("w1", 1, 256, 4), ("w4", 7, 256, 4),
+    ("w5b", 9, 256, 4), ("w5a", 11, 64, 4), ("wf", 16, 256, 4),
+    ("wva", 18, 256, 2), ("wvb", 19, 32, 2)])
+def test_int8_mma_buffer_feeds_the_fragments(flagship, key, slab0, k_padded,
+                                             nt_n):
+    """Reading the buffer as the kernel's lanes do gives the exact integer
+    product xq @ q for every kind of run of k steps, the zero padding rows
+    meeting nonzero channels included."""
+    model = flagship[-1]
+    buf = mlp_fused.pack_weights_int8_mma(model)
+    W, _B = mlp_fused.unpack_weights_int8(*mlp_fused.pack_weights_int8(model))
+    q = W[key][0].numpy().astype(np.int64)
+    x = np.random.default_rng(3).integers(-127, 128, (16, k_padded))
+    got = _fragment_product_s8(buf, slab0, k_padded, nt_n, x)
+    np.testing.assert_array_equal(got, x[:, :q.shape[0]] @ q)
+
+
 @pytest.mark.parametrize("n", [2048, 1500])
 def test_int8_plain_matches_pallas_interpret_at_its_block(flagship, n):
     cfg, jparams, jls, model = flagship
