@@ -26,7 +26,8 @@
 // 24 bytes in and 16 out, at the dense int8 tensor-core peak of 1,979 TOP/s
 // (H100 SXM data sheet, 700 W): 262,144 points cannot take less than
 // 0.157 ms. The kernel it replaced issued them as __dp4a on the SIMT cores
-// (4.976 ms, 61 TOP/s; PERF.md).
+// (4.976 ms at 262,144 points, 61 TOP/s, NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).
 //
 // Design: the bf16 chain's products with s8 operands, and two groups of
 // warps in turns.
@@ -43,7 +44,7 @@
 //    epilogue (FP32 and integer pipes: every value converted, scaled,
 //    biased, its block's maximum taken, quantized, stored): with both in
 //    step, each SM sub-partition's two warps sat in the same phase and one
-//    pipe idled (PERF.md, PR 11). Here the groups take the tensor cores in
+//    pipe idled (PERF.md). Here the groups take the tensor cores in
 //    turns: group 1 runs a layer's products while group 0 runs the
 //    epilogue, then the other way round (two named barriers, bar.sync /
 //    bar.arrive over both groups, as FlashAttention-3's ping-pong
@@ -80,9 +81,11 @@
 //    scale enters three products (layer 0, the skip, the view layer).
 //  * The layer is one function, not inlined: a layer's epilogue is ~1,500
 //    instructions of straight code, and a copy inlined at each of the ten
-//    calls overflowed the instruction cache (0.98 ms against 1.15 ms). It
-//    reaches shared memory through the kernel's extern array (smem()), so
-//    that its loads and stores stay LDS / STS.
+//    calls overflowed the instruction cache (0.985 against 1.146 ms at
+//    262,144 points, NVIDIA H100 80GB HBM3, 700 W;
+//    nnc_tpu_torch/tools/mma_probe.py section 6). It reaches shared memory
+//    through the kernel's extern array (smem()), so that its loads and
+//    stores stay LDS / STS.
 //  * Persistent CTAs, one per SM, walk the tiles; the ring runs across them.
 //    Reruns are bit-equal: integer sums, no float atomics.
 #include <cstdint>
@@ -350,10 +353,8 @@ __device__ __forceinline__ float group_max(float v, int group) {
 // (the slab after them); the layer's first slab is slab j0 of the CTA's
 // stream of `total`. Returns the output's scale; `head` adds the sums
 // of a head on the quantized output (NT = 8: alpha's, 4: rgb's). last: the
-// CTA's last products of group 1, which hand no turn on. Ends with the group's barrier. Not inlined: a layer's
-// epilogue is ~1,500 instructions of straight code, and ten inlined
-// copies overflowed the instruction cache (the three instantiations are
-// called in turn).
+// CTA's last products of group 1, which hand no turn on. Ends with the
+// group's barrier. Not inlined (see the design notes).
 template <int NT, int K2>
 __device__ __noinline__ float layer(
     const int* __restrict__ P, int total, int j0, int group, bool x1_emb,

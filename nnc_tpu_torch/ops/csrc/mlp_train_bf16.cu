@@ -33,27 +33,36 @@
 //
 // Design: the bf16 chain of nerf_mlp_bf16.cuh with K-B1's epilogues from
 // mlp_train.cu.
-//  - Forward (train_layer, mlp_tile_train): tiles of 16 NNC_BF16_MT points
-//    (128), the 37 slabs of the forward stream through PipeT's cp.async
-//    ring, A by ldmatrix, mma.sync m16n8k16 bf16 into float32 accumulators
-//    that start at zero (the inference chain starts them at the bias: it
-//    folds the scale into the weight, training keeps u apart for dls). u
-//    leaves off the product path: right after its products each warp
-//    stages its 32 columns of u one m-tile (2 KB) at a time in two buffers
-//    of its own (32 KB for the CTA, in the ~34 KB the chain leaves free)
-//    and hands each to the tensor memory accelerator as one 2-D bulk store
-//    (stage_u), then meets the other warps at the barrier and writes
-//    bf16(act(fmaf(u, ls, b))) to the activation buffer; the stores drain
-//    while the next layer's products run. Before, u went from the
-//    fragments to the workspace as 8-byte stores between the two barriers
-//    of the epilogue: 65% of a tile's clocks, with the tensor cores idle
-//    (2.58 ms against 0.71 ms without the workspace, NVIDIA H100 80GB
-//    HBM3, 700 W; nnc_tpu_torch/tools/mma_probe.py section 7). The view
-//    layer's columns start at the odd offset 2,305, which a bulk copy
-//    cannot address, so its u and the heads' stay scalar stores. The heads
-//    stay on the SIMT cores, as in K-B3 bf16. The workspace has rows for
-//    whole 128-point tiles (mlp_train_fused.TILE_BF16); rows past n hold the
-//    u of zero points.
+//  - Forward (train_layer, mlp_group_train): tiles of 128 points, the 37
+//    slabs of the forward streamed once a tile through a ring of three
+//    32 KB stages (slab_ring.cuh: one bulk copy a slab), A by ldmatrix,
+//    mma.sync m16n8k16 bf16 into float32 accumulators that start at zero
+//    (the inference chain starts them at the bias: it folds the scale into
+//    the weight, training keeps u apart for dls). The eight warps form two
+//    groups of four, one for each 64-point half of the tile; a warp owns
+//    its half's 64 points x 64 output channels (its two eighths of each
+//    slab) and a group synchronises only its own four warps, so the groups
+//    walk the slabs at their own pace (group 1 starts a layer late, and the
+//    ring keeps it at most three slabs behind). u leaves off the product
+//    path: right after its products each warp stages its u 16 rows x 32
+//    columns (2 KB) at a time in two buffers of its own (32 KB for the
+//    CTA, in the ~34 KB the chain leaves free) and hands each to the tensor
+//    memory accelerator as one 2-D bulk store (stage_u), then meets its
+//    group at the barrier and writes bf16(act(fmaf(u, ls, b))) to the
+//    activation buffer. Each point's products run in the same order as in
+//    the kernel this replaced (the u and raw it writes are the same bits).
+//    Before, u went from the fragments to the workspace as 8-byte stores
+//    between the two barriers of the epilogue: 65% of a tile's clocks, the
+//    tensor cores idle (2.58 ms against 0.71 ms without the workspace at
+//    196,608 points, NVIDIA H100 80GB HBM3, 700 W;
+//    nnc_tpu_torch/tools/mma_probe.py section 7). Now the stores run at
+//    about the card's write rate but still mostly while no products run:
+//    the groups drift back into step (PERF.md). The view layer's
+//    columns start at the odd offset 2,305, which a bulk copy cannot
+//    address, so its u and the heads' stay scalar stores. The heads stay on
+//    the SIMT cores, as in K-B3 bf16. The workspace has rows for whole
+//    128-point tiles (mlp_train_fused.TILE_BF16); rows past n hold the u of
+//    zero points.
 //  - Backward without dW (bwd_layer, grad_epilogue): tiles of 64 points
 //    (MT = 4), so that a layer's 64 accumulators and the 64 values of u its
 //    epilogue loads fit a thread's registers as in the float32 backward. The
@@ -73,6 +82,7 @@
 
 #include "mlp_train.cuh"
 #include "nerf_mlp_bf16.cuh"
+#include "slab_ring.cuh"
 
 namespace {
 
@@ -80,29 +90,42 @@ using namespace nerf;
 using namespace nerf::train;
 namespace b16 = nerf::bf16;
 
-constexpr int kFwdMT = NNC_BF16_MT;   // the forward's tile: 16 MT points
-constexpr int kBwdMT = 4;             // the backward's: 64 points (kM)
+constexpr int kBwdMT = 4;             // the backward's tile: 64 points (kM)
 static_assert(16 * kBwdMT == kM, "the backward walks tiles of kM points");
 
 // ------------------------------------------------------------- forward
 
-// u's way to the workspace in the 256-wide layers: each warp stages one
-// m-tile of its 32 columns (16 rows x 128 bytes, 2 KB) at a time in one of
-// two buffers of its own, and its lane 0 hands the chunk to the tensor
-// memory accelerator as one 2-D bulk store (the workspace as a tensor map
-// of kU float32 columns, boxes of 32 x 16), then goes on. Before a buffer
-// is written again, lane 0 waits until the store two chunks back has read
-// it (wait_group.read 1), so at most two chunks a warp are in flight and
-// the stores drain while the warps run their next products.
+// The forward's tile: 128 points, two groups of four warps with 64 points
+// each; a warp owns its group's 64 points x 64 output channels (the view
+// layer: 32). The groups walk the same slabs (slab_ring.cuh) at their own
+// pace, so that one group's epilogue, whose u stores wait on device memory,
+// runs beside the other group's products.
+constexpr int kFwdPoints = 128;
+constexpr int kGroupPoints = 64;
+constexpr int kFwdStages = 3;
+using FwdRing = ring::SlabRing<b16::kSlabs, kFwdStages>;
+static_assert(mma::kSlab == ring::kSlabFloats, "one slab size");
+
+// Named barriers: each group's own (128 threads; 0 is __syncthreads'), and
+// the one that starts group 1 after group 0's first layer.
+constexpr int kGroupBar = 1;   // + group
+constexpr int kStartBar = 3;
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(kGroupBar + group) : "memory");
+}
+
+// u's way to the workspace in the 256-wide layers: each warp stages 16 rows
+// x 32 columns of its u (2 KB) at a time in one of two buffers of its own,
+// and its lane 0 hands the chunk to the tensor memory accelerator as one
+// 2-D bulk store (the workspace as a tensor map of kU float32 columns,
+// boxes of 32 x 16), then goes on. Before a buffer is written again, lane
+// 0 waits until the store two chunks back has read it (wait_group.read 1).
 struct UStore {
   float* stage;   // this warp's two buffers, 2 x 16 x 32 floats
-  int row0;       // the tile's first workspace row
+  int row0;       // the group's first workspace row of the tile
 };
 constexpr int kStageFloats = 16 * 32;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void bulk_wait_read1() {
   asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
 }
@@ -117,21 +140,21 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
       "[%0, {%1, %2}], [%3];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_u32(src))
+      "r"(ring::smem_u32(src))
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// This warp's u of a 256-wide layer (acc: its 32 columns of the tile's
-// 16 MT rows, the mma fragments) to the workspace's columns col.. by the
-// staging buffers. A fragment holds two columns of a row; lanes t and
-// t ^ 1 swap half of theirs (one shuffle a value), so that each lane holds
-// two whole 16-byte pieces of a row: lane t keeps n-tiles 2 (t & 1) and
-// 2 (t & 1) + 1, the pieces 4 (t & 1) + 2 k + (t >> 1) of the row's eight.
-// Rows g and g + 8 store them in opposite orders, so that every quarter
-// warp's eight 16-byte stores hit eight distinct bank groups.
-template <int MT>
-__device__ __forceinline__ void stage_u(const float (&acc)[MT][4][4],
+// This warp's u of a 256-wide layer (acc: its 64 columns of its group's 64
+// rows, the mma fragments) to the workspace's columns col.. by the staging
+// buffers, in chunks of one m-tile and 32 columns (n-tiles 4 hc .. + 3). A
+// fragment holds two columns of a row; lanes t and t ^ 1 swap half of
+// theirs (one shuffle a value), so that each lane holds two whole 16-byte
+// pieces of a row: lane t keeps n-tiles 4 hc + 2 (t & 1) and 4 hc +
+// 2 (t & 1) + 1, the pieces 4 (t & 1) + 2 k + (t >> 1) of the chunk row's
+// eight. Rows g and g + 8 store them in opposite orders, so that every
+// quarter warp's eight 16-byte stores hit eight distinct bank groups.
+__device__ __forceinline__ void stage_u(const float (&acc)[4][8][4],
                                         const UStore& us,
                                         const CUtensorMap* map, int col) {
   const int lane = threadIdx.x & 31;
@@ -139,75 +162,132 @@ __device__ __forceinline__ void stage_u(const float (&acc)[MT][4][4],
   const bool odd = lane & 1;
   const int h = (lane >> 1) & 1;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#ifndef NNC_PROBE_U_NO_WAIT   // (mma_probe.py: what the waits cost; u wrong)
-    if (lane == 0) bulk_wait_read1();
-#endif
-    __syncwarp();
-    float* buf = us.stage + (mt & 1) * kStageFloats;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float4 v[2];
+    for (int hc = 0; hc < 2; ++hc) {
+      if (lane == 0) bulk_wait_read1();
+      __syncwarp();
+      float* buf = us.stage + hc * kStageFloats;
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float k0 = odd ? acc[mt][2 + k][2 * hf] : acc[mt][k][2 * hf];
-        const float k1 =
-            odd ? acc[mt][2 + k][2 * hf + 1] : acc[mt][k][2 * hf + 1];
-        const float g0 = odd ? acc[mt][k][2 * hf] : acc[mt][2 + k][2 * hf];
-        const float g1 =
-            odd ? acc[mt][k][2 * hf + 1] : acc[mt][2 + k][2 * hf + 1];
-        const float r0 = __shfl_xor_sync(0xffffffffu, g0, 1);
-        const float r1 = __shfl_xor_sync(0xffffffffu, g1, 1);
-        v[k] = odd ? make_float4(r0, r1, k0, k1) : make_float4(k0, k1, r0, r1);
+      for (int hf = 0; hf < 2; ++hf) {
+        float4 v[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int a0 = 4 * hc + k, a1 = 4 * hc + 2 + k;
+          const float k0 = odd ? acc[mt][a1][2 * hf] : acc[mt][a0][2 * hf];
+          const float k1 =
+              odd ? acc[mt][a1][2 * hf + 1] : acc[mt][a0][2 * hf + 1];
+          const float g0 = odd ? acc[mt][a0][2 * hf] : acc[mt][a1][2 * hf];
+          const float g1 =
+              odd ? acc[mt][a0][2 * hf + 1] : acc[mt][a1][2 * hf + 1];
+          const float r0 = __shfl_xor_sync(0xffffffffu, g0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, g1, 1);
+          v[k] = odd ? make_float4(r0, r1, k0, k1)
+                     : make_float4(k0, k1, r0, r1);
+        }
+        float* row = buf + (g + 8 * hf) * 32 + 4 * (4 * odd + h);
+        const bool swap = g & 1;
+        *reinterpret_cast<float4*>(row + 8 * swap) = swap ? v[1] : v[0];
+        *reinterpret_cast<float4*>(row + 8 * !swap) = swap ? v[0] : v[1];
       }
-      float* row = buf + (g + 8 * hf) * 32 + 4 * (4 * odd + h);
-      const bool swap = g & 1;
-      *reinterpret_cast<float4*>(row + 8 * swap) = swap ? v[1] : v[0];
-      *reinterpret_cast<float4*>(row + 8 * !swap) = swap ? v[0] : v[1];
+      // the generic proxy's stores, visible to the bulk copy's reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) tma_store(map, buf, col + 32 * hc, us.row0 + 16 * mt);
     }
-    // the generic proxy's stores, visible to the bulk copy's reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncwarp();
-    if (lane == 0) tma_store(map, buf, col, us.row0 + 16 * mt);
+}
+
+// acc += x[:, 0..K) @ (the next slabs), for this warp's 8 NT output
+// channels of its group's 64 points. x: the group's first row, point-major
+// bf16 in shared memory with row stride ld. K % 16 == 0. The slabs are
+// pack_weights_bf16's: eight eighths of NT / 2 n-tiles each (mma_run of
+// nerf_mlp_bf16.cuh reads one); this warp reads eighths 2 wg and 2 wg + 1.
+template <int NT>
+__device__ __forceinline__ void mma_run2(FwdRing& ring,
+                                         float (&acc)[4][NT][4],
+                                         const __nv_bfloat16* x, int ld,
+                                         int K) {
+  constexpr int kPer = NT / 2;          // n-tiles of an eighth
+  constexpr int kStepVec = 16 * kPer;   // an eighth's 16-byte vectors a k step
+  constexpr int kEighth = mma::kSlab / 8 / 4;   // 16-byte vectors of an eighth
+  constexpr int kStepsPerSlab = kEighth / kStepVec;   // 4 or 8
+  const int lane = threadIdx.x & 31;
+  const int wg = (threadIdx.x >> 5) & 3;
+  uint32_t a_addr =
+      ring::smem_u32(x + (lane & 15) * ld + 8 * (lane >> 4));
+  const uint32_t mt_bytes = 16 * ld * sizeof(__nv_bfloat16);
+  const int steps = K / 16;
+  for (int s0 = 0; s0 < steps; s0 += kStepsPerSlab) {
+    const uint4* e0 = reinterpret_cast<const uint4*>(ring.acquire()) +
+                      2 * wg * kEighth + lane;
+    const uint4* e1 = e0 + kEighth;
+    const int n = steps - s0 < kStepsPerSlab ? steps - s0 : kStepsPerSlab;
+#pragma unroll 2
+    for (int ks = 0; ks < n; ++ks) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int q = 0; q < kPer / 2; ++q) {
+        const uint4 w0 = e0[ks * kStepVec + q * 32];
+        const uint4 w1 = e1[ks * kStepVec + q * 32];
+        b[2 * q][0] = w0.x;
+        b[2 * q][1] = w0.y;
+        b[2 * q + 1][0] = w0.z;
+        b[2 * q + 1][1] = w0.w;
+        b[kPer + 2 * q][0] = w1.x;
+        b[kPer + 2 * q][1] = w1.y;
+        b[kPer + 2 * q + 1][0] = w1.z;
+        b[kPer + 2 * q + 1][1] = w1.w;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        b16::ldmatrix_x4(a, a_addr + mt * mt_bytes);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b16::mma_bf16(acc[mt][nt], a, b[nt]);
+      }
+      a_addr += 16 * sizeof(__nv_bfloat16);
+    }
+    ring.release();
   }
 }
 
-// out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u = x1 @ w (+ x2 @ w2)
-// for the tile's 16 MT points, the unscaled weights from the pipe; u goes
-// to the workspace when SAVE: with TMA (NT = 4, the layer's columns start
-// at ucol, 16-byte aligned) by stage_u before the barrier, so that this
-// warp's stores are under way while the other warps finish their products;
-// else (the view layer, whose columns start at the odd offset 2,305) from
-// the fragments to U (the tile's first workspace row at the layer's
-// columns, row stride kU), one float a store. out may be x1 or x2. Ends
-// with a barrier.
-template <int MT, int NT, bool RELU, bool SAVE, bool TMA>
+// The group's rows: out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u =
+// x1 @ w (+ x2 @ w2) for its 64 points, the unscaled weights from the ring;
+// u goes to the workspace when SAVE: with TMA (NT = 8, the layer's columns
+// start at ucol, 16-byte aligned) by stage_u before the group's barrier,
+// so that this warp's stores are under way while the others finish their
+// products; else (the view layer, whose columns start at the odd offset
+// 2,305) from the fragments to U (the group's first workspace row at the
+// layer's columns, row stride kU), one float a store. out may be x1 or x2.
+// Ends with the group's barrier.
+template <int NT, bool RELU, bool SAVE, bool TMA>
 __device__ __forceinline__ void train_layer(
-    b16::Pipe& pipe, __nv_bfloat16* out, const __nv_bfloat16* x1, int ld1,
-    int K1, const __nv_bfloat16* x2, int ld2, int K2,
+    FwdRing& ring, int group, __nv_bfloat16* out, const __nv_bfloat16* x1,
+    int ld1, int K1, const __nv_bfloat16* x2, int ld2, int K2,
     const float* __restrict__ ls, const float* __restrict__ b,
     const UStore& us, const CUtensorMap* map, int ucol,
     float* __restrict__ U) {
-  static_assert(!TMA || NT == 4, "TMA stores take 32 columns a warp");
+  static_assert(!TMA || NT == 8, "TMA stores take 64 columns a warp");
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int wg = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2;
-  const int col0 = warp * 8 * NT + 2 * (lane & 3);
-  float acc[MT][NT][4];
+  const int col0 = wg * 8 * NT + 2 * (lane & 3);
+  float acc[4][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  b16::mma_run<MT, NT>(pipe, acc, x1, ld1, K1);
-  if (K2 > 0) b16::mma_run<MT, NT>(pipe, acc, x2, ld2, K2);
+  mma_run2<NT>(ring, acc, x1, ld1, K1);
+  if (K2 > 0) mma_run2<NT>(ring, acc, x2, ld2, K2);
   NNC_PROF(2);
   if constexpr (SAVE && TMA) {
-    stage_u<MT>(acc, us, map, ucol + 32 * warp);
+    stage_u(acc, us, map, ucol + 64 * wg);
     NNC_PROF(4);
   }
-  __syncthreads();
+  // every warp of the group is done reading the layer's input
+  group_sync(group);
   NNC_PROF(3);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -215,7 +295,7 @@ __device__ __forceinline__ void train_layer(
     const float l0 = __ldg(ls + c), l1 = __ldg(ls + c + 1);
     const float b0 = __ldg(b + c), b1 = __ldg(b + c + 1);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < 4; ++mt) {
       if constexpr (SAVE && !TMA) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -238,51 +318,87 @@ __device__ __forceinline__ void train_layer(
     }
   }
   NNC_PROF(4);
-  __syncthreads();
+  group_sync(group);
   NNC_PROF(5);
 }
 
-// The training MLP on the embedded tile in s.emb; raw logits to s.raw, u of
-// every layer to U (the tile's first workspace row) when SAVE. FW: the
-// buffer of pack_train_bf16's forward half, whose slabs `pipe` streams and
-// whose tail holds the heads' rounded weights. All threads enter; starts
-// (after the embedding's stores) and ends with a barrier.
-template <int MT, bool SAVE>
-__device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
-                                               b16::Pipe& pipe,
-                                               const float* __restrict__ FW,
-                                               const float* __restrict__ LS,
-                                               const float* __restrict__ BI,
-                                               const UStore& us,
-                                               const CUtensorMap* map,
-                                               float* __restrict__ U) {
-  constexpr int kLdA = b16::kLdA;
-  constexpr int kPerWarp = 2 * MT;   // points a warp takes in the heads
-  __nv_bfloat16* A = s.act;
-  const __nv_bfloat16* E = s.emb;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+struct FwdSmem {
+  ring::RingSmem<kFwdStages> ring;             // weight slabs in flight
+  __nv_bfloat16 act[kFwdPoints * b16::kLdA];   // a layer's input, then output
+  __nv_bfloat16 emb[kFwdPoints * b16::kLdE];   // as nerf_mlp_bf16.cuh's
+  float raw[kFwdPoints * 4];                   // (point, [r, g, b, sigma])
+  float xs[kFwdPoints * 3];
+  float ds[kFwdPoints * 3];
+  alignas(128) float stage[kThreads / 32][2 * kStageFloats];   // UStore's
+};
 
-  __syncthreads();
+// Positional encoding of the group's 64 points into its rows of emb
+// (point-major), in float32 as nerf_mlp_bf16.cuh's embed_tile computes it,
+// rounded once to bf16.
+__device__ __forceinline__ void embed_group(FwdSmem& s, int group) {
+  // c = 3 f + d; f = 0: raw xyz, 1..10: xyz freqs, 11: raw dir, 12..15: dir
+  for (int i = threadIdx.x & 127; i < kGroupPoints * 48; i += 128) {
+    const int m = kGroupPoints * group + i / 48;
+    const int c = i % 48;
+    const int f = c / 3;
+    const int d = c - f * 3;
+    const bool view = f >= 11;
+    const float x = view ? s.ds[m * 3 + d] : s.xs[m * 3 + d];
+    __nv_bfloat16* e = s.emb + m * b16::kLdE + (view ? b16::kPtsPad : 0);
+    const int fr = view ? f - 12 : f - 1;
+    if (fr < 0) {
+      e[d] = __float2bfloat16_rn(x);
+    } else {
+      float sn, cs;
+      sincosf(x * static_cast<float>(1 << fr), &sn, &cs);
+      e[3 + 6 * fr + d] = __float2bfloat16_rn(sn);
+      e[6 + 6 * fr + d] = __float2bfloat16_rn(cs);
+    }
+  }
+}
+
+// The training MLP on the group's embedded rows of s.emb; raw logits to its
+// rows of s.raw, u of every layer to U (the group's first workspace row)
+// when SAVE. FW: the buffer of pack_train_bf16's forward half, whose slabs
+// `ring` streams and whose tail holds the heads' rounded weights. first:
+// the CTA's first tile, after whose layer 0 group 0 lets group 1 start.
+// Starts (after the embedding's stores) and ends with the group's barrier.
+template <bool SAVE>
+__device__ __forceinline__ void mlp_group_train(
+    FwdSmem& s, FwdRing& ring, int group, bool first,
+    const float* __restrict__ FW, const float* __restrict__ LS,
+    const float* __restrict__ BI, const UStore& us, const CUtensorMap* map,
+    float* __restrict__ U) {
+  constexpr int kLdA = b16::kLdA;
+  constexpr int kPerWarp = kGroupPoints / 4;   // points a warp takes in heads
+  __nv_bfloat16* A = s.act + kGroupPoints * group * kLdA;
+  const __nv_bfloat16* E = s.emb + kGroupPoints * group * b16::kLdE;
+  float* raw = s.raw + kGroupPoints * group * 4;
+  const int lane = threadIdx.x & 31;
+  const int wg = (threadIdx.x >> 5) & 3;
+
+  group_sync(group);
   NNC_PROF(1);
-  train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
-                                       nullptr, 0, 0, LS, BI, us, map, 0, U);
+  train_layer<8, true, SAVE, true>(ring, group, A, E, b16::kLdE, b16::kPtsPad,
+                                   nullptr, 0, 0, LS, BI, us, map, 0, U);
+  if (first && group == 0)
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(kStartBar) : "memory");
 #pragma unroll 1
   for (int i = 1; i <= 4; ++i)
-    train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
-                                         LS + i * kW, BI + i * kW, us, map,
-                                         i * kW, U);
+    train_layer<8, true, SAVE, true>(ring, group, A, A, kLdA, kW, nullptr, 0,
+                                     0, LS + i * kW, BI + i * kW, us, map,
+                                     i * kW, U);
   // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
-  train_layer<MT, 4, true, SAVE, true>(pipe, A, E, b16::kLdE, b16::kPtsPad,
-                                       A, kLdA, kW, LS + 5 * kW,
-                                       BI + 5 * kW, us, map, 5 * kW, U);
+  train_layer<8, true, SAVE, true>(ring, group, A, E, b16::kLdE, b16::kPtsPad,
+                                   A, kLdA, kW, LS + 5 * kW, BI + 5 * kW, us,
+                                   map, 5 * kW, U);
 #pragma unroll 1
   for (int i = 6; i <= 7; ++i)
-    train_layer<MT, 4, true, SAVE, true>(pipe, A, A, kLdA, kW, nullptr, 0, 0,
-                                         LS + i * kW, BI + i * kW, us, map,
-                                         i * kW, U);
+    train_layer<8, true, SAVE, true>(ring, group, A, A, kLdA, kW, nullptr, 0,
+                                     0, LS + i * kW, BI + i * kW, us, map,
+                                     i * kW, U);
 
-  // alpha head (256 -> 1) on h = A: warp w takes points 2 MT w ..
+  // alpha head (256 -> 1) on h = A: warp wg takes points kPerWarp wg ..
   {
     constexpr int o = u_offset(kLayerAlpha);
     float wa[8];
@@ -292,7 +408,7 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
     const float la = __ldg(LS + o), ba = __ldg(BI + o);
 #pragma unroll 2
     for (int i = 0; i < kPerWarp; ++i) {
-      const int m = warp * kPerWarp + i;
+      const int m = wg * kPerWarp + i;
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -300,20 +416,20 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
       acc = mma::warp_sum_all(acc);
       if (lane == 0) {
         if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o, acc);
-        s.raw[m * 4 + 3] = fmaf(acc, la, ba);
+        raw[m * 4 + 3] = fmaf(acc, la, ba);
       }
     }
   }
   NNC_PROF(6);
   // feature (no activation) on h = A, in place
-  train_layer<MT, 4, false, SAVE, true>(
-      pipe, A, A, kLdA, kW, nullptr, 0, 0, LS + u_offset(kLayerFeature),
+  train_layer<8, false, SAVE, true>(
+      ring, group, A, A, kLdA, kW, nullptr, 0, 0, LS + u_offset(kLayerFeature),
       BI + u_offset(kLayerFeature), us, map, u_offset(kLayerFeature), U);
   // views: relu(ls * ([feature, view emb] @ wv) + bv) -> A cols 0..127
-  train_layer<MT, 2, true, SAVE, false>(
-      pipe, A, A, kLdA, kW, E + b16::kPtsPad, b16::kLdE, b16::kViewsPad,
-      LS + u_offset(kLayerViews), BI + u_offset(kLayerViews), us, map, 0,
-      U + u_offset(kLayerViews));
+  train_layer<4, true, SAVE, false>(
+      ring, group, A, A, kLdA, kW, E + b16::kPtsPad, b16::kLdE,
+      b16::kViewsPad, LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
+      us, map, 0, U + u_offset(kLayerViews));
   // rgb head (128 -> 3)
   {
     constexpr int o = u_offset(kLayerRgb);
@@ -330,7 +446,7 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
     }
 #pragma unroll 2
     for (int i = 0; i < kPerWarp; ++i) {
-      const int m = warp * kPerWarp + i;
+      const int m = wg * kPerWarp + i;
       float acc[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -343,25 +459,17 @@ __device__ __forceinline__ void mlp_tile_train(b16::MlpSmem<MT>& s,
       if (lane < 3) {
         const float u = lane == 0 ? acc[0] : lane == 1 ? acc[1] : acc[2];
         if (SAVE) __stcs(U + static_cast<size_t>(m) * kU + o + lane, u);
-        s.raw[m * 4 + lane] = fmaf(u, lr, br);
+        raw[m * 4 + lane] = fmaf(u, lr, br);
       }
     }
   }
-  __syncthreads();
+  group_sync(group);
   NNC_PROF(7);
 }
 
-template <int MT>
-struct FwdSmem {
-  b16::MlpSmem<MT> mlp;
-  float xs[16 * MT * 3];
-  float ds[16 * MT * 3];
-  alignas(128) float stage[kThreads / 32][2 * kStageFloats];   // UStore's
-};
-
 // ws_map: the workspace (rows of kU float32) as a tensor map with boxes of
 // 32 columns x 16 rows, when SAVE.
-template <int MT, bool SAVE>
+template <bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
                           const float* __restrict__ LS,
@@ -371,52 +479,112 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
                           float* __restrict__ out, float* __restrict__ ws,
                           const __grid_constant__ CUtensorMap ws_map,
                           int n, int tiles) {
-  constexpr int kPoints = 16 * MT;
-  // (the TMA stores read their staging buffers at 128-byte aligned
+  // (the bulk copies read and write their buffers at 128-byte aligned
   // addresses)
   extern __shared__ __align__(128) unsigned char fwd_smem_raw[];
-  FwdSmem<MT>& s = *reinterpret_cast<FwdSmem<MT>*>(fwd_smem_raw);
+  FwdSmem& s = *reinterpret_cast<FwdSmem*>(fwd_smem_raw);
   const int tid = threadIdx.x;
+  const int group = tid >> 7;
+  const int gt = tid & 127;
   mma::prof_begin();
-  b16::Pipe pipe;
-  pipe.start(FW, s.mlp.ring);
-  b16::zero_embedding_pad<MT>(s.mlp.emb);
+  const int my_tiles =
+      (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  FwdRing ring{&s.ring, FW, my_tiles * b16::kSlabs, 0};
+  if (tid == 0) ring.start();
+  b16::zero_embedding_pad<kFwdPoints / 16>(s.emb);
+  __syncthreads();
   UStore us{s.stage[tid >> 5], 0};
-#ifdef NNC_FWD_STAGGER_NS
-  // (an experiment of nnc_tpu_torch/tools/mma_probe.py: CTAs start
-  // NNC_FWD_STAGGER_NS apart in eight groups, so that their epilogues'
-  // stores do not all fall in one window)
-  if (SAVE) {
-    uint64_t t0, t;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
-    do {
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    } while (t - t0 < static_cast<uint64_t>(blockIdx.x & 7) *
-                          NNC_FWD_STAGGER_NS);
-  }
-#endif
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long base = static_cast<long long>(tile) * kPoints;
-    for (int i = tid; i < kPoints * 3; i += kThreads) {
+  // group 1 starts after group 0's first layer (then the ring keeps it a
+  // few slabs behind)
+  if (group == 1)
+    asm volatile("bar.sync %0, 256;\n" ::"r"(kStartBar) : "memory");
+  for (int t = 0; t < my_tiles; ++t) {
+    const long long base =
+        static_cast<long long>(blockIdx.x + t * gridDim.x) * kFwdPoints +
+        kGroupPoints * group;
+    for (int i = gt; i < kGroupPoints * 3; i += 128) {
       const bool valid = base + i / 3 < n;
-      s.xs[i] = valid ? pts[base * 3 + i] : 0.f;
-      s.ds[i] = valid ? dirs[base * 3 + i] : 0.f;
+      s.xs[kGroupPoints * 3 * group + i] = valid ? pts[base * 3 + i] : 0.f;
+      s.ds[kGroupPoints * 3 * group + i] = valid ? dirs[base * 3 + i] : 0.f;
     }
-    __syncthreads();
+    group_sync(group);
     NNC_PROF(0);
-    b16::embed_tile<MT>(s.mlp.emb, s.xs, s.ds);
+    embed_group(s, group);
     us.row0 = static_cast<int>(base);
-    mlp_tile_train<MT, SAVE>(s.mlp, pipe, FW, LS, BI, us, &ws_map,
-                             SAVE ? ws + static_cast<size_t>(base) * kU
-                                  : nullptr);
-    for (int i = tid; i < kPoints * 4; i += kThreads)
-      if (base + i / 4 < n) out[base * 4 + i] = s.mlp.raw[i];
+    mlp_group_train<SAVE>(s, ring, group, t == 0, FW, LS, BI, us, &ws_map,
+                          SAVE ? ws + static_cast<size_t>(base) * kU
+                               : nullptr);
+    for (int i = gt; i < kGroupPoints * 4; i += 128)
+      if (base + i / 4 < n)
+        out[base * 4 + i] = s.raw[kGroupPoints * 4 * group + i];
     NNC_PROF(8);
   }
-  pipe.drain();
   // the last chunks' stores done before the CTA's shared memory goes
   if (SAVE && (tid & 31) == 0) bulk_wait_all();
   mma::prof_end();
+}
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime (the
+// library links no libcuda), or null.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The error code returned when the tensor map cannot be made (outside
+// cudaError_t's values).
+constexpr int kTensorMapError = 10001;
+
+template <bool SAVE>
+int launch_fwd(const float* fw, const float* ls, const float* bi,
+               const float* pts, const float* dirs, float* out, float* ws,
+               int n, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(FwdSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_fwd_bf16_kernel<SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int tiles = (n + kFwdPoints - 1) / kFwdPoints;
+    CUtensorMap map{};
+    if (SAVE) {
+      const EncodeTiled encode = encode_tiled();
+      if (encode == nullptr) return kTensorMapError;
+      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kU),
+                                  static_cast<cuuint64_t>(tiles) * kFwdPoints};
+      const cuuint64_t strides[1] = {kU * sizeof(float)};
+      const cuuint32_t box[2] = {32, 16};
+      const cuuint32_t steps[2] = {1, 1};
+      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims, strides,
+                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return kTensorMapError;
+    }
+    mlp_train_fwd_bf16_kernel<SAVE>
+        <<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
+            fw, ls, bi, pts, dirs, out, ws, map, n, tiles);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------ backward without dW, on the tensor cores
@@ -727,77 +895,13 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
   mma::prof_end();
 }
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime (the
-// library links no libcuda), or null.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The error code returned when the tensor map cannot be made (outside
-// cudaError_t's values).
-constexpr int kTensorMapError = 10001;
-
-template <bool SAVE>
-int launch_fwd(const float* fw, const float* ls, const float* bi,
-               const float* pts, const float* dirs, float* out, float* ws,
-               int n, cudaStream_t stream) {
-  constexpr int kPoints = 16 * kFwdMT;
-  const int smem = static_cast<int>(sizeof(FwdSmem<kFwdMT>));
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_fwd_bf16_kernel<kFwdMT, SAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    const int tiles = (n + kPoints - 1) / kPoints;
-    CUtensorMap map{};
-    if (SAVE) {
-      const EncodeTiled encode = encode_tiled();
-      if (encode == nullptr) return kTensorMapError;
-      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kU),
-                                  static_cast<cuuint64_t>(tiles) * kPoints};
-      const cuuint64_t strides[1] = {kU * sizeof(float)};
-      const cuuint32_t box[2] = {32, 16};
-      const cuuint32_t steps[2] = {1, 1};
-      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims, strides,
-                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return kTensorMapError;
-    }
-    mlp_train_fwd_bf16_kernel<kFwdMT, SAVE>
-        <<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
-            fw, ls, bi, pts, dirs, out, ws, map, n, tiles);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // The forward's tile (points; its workspace has rows for whole tiles) and
 // the lengths of the two buffers of pack_train_bf16, in 32-bit words.
 extern "C" int nnc_train_bf16_sizes(int* fwd_tile, int* fwd_size,
                                     int* bwd_size) {
-  *fwd_tile = 16 * kFwdMT;
+  *fwd_tile = kFwdPoints;
   *fwd_size = b16::kParamsSize;
   *bwd_size = kBwdParamsSize;
   return 0;

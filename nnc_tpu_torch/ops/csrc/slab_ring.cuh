@@ -27,9 +27,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The ring's shared memory, a member of the kernel's own layout.
+// The ring's shared memory, a member of the kernel's own layout (whole
+// 128-byte lines, so that the members after it keep their alignment).
 template <int STAGES>
-struct RingSmem {
+struct alignas(128) RingSmem {
   float stages[STAGES * kSlabFloats];
   uint64_t full[STAGES];   // a stage's slab has landed
   int released[STAGES];    // warps done with a stage's slab

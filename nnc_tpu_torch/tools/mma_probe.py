@@ -1,7 +1,7 @@
 """What holds the tensor-core chains of K-B3 / K-B2 / K-B1
 (ops/csrc/nerf_mlp_mma.cuh, float32 as 3xTF32; ops/csrc/nerf_mlp_bf16.cuh,
-bf16) on the card they run on. Needs a CUDA device and
-nvcc:
+bf16) and K-B4's int8 products on the card they run on. Needs a CUDA device
+and nvcc:
 
     python -m nnc_tpu_torch.tools.mma_probe
 
@@ -33,13 +33,17 @@ Prints, after the card's name and power limit:
      times in turns beside the float32 kernel's, the weight bytes a point
      reads from L2, and the share of a tile's clocks in each part;
   6. the int8 path: the rate at which a sub-partition issues
-     ``mma.sync.m16n8k32 .s8`` (as in 1, in TOP/s), and the SASS opcode
-     counts of K-B4 (``mlp_int8_from_points.cu``) as shipped;
+     ``mma.sync.m16n8k32 .s8`` (as in 1, in TOP/s), the SASS opcode counts
+     of K-B4 (``mlp_int8_from_points.cu``) as shipped, and K-B4 at 262,144
+     points as shipped and with clock marks (the outputs bit-equal): its
+     time and the share of a tile's clocks in each part, as group 0's first
+     thread sees them;
   7. K-B1's forward in bf16 (``mlp_train_bf16.cu``) at 196,608 points: its
      time as shipped in turns with its time without the workspace of u
      (``ws`` null, which launches the build without stores of u), the
      backward without dW on that workspace, and, built with clock marks,
-     the share of a tile's clocks in each part of the forward.
+     the share of a tile's clocks in each part of the forward (group 0's
+     first thread).
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
@@ -207,7 +211,7 @@ def _ms(fn, iters=10, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-ISSUE_KINDS = {"tf32": (0, 1, "TF32 TFLOP/s", 8),
+MMA_KINDS = {"tf32": (0, 1, "TF32 TFLOP/s", 8),
                "bf16": (1, 5, "BF16 TFLOP/s", 16),
                "s8": (2, 6, "int8 TOP/s", 32)}
 
@@ -216,7 +220,7 @@ def issue_rate(lib, dev, kind="tf32"):
     """Section 1 (TF32 m16n8k8), the first part of section 5 (bf16
     m16n8k16, twice the depth a product) or of section 6 (s8 m16n8k32, four
     times the depth)."""
-    code, section, what, depth = ISSUE_KINDS[kind]
+    code, section, what, depth = MMA_KINDS[kind]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(sms * 512, device=dev)
     clk = torch.zeros(sms, dtype=torch.int64, device=dev)
@@ -402,22 +406,9 @@ def train_bf16_fwd(libs, dev):
     shipped = libs["train_bf16"]
     runs = {"with the workspace (shipped)": lambda: fwd(shipped, raws["ws"]),
             "without it": lambda: fwd(shipped, raws["no_ws"], save=False)}
-    # builds with their CTAs' starts staggered (NNC_FWD_STAGGER_NS), each
-    # with a workspace of its own, held bit-equal to the shipped one
-    extra = {k: v for k, v in libs.items() if k.startswith("train_bf16_stag")}
-    wss = {k: torch.empty_like(ws) for k in extra}
-    for k, lib in extra.items():
-        raws[k] = torch.empty(n, 4, device=dev)
-        runs[k] = lambda lib=lib, k=k: lib.nnc_mlp_train_fwd_bf16(
-            fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
-            vd.data_ptr(), raws[k].data_ptr(), wss[k].data_ptr(), n, stream)
     times = [{k: _ms(fn) for k, fn in runs.items()} for _ in range(2)]
     assert torch.equal(raws["ws"], raws["no_ws"]), \
         "the forward's raw depends on whether it saves u"
-    for k in extra:
-        print(f"[7] {k}: raw equal {torch.equal(raws[k], raws['ws'])}, "
-              f"workspace equal {torch.equal(wss[k], ws)}")
-    del wss
     t_bwd = [_ms(bwd) for _ in range(2)]
     print(f"[7] K-B1 bf16 forward {n} points in turns, ms: "
           + "; ".join(f"{k} {[f'{x[k]:.3f}' for x in times]}" for k in runs)
@@ -605,10 +596,6 @@ def main(argv=None):
                                    "-DNNC_MMA_PROFILE"),
               "int8": ({6}, kb4),
               "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
-              "train_bf16_stagger1000": ({7}, kb1_bf16,
-                                         "-DNNC_FWD_STAGGER_NS=1000"),
-              "train_bf16_stagnowait": ({7}, kb1_bf16,
-                                        "-DNNC_PROBE_U_NO_WAIT"),
               "train_bf16": ({7}, kb1_bf16),
               "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE")}
     procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
@@ -642,10 +629,8 @@ def main(argv=None):
         libs[name].nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, ci,
                                                         vp]
     for name in (n for n in libs if n.startswith("train_bf16")):
-        if name in libs:
-            libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
-            libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci,
-                                                                    vp]
+        libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
+        libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci, vp]
     if 1 in sections:
         issue_rate(libs["issue_rate"], dev)
     if 2 in sections:
