@@ -198,7 +198,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-using Ring = nerf::ring::SlabRing<kSlabs, kStages, kThreads / 32>;
+using Ring = nerf::ring::SlabRing<kSlabs, kStages>;
 static_assert(kSlab == nerf::ring::kSlabFloats, "one slab size");
 
 struct Smem {

@@ -97,21 +97,19 @@ static_assert(16 * kBwdMT == kM, "the backward walks tiles of kM points");
 
 // The forward's tile: 128 points, two groups of four warps with 64 points
 // each; a warp owns its group's 64 points x 64 output channels (the view
-// layer: 32). The groups take the tensor cores in turns, so that one
-// group's epilogue, whose u stores wait on device memory, runs beside the
-// other group's products; each streams the slabs through a ring of its own
-// (slab_ring.cuh: three stages of half a slab), so that neither waits for
-// the other to release a stage.
+// layer: 32). The groups walk the same slabs (slab_ring.cuh) at their own
+// pace, so that one group's epilogue, whose u stores wait on device memory,
+// runs beside the other group's products.
 constexpr int kFwdPoints = 128;
 constexpr int kGroupPoints = 64;
 constexpr int kFwdStages = 3;
-using FwdRing = ring::SlabRing<2 * b16::kSlabs, kFwdStages, 4, true>;
+using FwdRing = ring::SlabRing<b16::kSlabs, kFwdStages>;
 static_assert(mma::kSlab == ring::kSlabFloats, "one slab size");
 
 // Named barriers: each group's own (128 threads; 0 is __syncthreads'), and
-// the two turns (both groups, 256 threads: a group may run its products).
+// the one that starts group 1 after group 0's first layer.
 constexpr int kGroupBar = 1;   // + group
-constexpr int kTurnBar = 3;    // + group
+constexpr int kStartBar = 3;
 __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(kGroupBar + group) : "memory");
 }
@@ -203,8 +201,7 @@ __device__ __forceinline__ void stage_u(const float (&acc)[4][8][4],
 // channels of its group's 64 points. x: the group's first row, point-major
 // bf16 in shared memory with row stride ld. K % 16 == 0. The slabs are
 // pack_weights_bf16's: eight eighths of NT / 2 n-tiles each (mma_run of
-// nerf_mlp_bf16.cuh reads one); this warp reads eighths 2 wg and 2 wg + 1,
-// half a slab (half of each eighth's k steps) a unit of the ring.
+// nerf_mlp_bf16.cuh reads one); this warp reads eighths 2 wg and 2 wg + 1.
 template <int NT>
 __device__ __forceinline__ void mma_run2(FwdRing& ring,
                                          float (&acc)[4][NT][4],
@@ -212,24 +209,19 @@ __device__ __forceinline__ void mma_run2(FwdRing& ring,
                                          int K) {
   constexpr int kPer = NT / 2;          // n-tiles of an eighth
   constexpr int kStepVec = 16 * kPer;   // an eighth's 16-byte vectors a k step
-  constexpr int kHalf = mma::kSlab / 8 / 4 / 2;   // vectors of a half eighth
-  constexpr int kStepsPerUnit = kHalf / kStepVec;   // 2 or 4
+  constexpr int kEighth = mma::kSlab / 8 / 4;   // 16-byte vectors of an eighth
+  constexpr int kStepsPerSlab = kEighth / kStepVec;   // 4 or 8
   const int lane = threadIdx.x & 31;
   const int wg = (threadIdx.x >> 5) & 3;
   uint32_t a_addr =
       ring::smem_u32(x + (lane & 15) * ld + 8 * (lane >> 4));
   const uint32_t mt_bytes = 16 * ld * sizeof(__nv_bfloat16);
   const int steps = K / 16;
-  // whole slabs: both halves of the run's last slab pass, used or not
-  const int units = (steps + 2 * kStepsPerUnit - 1) / (2 * kStepsPerUnit) * 2;
-  for (int u = 0; u < units; ++u) {
-    const int s0 = u * kStepsPerUnit;
+  for (int s0 = 0; s0 < steps; s0 += kStepsPerSlab) {
     const uint4* e0 = reinterpret_cast<const uint4*>(ring.acquire()) +
-                      2 * wg * kHalf + lane;
-    const uint4* e1 = e0 + kHalf;
-    const int n = steps - s0 < kStepsPerUnit
-                      ? (steps - s0 > 0 ? steps - s0 : 0)
-                      : kStepsPerUnit;
+                      2 * wg * kEighth + lane;
+    const uint4* e1 = e0 + kEighth;
+    const int n = steps - s0 < kStepsPerSlab ? steps - s0 : kStepsPerSlab;
 #pragma unroll 2
     for (int ks = 0; ks < n; ++ks) {
       uint32_t b[NT][2];
@@ -267,15 +259,14 @@ __device__ __forceinline__ void mma_run2(FwdRing& ring,
 // products; else (the view layer, whose columns start at the odd offset
 // 2,305) from the fragments to U (the group's first workspace row at the
 // layer's columns, row stride kU), one float a store. out may be x1 or x2.
-// The products run in the group's turn; last: group 1's last products of
-// the CTA, which hand no turn on. Ends with the group's barrier.
+// Ends with the group's barrier.
 template <int NT, bool RELU, bool SAVE, bool TMA>
 __device__ __forceinline__ void train_layer(
     FwdRing& ring, int group, __nv_bfloat16* out, const __nv_bfloat16* x1,
     int ld1, int K1, const __nv_bfloat16* x2, int ld2, int K2,
     const float* __restrict__ ls, const float* __restrict__ b,
     const UStore& us, const CUtensorMap* map, int ucol,
-    float* __restrict__ U, bool last = false) {
+    float* __restrict__ U) {
   static_assert(!TMA || NT == 8, "TMA stores take 64 columns a warp");
   const int lane = threadIdx.x & 31;
   const int wg = (threadIdx.x >> 5) & 3;
@@ -288,14 +279,8 @@ __device__ __forceinline__ void train_layer(
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  NNC_PROF(1);
-  asm volatile("bar.sync %0, 256;\n" ::"r"(kTurnBar + group) : "memory");
-  NNC_PROF(0);
   mma_run2<NT>(ring, acc, x1, ld1, K1);
   if (K2 > 0) mma_run2<NT>(ring, acc, x2, ld2, K2);
-  if (!last)   // the other group's turn
-    asm volatile("bar.arrive %0, 256;\n" ::"r"(kTurnBar + 1 - group)
-                 : "memory");
   NNC_PROF(2);
   if constexpr (SAVE && TMA) {
     stage_u(acc, us, map, ucol + 64 * wg);
@@ -338,7 +323,7 @@ __device__ __forceinline__ void train_layer(
 }
 
 struct FwdSmem {
-  ring::RingSmem<kFwdStages, true> ring[2];   // each group's slabs
+  ring::RingSmem<kFwdStages> ring;             // weight slabs in flight
   __nv_bfloat16 act[kFwdPoints * b16::kLdA];   // a layer's input, then output
   __nv_bfloat16 emb[kFwdPoints * b16::kLdE];   // as nerf_mlp_bf16.cuh's
   float raw[kFwdPoints * 4];                   // (point, [r, g, b, sigma])
@@ -375,12 +360,12 @@ __device__ __forceinline__ void embed_group(FwdSmem& s, int group) {
 // The training MLP on the group's embedded rows of s.emb; raw logits to its
 // rows of s.raw, u of every layer to U (the group's first workspace row)
 // when SAVE. FW: the buffer of pack_train_bf16's forward half, whose slabs
-// `ring` streams and whose tail holds the heads' rounded weights. last: the
-// CTA's last tile, whose view layer hands group 1's last turn on to no one.
+// `ring` streams and whose tail holds the heads' rounded weights. first:
+// the CTA's first tile, after whose layer 0 group 0 lets group 1 start.
 // Starts (after the embedding's stores) and ends with the group's barrier.
 template <bool SAVE>
 __device__ __forceinline__ void mlp_group_train(
-    FwdSmem& s, FwdRing& ring, int group, bool last,
+    FwdSmem& s, FwdRing& ring, int group, bool first,
     const float* __restrict__ FW, const float* __restrict__ LS,
     const float* __restrict__ BI, const UStore& us, const CUtensorMap* map,
     float* __restrict__ U) {
@@ -393,8 +378,11 @@ __device__ __forceinline__ void mlp_group_train(
   const int wg = (threadIdx.x >> 5) & 3;
 
   group_sync(group);
+  NNC_PROF(1);
   train_layer<8, true, SAVE, true>(ring, group, A, E, b16::kLdE, b16::kPtsPad,
                                    nullptr, 0, 0, LS, BI, us, map, 0, U);
+  if (first && group == 0)
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(kStartBar) : "memory");
 #pragma unroll 1
   for (int i = 1; i <= 4; ++i)
     train_layer<8, true, SAVE, true>(ring, group, A, A, kLdA, kW, nullptr, 0,
@@ -441,7 +429,7 @@ __device__ __forceinline__ void mlp_group_train(
   train_layer<4, true, SAVE, false>(
       ring, group, A, A, kLdA, kW, E + b16::kPtsPad, b16::kLdE,
       b16::kViewsPad, LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
-      us, map, 0, U + u_offset(kLayerViews), last && group == 1);
+      us, map, 0, U + u_offset(kLayerViews));
   // rgb head (128 -> 3)
   {
     constexpr int o = u_offset(kLayerRgb);
@@ -501,14 +489,15 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
   mma::prof_begin();
   const int my_tiles =
       (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  FwdRing ring{&s.ring[group], FW, my_tiles * 2 * b16::kSlabs, 0};
-  if (gt == 0) ring.start();
+  FwdRing ring{&s.ring, FW, my_tiles * b16::kSlabs, 0};
+  if (tid == 0) ring.start();
   b16::zero_embedding_pad<kFwdPoints / 16>(s.emb);
   __syncthreads();
   UStore us{s.stage[tid >> 5], 0};
-  // group 0 takes the first turn
+  // group 1 starts after group 0's first layer (then the ring keeps it a
+  // few slabs behind)
   if (group == 1)
-    asm volatile("bar.arrive %0, 256;\n" ::"r"(kTurnBar) : "memory");
+    asm volatile("bar.sync %0, 256;\n" ::"r"(kStartBar) : "memory");
   for (int t = 0; t < my_tiles; ++t) {
     const long long base =
         static_cast<long long>(blockIdx.x + t * gridDim.x) * kFwdPoints +
@@ -519,11 +508,10 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
       s.ds[kGroupPoints * 3 * group + i] = valid ? dirs[base * 3 + i] : 0.f;
     }
     group_sync(group);
-    NNC_PROF(8);
+    NNC_PROF(0);
     embed_group(s, group);
     us.row0 = static_cast<int>(base);
-    mlp_group_train<SAVE>(s, ring, group, t == my_tiles - 1, FW, LS, BI, us,
-                          &ws_map,
+    mlp_group_train<SAVE>(s, ring, group, t == 0, FW, LS, BI, us, &ws_map,
                           SAVE ? ws + static_cast<size_t>(base) * kU
                                : nullptr);
     for (int i = gt; i < kGroupPoints * 4; i += 128)

@@ -1,19 +1,15 @@
-// A stream of weight slabs through a ring of shared-memory stages that
-// every one of WARPS warps reads in full, for kernels whose warps walk the
-// slabs at their own pace: mlp_int8_from_points.cu (K-B4: both groups of
-// warps on one ring of 32 KB slabs) and the bf16 training forward of
-// mlp_train_bf16.cu (K-B1: each group on a ring of its own, of half slabs).
+// A stream of 32 KB weight slabs through a ring of shared-memory stages
+// that every warp of the CTA reads in full, for kernels whose two groups of
+// warps walk the same slabs at their own pace: mlp_int8_from_points.cu
+// (K-B4) and the bf16 training forward of mlp_train_bf16.cu (K-B1).
 //
-// Unit j of a ring's sequence (unit j % UNITS of the packed buffer) lands
-// in stage j % STAGES by bulk copies (cp.async.bulk, the tensor memory
+// Slab j of the CTA's sequence (slab j % SLABS of the packed buffer) lands
+// in stage j % STAGES by one bulk copy (cp.async.bulk, the tensor memory
 // accelerator), and the stage's mbarrier completes its phase
-// (j / STAGES) & 1 when it has. A unit is a 32 KB slab (HALVES false), or
-// (HALVES) half a slab: the first or second half of each of its eight
-// eighths, 2 KB each, that is half of each warp's k steps. Each warp
-// acquires and releases every unit in order; the last of the WARPS warps
-// to release a stage copies the unit STAGES further into it. Warps that
-// share a ring can run apart by at most STAGES units, and no warp waits at
-// a barrier for a unit.
+// (j / STAGES) & 1 when it has. Each warp acquires and releases every slab
+// in order; the last of the CTA's warps to release a stage copies the slab
+// STAGES further into it. A group can therefore run ahead of the other by
+// at most STAGES slabs, and no warp waits at a CTA-wide barrier for a slab.
 // (nerf_mlp_mma.cuh's PipeT, where each warp copies and reads only its own
 // eighth of a slab, needs no such bookkeeping, but a warp there can read
 // only the columns its eighth holds.)
@@ -33,23 +29,22 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // The ring's shared memory, a member of the kernel's own layout (whole
 // 128-byte lines, so that the members after it keep their alignment).
-template <int STAGES, bool HALVES = false>
+template <int STAGES>
 struct alignas(128) RingSmem {
-  static constexpr int kUnitFloats = HALVES ? kSlabFloats / 2 : kSlabFloats;
-  float stages[STAGES * kUnitFloats];
-  uint64_t full[STAGES];   // a stage's unit has landed
-  int released[STAGES];    // warps done with a stage's unit
+  float stages[STAGES * kSlabFloats];
+  uint64_t full[STAGES];   // a stage's slab has landed
+  int released[STAGES];    // warps done with a stage's slab
 };
 
-template <int UNITS, int STAGES, int WARPS, bool HALVES = false>
+template <int SLABS, int STAGES>
 struct SlabRing {
-  static constexpr int kUnitFloats = RingSmem<STAGES, HALVES>::kUnitFloats;
-  RingSmem<STAGES, HALVES>* s;
+  RingSmem<STAGES>* s;
   const float* src;   // the packed buffer; its slabs first, 16-byte aligned
-  int total;          // units this ring streams
-  int j;              // the unit this warp acquires next
+  int total;          // slabs this CTA reads
+  int j;              // the slab this warp acquires next
+  static constexpr int kWarps = 8;   // warps that read every slab
 
-  // One thread: the barriers, then the first STAGES units. The CTA must
+  // One thread: the barriers, then the first STAGES slabs. The CTA must
   // pass a __syncthreads() before any warp acquires.
   __device__ __forceinline__ void start() const {
     for (int st = 0; st < STAGES; ++st) {
@@ -62,38 +57,23 @@ struct SlabRing {
     for (int k = 0; k < STAGES && k < total; ++k) issue(k);
   }
 
-  __device__ __forceinline__ static void copy(float* dst, const float* from,
-                                              int floats, uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-        "l"(from), "r"(floats * 4), "r"(bar)
-        : "memory");
-  }
-
-  __device__ __forceinline__ void issue(int unit_j) const {
-    const int st = unit_j % STAGES;
+  __device__ __forceinline__ void issue(int slab_j) const {
+    const int st = slab_j % STAGES;
     const uint32_t bar = smem_u32(&s->full[st]);
     asm volatile(
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(kUnitFloats * 4)
+        "r"(kSlabFloats * 4)
         : "memory");
-    const int u = unit_j % UNITS;
-    float* dst = s->stages + st * kUnitFloats;
-    if constexpr (HALVES) {
-      // half (u & 1) of each eighth of slab u / 2
-      constexpr int kEighth = kSlabFloats / 8;
-      const float* slab = src + static_cast<size_t>(u >> 1) * kSlabFloats +
-                          (u & 1) * (kEighth / 2);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        copy(dst + e * (kEighth / 2), slab + e * kEighth, kEighth / 2, bar);
-    } else {
-      copy(dst, src + static_cast<size_t>(u) * kSlabFloats, kSlabFloats, bar);
-    }
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(s->stages + st * kSlabFloats)),
+        "l"(src + static_cast<size_t>(slab_j % SLABS) * kSlabFloats),
+        "r"(kSlabFloats * 4), "r"(bar)
+        : "memory");
   }
 
-  // The next unit (its stage's first float), landed; all lanes call it.
+  // The next slab (its stage's first float), landed; all lanes call it.
   __device__ __forceinline__ const float* acquire() const {
     const int st = j % STAGES;
     const uint32_t bar = smem_u32(&s->full[st]);
@@ -107,17 +87,17 @@ struct SlabRing {
         "}\n" ::"r"(bar),
         "r"(parity)
         : "memory");
-    return s->stages + st * kUnitFloats;
+    return s->stages + st * kSlabFloats;
   }
 
-  // This warp is done with the unit it acquired last (its reads of it have
+  // This warp is done with the slab it acquired last (its reads of it have
   // returned: the instructions that use them issued before); all lanes call
   // it.
   __device__ __forceinline__ void release() {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
       const int st = j % STAGES;
-      if (atomicAdd(&s->released[st], 1) == WARPS - 1) {
+      if (atomicAdd(&s->released[st], 1) == kWarps - 1) {
         atomicExch(&s->released[st], 0);
         if (j + STAGES < total) {
           // the warps' reads of the stage, before the copy's writes

@@ -75,12 +75,11 @@ TRAIN_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
                    "epilogue: u staged, workspace rows, activations",
                    "barrier after the stores", "alpha head",
                    "rgb head and barrier", "store the logits")
-TRAIN_BF16_FWD_SLOTS = ("waiting for the group's turn", "embedding",
-                        "product loops", "the group's barrier after them",
+TRAIN_BF16_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
+                        "barrier after the products",
                         "epilogue: u to the workspace, activations",
-                        "the group's barrier after the stores", "alpha head",
-                        "rgb head and barrier",
-                        "stage the points in, store the logits")
+                        "barrier after the stores", "alpha head",
+                        "rgb head and barrier", "store the logits")
 INT8_SLOTS = ("stage the points in", "embedding and its quantization",
               "waiting for the group's turn", "product loops",
               "epilogue: float values, block maximum",
