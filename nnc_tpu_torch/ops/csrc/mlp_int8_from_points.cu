@@ -194,10 +194,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 using Ring = nerf::ring::SlabRing<kSlabs, kStages>;
 static_assert(kSlab == nerf::ring::kSlabFloats, "one slab size");
 
@@ -229,56 +225,6 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// acc += x[:, 0..K) @ (the next slabs), for this warp's 8 NT output
-// channels of its group's 64 points. x: the group's first row, point-major
-// int8 in shared memory with row stride ld bytes. K % 32 == 0. The warp
-// reads two eighths of each slab: 2 wg and 2 wg + 1 (NT / 2 n-tiles each).
-template <int NT>
-__device__ __forceinline__ void mma_run(Ring& ring, int (&acc)[kMT][NT][4],
-                                        const int8_t* x, int ld, int K) {
-  constexpr int kPer = NT / 2;          // n-tiles of an eighth
-  constexpr int kStepVec = 16 * kPer;   // an eighth's 16-byte vectors a k step
-  constexpr int kEighth = kSlab / 8 / 4;   // 16-byte vectors of an eighth
-  constexpr int kStepsPerSlab = kEighth / kStepVec;   // 4 or 8
-  const int lane = threadIdx.x & 31;
-  const int wg = (threadIdx.x >> 5) & 3;
-  uint32_t a_addr = smem_addr(x + (lane & 15) * ld + 16 * (lane >> 4));
-  const uint32_t mt_bytes = 16 * ld;
-  const int steps = K / 32;
-  for (int s0 = 0; s0 < steps; s0 += kStepsPerSlab) {
-    const uint4* e0 = reinterpret_cast<const uint4*>(ring.acquire()) +
-                      2 * wg * kEighth + lane;
-    const uint4* e1 = e0 + kEighth;
-    const int n = steps - s0 < kStepsPerSlab ? steps - s0 : kStepsPerSlab;
-#pragma unroll 2
-    for (int ks = 0; ks < n; ++ks) {
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int q = 0; q < kPer / 2; ++q) {
-        const uint4 w0 = e0[ks * kStepVec + q * 32];
-        const uint4 w1 = e1[ks * kStepVec + q * 32];
-        b[2 * q][0] = w0.x;
-        b[2 * q][1] = w0.y;
-        b[2 * q + 1][0] = w0.z;
-        b[2 * q + 1][1] = w0.w;
-        b[kPer + 2 * q][0] = w1.x;
-        b[kPer + 2 * q][1] = w1.y;
-        b[kPer + 2 * q + 1][0] = w1.z;
-        b[kPer + 2 * q + 1][1] = w1.w;
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        uint32_t a[4];
-        nerf::bf16::ldmatrix_x4(a, a_addr + mt * mt_bytes);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], a, b[nt]);
-      }
-      a_addr += 32;
-    }
-    ring.release();
-  }
 }
 
 // The heads' weights a thread multiplies its quantized outputs by (HEAD 1:
@@ -385,7 +331,11 @@ __device__ __noinline__ float layer(
   NNC_PROF(1);
   bar_sync(kTurnBar + group, 256);   // this group's turn
   NNC_PROF(2);
-  mma_run<NT>(ring, acc, x1, ld1, K1);
+  nerf::ring::run_two_eighths<kMT, NT>(
+      ring, acc, x1, ld1, K1 / 32,
+      [](int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+        mma_s8(c, a, b);
+      });
   if (!last) bar_arrive(kTurnBar + 1 - group, 256);   // the other's turn
   NNC_PROF(3);
 
@@ -422,8 +372,9 @@ __device__ __noinline__ float layer(
 #pragma unroll
       for (int ks = 0; ks < kSteps2; ++ks)
         nerf::bf16::ldmatrix_x4(
-            a2[mt][ks], smem_addr(x2 + (mt * 16 + (lane & 15)) * kLdE +
-                                  16 * (lane >> 4) + 32 * ks));
+            a2[mt][ks],
+            nerf::ring::smem_u32(x2 + (mt * 16 + (lane & 15)) * kLdE +
+                                 16 * (lane >> 4) + 32 * ks));
     const float d2 = __fdiv_rn(m2, 127.f);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {

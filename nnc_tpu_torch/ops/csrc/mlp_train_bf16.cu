@@ -197,60 +197,6 @@ __device__ __forceinline__ void stage_u(const float (&acc)[4][8][4],
     }
 }
 
-// acc += x[:, 0..K) @ (the next slabs), for this warp's 8 NT output
-// channels of its group's 64 points. x: the group's first row, point-major
-// bf16 in shared memory with row stride ld. K % 16 == 0. The slabs are
-// pack_weights_bf16's: eight eighths of NT / 2 n-tiles each (mma_run of
-// nerf_mlp_bf16.cuh reads one); this warp reads eighths 2 wg and 2 wg + 1.
-template <int NT>
-__device__ __forceinline__ void mma_run2(FwdRing& ring,
-                                         float (&acc)[4][NT][4],
-                                         const __nv_bfloat16* x, int ld,
-                                         int K) {
-  constexpr int kPer = NT / 2;          // n-tiles of an eighth
-  constexpr int kStepVec = 16 * kPer;   // an eighth's 16-byte vectors a k step
-  constexpr int kEighth = mma::kSlab / 8 / 4;   // 16-byte vectors of an eighth
-  constexpr int kStepsPerSlab = kEighth / kStepVec;   // 4 or 8
-  const int lane = threadIdx.x & 31;
-  const int wg = (threadIdx.x >> 5) & 3;
-  uint32_t a_addr =
-      ring::smem_u32(x + (lane & 15) * ld + 8 * (lane >> 4));
-  const uint32_t mt_bytes = 16 * ld * sizeof(__nv_bfloat16);
-  const int steps = K / 16;
-  for (int s0 = 0; s0 < steps; s0 += kStepsPerSlab) {
-    const uint4* e0 = reinterpret_cast<const uint4*>(ring.acquire()) +
-                      2 * wg * kEighth + lane;
-    const uint4* e1 = e0 + kEighth;
-    const int n = steps - s0 < kStepsPerSlab ? steps - s0 : kStepsPerSlab;
-#pragma unroll 2
-    for (int ks = 0; ks < n; ++ks) {
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int q = 0; q < kPer / 2; ++q) {
-        const uint4 w0 = e0[ks * kStepVec + q * 32];
-        const uint4 w1 = e1[ks * kStepVec + q * 32];
-        b[2 * q][0] = w0.x;
-        b[2 * q][1] = w0.y;
-        b[2 * q + 1][0] = w0.z;
-        b[2 * q + 1][1] = w0.w;
-        b[kPer + 2 * q][0] = w1.x;
-        b[kPer + 2 * q][1] = w1.y;
-        b[kPer + 2 * q + 1][0] = w1.z;
-        b[kPer + 2 * q + 1][1] = w1.w;
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t a[4];
-        b16::ldmatrix_x4(a, a_addr + mt * mt_bytes);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) b16::mma_bf16(acc[mt][nt], a, b[nt]);
-      }
-      a_addr += 16 * sizeof(__nv_bfloat16);
-    }
-    ring.release();
-  }
-}
-
 // The group's rows: out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u =
 // x1 @ w (+ x2 @ w2) for its 64 points, the unscaled weights from the ring;
 // u goes to the workspace when SAVE: with TMA (NT = 8, the layer's columns
@@ -279,8 +225,11 @@ __device__ __forceinline__ void train_layer(
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  mma_run2<NT>(ring, acc, x1, ld1, K1);
-  if (K2 > 0) mma_run2<NT>(ring, acc, x2, ld2, K2);
+  const auto mma = [](float (&c)[4], const uint32_t (&a)[4],
+                      const uint32_t (&b)[2]) { b16::mma_bf16(c, a, b); };
+  ring::run_two_eighths<4, NT>(ring, acc, x1, ld1 * 2, K1 / 16, mma);
+  if (K2 > 0)
+    ring::run_two_eighths<4, NT>(ring, acc, x2, ld2 * 2, K2 / 16, mma);
   NNC_PROF(2);
   if constexpr (SAVE && TMA) {
     stage_u(acc, us, map, ucol + 64 * wg);

@@ -12,11 +12,15 @@
 // at most STAGES slabs, and no warp waits at a CTA-wide barrier for a slab.
 // (nerf_mlp_mma.cuh's PipeT, where each warp copies and reads only its own
 // eighth of a slab, needs no such bookkeeping, but a warp there can read
-// only the columns its eighth holds.)
+// only the columns its eighth holds.) Both kernels' warps own the output
+// channels of two eighths of every slab, and run their products through
+// run_two_eighths below.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nerf_mlp_bf16.cuh"   // ldmatrix_x4
 
 namespace nerf {
 namespace ring {
@@ -109,6 +113,63 @@ struct SlabRing {
     ++j;
   }
 };
+
+// acc += x @ (the next slabs of `ring`) for this warp: its 16 MT rows of
+// x (point-major in shared memory, row stride ld bytes, 32 bytes of each
+// row a k step: 16 bf16 or 32 int8 channels) and its 8 NT output channels,
+// those of eighths 2 wg and 2 wg + 1 of each slab (wg: the warp within its
+// group of four). The slabs hold the operand B of mma.sync in fragment
+// order, per eighth [k step][pair of n-tiles][lane][4 words] (NT / 2
+// n-tiles an eighth: 4 k steps a slab at NT = 8, 8 at NT = 4), as
+// mlp_fused.pack_weights_bf16 and repack_int8_mma lay them out. mma(c, a,
+// b) adds one m16n8 tile's product of one k step into c. `steps` k steps;
+// the run's last slab may hold more, which are skipped.
+template <int MT, int NT, class Ring, class Acc, class Mma>
+__device__ __forceinline__ void run_two_eighths(Ring& ring,
+                                                Acc (&acc)[MT][NT][4],
+                                                const void* x, int ld,
+                                                int steps, Mma mma) {
+  constexpr int kPer = NT / 2;          // n-tiles of an eighth
+  constexpr int kStepVec = 16 * kPer;   // an eighth's 16-byte vectors a k step
+  constexpr int kEighth = kSlabFloats / 8 / 4;   // 16-byte vectors of one
+  constexpr int kStepsPerSlab = kEighth / kStepVec;   // 4 or 8
+  const int lane = threadIdx.x & 31;
+  const int wg = (threadIdx.x >> 5) & 3;
+  uint32_t a_addr = smem_u32(static_cast<const char*>(x) +
+                             (lane & 15) * ld + 16 * (lane >> 4));
+  for (int s0 = 0; s0 < steps; s0 += kStepsPerSlab) {
+    const uint4* e0 = reinterpret_cast<const uint4*>(ring.acquire()) +
+                      2 * wg * kEighth + lane;
+    const uint4* e1 = e0 + kEighth;
+    const int n = steps - s0 < kStepsPerSlab ? steps - s0 : kStepsPerSlab;
+#pragma unroll 2
+    for (int ks = 0; ks < n; ++ks) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int q = 0; q < kPer / 2; ++q) {
+        const uint4 w0 = e0[ks * kStepVec + q * 32];
+        const uint4 w1 = e1[ks * kStepVec + q * 32];
+        b[2 * q][0] = w0.x;
+        b[2 * q][1] = w0.y;
+        b[2 * q + 1][0] = w0.z;
+        b[2 * q + 1][1] = w0.w;
+        b[kPer + 2 * q][0] = w1.x;
+        b[kPer + 2 * q][1] = w1.y;
+        b[kPer + 2 * q + 1][0] = w1.z;
+        b[kPer + 2 * q + 1][1] = w1.w;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        bf16::ldmatrix_x4(a, a_addr + mt * 16 * ld);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(acc[mt][nt], a, b[nt]);
+      }
+      a_addr += 32;
+    }
+    ring.release();
+  }
+}
 
 }  // namespace ring
 }  // namespace nerf

@@ -23,7 +23,8 @@ reads :func:`pack_weights_int8`'s values in fragment order,
 :func:`pack_weights_int8_mma` / :func:`repack_int8_mma`. The plain versions
 read :func:`pack_weights`' and :func:`pack_weights_int8`'s buffers, and
 :func:`unpack_weights_mma` / :func:`unpack_weights_int8_mma` read the
-fragment orders back, so the CPU tests check the layouts the kernels read. A model with ``config.compute_dtype == torch.bfloat16`` takes
+fragment orders back, so the CPU tests check the layouts the kernels read.
+A model with ``config.compute_dtype == torch.bfloat16`` takes
 the bf16 variant of K-B3 (``csrc/mlp_from_points_bf16.cu`` on
 ``csrc/nerf_mlp_bf16.cuh``: ``mma.sync`` bf16 products, float32 sums), which
 reads :func:`pack_weights_bf16`'s buffer; its plain version is
@@ -563,12 +564,18 @@ INT8_MMA_RUNS = (("w0", 64), ("w1", 256), ("w2", 256), ("w3", 256),
                  ("w4", 256), ("w5b", 256), ("w5a", 64), ("w6", 256),
                  ("w7", 256), ("wf", 256), ("wva", 256), ("wvb", 32))
 INT8_MMA_SLABS = 20
-_INT8_BLOCK_AT = {}   # key -> (first byte in wq, rows, out)
-_off = 0
-for _key, _name, _row0, _rows, _out in INT8_BLOCKS:
-    _INT8_BLOCK_AT[_key] = (_off, _rows, _out)
-    _off += -(-_rows // 4) * 4 * _out
-del _key, _name, _row0, _rows, _out, _off
+
+
+def _int8_block_at():
+    """{block key: (its first byte in pack_weights_int8's wq, rows, out)}."""
+    at, off = {}, 0
+    for key, _name, _row0, rows, out in INT8_BLOCKS:
+        at[key] = (off, rows, out)
+        off += -(-rows // 4) * 4 * out
+    return at
+
+
+_INT8_BLOCK_AT = _int8_block_at()
 
 
 def _int8_byte(key, row, col):
@@ -637,7 +644,7 @@ def repack_int8_mma(wq, scales, biases) -> torch.Tensor:
     one int32 (INT8_MMA_SIZE,) buffer, the weights in the fragment order of
     ``mma.sync`` m16n8k32 (one gather), the heads' weights widened to int32,
     the scales and biases as their float32 bits."""
-    unpack_weights_int8(wq, scales, biases)   # checks the three buffers
+    _check_int8(wq, scales, biases)
     slab_index, head_index = _int8_mma_indices(wq.device)
     src = torch.cat([wq, wq.new_zeros(1)])
     tail = [src[head_index].int(), scales.view(torch.int32),
@@ -879,6 +886,13 @@ def mlp_from_points_bf16(packed_bf16, pts, dirs):
                 {"pts": (pts, 3), "dirs": (dirs, 3)})
 
 
+def _check_int8(wq, scales, biases):
+    """The three buffers of :func:`pack_weights_int8`, checked."""
+    _check("wq", wq, (INT8_WQ_SIZE,), torch.int8)
+    _check("scales", scales, (INT8_SCALES_SIZE,))
+    _check("biases", biases, (INT8_BIASES_SIZE,))
+
+
 def mlp_int8_from_points(wq, scales, biases, pts, dirs, packed_s8=None):
     """K-B4 wrapper: raw (N, 4) for points and view directions (N, 3), the
     weights as :func:`pack_weights_int8` gives them; activations quantized
@@ -887,9 +901,7 @@ def mlp_int8_from_points(wq, scales, biases, pts, dirs, packed_s8=None):
     CUDA tensors launch the kernel, which reads ``packed_s8``
     (:func:`repack_int8_mma` of the three buffers, made here if not given);
     CPU tensors take the plain version."""
-    _check("wq", wq, (INT8_WQ_SIZE,), torch.int8)
-    _check("scales", scales, (INT8_SCALES_SIZE,))
-    _check("biases", biases, (INT8_BIASES_SIZE,))
+    _check_int8(wq, scales, biases)
     kernel_weights = None
     if wq.is_cuda:
         if packed_s8 is None:
