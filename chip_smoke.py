@@ -247,6 +247,10 @@ INT8_MACS = sum(rows * out for *_, rows, out in mlp_fused.INT8_BLOCKS)
 BWD_MACS = INT8_MACS - 2 * 63 * 256 - 27 * 128
 
 
+SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 9)
+SASS_PATH = os.path.join(OUT, "libnnc_kernels.sass")
+
+
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
@@ -306,6 +310,12 @@ def phase_environment():
         seconds = _build.build(force=True)
         t_cabac = codec.result()[1]
     _build.lib()
+    # the library's SASS, for phase 9, dumped while the phases before it run
+    global SASS_DUMP
+    with open(SASS_PATH, "w") as f:
+        SASS_DUMP = subprocess.Popen([mma_probe.cuobjdump(), "-sass",
+                                      _build.LIB_PATH], stdout=f,
+                                     stderr=subprocess.PIPE, text=True)
     print(f"[1] kernels built in {seconds:.1f} s -> {_build.LIB_PATH}; the "
           f"CABAC library beside them in {t_cabac:.1f} s")
     with open(_build.BUILD_LOG) as f:
@@ -936,7 +946,11 @@ def phase_int8(dev, ctx):
           f"MLP, bound {limit}")
     check(torch.equal(run(), got), "K-B4 reruns differ")
     # its products on the tensor cores: IMMA in its SASS, no IDP.4A
-    ops = mma_probe.opcodes(_build.LIB_PATH, "mlp_int8_from_points_kernel")
+    err = SASS_DUMP.communicate(timeout=300)[1]
+    check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {err}")
+    with open(SASS_PATH) as f:
+        ops = mma_probe.opcodes(_build.LIB_PATH,
+                                "mlp_int8_from_points_kernel", f.read())
     check(ops["IMMA"] > 0 and ops["IDP"] == 0,
           f"K-B4's SASS: {ops['IMMA']} IMMA, {ops['IDP']} IDP.4A")
     ms = cuda_ms(run)
@@ -2263,6 +2277,15 @@ def main():
     os.makedirs(OUT)
     t_start = time.perf_counter()
     seconds = []
+    try:
+        return run_phases(t_start, seconds)
+    finally:
+        if SASS_DUMP is not None and SASS_DUMP.poll() is None:
+            SASS_DUMP.kill()
+            SASS_DUMP.wait()
+
+
+def run_phases(t_start, seconds):
 
     def phase(fn, *args):
         """fn(*args), its wall seconds appended to ``seconds``."""

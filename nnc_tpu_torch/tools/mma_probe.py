@@ -490,13 +490,18 @@ def bf16_chain(libs, dev):
                   f"{100 * sums[slot] / total:5.1f}%")
 
 
-def opcodes(so, function=""):
+def cuobjdump():
+    return os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+
+
+def opcodes(so, function="", sass=None):
     """Counter of the SASS opcodes (without modifiers: ``IDP`` for
-    ``IDP.4A``) in a built library, of the kernels whose (mangled) name
-    contains ``function``."""
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
-         so], capture_output=True, text=True, check=True, timeout=300).stdout
+    ``IDP.4A``) in a built library (or in its dump ``sass``, the text of
+    ``cuobjdump -sass``), of the kernels whose (mangled) name contains
+    ``function``."""
+    if sass is None:
+        sass = subprocess.run([cuobjdump(), "-sass", so], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
     ops = collections.Counter()
     for part in sass.split("Function : ")[1:]:
         if function in part.split("\n", 1)[0]:
