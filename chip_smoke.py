@@ -946,8 +946,8 @@ def phase_int8(dev, ctx):
           f"MLP, bound {limit}")
     check(torch.equal(run(), got), "K-B4 reruns differ")
     # its products on the tensor cores: IMMA in its SASS, no IDP.4A
-    err = SASS_DUMP.communicate(timeout=300)[1]
-    check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {err}")
+    dump_err = SASS_DUMP.communicate(timeout=300)[1]
+    check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {dump_err}")
     with open(SASS_PATH) as f:
         ops = mma_probe.opcodes(_build.LIB_PATH,
                                 "mlp_int8_from_points_kernel", f.read())
