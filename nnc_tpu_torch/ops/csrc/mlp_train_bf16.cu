@@ -107,16 +107,9 @@ using FwdRing = ring::SlabRing<b16::kSlabs, kFwdStages>;
 static_assert(mma::kSlab == ring::kSlabFloats, "one slab size");
 
 // Named barriers: each group's own (128 threads; 0 is __syncthreads'), and
-// the order barrier (both groups, 256 threads): group 1 starts a layer's
-// products only after group 0 has run kOrderAfter slabs of that layer, so
-// that one group's epilogue tends to fall beside the other's products.
-// Deadlock-free with the ring's three stages as long as group 0 arrives
-// before it needs the layer's fourth slab (whose stage only group 1's
-// release of the layer's first slab frees), and never twice before group 1
-// syncs: layer 0 (one slab) is left out of the order.
+// the one that starts group 1 after group 0's first layer.
 constexpr int kGroupBar = 1;   // + group
-constexpr int kOrderBar = 3;
-constexpr int kOrderAfter = 2;
+constexpr int kStartBar = 3;
 __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(kGroupBar + group) : "memory");
 }
@@ -204,30 +197,6 @@ __device__ __forceinline__ void stage_u(const float (&acc)[4][8][4],
     }
 }
 
-// run_two_eighths over `steps` k steps of x (row stride ld bf16 values),
-// for group 0 with the order barrier's arrive once `before` more slabs of
-// the layer have passed (before > 0; it counts them down).
-template <int NT, class Mma>
-__device__ __forceinline__ void ordered_run(FwdRing& ring,
-                                            float (&acc)[4][NT][4],
-                                            const __nv_bfloat16* x, int ld,
-                                            int steps, Mma mma, int& before) {
-  constexpr int kStepsPerSlab = 32 / NT;   // 4 at NT = 8, 8 at NT = 4
-  if (before > 0 && steps > 0) {
-    const int slabs = (steps + kStepsPerSlab - 1) / kStepsPerSlab;
-    const int take = slabs < before ? slabs : before;
-    const int first = take * kStepsPerSlab < steps ? take * kStepsPerSlab
-                                                   : steps;
-    ring::run_two_eighths<4, NT>(ring, acc, x, ld * 2, first, mma);
-    before -= take;
-    if (before == 0)
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(kOrderBar) : "memory");
-    x += 16 * first;
-    steps -= first;
-  }
-  if (steps > 0) ring::run_two_eighths<4, NT>(ring, acc, x, ld * 2, steps, mma);
-}
-
 // The group's rows: out[:, 0..64 NT) = bf16(act(fmaf(u, ls, b))) with u =
 // x1 @ w (+ x2 @ w2) for its 64 points, the unscaled weights from the ring;
 // u goes to the workspace when SAVE: with TMA (NT = 8, the layer's columns
@@ -236,15 +205,14 @@ __device__ __forceinline__ void ordered_run(FwdRing& ring,
 // products; else (the view layer, whose columns start at the odd offset
 // 2,305) from the fragments to U (the group's first workspace row at the
 // layer's columns, row stride kU), one float a store. out may be x1 or x2.
-// ordered: the layer takes part in the order barrier. Ends with the
-// group's barrier.
+// Ends with the group's barrier.
 template <int NT, bool RELU, bool SAVE, bool TMA>
 __device__ __forceinline__ void train_layer(
     FwdRing& ring, int group, __nv_bfloat16* out, const __nv_bfloat16* x1,
     int ld1, int K1, const __nv_bfloat16* x2, int ld2, int K2,
     const float* __restrict__ ls, const float* __restrict__ b,
     const UStore& us, const CUtensorMap* map, int ucol,
-    float* __restrict__ U, bool ordered = true) {
+    float* __restrict__ U) {
   static_assert(!TMA || NT == 8, "TMA stores take 64 columns a warp");
   const int lane = threadIdx.x & 31;
   const int wg = (threadIdx.x >> 5) & 3;
@@ -259,11 +227,9 @@ __device__ __forceinline__ void train_layer(
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   const auto mma = [](float (&c)[4], const uint32_t (&a)[4],
                       const uint32_t (&b)[2]) { b16::mma_bf16(c, a, b); };
-  if (ordered && group == 1)
-    asm volatile("bar.sync %0, 256;\n" ::"r"(kOrderBar) : "memory");
-  int before = ordered && group == 0 ? kOrderAfter : 0;
-  ordered_run<NT>(ring, acc, x1, ld1, K1 / 16, mma, before);
-  if (K2 > 0) ordered_run<NT>(ring, acc, x2, ld2, K2 / 16, mma, before);
+  ring::run_two_eighths<4, NT>(ring, acc, x1, ld1 * 2, K1 / 16, mma);
+  if (K2 > 0)
+    ring::run_two_eighths<4, NT>(ring, acc, x2, ld2 * 2, K2 / 16, mma);
   NNC_PROF(2);
   if constexpr (SAVE && TMA) {
     stage_u(acc, us, map, ucol + 64 * wg);
@@ -343,11 +309,12 @@ __device__ __forceinline__ void embed_group(FwdSmem& s, int group) {
 // The training MLP on the group's embedded rows of s.emb; raw logits to its
 // rows of s.raw, u of every layer to U (the group's first workspace row)
 // when SAVE. FW: the buffer of pack_train_bf16's forward half, whose slabs
-// `ring` streams and whose tail holds the heads' rounded weights. Starts
-// (after the embedding's stores) and ends with the group's barrier.
+// `ring` streams and whose tail holds the heads' rounded weights. first:
+// the CTA's first tile, after whose layer 0 group 0 lets group 1 start.
+// Starts (after the embedding's stores) and ends with the group's barrier.
 template <bool SAVE>
 __device__ __forceinline__ void mlp_group_train(
-    FwdSmem& s, FwdRing& ring, int group,
+    FwdSmem& s, FwdRing& ring, int group, bool first,
     const float* __restrict__ FW, const float* __restrict__ LS,
     const float* __restrict__ BI, const UStore& us, const CUtensorMap* map,
     float* __restrict__ U) {
@@ -361,10 +328,10 @@ __device__ __forceinline__ void mlp_group_train(
 
   group_sync(group);
   NNC_PROF(1);
-  // (layer 0 reads one slab: outside the order)
   train_layer<8, true, SAVE, true>(ring, group, A, E, b16::kLdE, b16::kPtsPad,
-                                   nullptr, 0, 0, LS, BI, us, map, 0, U,
-                                   false);
+                                   nullptr, 0, 0, LS, BI, us, map, 0, U);
+  if (first && group == 0)
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(kStartBar) : "memory");
 #pragma unroll 1
   for (int i = 1; i <= 4; ++i)
     train_layer<8, true, SAVE, true>(ring, group, A, A, kLdA, kW, nullptr, 0,
@@ -476,6 +443,10 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
   b16::zero_embedding_pad<kFwdPoints / 16>(s.emb);
   __syncthreads();
   UStore us{s.stage[tid >> 5], 0};
+  // group 1 starts after group 0's first layer (then the ring keeps it a
+  // few slabs behind)
+  if (group == 1)
+    asm volatile("bar.sync %0, 256;\n" ::"r"(kStartBar) : "memory");
   for (int t = 0; t < my_tiles; ++t) {
     const long long base =
         static_cast<long long>(blockIdx.x + t * gridDim.x) * kFwdPoints +
@@ -489,7 +460,7 @@ mlp_train_fwd_bf16_kernel(const float* __restrict__ FW,
     NNC_PROF(0);
     embed_group(s, group);
     us.row0 = static_cast<int>(base);
-    mlp_group_train<SAVE>(s, ring, group, FW, LS, BI, us, &ws_map,
+    mlp_group_train<SAVE>(s, ring, group, t == 0, FW, LS, BI, us, &ws_map,
                           SAVE ? ws + static_cast<size_t>(base) * kU
                                : nullptr);
     for (int i = gt; i < kGroupPoints * 4; i += 128)
