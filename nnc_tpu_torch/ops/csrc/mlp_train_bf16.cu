@@ -115,19 +115,25 @@ __device__ __forceinline__ void group_sync(int group) {
 }
 
 // u's way to the workspace in the 256-wide layers: each warp stages 16 rows
-// x 32 columns of its u (2 KB) at a time in one of two buffers of its own,
-// and its lane 0 hands the chunk to the tensor memory accelerator as one
-// 2-D bulk store (the workspace as a tensor map of kU float32 columns,
+// x 32 columns of its u (2 KB) at a time in one of kUBuffers buffers of its
+// own, and its lane 0 hands the chunk to the tensor memory accelerator as
+// one 2-D bulk store (the workspace as a tensor map of kU float32 columns,
 // boxes of 32 x 16), then goes on. Before a buffer is written again, lane
-// 0 waits until the store two chunks back has read it (wait_group.read 1).
+// 0 waits until the store kUBuffers chunks back has read it.
 struct UStore {
-  float* stage;   // this warp's two buffers, 2 x 16 x 32 floats
+  float* stage;   // this warp's buffers, kUBuffers x 16 x 32 floats
   int row0;       // the group's first workspace row of the tile
 };
 constexpr int kStageFloats = 16 * 32;
+#ifndef NNC_FWD_U_BUFFERS   // (mma_probe.py section 7 times one buffer too)
+#define NNC_FWD_U_BUFFERS 2
+#endif
+constexpr int kUBuffers = NNC_FWD_U_BUFFERS;   // staging buffers a warp
 
-__device__ __forceinline__ void bulk_wait_read1() {
-  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+// until the store kUBuffers chunks back has read its buffer
+__device__ __forceinline__ void bulk_wait_buffer() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kUBuffers - 1)
+               : "memory");
 }
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -165,9 +171,9 @@ __device__ __forceinline__ void stage_u(const float (&acc)[4][8][4],
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int hc = 0; hc < 2; ++hc) {
-      if (lane == 0) bulk_wait_read1();
+      if (lane == 0) bulk_wait_buffer();
       __syncwarp();
-      float* buf = us.stage + hc * kStageFloats;
+      float* buf = us.stage + (2 * mt + hc) % kUBuffers * kStageFloats;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         float4 v[2];
@@ -278,7 +284,7 @@ struct FwdSmem {
   float raw[kFwdPoints * 4];                   // (point, [r, g, b, sigma])
   float xs[kFwdPoints * 3];
   float ds[kFwdPoints * 3];
-  alignas(128) float stage[kThreads / 32][2 * kStageFloats];   // UStore's
+  alignas(128) float stage[kThreads / 32][kUBuffers * kStageFloats];
 };
 
 // Positional encoding of the group's 64 points into its rows of emb

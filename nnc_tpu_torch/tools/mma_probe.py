@@ -41,9 +41,10 @@ Prints, after the card's name and power limit:
   7. K-B1's forward in bf16 (``mlp_train_bf16.cu``) at 196,608 points: its
      time as shipped in turns with its time without the workspace of u
      (``ws`` null, which launches the build without stores of u), the
-     backward without dW on that workspace, and, built with clock marks,
-     the share of a tile's clocks in each part of the forward (group 0's
-     first thread).
+     backward without dW on that workspace, the forward built with one
+     staging buffer a warp for u (``-DNNC_FWD_U_BUFFERS=1``; the workspace
+     must be bit-equal), and, built with clock marks, the share of a tile's
+     clocks in each part of the forward (group 0's first thread).
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
@@ -404,11 +405,19 @@ def train_bf16_fwd(libs, dev):
         assert rc == 0, rc
 
     shipped = libs["train_bf16"]
+    one = libs["train_bf16_one_buffer"]
+    ws_one = torch.empty_like(ws)
     runs = {"with the workspace (shipped)": lambda: fwd(shipped, raws["ws"]),
-            "without it": lambda: fwd(shipped, raws["no_ws"], save=False)}
+            "without it": lambda: fwd(shipped, raws["no_ws"], save=False),
+            "one staging buffer a warp": lambda: one.nnc_mlp_train_fwd_bf16(
+                fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
+                vd.data_ptr(), raws["prof"].data_ptr(), ws_one.data_ptr(), n,
+                stream)}
     times = [{k: _ms(fn) for k, fn in runs.items()} for _ in range(2)]
     assert torch.equal(raws["ws"], raws["no_ws"]), \
         "the forward's raw depends on whether it saves u"
+    assert torch.equal(ws_one, ws), "one staging buffer writes another u"
+    del ws_one
     t_bwd = [_ms(bwd) for _ in range(2)]
     print(f"[7] K-B1 bf16 forward {n} points in turns, ms: "
           + "; ".join(f"{k} {[f'{x[k]:.3f}' for x in times]}" for k in runs)
@@ -602,7 +611,9 @@ def main(argv=None):
               "int8": ({6}, kb4),
               "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
               "train_bf16": ({7}, kb1_bf16),
-              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE")}
+              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE"),
+              "train_bf16_one_buffer": ({7}, kb1_bf16,
+                                        "-DNNC_FWD_U_BUFFERS=1")}
     procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
                             *args[2:]) for name, args in builds.items()
              if args[0] & sections}
