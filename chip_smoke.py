@@ -151,7 +151,7 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import bench_train_step, mma_probe, tp_mlp_bench
+from nnc_tpu_torch.tools import bench_train_step, tp_mlp_bench
 from nnc_tpu_torch.train import lsa, presets
 from nnc_tpu_torch.utils import ckpt
 from nnc_tpu_torch.utils.device import require_cuda
@@ -313,7 +313,7 @@ def phase_environment():
     # the library's SASS, for phase 9, dumped while the phases before it run
     global SASS_DUMP
     with open(SASS_PATH, "w") as f:
-        SASS_DUMP = subprocess.Popen([mma_probe.cuobjdump(), "-sass",
+        SASS_DUMP = subprocess.Popen([_build.cuobjdump(), "-sass",
                                       _build.LIB_PATH], stdout=f,
                                      stderr=subprocess.PIPE, text=True)
     print(f"[1] kernels built in {seconds:.1f} s -> {_build.LIB_PATH}; the "
@@ -949,8 +949,8 @@ def phase_int8(dev, ctx):
     dump_err = SASS_DUMP.communicate(timeout=300)[1]
     check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {dump_err}")
     with open(SASS_PATH) as f:
-        ops = mma_probe.opcodes(_build.LIB_PATH,
-                                "mlp_int8_from_points_kernel", f.read())
+        ops = _build.opcodes(_build.LIB_PATH, "mlp_int8_from_points_kernel",
+                             f.read())
     check(ops["IMMA"] > 0 and ops["IDP"] == 0,
           f"K-B4's SASS: {ops['IMMA']} IMMA, {ops['IDP']} IDP.4A")
     ms = cuda_ms(run)
@@ -1059,8 +1059,7 @@ def phase_lowprec_slice(dev, scene, sd, psnr_kb3):
                             seen["mlp_int8_from_points"]):
         rgb8_again, _ = ex8._render_views(fog_c, fog_f, view)
     with swapped(mlp_fused, "mlp_int8_from_points",
-                 lambda *args, **kernel_only:
-                 mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args)):
+                 mlp_fused.fused_nerf_mlp_int8_from_points_plain):
         rgb8_plain, _ = ex8._render_views(fog_c, fog_f, view)
     d_plain = np.abs(rgb8 - rgb8_plain)[0].max(-1).reshape(-1)
     share_plain = float((d_plain > 1e-5).mean())

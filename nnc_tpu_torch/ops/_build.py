@@ -14,8 +14,10 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -72,6 +74,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels of nnc_tpu_torch "
                        "are built from source on a machine with the CUDA "
                        "toolkit")
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's ``cuobjdump``, beside its nvcc."""
+    return os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+
+
+def opcodes(so: str, function: str = "", sass: str | None = None):
+    """Counter of the SASS opcodes (without modifiers: ``IDP`` for
+    ``IDP.4A``) in a built library (or in its dump ``sass``, the text of
+    ``cuobjdump -sass``), of the kernels whose (mangled) name contains
+    ``function``."""
+    if sass is None:
+        sass = subprocess.run([cuobjdump(), "-sass", so], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+    ops = collections.Counter()
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            ops.update(m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)",
+                part))
+    return ops
 
 
 def _lib_is_fresh() -> bool:

@@ -125,10 +125,7 @@ struct UStore {
   int row0;       // the group's first workspace row of the tile
 };
 constexpr int kStageFloats = 16 * 32;
-#ifndef NNC_FWD_U_BUFFERS   // (mma_probe.py section 7 times one buffer too)
-#define NNC_FWD_U_BUFFERS 2
-#endif
-constexpr int kUBuffers = NNC_FWD_U_BUFFERS;   // staging buffers a warp
+constexpr int kUBuffers = 2;   // staging buffers a warp
 
 // until the store kUBuffers chunks back has read its buffer
 __device__ __forceinline__ void bulk_wait_buffer() {

@@ -732,12 +732,14 @@ def _mlp_int8_blocks(W, B, pe, ve):
 
 
 def fused_nerf_mlp_int8_from_points_plain(wq, scales, biases, pts, dirs,
+                                          packed_s8=None,
                                           block=INT8_ACT_BLOCK):
     """Plain PyTorch version of K-B4: pts, dirs (N, 3) -> raw (N, 4).
 
     Activations are quantized per ``block`` consecutive points (a last,
     shorter block holds the remaining points alone); the integer products
-    are exact (see :func:`_qdense`)."""
+    are exact (see :func:`_qdense`). ``packed_s8``, the kernel's buffer, is
+    ignored: the signature is the wrapper's, so the two swap."""
     torch.backends.cuda.matmul.allow_tf32 = False
     W, B = unpack_weights_int8(wq, scales, biases)
     n = pts.shape[0]
@@ -899,8 +901,10 @@ def mlp_int8_from_points(wq, scales, biases, pts, dirs, packed_s8=None):
     per :data:`INT8_ACT_BLOCK` points.
 
     CUDA tensors launch the kernel, which reads ``packed_s8``
-    (:func:`repack_int8_mma` of the three buffers, made here if not given);
-    CPU tensors take the plain version."""
+    (:func:`repack_int8_mma` of the three buffers). Made here if not given,
+    it is gathered anew at every call (~650 KB): a caller that launches more
+    than once passes it, as :func:`fused_nerf_mlp_int8_from_points` does
+    from ``PACKS``. CPU tensors take the plain version."""
     _check_int8(wq, scales, biases)
     kernel_weights = None
     if wq.is_cuda:

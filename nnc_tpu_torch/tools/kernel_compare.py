@@ -1,0 +1,320 @@
+"""The port's redesigned kernels on the card: digests of what they compute and
+their times, in a form that runs unchanged in an earlier checkout of the port.
+
+    python -m nnc_tpu_torch.tools.kernel_compare [--kernels kb1_bf16,kb1_dw,kb4]
+        [--iters 5] [--repeats 2] [--profile] [--out FILE]
+
+Each name in ``--kernels`` (all three by default) adds its part:
+
+- ``kb1_bf16``: K-B1's bf16 forward (``mlp_train_fwd_bf16``) on chip_smoke.py
+  phase 16's inputs (full-width weights with LSA scales of std 0.05 and
+  points from seed 16, at 65,536 and 196,608 points) with its workspace of
+  u: the SHA-256 of raw and of the whole workspace at both sizes, whether a
+  rerun gave the same bytes, and at the larger size the forward's time with
+  and without the workspace and the backward's without dW on it.
+- ``kb1_dw``: K-B1's backward with and without dW, float32 and bf16, at
+  196,608 points (weights and points from seed 4, the forward's workspace
+  made once by the kernels), and the backward with dW's two passes alone
+  (the backward writing a du workspace, then the GEMM over the points).
+  ``--profile`` builds ``ops/csrc/mlp_train_dw.cu`` once more with clock
+  marks (``-DNNC_MMA_PROFILE``, under ``build/nnc_tpu_torch/dw_probe/``) and
+  prints the share of a CTA's clocks in each part of the GEMM's loop, and
+  times a build whose chunks all read the first chunk's rows, which stay in
+  L2 (``-DNNC_DW_PROBE_HOT``; its sums are wrong), beside the GEMM.
+- ``kb4``: K-B4 (``mlp_int8_from_points``) on phase 9's inputs (phase 2's
+  net and 262,144 points from seed 0): the SHA-256 of raw, whether a rerun
+  gave the same bytes, and its time.
+
+A time is CUDA events over ``--iters`` launches after a warm-up, taken
+``--repeats`` times, the parts' runs in turns. The card's name and power
+limit come first; the last line is one JSON object of all of it, which
+``--out`` also writes to a file.
+
+Its calls take the same arguments in earlier checkouts of the port, so a
+copy of this file in an earlier checkout's ``nnc_tpu_torch/tools/`` (unpacked
+under ``build/`` by ``git archive``) runs that checkout's kernels on the same
+inputs: run the two in one call, in turns (parent, change, change, parent),
+and compare the digests and the times.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from ..data import synthetic
+from ..models import nerf
+from ..ops import _build, mlp_fused
+from ..ops import mlp_train_fused as M
+from ..utils.device import require_cuda
+
+N_TRAIN = (65_536, 196_608)
+N_INT8 = 262_144
+KERNELS = ("kb1_bf16", "kb1_dw", "kb4")
+
+
+def digest(t: torch.Tensor) -> str:
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.sha256(a.view(np.uint8)).hexdigest()
+
+
+def events_ms(fn, iters: int) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(runs: dict, iters: int, repeats: int) -> dict:
+    """{name: [ms of each repeat]}, the runs taken in turns."""
+    out = {key: [] for key in runs}
+    for _ in range(repeats):
+        for key, fn in runs.items():
+            out[key].append(events_ms(fn, iters))
+    return out
+
+
+def _model(device, g):
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    return nerf.init_lsa_scales(model, std=0.05, generator=g).to(device)
+
+
+def _points(n, g, device):
+    """Points, unit view directions and a cotangent, in this order."""
+    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(device)
+    vd = torch.randn(n, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(device)
+    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(device)
+    return pts, vd, cot
+
+
+def _train_packs(model):
+    t = M._layer_tensors(model)
+    params, params_t, ls = M.pack_train(t[0::3], t[1::3], t[2::3])
+    return t[0::3], params, params_t, ls, M.gather_biases(params)
+
+
+def kb1_bf16(device, args):
+    """Phase 16's inputs and draws, in its order."""
+    g = torch.Generator().manual_seed(16)
+    weights, params, params_t, ls, biases = _train_packs(_model(device, g))
+    fwd_b, bwd_b = M.pack_train_bf16(weights)
+    out = {}
+    for n in N_TRAIN:
+        pts, vd, cot = _points(n, g, device)
+        fwd = lambda save=True: M.mlp_train_fwd_bf16(
+            params, ls, pts, vd, save, fwd_b, biases)
+        raw, ws = fwd()
+        torch.cuda.synchronize()
+        out[f"kb1_bf16 raw {n}"] = digest(raw)
+        out[f"kb1_bf16 ws {n}"] = digest(ws)
+        raw2, ws2 = fwd()
+        out[f"kb1_bf16 rerun equal {n}"] = bool(
+            torch.equal(raw, raw2) and torch.equal(ws, ws2))
+        del raw2, ws2
+        if n == N_TRAIN[-1]:
+            out.update(timed({
+                "kb1_bf16 fwd ms": fwd,
+                "kb1_bf16 fwd without ws ms": lambda: fwd(False),
+                "kb1_bf16 bwd ms": lambda: M.mlp_train_bwd_bf16(
+                    params, params_t, ls, pts, vd, cot, ws, False, bwd_b,
+                    biases)}, args.iters, args.repeats))
+        del ws
+    return out
+
+
+def _du(ws, bf16: bool):
+    """A du workspace for the backward with dW on ``ws``."""
+    cols = M.DU_COLS_BF16 if bf16 else M.U_SIZE
+    return torch.empty((ws.shape[0], cols), device=ws.device,
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
+def _passes(dtype, ws, ls, biases, pts, vd, cot, packed_t):
+    """The two passes of the backward with dW, each alone, where the
+    library has them: {name: fn}."""
+    lib = _build.lib()
+    bf16 = dtype == "bfloat16"
+    name = "nnc_mlp_train_dw" + ("_bf16" if bf16 else "")
+    if not hasattr(lib, name):
+        return {}
+    n = pts.shape[0]
+    du = _du(ws, bf16)
+    sms = torch.cuda.get_device_properties(ws.device).multi_processor_count
+    grid = min(-(-n // M.TILE), sms)
+    partials = torch.empty(max(grid * 2 * M.U_SIZE,
+                               -(-n // M.DW_CHUNK) * M.WT_SIZE),
+                           device=ws.device)
+    out = torch.empty(M.grad_size(True), device=ws.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    first = getattr(lib, "nnc_mlp_train_bwd_" + ("bf16" if bf16 else "mma"))
+    gemm = getattr(lib, name)
+
+    def pass1():
+        _build.check(first(packed_t.data_ptr(), ls.data_ptr(),
+                           biases.data_ptr(), cot.data_ptr(), ws.data_ptr(),
+                           du.data_ptr(), partials.data_ptr(),
+                           out[M.WT_SIZE:].data_ptr(), n, grid, stream),
+                     "first pass")
+
+    def pass2():
+        _build.check(gemm(ws.data_ptr(), du.data_ptr(), ls.data_ptr(),
+                          biases.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+                          partials.data_ptr(), out.data_ptr(), n, M.DW_CHUNK,
+                          stream), "GEMM")
+
+    pass1()
+    return {f"kb1_dw {dtype} first pass with du ms": pass1,
+            f"kb1_dw {dtype} GEMM ms": pass2}
+
+
+DW_PROFILE_SLOTS = ("prologue", "wait for the copies", "barrier",
+                    "issue the next copies", "rebuild the next X", "products")
+
+
+def _dw_probe_lib(flag):
+    """mlp_train_dw.cu built with ``flag``, loaded."""
+    out_dir = os.path.join(_build.BUILD_DIR, "dw_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"libdw{flag.lower()}.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, flag, "-shared",
+                    "-o", so, os.path.join(_build.SRC_DIR, "mlp_train_dw.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ("nnc_mlp_train_dw", "nnc_mlp_train_dw_bf16"):
+        getattr(lib, name).argtypes = [vp] * 8 + [ci, ci, vp]
+        getattr(lib, name).restype = ci
+    return lib
+
+
+def dw_profile(ws, du, ls, biases, pts, vd, bf16: bool, iters: int):
+    """The GEMM built with clock marks, run on these workspaces: ({part:
+    share of the clocks of thread 0 of every CTA}, ms of the build that
+    reads the first chunk's rows in every chunk)."""
+    n = pts.shape[0]
+    rows = -(-n // M.TILE) * M.TILE
+    partials = torch.empty(-(-rows // M.DW_CHUNK) * M.WT_SIZE,
+                           device=ws.device)
+    out = torch.empty(M.WT_SIZE, device=ws.device)
+    name = "nnc_mlp_train_dw" + ("_bf16" if bf16 else "")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(lib):
+        _build.check(getattr(lib, name)(
+            ws.data_ptr(), du.data_ptr(), ls.data_ptr(), biases.data_ptr(),
+            pts.data_ptr(), vd.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), n, M.DW_CHUNK, stream), "GEMM")
+
+    lib = _dw_probe_lib("-DNNC_MMA_PROFILE")
+    clocks = (ctypes.c_ulonglong * 9)()
+    lib.nnc_dw_profile(clocks)
+    run(lib)
+    torch.cuda.synchronize()
+    lib.nnc_dw_profile(clocks)
+    total = sum(clocks[:len(DW_PROFILE_SLOTS)])
+    hot = _dw_probe_lib("-DNNC_DW_PROBE_HOT")
+    return ({part: clocks[i] / total
+             for i, part in enumerate(DW_PROFILE_SLOTS)},
+            events_ms(lambda: run(hot), iters))
+
+
+def kb1_dw(device, args):
+    """K-B1's backward with and without dW at the LSA step's fine pass."""
+    g = torch.Generator().manual_seed(4)
+    weights, params, params_t, ls, biases = _train_packs(_model(device, g))
+    n = N_TRAIN[-1]
+    pts, vd, cot = _points(n, g, device)
+    out = {}
+    for dtype, fwd, bwd, pack in (
+            ("float32", M.mlp_train_fwd, M.mlp_train_bwd, M.pack_train_mma),
+            ("bfloat16", M.mlp_train_fwd_bf16, M.mlp_train_bwd_bf16,
+             M.pack_train_bf16)):
+        packed, packed_t = pack(weights)
+        _raw, ws = fwd(params, ls, pts, vd, True, packed, biases)
+        runs = {f"kb1_dw {dtype} {'with' if dw else 'without'} dW ms":
+                (lambda dw=dw: bwd(params, params_t, ls, pts, vd, cot, ws,
+                                   dw, packed_t, biases)) for dw in (True, False)}
+        runs.update(_passes(dtype, ws, ls, biases, pts, vd, cot, packed_t))
+        out.update(timed(runs, args.iters, args.repeats))
+        if args.profile:
+            bf16 = dtype == "bfloat16"
+            du = _du(ws, bf16)
+            bwd(None, None, ls, pts, vd, cot, ws, True, packed_t, biases,
+                du=du)
+            shares, hot_ms = dw_profile(ws, du, ls, biases, pts, vd, bf16,
+                                        args.iters)
+            out[f"kb1_dw {dtype} GEMM clocks"] = shares
+            out[f"kb1_dw {dtype} GEMM, the rows in L2 ms"] = hot_ms
+            del du
+        del ws
+    return out
+
+
+def kb4(device, args):
+    """Phase 9's inputs: phase 2's net and points."""
+    g = torch.Generator().manual_seed(0)
+    model = _model(device, g)
+    pts, vd, _cot = _points(N_INT8, g, device)
+    packed = mlp_fused.pack_weights_int8(model)
+    call = (*packed, pts, vd)
+    # the kernel's own buffer, made once, where the wrapper takes one
+    kw = {"packed_s8": mlp_fused.repack_int8_mma(*packed)} \
+        if hasattr(mlp_fused, "repack_int8_mma") else {}
+    run = lambda: mlp_fused.mlp_int8_from_points(*call, **kw)
+    raw = run()
+    torch.cuda.synchronize()
+    return {"kb4 raw": digest(raw),
+            "kb4 rerun equal": bool(torch.equal(run(), raw)),
+            **timed({"kb4 ms": run}, args.iters, args.repeats)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated, of " + ", ".join(KERNELS))
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=2)
+    ap.add_argument("--profile", action="store_true",
+                    help="kb1_dw: the GEMM's clock shares and its L2 build")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
+    device = require_cuda()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4}
+    out = {"card": card}
+    for name in kernels:
+        out.update(parts[name](device, args))
+    for key, value in out.items():
+        if key != "card":
+            print(f"{key}: {value}")
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -40,21 +40,17 @@ Prints, after the card's name and power limit:
      thread sees them;
   7. K-B1's forward in bf16 (``mlp_train_bf16.cu``) at 196,608 points: its
      time as shipped in turns with its time without the workspace of u
-     (``ws`` null, which launches the build without stores of u), the
-     backward without dW on that workspace, the forward built with one
-     staging buffer a warp for u (``-DNNC_FWD_U_BUFFERS=1``; the workspace
-     must be bit-equal), and, built with clock marks, the share of a tile's
-     clocks in each part of the forward (group 0's first thread).
+     (``ws`` null, which launches the build without stores of u), and,
+     built with clock marks, the share of a tile's clocks in each part of
+     the forward (group 0's first thread).
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import os
-import re
 import subprocess
 
 import torch
@@ -367,27 +363,22 @@ def train_pair(libs, dev):
 
 def train_bf16_fwd(libs, dev):
     """Section 7: K-B1's bf16 forward as shipped, without its workspace, and
-    with clock marks; the backward without dW beside it."""
+    with clock marks."""
     g = torch.Generator().manual_seed(4)
     model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
     model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
     t = mlp_train_fused._layer_tensors(model)
     params, _params_t, ls = mlp_train_fused.pack_train(t[0::3], t[1::3],
                                                        t[2::3])
-    fw, bw = mlp_train_fused.pack_train_bf16(t[0::3])
+    fw, _bw = mlp_train_fused.pack_train_bf16(t[0::3])
     bi = mlp_train_fused.gather_biases(params)
     n = N_TRAIN
     pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
     vd = torch.randn(n, 3, generator=g)
     vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
-    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
     tile = mlp_train_fused.TILE_BF16
     ws = torch.empty(-(-n // tile) * tile, mlp_train_fused.U_SIZE, device=dev)
     raws = {k: torch.empty(n, 4, device=dev) for k in ("ws", "no_ws", "prof")}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(-(-n // mlp_train_fused.TILE), sms)
-    partials = torch.empty(grid, mlp_train_fused.grad_size(False), device=dev)
-    flat = torch.empty(mlp_train_fused.grad_size(False), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
 
     def fwd(lib, raw, save=True):
@@ -397,32 +388,15 @@ def train_bf16_fwd(libs, dev):
             stream)
         assert rc == 0, rc
 
-    def bwd():
-        rc = libs["train_bf16"].nnc_mlp_train_bwd_bf16(
-            bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
-            ws.data_ptr(), None, partials.data_ptr(), flat.data_ptr(), n, grid,
-            stream)
-        assert rc == 0, rc
-
     shipped = libs["train_bf16"]
-    one = libs["train_bf16_one_buffer"]
-    ws_one = torch.empty_like(ws)
     runs = {"with the workspace (shipped)": lambda: fwd(shipped, raws["ws"]),
-            "without it": lambda: fwd(shipped, raws["no_ws"], save=False),
-            "one staging buffer a warp": lambda: one.nnc_mlp_train_fwd_bf16(
-                fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
-                vd.data_ptr(), raws["prof"].data_ptr(), ws_one.data_ptr(), n,
-                stream)}
+            "without it": lambda: fwd(shipped, raws["no_ws"], save=False)}
     times = [{k: _ms(fn) for k, fn in runs.items()} for _ in range(2)]
     assert torch.equal(raws["ws"], raws["no_ws"]), \
         "the forward's raw depends on whether it saves u"
-    assert torch.equal(ws_one, ws), "one staging buffer writes another u"
-    del ws_one
-    t_bwd = [_ms(bwd) for _ in range(2)]
     print(f"[7] K-B1 bf16 forward {n} points in turns, ms: "
           + "; ".join(f"{k} {[f'{x[k]:.3f}' for x in times]}" for k in runs)
-          + f" (raw bit-equal); the backward without dW on its workspace "
-          f"{[f'{x:.3f}' for x in t_bwd]}")
+          + " (raw bit-equal)")
     prof = libs["train_bf16_profile"]
     sums = (ctypes.c_ulonglong * len(TRAIN_BF16_FWD_SLOTS))()
     for _ in range(2):   # the first is a warm-up, discarded
@@ -499,36 +473,15 @@ def bf16_chain(libs, dev):
                   f"{100 * sums[slot] / total:5.1f}%")
 
 
-def cuobjdump():
-    return os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-
-
-def opcodes(so, function="", sass=None):
-    """Counter of the SASS opcodes (without modifiers: ``IDP`` for
-    ``IDP.4A``) in a built library (or in its dump ``sass``, the text of
-    ``cuobjdump -sass``), of the kernels whose (mangled) name contains
-    ``function``."""
-    if sass is None:
-        sass = subprocess.run([cuobjdump(), "-sass", so], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-    ops = collections.Counter()
-    for part in sass.split("Function : ")[1:]:
-        if function in part.split("\n", 1)[0]:
-            ops.update(m.group(1).split(".")[0] for m in re.finditer(
-                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)",
-                part))
-    return ops
-
-
 def sass_counts(so):
     print(f"[3] SASS opcodes of the shipped K-B3: "
-          f"{opcodes(so).most_common(16)}")
+          f"{_build.opcodes(so).most_common(16)}")
 
 
 def int8_sass(so):
     """Section 6, second part: K-B4's opcodes, its products' instructions
     first."""
-    ops = opcodes(so, "mlp_int8_from_points_kernel")
+    ops = _build.opcodes(so, "mlp_int8_from_points_kernel")
     print(f"[6] SASS of K-B4: IMMA {ops['IMMA']}, IDP.4A {ops['IDP']}, "
           f"HMMA {ops['HMMA']}; most common {ops.most_common(12)}")
 
@@ -611,9 +564,7 @@ def main(argv=None):
               "int8": ({6}, kb4),
               "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
               "train_bf16": ({7}, kb1_bf16),
-              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE"),
-              "train_bf16_one_buffer": ({7}, kb1_bf16,
-                                        "-DNNC_FWD_U_BUFFERS=1")}
+              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE")}
     procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
                             *args[2:]) for name, args in builds.items()
              if args[0] & sections}
@@ -646,7 +597,6 @@ def main(argv=None):
                                                         vp]
     for name in (n for n in libs if n.startswith("train_bf16")):
         libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
-        libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci, vp]
     if 1 in sections:
         issue_rate(libs["issue_rate"], dev)
     if 2 in sections:

@@ -259,10 +259,8 @@ def test_cuda_renderer_int8_and_embedded_routes(cuda_device):
     # the kernel against the same render through its plain version: they
     # agree bit for bit but for a flipped tie, far-sample steps included
     real = mlp_fused.mlp_int8_from_points
-    # (the plain version takes the wrapper's tensors, not the kernel's
-    # buffer, which the model-level entry passes as packed_s8)
-    mlp_fused.mlp_int8_from_points = lambda *args, **kernel_only: \
-        mlp_fused.fused_nerf_mlp_int8_from_points_plain(*args)
+    mlp_fused.mlp_int8_from_points = \
+        mlp_fused.fused_nerf_mlp_int8_from_points_plain
     try:
         plain = render(renderer.RenderConfig(**common, use_int8_mlp=True))
     finally:
