@@ -10,8 +10,8 @@ Phases:
   2. kernel K-B3 (posenc + MLP from points, 3xTF32 products on the tensor
      cores) against its exact float32 plain PyTorch version, full-width
      8x256 net with LSA scales, 262,144 points and three ragged sizes, reruns
-     bit-equal; timed in turns with K-B5 (the SIMT chain it replaced) and the
-     plain version;
+     bit-equal; timed in turns with the plain version, beside the SIMT
+     kernel it replaced (its time from PERF.md);
   3. kernel K-B2 (fused render pass, the same chain) against its plain
      version, 4,096 rays at S=64 (with weights) and S=192 (without), early
      termination off and at 1e-4, with dead ray tiles, reruns bit-equal;
@@ -33,8 +33,12 @@ Phases:
      lsa=True) tuning the scales through K-B1 -> decode -> test render,
      beside the same qp without LSA, and a 10-step kernel-vs-plain LSA
      trajectory with the same batches and draws;
-  8. kernel K-B5 (MLP on embeddings made outside) against its plain version
-     and against K-B3, phase 2's net and points embedded by torch;
+  8. kernel K-B5 (MLP on embeddings made outside, K-B3's 3xTF32 chain)
+     against its exact float32 plain version and the plain model of the
+     3xTF32 arithmetic, phase 2's net and points embedded by torch and three
+     ragged sizes, and against K-B3; reruns bit-equal, HMMA in its SASS,
+     timed beside K-B3, the plain version and the SIMT kernel it replaced
+     (from PERF.md);
   9. kernel K-B4 (int8 MLP from points, s8 mma.sync products on the tensor
      cores) against its plain version at INT8_ACT_BLOCK points per
      activation scale, and against the float MLP under the reference's
@@ -120,7 +124,7 @@ compression and the three bench_train_step runs of phase 17, and phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
-peak for their type: for K-B1, K-B2 and K-B3, whose float32
+peak for their type: for K-B1, K-B2, K-B3 and K-B5, whose float32
 products are three TF32 products each, a third of the tensor cores' TF32 peak; for the bf16 kernels the dense bf16 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
@@ -216,16 +220,16 @@ LSA_BF16_KERNELS = ("mlp_train_fwd_bf16", "mlp_train_bwd_bf16")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # device memory bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s
 # and TF32 FLOP/s of the tensor cores. A float32 product computed as three
-# TF32 products (K-B1 without dW, K-B2, K-B3) is bounded by a third of the
-# TF32 peak.
+# TF32 products (K-B1 without dW, K-B2, K-B3, K-B5) is bounded by a third of
+# the TF32 peak.
 PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BF16 = 989e12   # dense bf16, the bound of every bf16 kernel
-# K-B3's raw logits against the exact float32 plain version, 10x the 2.4e-6
-# measured at values up to 2.7. One TF32 product instead of three reads
-# 1.6e-3 in the plain model of the arithmetic, a lost correction term half of
-# that, and the three products summed straight into the layer's accumulator
-# (the tensor core cuts where float32 rounds) read 1.4e-5.
+# K-B3's and K-B5's raw logits against the exact float32 plain version, 10x
+# the 2.4e-6 measured (K-B3) at values up to 2.7. One TF32 product instead of
+# three reads 1.6e-3 in the plain model of the arithmetic, a lost correction
+# term half of that, and the three products summed straight into the layer's
+# accumulator (the tensor core cuts where float32 rounds) read 1.4e-5.
 TOL_RAW = 3e-5
 # The kernels that later designs replaced, at chip_smoke's shapes (PERF.md's
 # kernel table, chip_smoke on an NVIDIA H100 80GB HBM3 at 700 W): K-B1's
@@ -233,10 +237,13 @@ TOL_RAW = 3e-5
 # tiles of four rays, phase 14's 4,096 rays at S = 192 with early
 # termination at 1e-4, and the points those tiles computed; K-B1 bf16's
 # forward storing u from the fragments at 196,608 points; K-B4 on __dp4a at
-# 262,144 points
+# 262,144 points; K-B3 and K-B5 on the SIMT chain of float32 FMAs at 262,144
+# points; K-B1 bf16's backward without dW loading u after its products at
+# 196,608 points
 REPLACED_MS = {"mlp_train_bwd_dw": 32.737, "mlp_train_bwd_dw_bf16": 34.796,
                "render_pass_bf16": 2.056, "mlp_train_fwd_bf16": 2.574,
-               "mlp_int8_from_points": 4.976}
+               "mlp_int8_from_points": 4.976, "mlp_from_points": 14.019,
+               "mlp_embedded": 14.105, "mlp_train_bwd_bf16": 1.448}
 REPLACED_POINTS_BF16 = 568_448
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
@@ -247,8 +254,19 @@ INT8_MACS = sum(rows * out for *_, rows, out in mlp_fused.INT8_BLOCKS)
 BWD_MACS = INT8_MACS - 2 * 63 * 256 - 27 * 128
 
 
-SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 9)
+SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 8)
 SASS_PATH = os.path.join(OUT, "libnnc_kernels.sass")
+
+
+def library_opcodes(function):
+    """The SASS opcode counts of the built library's kernels whose mangled
+    name contains ``function`` (the dump started in phase 1, waited for
+    once)."""
+    if SASS_DUMP.returncode is None:
+        dump_err = SASS_DUMP.communicate(timeout=300)[1]
+        check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {dump_err}")
+    with open(SASS_PATH) as f:
+        return _build.opcodes(_build.LIB_PATH, function, f.read())
 
 
 def check(ok, what):
@@ -367,13 +385,11 @@ def phase_mlp(dev):
     ve = positional_encoding(vd, 4).contiguous()
     L = mlp_fused.unpack_weights(packed)
     err_model = maxabs(got, mlp_fused.mlp_3xtf32_plain(L, pe, ve))
-    # in turns: the new chain, the SIMT chain it replaced (K-B5, which keeps
-    # it, on embeddings made outside), the plain version (cuBLAS)
-    kb5 = lambda: mlp_fused.mlp_embedded(packed, pe, ve)
+    # in turns: the kernel and the plain version (cuBLAS)
     plain = lambda: mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts,
                                                                vd)
-    times = [[cuda_ms(fn) for fn in (run, kb5, plain)] for _ in range(2)]
-    ms, kb5_ms, plain_ms = (min(t) for t in zip(*times))
+    times = [[cuda_ms(fn) for fn in (run, plain)] for _ in range(2)]
+    ms, plain_ms = (min(t) for t in zip(*times))
     flop = 2 * MLP_MACS * n
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes(packed_mma, pts, vd, got), flop, PEAK_3XTF32),
@@ -382,14 +398,13 @@ def phase_mlp(dev):
           f"{err_act:.3e}; {err_model:.3e} against the plain 3xTF32 model; "
           f"ragged { {m: f'{e:.3e}' for m, e in ragged.items()} }), reruns "
           f"bit-equal")
-    print(f"    in turns, ms: K-B3 {[f'{t[0]:.3f}' for t in times]}, K-B5 "
-          f"(SIMT chain) {[f'{t[1]:.3f}' for t in times]}, plain "
-          f"{[f'{t[2]:.3f}' for t in times]}; K-B3 {flop / ms / 1e9:.2f} "
-          f"TFLOP/s, bound {row['bound_ms']:.3f} ms by {row['bound_by']} at "
+    print(f"    in turns, ms: K-B3 {[f'{t[0]:.3f}' for t in times]}, plain "
+          f"{[f'{t[1]:.3f}' for t in times]}; K-B3 {flop / ms / 1e9:.2f} "
+          f"TFLOP/s (the SIMT kernel it replaced "
+          f"{REPLACED_MS['mlp_from_points']:.3f} ms, PERF.md), bound "
+          f"{row['bound_ms']:.3f} ms by {row['bound_by']} at "
           f"{row['peak_tflops']:.0f} TFLOP/s: {100 * row['bound_ms'] / ms:.1f}"
-          f"% reached; K-B5 {flop / kb5_ms / 1e9:.2f} TFLOP/s")
-    check(ms < kb5_ms, f"the tensor-core chain ({ms} ms) is not faster than "
-          f"the SIMT chain ({kb5_ms} ms)")
+          f"% reached")
     return row, {"model": model, "packed": packed, "packed_mma": packed_mma,
                  "pts": pts, "vd": vd, "raw": got, "raw_plain": want}
 
@@ -891,27 +906,69 @@ def phase_lsa(dev, scene, sd, tar):
 
 
 def phase_embedded(dev, ctx):
-    packed, pts, vd = ctx["packed"], ctx["pts"], ctx["vd"]
+    packed, packed_mma, pts, vd = (ctx[k] for k in ("packed", "packed_mma",
+                                                    "pts", "vd"))
     n = pts.shape[0]
-    pe = positional_encoding(pts, 10).contiguous()
-    ve = positional_encoding(vd, 4).contiguous()
-    got = mlp_fused.mlp_embedded(packed, pe, ve)
+    embed = lambda p, v: (positional_encoding(p, 10).contiguous(),
+                          positional_encoding(v, 4).contiguous())
+    pe, ve = embed(pts, vd)
+    run = lambda e=pe, f=ve: mlp_fused.mlp_embedded(packed, e, f, packed_mma)
+    got = run()
     torch.cuda.synchronize()
+    L = mlp_fused.unpack_weights(packed)
+    model = lambda e, f: mlp_fused._chunked(
+        lambda a, b: mlp_fused.mlp_3xtf32_plain(L, a, b), e, f)
     want = mlp_fused.fused_nerf_mlp_plain(packed, pe, ve)
     err, err_kb3 = maxabs(got, want), maxabs(got, ctx["raw"])
+    err_model = maxabs(got, model(pe, ve))
     check(torch.isfinite(got).all().item(), "K-B5 output not finite")
-    check(err <= 1e-3, f"K-B5 max |draw| {err} > 1e-3")
-    check(err_kb3 <= 1e-3, f"K-B5 against K-B3 max |draw| {err_kb3} > 1e-3")
-    ms = cuda_ms(lambda: mlp_fused.mlp_embedded(packed, pe, ve))
-    plain_ms = cuda_ms(lambda: mlp_fused.fused_nerf_mlp_plain(packed, pe, ve))
-    kb3_ms = cuda_ms(lambda: mlp_fused.mlp_from_points(
-        packed, pts, vd, ctx["packed_mma"]))
+    check(err <= TOL_RAW, f"K-B5 max |draw| {err} > {TOL_RAW}")
+    check(err_model <= TOL_RAW, f"K-B5 against the plain 3xTF32 model: max "
+          f"|draw| {err_model} > {TOL_RAW}")
+    check(err_kb3 <= TOL_RAW, f"K-B5 against K-B3 max |draw| {err_kb3} > "
+          f"{TOL_RAW}")
+    check(torch.equal(run(), got), "K-B5 reruns differ")
+    check(torch.equal(mlp_fused.mlp_embedded(packed, pe, ve), got),
+          "K-B5 on a buffer repacked by the wrapper differs")
+    g = torch.Generator().manual_seed(8)
+    ragged = {}
+    for m in RAGGED:
+        p = (4 * torch.rand(m, 3, generator=g) - 2).to(dev)
+        v = vd[torch.randint(n, (m,), generator=g).to(dev)].contiguous()
+        e, f = embed(p, v)
+        out = run(e, f)
+        ragged[m] = (maxabs(out, mlp_fused.fused_nerf_mlp_plain(packed, e, f)),
+                     maxabs(out, model(e, f)))
+        check(max(ragged[m]) <= TOL_RAW, f"K-B5 {m} points: max |draw| "
+              f"{ragged[m]} (plain, 3xTF32 model) > {TOL_RAW}")
+        check(torch.equal(run(e, f), out), f"K-B5 {m} points: reruns differ")
+        del e, f, out
+    # its products on the tensor cores: HMMA in its SASS
+    ops = library_opcodes("mlp_embedded_kernelINS_3mma5Chain")
+    check(ops["HMMA"] > 0 and ops["FFMA"] < ops["HMMA"],
+          f"K-B5's SASS: {ops['HMMA']} HMMA, {ops['FFMA']} FFMA")
+    times = [[cuda_ms(fn) for fn in (
+        run, lambda: mlp_fused.fused_nerf_mlp_plain(packed, pe, ve),
+        lambda: mlp_fused.mlp_from_points(packed, pts, vd, packed_mma))]
+        for _ in range(2)]
+    ms, plain_ms, kb3_ms = (min(t) for t in zip(*times))
+    flop = 2 * MLP_MACS * n
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes(packed, pe, ve, got), 2 * MLP_MACS * n, PEAK_FP32)}
+           **bound(nbytes(packed_mma, pe, ve, got), flop, PEAK_3XTF32),
+           "peak_tflops": PEAK_3XTF32 / 1e12}
     print(f"[8] K-B5 {n} points: max|draw| {err:.3e} against plain, "
-          f"{err_kb3:.3e} against K-B3; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, K-B3 {kb3_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms by {row['bound_by']}")
+          f"{err_model:.3e} against the plain 3xTF32 model, {err_kb3:.3e} "
+          f"against K-B3; ragged (plain, model) "
+          f"{ {m: f'{a:.3e}, {b:.3e}' for m, (a, b) in ragged.items()} }; "
+          f"reruns bit-equal; SASS {ops['HMMA']} HMMA, {ops['FFMA']} FFMA")
+    print(f"    in turns, ms: K-B5 {[f'{t[0]:.3f}' for t in times]}, plain "
+          f"{[f'{t[1]:.3f}' for t in times]}, K-B3 "
+          f"{[f'{t[2]:.3f}' for t in times]}; K-B5 {flop / ms / 1e9:.2f} "
+          f"TFLOP/s (the SIMT kernel it replaced "
+          f"{REPLACED_MS['mlp_embedded']:.3f} ms, PERF.md), bound "
+          f"{row['bound_ms']:.3f} ms by {row['bound_by']} at "
+          f"{row['peak_tflops']:.0f} TFLOP/s: {100 * row['bound_ms'] / ms:.1f}"
+          f"% reached")
     return row
 
 
@@ -946,11 +1003,7 @@ def phase_int8(dev, ctx):
           f"MLP, bound {limit}")
     check(torch.equal(run(), got), "K-B4 reruns differ")
     # its products on the tensor cores: IMMA in its SASS, no IDP.4A
-    dump_err = SASS_DUMP.communicate(timeout=300)[1]
-    check(SASS_DUMP.returncode == 0, f"cuobjdump failed: {dump_err}")
-    with open(SASS_PATH) as f:
-        ops = _build.opcodes(_build.LIB_PATH, "mlp_int8_from_points_kernel",
-                             f.read())
+    ops = library_opcodes("mlp_int8_from_points_kernel")
     check(ops["IMMA"] > 0 and ops["IDP"] == 0,
           f"K-B4's SASS: {ops['IMMA']} IMMA, {ops['IDP']} IDP.4A")
     ms = cuda_ms(run)
@@ -1282,7 +1335,9 @@ def phase_tp_slice(dev, scene, sd):
     pe_s = pe.reshape(-1, 63)[:m_pts].contiguous()
     ve_s = ve.reshape(-1, 27)[:m_pts].contiguous()
     packed = mlp_fused.pack_weights(model)
-    kb5_ms = cuda_ms(lambda: mlp_fused.mlp_embedded(packed, pe_s, ve_s))
+    packed_mma = mlp_fused.repack_mma(packed)
+    kb5_ms = cuda_ms(lambda: mlp_fused.mlp_embedded(packed, pe_s, ve_s,
+                                                    packed_mma))
     alone = lambda parts, devices: {devices[0]: parts[0]}
     with torch.no_grad():
         for m in (1, 2, 4):
@@ -2072,7 +2127,7 @@ def phase_bf16_tp_kernels(dev, ctx):
         ragged[m] = held_to_bf16_distance(
             f"K-B5 bf16 {m} points", run(p, v), plain(p, v),
             mlp_fused.fused_nerf_mlp_plain(packed, p, v))
-    f32 = lambda: mlp_fused.mlp_embedded(packed, pe, ve)
+    f32 = lambda: mlp_fused.mlp_embedded(packed, pe, ve, ctx["packed_mma"])
     times = [[cuda_ms(fn) for fn in (run, kb3, f32, plain)] for _ in range(2)]
     ms, kb3_ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
     flop = 2 * MLP_MACS * n

@@ -6,53 +6,34 @@
 // architecture: the renderer's route for a fused MLP whose positional
 // encoding is made outside (renderer.py:96-106).
 //
-// Bound on the H100: float32 FMA throughput outside the tensor cores, as for
-// K-B3 (~1.2 MFLOP per point against 360 bytes of input and 16 of output; the
-// SIMT float32 peak is 67 TFLOP/s, H100 SXM data sheet, at a 700 W power
-// limit).
+// Bound on the H100: operations, as for K-B3 (mlp_from_points.cu): 1.19
+// MFLOP a point against 376 bytes (the float32 embeddings in, the raw
+// logits out), every float32 product three TF32 products on the tensor
+// cores, whose dense TF32 peak of 495 TFLOP/s (H100 SXM data sheet, 700 W)
+// makes 165 TFLOP/s float32-equivalent: 262,144 points cannot take less
+// than 1.89 ms; their bytes alone take 0.03 ms.
 //
-// Design: K-B3's CTA (256 threads, 64 points, activations in shared memory,
-// nerf_mlp.cuh) with the embedding loaded instead of computed. The TPU
-// kernel's (N, 128) packed input and zero-padded weight rows are not carried
-// over: the inputs are pts_emb (N, 63) and views_emb (N, 27) as the caller
-// has them, the weights those of K-B3. The ragged tail is masked here; N is
-// not padded on the host.
-#include "nerf_mlp.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(nerf::kThreads, 1)
-mlp_embedded_kernel(const float* __restrict__ P,
-                    const float* __restrict__ pts_emb,
-                    const float* __restrict__ views_emb,
-                    float* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  nerf::MlpSmem& s = *reinterpret_cast<nerf::MlpSmem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * nerf::kM;
-  nerf::load_embedded_tile(s.emb, pts_emb, views_emb, base, n);
-  __syncthreads();
-  nerf::mlp_tile(s, P);
-  static_assert(nerf::kM * 4 == nerf::kThreads, "one output per thread");
-  if (base + tid / 4 < n) out[base * 4 + tid] = s.raw[tid];
-}
-
-}  // namespace
+// Design: K-B3 with another input stage. The persistent kernel of
+// mlp_from_points.cuh (mlp_embedded_kernel) walks tiles of 64 points over
+// the 3xTF32 chain of nerf_mlp_mma.cuh, the weights streamed through its
+// cp.async ring from the buffer of pack_weights_mma (the one K-B3 reads). In
+// place of Chain::embed's sincosf, load_embedded_tile reads the tile's
+// float32 embeddings with coalesced 4-byte loads (rows of 252 and 108 bytes
+// are not 16-byte aligned) into s.emb, pts at channels 0..62 and views at
+// 64..90; channels 63 and 91..95 stay the zeros that Chain::begin wrote.
+// The TPU kernel's (N, 128) packed input is not carried over. The ragged
+// last tile is masked here; N is not padded on the host. Reruns are
+// bit-equal. Before, K-B5 ran a SIMT chain of float32 FMAs (one
+// non-persistent CTA a tile, weights re-read through L1/L2 at every k step):
+// 14.1 ms at 262,144 points (PERF.md).
+#include "mlp_from_points.cuh"
 
 // pts_emb: (n, 63); views_emb: (n, 27); out: (n, 4) [rgb logits, sigma];
-// params: packed weights.
+// params: the weights as pack_weights_mma lays them out, 16-byte aligned.
 extern "C" int nnc_mlp_embedded(const float* params, const float* pts_emb,
                                 const float* views_emb, float* out, int n,
                                 void* stream) {
-  const int smem = static_cast<int>(sizeof(nerf::MlpSmem));
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_embedded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    const int grid = (n + nerf::kM - 1) / nerf::kM;
-    mlp_embedded_kernel<<<grid, nerf::kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        params, pts_emb, views_emb, out, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nerf::launch_mlp_embedded<nerf::mma::Chain>(params, pts_emb,
+                                                     views_emb, out, n,
+                                                     stream);
 }

@@ -1,16 +1,18 @@
 // The kernel of K-B3, posenc + the NeRF MLP from raw points, over a chain:
 // mma::Chain (float32 as 3xTF32, nerf_mlp_mma.cuh; mlp_from_points.cu) or
 // bf16::Chain<MT> (nerf_mlp_bf16.cuh; mlp_from_points_bf16.cu). Beside it
-// the kernel of K-B5 bf16 (mlp_embedded_bf16.cu), the same walk over tiles
-// with the embedding read from device memory (Chain::load_embedded) in
-// place of the points' coordinates and Chain::embed.
+// the kernel of K-B5 over the same two chains (mlp_embedded.cu,
+// mlp_embedded_bf16.cu), the same walk over tiles with the embedding read
+// from device memory (Chain::load_embedded) in place of the points'
+// coordinates and Chain::embed.
 //
 // Design: persistent CTAs of 256 threads, one per SM, each walking tiles of
 // Chain::kPoints points (tile = blockIdx.x, + gridDim.x, ...). The embedding
 // and the activations stay in shared memory, the layer's accumulators in
 // registers, and the weights stream through a ring of shared-memory slabs
 // that keeps running from one tile into the next; nothing but the points'
-// coordinates in and raw logits out touches device memory. The TPU kernel's
+// coordinates (K-B5: their embeddings) in and raw logits out touches device
+// memory. The TPU kernel's
 // 128-lane padding and packed (N, 8) input are not carried over: the input
 // is points (N, 3) and directions (N, 3), the output (N, 4).
 #pragma once

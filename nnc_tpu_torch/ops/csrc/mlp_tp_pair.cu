@@ -24,10 +24,10 @@
 // channels and stored straight to out, a warp writing 32 consecutive floats
 // of one row. S, O2 and the activation are template parameters; K (63 or
 // 256) is a run-time loop count. x rows are read as scalars (K = 63 is odd);
-// the transposed store into shared memory costs a 4-way bank conflict, as in
-// load_embedded_tile. Every sum runs over k in increasing order in one
-// thread: reruns are bit-equal. The ragged last tile is masked here; N is
-// not padded on the host.
+// the transposed store into shared memory costs a 4-way bank conflict,
+// small against the products. Every sum runs over k in increasing order in
+// one thread: reruns are bit-equal. The ragged last tile is masked here; N
+// is not padded on the host.
 #include "nerf_mlp.cuh"
 
 namespace {
@@ -54,7 +54,7 @@ mlp_tp_pair_kernel(const float* __restrict__ x, int K,
     xs[c * kLd + m] = m < rows ? __ldg(x + base * K + i) : 0.f;
   }
   __syncthreads();
-  nerf::dense<S, RELU>(h, xs, K, wa, nullptr, 0, nullptr, ba);
+  nerf::dense<S, RELU>(h, xs, K, wa, ba);
   __syncthreads();
 
   constexpr int NC = O2 / 32;

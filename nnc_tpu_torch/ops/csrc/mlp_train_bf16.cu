@@ -75,6 +75,31 @@
 //    dpre * u and dpre on the accumulator fragments over the thread's rows
 //    and then over g by three shuffles, and writes bf16(dpre * ls). The rgb
 //    head's 3 x 128 and the rank-1 alpha term are FMAs on the fragments.
+//    u reaches the epilogue beside the products: at the nine 256-wide
+//    layers each warp's 32 columns x 64 rows of u (8 KB) come as one TMA
+//    2-D bulk load (a tensor map of the workspace, 128-byte swizzle) into a
+//    box of the warp's own (64 KB for the CTA, in the ~78 KB the rest
+//    leaves), which the warp reads into registers right after its products
+//    and at once asks to refill with the next layer's (the next tile's
+//    first at a tile's last layer), so that it lands during the epilogue
+//    and the next layer's products; its mbarrier says when. The view
+//    layer's columns start at the odd offset 2,305, so its u and the heads'
+//    stay scalar loads (L2-prefetched at the tile's start). Before, a
+//    layer's u was only prefetched to L2 before its products and loaded
+//    into registers after them: 1.43 ms at 196,608 points; now 1.18 ms,
+//    dls, db and the du workspace bit-equal (NVIDIA H100 80GB HBM3, 700 W;
+//    PERF.md). A tile's clocks (mma_probe.py section 7): the products 49%,
+//    u 17% (reading the box: 512 shared-memory wavefronts a layer; waiting
+//    for it), the epilogue 23%. The relu mask compares the float's bits
+//    (bf16_positive) in place of a conversion, and a layer's scales and
+//    biases load while its products run. Tried and dropped: the weights
+//    straight from L2 into registers a slab ahead, no ring, and a second
+//    box a warp in the ring's place (1.29 ms: the products got slower);
+//    one thread asking for all eight boxes after the CTA's barrier (1.19).
+//    The product loops hold the rest, at ~290 clocks a k step where the
+//    mma.sync rate allows 192: every warp loads the whole 64 x 16 A of a k
+//    step for its 16 products, and the same loops take the same clocks
+//    with a quarter of the CTAs (not L2 or device memory).
 //  - dls / db: as in mlp_train.cu, one persistent CTA per SM keeps its sums
 //    in shared memory, one thread a column, and a second kernel sums the
 //    CTAs' rows in a fixed order: reruns are bit-equal.
@@ -501,6 +526,25 @@ EncodeTiled encode_tiled() {
 // cudaError_t's values).
 constexpr int kTensorMapError = 10001;
 
+// The workspace ws (rows of kU float32) as a tensor map over its first
+// `rows` rows with boxes of 32 columns x box_rows rows; false if the map
+// cannot be made.
+bool ws_tensor_map(CUtensorMap* map, const float* ws, int rows, int box_rows,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kU),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {kU * sizeof(float)};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(ws), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <bool SAVE>
 int launch_fwd(const float* fw, const float* ls, const float* bi,
                const float* pts, const float* dirs, float* out, float* ws,
@@ -518,20 +562,9 @@ int launch_fwd(const float* fw, const float* ls, const float* bi,
   if (n > 0) {
     const int tiles = (n + kFwdPoints - 1) / kFwdPoints;
     CUtensorMap map{};
-    if (SAVE) {
-      const EncodeTiled encode = encode_tiled();
-      if (encode == nullptr) return kTensorMapError;
-      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kU),
-                                  static_cast<cuuint64_t>(tiles) * kFwdPoints};
-      const cuuint64_t strides[1] = {kU * sizeof(float)};
-      const cuuint32_t box[2] = {32, 16};
-      const cuuint32_t steps[2] = {1, 1};
-      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims, strides,
-                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return kTensorMapError;
-    }
+    if (SAVE && !ws_tensor_map(&map, ws, tiles * kFwdPoints, 16,
+                               CU_TENSOR_MAP_SWIZZLE_NONE))
+      return kTensorMapError;
     mlp_train_fwd_bf16_kernel<SAVE>
         <<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
             fw, ls, bi, pts, dirs, out, ws, map, n, tiles);
@@ -552,18 +585,99 @@ constexpr int kOffAlphaWT = kBwdSlabs * mma::kSlab;   // 256 weights
 constexpr int kOffRgbWT = kOffAlphaWT + kW;           // (3, 128) row-major
 constexpr int kBwdParamsSize = (kOffRgbWT + 3 * (kW / 2) + 63) / 64 * 64;
 
+// u's way in at the 256-wide layers: each warp owns one box of shared
+// memory, its 32 columns of a layer's u for the tile's 64 rows (8 KB), which
+// the tensor memory accelerator fills by one 2-D bulk load through a tensor
+// map of the workspace (boxes of 32 columns x 64 rows, 128-byte swizzle),
+// completing the warp's mbarrier. The warp reads the box into registers
+// after its products, and its lane 0 asks at once for the next layer's
+// (the next tile's first at a tile's last layer), which then lands while
+// the epilogue and the next layer's products run.
+constexpr int kBoxFloats = kM * 32;
+constexpr int kUBoxBytes = kBoxFloats * 4;
+
 struct BwdSmem {
+  // the warps' boxes of u, 1024-byte aligned in ubox_raw (the swizzle
+  // repeats every 1,024 bytes of the shared address)
+  unsigned char ubox_raw[kThreads / 32 * kUBoxBytes + 1024];
   float ring[mma::kStages * mma::kSlab];   // transposed slabs in flight
   __nv_bfloat16 g[kM * b16::kLdA];  // du of the layer above, then this layer's
   float gr[kM * 4];         // the tile's raw cotangent, then the heads' du
   float part[2 * kU];       // this CTA's sums: dls, then db
+  uint64_t ufull[kThreads / 32];   // a warp's box has landed
 };
+
+struct ULoad {
+  const CUtensorMap* map;   // the workspace, boxes of 32 x 64
+  float* box;               // this warp's box
+  uint32_t bar;             // its mbarrier
+  uint32_t parity;          // the phase the next wait() waits for
+
+  // Lane 0: layer L's u (L <= 8), this warp's 32 columns, the tile's 64
+  // rows, into the box. The warp's reads of the box are done (__syncwarp
+  // before).
+  __device__ __forceinline__ void issue(int tile, int L) const {
+    if ((threadIdx.x & 31) == 0) {
+      // the generic proxy's reads of the box, before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"(kUBoxBytes)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+          "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+              ring::smem_u32(box)),
+          "l"(reinterpret_cast<uint64_t>(map)),
+          "r"(L * kW + 32 * static_cast<int>(threadIdx.x >> 5)),
+          "r"(tile * kM), "r"(bar)
+          : "memory");
+    }
+  }
+
+  // Until the box issued last has landed; all lanes.
+  __device__ __forceinline__ void wait() {
+    ring::mbar_wait(bar, parity);
+    parity ^= 1;
+  }
+};
+
+// This thread's u of a 256-wide layer from the warp's box, as load_u<4>
+// lays it out: row r = mt * 16 + g + 8 half, column c = 8 nt + 2 t of the
+// warp's 32; the 128-byte swizzle puts 16-byte piece c / 4 of row r at
+// piece (c / 4) ^ (r % 8), and r % 8 = g. Each load of a warp reads 256
+// bytes in two wavefronts (no bank conflicts).
+__device__ __forceinline__ void load_u_box(float (&u)[4][4][2][2],
+                                           const float* __restrict__ box,
+                                           int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + g + 8 * half;
+        const float2 v = *reinterpret_cast<const float2*>(
+            box + r * 32 + (((2 * nt + (t >> 1)) ^ g) << 2) + 2 * (t & 1));
+        u[nt][mt][half][0] = v.x;
+        u[nt][mt][half][1] = v.y;
+      }
+}
 
 // An evict-first store of a bf16 value (the du workspace).
 __device__ __forceinline__ void store_cs(__nv_bfloat16* p, __nv_bfloat16 v) {
   asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p),
                "h"(*reinterpret_cast<const unsigned short*>(&v))
                : "memory");
+}
+
+// bf16_round(x) > 0 without the conversion: x rounds (to nearest even) to a
+// positive bf16 value exactly when it is above 2^-134, the float32 whose
+// bits are 0x8000 (half of bf16's least subnormal, 2^-133: the tie goes to
+// zero); NaN is positive neither way.
+__device__ __forceinline__ bool bf16_positive(float x) {
+  return x > 0.f && __float_as_uint(x) > 0x8000u;
 }
 
 // The accumulators hold the gradient of a layer's output for the tile (the
@@ -573,15 +687,15 @@ __device__ __forceinline__ void store_cs(__nv_bfloat16* p, __nv_bfloat16 v) {
 // forward computed it); dpre * u and dpre, summed over the tile's 64 rows,
 // are added to the CTA's dls and db of the layer's columns. bf16(du) goes
 // to G, the next product's A, if `write`. part_ls, part_b: at the layer's
-// columns; u, lb: load_u and load_lb of the layer, started by the caller
-// before its barrier. Every warp must be done reading G; ends with a
-// barrier. DU: the tile's first row of the bf16 du workspace at the layer's
-// columns (the backward with dW), or null: bf16(du) goes there too, with
-// evict-first stores; at the 256-wide layers (NT = 4) it is copied from G
-// after the barrier in 16-byte pieces (their fragments are 4-byte pieces of
-// 16-byte runs: stored from the registers they took 1.0 ms more at 196,608
-// points where 0.96 GB need 0.29; NVIDIA H100 80GB HBM3, 700 W,
-// nnc_tpu_torch/tools/kb1_dw_bench.py), so `write` must be set with DU there.
+// columns; u, lb: the layer's u (load_u_box, or load_u at the view layer)
+// and load_lb, loaded by the caller before its barrier. Every warp must be
+// done reading G; ends with a barrier. DU: the tile's first row of the bf16
+// du workspace at the layer's columns (the backward with dW), or null:
+// bf16(du) goes there too, with evict-first stores; at the 256-wide layers
+// (NT = 4) it is copied from G after the barrier in 16-byte pieces (their
+// fragments are 4-byte pieces of 16-byte runs: stored from the registers
+// they took 1.0 ms more at 196,608 points where 0.96 GB need 0.29; NVIDIA
+// H100 80GB HBM3, 700 W, PERF.md), so `write` must be set with DU there.
 template <int NT, bool RELU>
 __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
                                               const float (&u)[NT][4][2][2],
@@ -608,7 +722,7 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
         for (int half = 0; half < 2; ++half) {
           const float uj = u[nt][mt][half][j];
           float d = acc[mt][nt][2 * half + j];
-          if (RELU && !(bf16_round(fmaf(uj, l, bb)) > 0.f)) d = 0.f;
+          if (RELU && !bf16_positive(fmaf(uj, l, bb))) d = 0.f;
           tl = fmaf(d, uj, tl);
           tb += d;
           acc[mt][nt][2 * half + j] = d * l;
@@ -616,7 +730,7 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
       sl[nt][j] = tl;
       sb[nt][j] = tb;
     }
-  NNC_PROF(4);
+  NNC_PROF(5);
   // over g: the eight lanes that share t, in a fixed order
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1)
@@ -636,7 +750,6 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
         part_b[col0 + nt * 8 + j] += sb[nt][j];
       }
   }
-  NNC_PROF(5);
   if (write) {
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -668,7 +781,6 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
   }
   NNC_PROF(6);
   __syncthreads();
-  NNC_PROF(7);
   if (DU && NT == 4) {
     // G's 64 rows x 256 columns in 16-byte pieces
     for (int i = threadIdx.x; i < kM * (kW / 8); i += kThreads) {
@@ -678,21 +790,37 @@ __device__ __forceinline__ void grad_epilogue(float (&acc)[4][NT][4],
              *reinterpret_cast<const uint4*>(G + r * b16::kLdA + c));
     }
   }
+  NNC_PROF(7);
+}
+
+// In the builds with clock marks (NNC_MMA_PROFILE), this thread's loads of
+// u have landed before the next mark: else their wait would fall in the
+// epilogue's slot.
+template <int NT>
+__device__ __forceinline__ void prof_landed(const float (&u)[NT][4][2][2]) {
+#ifdef NNC_MMA_PROFILE
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      asm volatile("" ::"f"((&u[nt][0][0][0])[i]));
+#endif
 }
 
 // One step of the reverse chain: the gradient of layer L's output,
 // du_above (64 x K, bf16 in s.g) @ (the next K / 64 transposed slabs), plus
 // du_alpha (x) w_alpha when ALPHA (layer 7 feeds the alpha head too), then
-// grad_epilogue of layer L.
+// grad_epilogue of layer L, on layer L's u from the warp's box, whose next
+// load (layer L - 1, or the next tile's layer 8 at L = 0) starts here.
 template <bool RELU, bool ALPHA>
 __device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
                                           int L, bool write,
                                           const float* __restrict__ BW,
                                           const float* __restrict__ LS,
                                           const float* __restrict__ BI,
-                                          const float* __restrict__ ws,
+                                          ULoad& ul,
                                           __nv_bfloat16* __restrict__ du,
-                                          int tile) {
+                                          int tile, int tiles) {
   float acc[4][4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -701,12 +829,13 @@ __device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   const int o = L * kW;   // u_offset(L) for L <= 8
-  const float* U = ws + static_cast<size_t>(tile) * (kM * kU) + o;
-  prefetch_u(U, kW * static_cast<int>(sizeof(float)));
-  b16::mma_run<kBwdMT, 4>(pipe, acc, s.g, b16::kLdA, K);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int col0 = (threadIdx.x >> 5) * 32 + 2 * (lane & 3);
+  // the layer's scales and biases arrive while the products run
+  float lb[4][4];
+  load_lb<4>(lb, LS + o, BI + o, col0);
+  b16::mma_run<kBwdMT, 4>(pipe, acc, s.g, b16::kLdA, K);
   if (ALPHA) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
@@ -723,12 +852,20 @@ __device__ __forceinline__ void bwd_layer(BwdSmem& s, BwdPipe& pipe, int K,
       }
     }
   }
-  float u[4][4][2][2], lb[4][4];
-  load_u<4, true>(u, U, g, col0);
-  load_lb<4>(lb, LS + o, BI + o, col0);
   NNC_PROF(2);
-  __syncthreads();
+  float u[4][4][2][2];
+  ul.wait();
   NNC_PROF(3);
+  load_u_box(u, ul.box, g, lane & 3);
+  __syncwarp();
+  if (L > 0)
+    ul.issue(tile, L - 1);
+  else if (tile + static_cast<int>(gridDim.x) < tiles)
+    ul.issue(tile + gridDim.x, kLayerFeature);
+  prof_landed(u);
+  NNC_PROF(1);
+  __syncthreads();
+  NNC_PROF(4);
   grad_epilogue<4, RELU>(
       acc, u, lb, s.g, s.part + o, s.part + kU + o, write,
       du ? du + static_cast<size_t>(tile) * (kM * kDuLdBf16) + o : nullptr);
@@ -741,8 +878,10 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
                           const float* __restrict__ gout,
                           const float* __restrict__ ws,
                           __nv_bfloat16* __restrict__ du,
-                          float* __restrict__ partials, int n, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                          float* __restrict__ partials,
+                          const __grid_constant__ CUtensorMap ws_map, int n,
+                          int tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -752,6 +891,19 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
   BwdPipe pipe;
   pipe.start(BW, s.ring);
   for (int i = tid; i < 2 * kU; i += kThreads) s.part[i] = 0.f;
+  // this warp's box and its barrier; the first tile's first layer asked for
+  const int skip = (1024 - (ring::smem_u32(s.ubox_raw) & 1023)) & 1023;
+  ULoad ul{&ws_map,
+           reinterpret_cast<float*>(s.ubox_raw + skip + warp * kUBoxBytes),
+           ring::smem_u32(&s.ufull[warp]), 0};
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(ul.bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  if (static_cast<int>(blockIdx.x) < tiles)
+    ul.issue(blockIdx.x, kLayerFeature);
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long base = static_cast<long long>(tile) * kM;
@@ -819,25 +971,28 @@ mlp_train_bwd_bf16_kernel(const float* __restrict__ BW,
                   fmaf(d.z, w[2][j], fmaf(d.y, w[1][j], d.x * w[0][j]));
           }
       }
-      NNC_PROF(1);
+      NNC_PROF(0);
       constexpr int o = u_offset(kLayerViews);
       float u[2][4][2][2], lb[2][4];
       load_u<2, false>(u, U + o, g, col0);
       load_lb<2>(lb, LS + o, BI + o, col0);
+      prof_landed(u);
+      NNC_PROF(3);
       grad_epilogue<2, true>(acc, u, lb, s.g, s.part + o, s.part + kU + o,
                              true, DU ? DU + o : nullptr);
     }
     // dfeature = du_v @ Wv[:256]^T; the feature layer has no activation
     bwd_layer<false, false>(s, pipe, kW / 2, kLayerFeature, true, BW, LS, BI,
-                            ws, du, tile);
+                            ul, du, tile, tiles);
     // dh7 = du_f @ Wf^T + du_alpha (x) w_alpha
-    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ws, du, tile);
+    bwd_layer<true, true>(s, pipe, kW, 7, true, BW, LS, BI, ul, du, tile,
+                          tiles);
     // dh_{i} = du_{i+1} @ W_{i+1}^T (layer 5: its 256 rows for h), i = 6..0
     // (layer 0's du feeds no product; with dW it goes to the du workspace)
 #pragma unroll 1
     for (int i = 6; i >= 0; --i)
-      bwd_layer<true, false>(s, pipe, kW, i, i > 0 || du, BW, LS, BI, ws, du,
-                             tile);
+      bwd_layer<true, false>(s, pipe, kW, i, i > 0 || du, BW, LS, BI, ul, du,
+                             tile, tiles);
     NNC_PROF(8);
   }
   pipe.drain();
@@ -884,12 +1039,13 @@ extern "C" int nnc_mlp_train_fwd_bf16(const float* fw, const float* ls,
 
 // The backward without dW, and the first pass of the backward with dW. bw:
 // the backward half of pack_train_bf16, 16-byte aligned; g: (n, 4)
-// cotangent of out; ws from nnc_mlp_train_fwd_bf16; du: null, or a bf16
+// cotangent of out; ws from nnc_mlp_train_fwd_bf16 (read through a tensor
+// map made here: kTensorMapError if it cannot be); du: null, or a bf16
 // workspace (rows of ws, 2,440 columns: u's layout, rows 16-byte aligned)
-// that takes every layer's bf16(du)
-// per point (rows up to ceil(n / 64) * 64; nnc_mlp_train_dw_bf16,
-// mlp_train_dw.cu, reads it); partials: (G, 4,872) scratch; out: (4,872,) =
-// [dls (2,436), db (2,436)].
+// that takes every layer's bf16(du) per point (rows up to ceil(n / 64) *
+// 64; nnc_mlp_train_dw_bf16, mlp_train_dw.cu, reads it); G: CTAs, at most
+// ceil(n / 64); partials: (G, 4,872) scratch; out: (4,872,) = [dls (2,436),
+// db (2,436)].
 extern "C" int nnc_mlp_train_bwd_bf16(const float* bw, const float* ls,
                                       const float* bi, const float* g,
                                       const float* ws, void* du,
@@ -902,9 +1058,15 @@ extern "C" int nnc_mlp_train_bwd_bf16(const float* bw, const float* ls,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
+    const int tiles = (n + kM - 1) / kM;
+    // the workspace's rows of whole 64-point tiles (it has rows for whole
+    // 128-point tiles), one box a tile's rows, 128-byte swizzle
+    CUtensorMap map{};
+    if (!ws_tensor_map(&map, ws, tiles * kM, kM, CU_TENSOR_MAP_SWIZZLE_128B))
+      return kTensorMapError;
     mlp_train_bwd_bf16_kernel<<<G, kThreads, smem, st>>>(
-        bw, ls, bi, g, ws, static_cast<__nv_bfloat16*>(du), partials, n,
-        (n + kM - 1) / kM);
+        bw, ls, bi, g, ws, static_cast<__nv_bfloat16*>(du), partials, map, n,
+        tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {

@@ -1,18 +1,20 @@
 // The flagship NeRF MLP (D=8, W=256, skip at layer 4, view head; posenc
 // 10/4 frequencies) on a tile of 64 points with its products on the tensor
 // cores at float32 accuracy. Used by mlp_from_points.cu (K-B3),
-// render_pass.cu (K-B2) (through the kernels of mlp_from_points.cuh and
-// render_pass.cuh, which nerf_mlp_bf16.cuh's chain shares) and mlp_train.cu (K-B1: the training forward and
-// the backward without dW take the ring, the split, the fragment loads and
-// the product loops, mma_segment, from here and bring epilogues of their
-// own, because training keeps u = x @ W apart from its scale and bias).
+// mlp_embedded.cu (K-B5: the embedding read by load_embedded_tile in place
+// of embed_tile's posenc), render_pass.cu (K-B2) (through the kernels of
+// mlp_from_points.cuh and render_pass.cuh, which nerf_mlp_bf16.cuh's chain
+// shares) and mlp_train.cu (K-B1: the training forward and the backward
+// without dW take the ring, the split, the fragment loads and the product
+// loops, mma_segment, from here and bring epilogues of their own, because
+// training keeps u = x @ W apart from its scale and bias).
 //
-// Replaces, for those two kernels, the SIMT chain of nerf_mlp.cuh (dense /
-// accumulate / mlp_tile: float32 FMAs, weights re-read from L1/L2 by __ldg at
-// every k step, three 64 x 256 buffers in shared memory), which
-// mlp_embedded.cu (K-B5) and mlp_tp_pair.cu (K-B6) keep. It computes the same
-// function as the Pallas bodies _kernel_pts (nnc_tpu/ops/mlp_pallas.py:238)
-// and _make_kernel (nnc_tpu/ops/render_pallas.py:88).
+// Replaces, for those kernels, the SIMT chain of float32 FMAs (weights
+// re-read from L1/L2 by __ldg at every k step, three 64 x 256 buffers in
+// shared memory) of which nerf_mlp.cuh keeps only the dense layer that
+// mlp_tp_pair.cu (K-B6) runs. It computes the same function as the Pallas
+// bodies _kernel_pts and _kernel (nnc_tpu/ops/mlp_pallas.py:238, :191) and
+// _make_kernel (nnc_tpu/ops/render_pallas.py:88).
 //
 // Bound on the H100: operations. A point costs 1.19 MFLOP against 40 bytes
 // of input and output. Each float32 product is three TF32 products on the
@@ -471,7 +473,8 @@ __device__ __forceinline__ void zero_embedding_pad(float* __restrict__ emb) {
 // points and view directions in shared memory (zeros for rows past the
 // data). Consecutive threads take consecutive channels of one point. The
 // argument x * 2^f is exact in float32; sin and cos come from the precise
-// sincosf, as in nerf_mlp.cuh.
+// sincosf (arguments reach ~2^9 * |x|, where fast-math intrinsics lose
+// several digits).
 __device__ __forceinline__ void embed_tile(float* __restrict__ emb,
                                            const float* __restrict__ xs,
                                            const float* __restrict__ ds) {
@@ -492,6 +495,47 @@ __device__ __forceinline__ void embed_tile(float* __restrict__ emb,
       sincosf(x * static_cast<float>(1 << fr), &sn, &cs);
       e[3 + 6 * fr + d] = sn;
       e[6 + 6 * fr + d] = cs;
+    }
+  }
+}
+
+// The second way in (K-B5): the tile's embeddings, computed by the caller,
+// from device memory into the layout embed_tile writes; rows past n become
+// zeros. pts_emb: (n, kInPts), views_emb: (n, kInViews), contiguous
+// float32. Rows of 252 and 108 bytes are not 16-byte aligned, so there is
+// no cp.async here: the tile's pts and then views values are one index
+// space, which consecutive threads walk in coalesced 4-byte loads, in two
+// batches of loads in flight before their stores (as nerf_mlp_bf16.cuh's
+// load_embedded_tile). The padding channels are never written: they stay
+// as zero_embedding_pad left them.
+__device__ __forceinline__ void load_embedded_tile(
+    float* __restrict__ emb, const float* __restrict__ pts_emb,
+    const float* __restrict__ views_emb, long long base, int n) {
+  constexpr int kP = kM * kInPts;
+  constexpr int kAll = kP + kM * kInViews;
+  constexpr int kIters = (kAll + kThreads - 1) / kThreads;
+  constexpr int kB = (kIters + 1) / 2;
+  const int rows = n - base < kM ? static_cast<int>(n - base) : kM;
+  const float* __restrict__ p = pts_emb + base * kInPts;
+  const float* __restrict__ q = views_emb + base * kInViews;
+#pragma unroll
+  for (int j0 = 0; j0 < kIters; j0 += kB) {
+    float v[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      v[j] = i < kP ? (i / kInPts < rows ? __ldg(p + i) : 0.f)
+           : i < kAll && (i - kP) / kInViews < rows ? __ldg(q + (i - kP))
+                                                     : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      if (i < kP)
+        emb[(i / kInPts) * kLdE + i % kInPts] = v[j];
+      else if (i < kAll)
+        emb[((i - kP) / kInViews) * kLdE + kPtsPad + (i - kP) % kInViews] =
+            v[j];
     }
   }
 }
@@ -575,7 +619,8 @@ __device__ __forceinline__ void mlp_tile(MlpSmem& s, Pipe& pipe,
 }
 
 // What mlp_from_points.cuh and render_pass.cuh need of a chain: the tile's
-// size, its shared memory and weight ring, and the three steps of a tile.
+// size, its shared memory and weight ring, and the three steps of a tile
+// (load_embedded in place of embed: only mlp_embedded_kernel).
 struct Chain {
   static constexpr int kPoints = kM;
   using Smem = MlpSmem;
@@ -588,6 +633,11 @@ struct Chain {
   static __device__ __forceinline__ void embed(Smem& s, const float* xs,
                                                const float* ds) {
     embed_tile(s.emb, xs, ds);
+  }
+  static __device__ __forceinline__ void load_embedded(
+      Smem& s, const float* pts_emb, const float* views_emb, long long base,
+      int n) {
+    load_embedded_tile(s.emb, pts_emb, views_emb, base, n);
   }
   static __device__ __forceinline__ void mlp(Smem& s, Pipe& pipe,
                                              const float* P) {

@@ -31,6 +31,20 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// Until the mbarrier at shared address `bar` has completed the phase of
+// parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
 // The ring's shared memory, a member of the kernel's own layout (whole
 // 128-byte lines, so that the members after it keep their alignment).
 template <int STAGES>
@@ -80,17 +94,7 @@ struct SlabRing {
   // The next slab (its stage's first float), landed; all lanes call it.
   __device__ __forceinline__ const float* acquire() const {
     const int st = j % STAGES;
-    const uint32_t bar = smem_u32(&s->full[st]);
-    const uint32_t parity = (j / STAGES) & 1;
-    asm volatile(
-        "{\n"
-        ".reg .pred done;\n"
-        "WAIT_%=:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@!done bra WAIT_%=;\n"
-        "}\n" ::"r"(bar),
-        "r"(parity)
-        : "memory");
+    mbar_wait(smem_u32(&s->full[st]), (j / STAGES) & 1);
     return s->stages + st * kSlabFloats;
   }
 

@@ -8,12 +8,12 @@ architecture (D=8, W=256, skip=(4,), viewdirs, 63/27 posenc) has kernels; the
 three entry points run the plain MLP for any other, as the reference does
 (mlp_pallas.py:361-365, 391-395, 421-422).
 
-K-B5 (``csrc/mlp_embedded.cu``) and every float32 plain version read the
-weights packed by :func:`pack_weights`: one float32 buffer, layers in
-``nerf.layer_names`` order, each W in (in, out) row-major then its bias,
-padded to a multiple of 64 floats, with LSA scales folded in. K-B3
-(``csrc/mlp_from_points.cu``) and K-B2 (``csrc/render_pass.cu``) run their
-products on the tensor cores as three TF32 products each
+Every float32 plain version reads the weights packed by
+:func:`pack_weights`: one float32 buffer, layers in ``nerf.layer_names``
+order, each W in (in, out) row-major then its bias, padded to a multiple of
+64 floats, with LSA scales folded in. K-B3 (``csrc/mlp_from_points.cu``),
+K-B5 (``csrc/mlp_embedded.cu``) and K-B2 (``csrc/render_pass.cu``) run
+their products on the tensor cores as three TF32 products each
 (``csrc/nerf_mlp_mma.cuh``) and read the same values in the order the
 ``mma.sync`` fragments want them, :func:`pack_weights_mma` /
 :func:`repack_mma`; :func:`tf32_round`, :func:`matmul_3xtf32_plain` and
@@ -203,7 +203,7 @@ def _mlp_packed(L, pe, ve, addmm=torch.addmm):
     return torch.cat([rgb, alpha], dim=-1)
 
 
-# --- the tensor-core chain of K-B3 / K-B2: its packing and its arithmetic ----
+# --- the tensor-core chain of K-B3 / K-B5 / K-B2: its packing and arithmetic -
 # csrc/nerf_mlp_mma.cuh. Eight warps each own 8 * NT output channels of a
 # layer (NT n-tiles of mma.sync m16n8k8; NT = 4 for 256 outputs, 2 for the
 # view layer's 128). Lane 4 g + t of warp w reads, for k step ks and n-tile
@@ -282,8 +282,9 @@ _mma_index_on = {}   # device -> MMA_INDEX as a tensor there
 
 
 def repack_mma(packed: torch.Tensor) -> torch.Tensor:
-    """The buffer of :func:`pack_weights` in the order K-B3 and K-B2 read it
-    (one gather; zero rows pad the depths 63 and 27 to whole k steps)."""
+    """The buffer of :func:`pack_weights` in the order K-B3, K-B2 and K-B5
+    read it (one gather; zero rows pad the depths 63 and 27 to whole k
+    steps)."""
     _check("packed", packed, (PARAMS_SIZE,))
     index = _mma_index_on.get(packed.device)
     if index is None:
@@ -293,8 +294,9 @@ def repack_mma(packed: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights_mma(model: nerf.NeRF) -> torch.Tensor:
-    """The flagship model's weights as K-B3 and K-B2 read them (LSA folded):
-    :func:`repack_mma` of the model's cached :func:`pack_weights` buffer."""
+    """The flagship model's weights as K-B3, K-B2 and K-B5 read them (LSA
+    folded): :func:`repack_mma` of the model's cached :func:`pack_weights`
+    buffer."""
     return repack_mma(PACKS.get(model, "float32", pack_weights))
 
 
@@ -815,9 +817,15 @@ def _check(name, t, shape, dtype=torch.float32):
 
 
 def _check_mma(packed, packed_mma):
-    """The fragment-ordered buffer K-B3 and K-B2 launch with: ``packed_mma``
-    checked (``cp.async`` copies it 16 bytes at a time), or made from
-    ``packed`` if None."""
+    """The fragment-ordered buffer K-B3, K-B5 and K-B2 launch with:
+    ``packed_mma`` checked (``cp.async`` copies it 16 bytes at a time), or
+    made from ``packed`` if None. For a CPU ``packed``, whose plain versions
+    read ``packed`` alone, a buffer given is checked for its size and None
+    is returned."""
+    if not packed.is_cuda:
+        if packed_mma is not None:
+            _check("packed_mma", packed_mma, (MMA_PARAMS_SIZE,))
+        return None
     if packed_mma is None:
         packed_mma = repack_mma(packed)
     _check("packed_mma", packed_mma, (MMA_PARAMS_SIZE,))
@@ -825,6 +833,12 @@ def _check_mma(packed, packed_mma):
         raise ValueError("packed_mma must lie on packed's device, 16-byte "
                          "aligned")
     return packed_mma
+
+
+def _mma_weights(packed, packed_mma):
+    """``kernel_weights`` of :func:`_run` for the 3xTF32 kernels."""
+    buf = _check_mma(packed, packed_mma)
+    return None if buf is None else (buf,)
 
 
 def _run(name, plain, weights, inputs, kernel_weights=None):
@@ -861,12 +875,12 @@ def mlp_from_points(packed, pts, dirs, packed_mma=None):
 
     CUDA tensors launch the kernel, which reads ``packed_mma``
     (:func:`repack_mma` of ``packed``, made here if not given); CPU tensors
-    take the plain version on ``packed``."""
+    take the plain version on ``packed`` (a ``packed_mma`` given is checked
+    for its size)."""
     _check("packed", packed, (PARAMS_SIZE,))
     return _run("mlp_from_points", fused_nerf_mlp_from_points_plain,
                 (packed,), {"pts": (pts, 3), "dirs": (dirs, 3)},
-                kernel_weights=(_check_mma(packed, packed_mma),)
-                if packed.is_cuda else None)
+                kernel_weights=_mma_weights(packed, packed_mma))
 
 
 def _check_bf16(packed_bf16):
@@ -920,14 +934,18 @@ def mlp_int8_from_points(wq, scales, biases, pts, dirs, packed_s8=None):
                 kernel_weights=kernel_weights)
 
 
-def mlp_embedded(packed, pts_emb, views_emb):
+def mlp_embedded(packed, pts_emb, views_emb, packed_mma=None):
     """K-B5 wrapper: raw (N, 4) for embedded points (N, 63) and embedded view
     directions (N, 27).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which reads ``packed_mma``
+    (:func:`repack_mma` of ``packed``, made here if not given); CPU tensors
+    take the plain version on ``packed`` (a ``packed_mma`` given is checked
+    for its size)."""
     _check("packed", packed, (PARAMS_SIZE,))
     return _run("mlp_embedded", fused_nerf_mlp_plain, (packed,),
-                {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)})
+                {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)},
+                kernel_weights=_mma_weights(packed, packed_mma))
 
 
 def mlp_embedded_bf16(packed_bf16, pts_emb, views_emb):
@@ -994,5 +1012,6 @@ def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
     if model.config.compute_dtype == torch.bfloat16:
         raw = mlp_embedded_bf16(packed_bf16_for(model), *flat)
     else:
-        raw = mlp_embedded(PACKS.get(model, "float32", pack_weights), *flat)
+        raw = mlp_embedded(PACKS.get(model, "float32", pack_weights), *flat,
+                           packed_mma=packed_mma_for(model, pts_emb.device))
     return raw.reshape(*lead, 4)

@@ -1,17 +1,21 @@
 """The port's redesigned kernels on the card: digests of what they compute and
 their times, in a form that runs unchanged in an earlier checkout of the port.
 
-    python -m nnc_tpu_torch.tools.kernel_compare [--kernels kb1_bf16,kb1_dw,kb4]
-        [--iters 5] [--repeats 2] [--profile] [--out FILE]
+    python -m nnc_tpu_torch.tools.kernel_compare
+        [--kernels kb1_bf16,kb1_dw,kb4,kb5] [--iters 5] [--repeats 2]
+        [--profile] [--out FILE]
 
-Each name in ``--kernels`` (all three by default) adds its part:
+Each name in ``--kernels`` (all four by default) adds its part:
 
 - ``kb1_bf16``: K-B1's bf16 forward (``mlp_train_fwd_bf16``) on chip_smoke.py
   phase 16's inputs (full-width weights with LSA scales of std 0.05 and
   points from seed 16, at 65,536 and 196,608 points) with its workspace of
-  u: the SHA-256 of raw and of the whole workspace at both sizes, whether a
-  rerun gave the same bytes, and at the larger size the forward's time with
-  and without the workspace and the backward's without dW on it.
+  u, and its backward (``mlp_train_bwd_bf16``) on that workspace: the
+  SHA-256 of raw, of the whole workspace, of the backward's dls and db
+  without dW, and of its gradient and its du workspace with dW (zeroed
+  first) at both sizes, whether a rerun gave the same bytes, and at the
+  larger size the forward's time with and without the workspace and the
+  backward's without and with dW.
 - ``kb1_dw``: K-B1's backward with and without dW, float32 and bf16, at
   196,608 points (weights and points from seed 4, the forward's workspace
   made once by the kernels), and the backward with dW's two passes alone
@@ -24,6 +28,10 @@ Each name in ``--kernels`` (all three by default) adds its part:
 - ``kb4``: K-B4 (``mlp_int8_from_points``) on phase 9's inputs (phase 2's
   net and 262,144 points from seed 0): the SHA-256 of raw, whether a rerun
   gave the same bytes, and its time.
+- ``kb5``: K-B5 float32 (``mlp_embedded``) on phase 8's inputs (phase 2's
+  net and points, embedded by ``positional_encoding``): the SHA-256 of
+  raw, whether a rerun gave the same bytes, its max |d raw| from the exact
+  float32 plain version, and its time.
 
 A time is CUDA events over ``--iters`` launches after a warm-up, taken
 ``--repeats`` times, the parts' runs in turns. The card's name and power
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -52,16 +61,19 @@ from ..data import synthetic
 from ..models import nerf
 from ..ops import _build, mlp_fused
 from ..ops import mlp_train_fused as M
+from ..ops.posenc import positional_encoding
 from ..utils.device import require_cuda
 
 N_TRAIN = (65_536, 196_608)
-N_INT8 = 262_144
-KERNELS = ("kb1_bf16", "kb1_dw", "kb4")
+N_POINTS = 262_144
+KERNELS = ("kb1_bf16", "kb1_dw", "kb4", "kb5")
 
 
 def digest(t: torch.Tensor) -> str:
-    a = np.ascontiguousarray(t.detach().cpu().numpy())
-    return hashlib.sha256(a.view(np.uint8)).hexdigest()
+    """SHA-256 of the tensor's bytes in row-major order (any dtype, bf16
+    included)."""
+    a = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(a).hexdigest()
 
 
 def events_ms(fn, iters: int) -> float:
@@ -124,13 +136,31 @@ def kb1_bf16(device, args):
         out[f"kb1_bf16 rerun equal {n}"] = bool(
             torch.equal(raw, raw2) and torch.equal(ws, ws2))
         del raw2, ws2
+        # the backward without and with dW; its du workspace zeroed first,
+        # so that its columns past the gradient's have known bytes
+        bwd = lambda dw=False, du=None: M.mlp_train_bwd_bf16(
+            params, params_t, ls, pts, vd, cot, ws, dw, bwd_b, biases,
+            **({"du": du} if dw else {}))
+        zeros_du = lambda: torch.zeros((ws.shape[0], M.DU_COLS_BF16),
+                                       dtype=torch.bfloat16, device=device)
+        flat, du = bwd(), zeros_du()
+        flat_dw = bwd(True, du)
+        torch.cuda.synchronize()
+        out[f"kb1_bf16 bwd dls db {n}"] = digest(flat)
+        out[f"kb1_bf16 bwd dW {n}"] = digest(flat_dw)
+        out[f"kb1_bf16 bwd du {n}"] = digest(du)
+        du2 = zeros_du()
+        out[f"kb1_bf16 bwd rerun equal {n}"] = bool(
+            torch.equal(bwd(), flat) and torch.equal(bwd(True, du2), flat_dw)
+            and torch.equal(du2, du))
+        del du, du2
         if n == N_TRAIN[-1]:
             out.update(timed({
                 "kb1_bf16 fwd ms": fwd,
                 "kb1_bf16 fwd without ws ms": lambda: fwd(False),
-                "kb1_bf16 bwd ms": lambda: M.mlp_train_bwd_bf16(
-                    params, params_t, ls, pts, vd, cot, ws, False, bwd_b,
-                    biases)}, args.iters, args.repeats))
+                "kb1_bf16 bwd ms": bwd,
+                "kb1_bf16 bwd with dW ms": lambda: bwd(True)},
+                args.iters, args.repeats))
         del ws
     return out
 
@@ -267,7 +297,7 @@ def kb4(device, args):
     """Phase 9's inputs: phase 2's net and points."""
     g = torch.Generator().manual_seed(0)
     model = _model(device, g)
-    pts, vd, _cot = _points(N_INT8, g, device)
+    pts, vd, _cot = _points(N_POINTS, g, device)
     packed = mlp_fused.pack_weights_int8(model)
     call = (*packed, pts, vd)
     # the kernel's own buffer, made once, where the wrapper takes one
@@ -279,6 +309,28 @@ def kb4(device, args):
     return {"kb4 raw": digest(raw),
             "kb4 rerun equal": bool(torch.equal(run(), raw)),
             **timed({"kb4 ms": run}, args.iters, args.repeats)}
+
+
+def kb5(device, args):
+    """Phase 8's inputs: phase 2's net and points, embedded by torch."""
+    g = torch.Generator().manual_seed(0)
+    model = _model(device, g)
+    pts, vd, _cot = _points(N_POINTS, g, device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    packed = mlp_fused.pack_weights(model)
+    # the kernel's own buffer, made once, where the wrapper takes one
+    kw = {"packed_mma": mlp_fused.repack_mma(packed)} \
+        if "packed_mma" in inspect.signature(
+            mlp_fused.mlp_embedded).parameters else {}
+    run = lambda: mlp_fused.mlp_embedded(packed, pe, ve, **kw)
+    raw = run()
+    torch.cuda.synchronize()
+    plain = mlp_fused.fused_nerf_mlp_plain(packed, pe, ve)
+    return {"kb5 raw": digest(raw),
+            "kb5 rerun equal": bool(torch.equal(run(), raw)),
+            "kb5 max abs err": float((raw - plain).abs().max()),
+            **timed({"kb5 ms": run}, args.iters, args.repeats)}
 
 
 def main(argv=None):
@@ -301,7 +353,7 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4}
+    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4, "kb5": kb5}
     out = {"card": card}
     for name in kernels:
         out.update(parts[name](device, args))

@@ -38,11 +38,13 @@ Prints, after the card's name and power limit:
      points as shipped and with clock marks (the outputs bit-equal): its
      time and the share of a tile's clocks in each part, as group 0's first
      thread sees them;
-  7. K-B1's forward in bf16 (``mlp_train_bf16.cu``) at 196,608 points: its
-     time as shipped in turns with its time without the workspace of u
-     (``ws`` null, which launches the build without stores of u), and,
-     built with clock marks, the share of a tile's clocks in each part of
-     the forward (group 0's first thread).
+  7. K-B1 in bf16 (``mlp_train_bf16.cu``) at 196,608 points: the
+     forward's time as shipped in turns with its time without the workspace
+     of u (``ws`` null, which launches the build without stores of u), the
+     backward's without dW on that workspace, and, built with clock marks,
+     the share of a tile's clocks in each part of the forward (group 0's
+     first thread) and of the backward (thread 0; its dls and db bit-equal
+     to the shipped build's).
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
@@ -83,6 +85,14 @@ INT8_SLOTS = ("stage the points in", "embedding and its quantization",
               "the group's barrier for the maximum",
               "quantize, store, heads", "the group's barrier after the stores",
               "the logits, end of the tile")
+TRAIN_BF16_BWD_SLOTS = ("cotangent in, the heads (sums, rgb head's dv)",
+                        "u: box to registers, next box asked, ls and b",
+                        "product loops (and the alpha term)",
+                        "u: waiting for the box (view layer: its loads)",
+                        "barrier after the products",
+                        "epilogue: mask, du, dpre * u",
+                        "epilogue: column sums, du to shared memory",
+                        "barrier after the stores", "end of the tile")
 TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
                    "product loops (and the alpha term)",
                    "barrier after the products",
@@ -280,12 +290,14 @@ def chain(libs, dev):
               f"{100 * sums[slot] / total:5.1f}%")
 
 
-def _show_clocks(lib_fn, slots, tiles, what):
+def _show_clocks(lib_fn, slots, tiles, what, section=4, points=64):
+    """Reads (and zeroes) a build's clock sums by ``lib_fn`` and prints each
+    part's share of a tile's clocks."""
     sums = (ctypes.c_ulonglong * len(slots))()
     assert lib_fn(sums) == 0
     total = sum(sums)
-    print(f"[4] {what}: clocks of a tile of 64 points by thread 0's marks, "
-          f"{total / tiles:.0f} in all:")
+    print(f"[{section}] {what}: clocks of a tile of {points} points by "
+          f"thread 0's marks, {total / tiles:.0f} in all:")
     for slot, name in enumerate(slots):
         print(f"      {name:48s} {sums[slot] / tiles:9.0f}  "
               f"{100 * sums[slot] / total:5.1f}%")
@@ -361,16 +373,17 @@ def train_pair(libs, dev):
                  "backward without dW")
 
 
-def train_bf16_fwd(libs, dev):
+def train_bf16(libs, dev):
     """Section 7: K-B1's bf16 forward as shipped, without its workspace, and
-    with clock marks."""
+    with clock marks; then its backward without dW as shipped and with clock
+    marks."""
     g = torch.Generator().manual_seed(4)
     model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
     model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
     t = mlp_train_fused._layer_tensors(model)
     params, _params_t, ls = mlp_train_fused.pack_train(t[0::3], t[1::3],
                                                        t[2::3])
-    fw, _bw = mlp_train_fused.pack_train_bf16(t[0::3])
+    fw, bw = mlp_train_fused.pack_train_bf16(t[0::3])
     bi = mlp_train_fused.gather_biases(params)
     n = N_TRAIN
     pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
@@ -399,19 +412,45 @@ def train_bf16_fwd(libs, dev):
           + " (raw bit-equal)")
     prof = libs["train_bf16_profile"]
     sums = (ctypes.c_ulonglong * len(TRAIN_BF16_FWD_SLOTS))()
-    for _ in range(2):   # the first is a warm-up, discarded
-        fwd(prof, raws["prof"])
-        torch.cuda.synchronize()
-        assert prof.nnc_train_bf16_profile(sums) == 0
+    fwd(prof, raws["prof"])   # a warm-up, its clocks discarded
+    torch.cuda.synchronize()
+    assert prof.nnc_train_bf16_profile(sums) == 0
+    fwd(prof, raws["prof"])
+    torch.cuda.synchronize()
     assert torch.equal(raws["prof"], raws["ws"]), \
         "the build with clock marks computes another raw"
-    tiles = -(-n // tile)
-    total = sum(sums)
-    print(f"[7] clocks of a forward tile of {tile} points by thread 0's "
-          f"marks, {total / tiles:.0f} in all:")
-    for slot, what in enumerate(TRAIN_BF16_FWD_SLOTS):
-        print(f"      {what:48s} {sums[slot] / tiles:9.0f}  "
-              f"{100 * sums[slot] / total:5.1f}%")
+    _show_clocks(prof.nnc_train_bf16_profile, TRAIN_BF16_FWD_SLOTS,
+                 -(-n // tile), "forward (group 0)", 7, tile)
+
+    # the backward without dW on the shipped forward's workspace
+    fwd(shipped, raws["ws"])
+    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+    tiles = -(-n // 64)
+    grid = min(tiles, torch.cuda.get_device_properties(dev)
+               .multi_processor_count)
+    size = mlp_train_fused.grad_size(False)
+    partials = torch.empty(grid, size, device=dev)
+    flats = {k: torch.empty(size, device=dev) for k in ("shipped", "prof")}
+
+    def bwd(lib, flat):
+        rc = lib.nnc_mlp_train_bwd_bf16(
+            bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
+            ws.data_ptr(), None, partials.data_ptr(), flat.data_ptr(), n,
+            grid, stream)
+        assert rc == 0, rc
+
+    t_bwd = [_ms(lambda: bwd(shipped, flats["shipped"])) for _ in range(2)]
+    print(f"[7] K-B1 bf16 backward without dW {n} points, ms: "
+          f"{[f'{x:.3f}' for x in t_bwd]}")
+    bwd(prof, flats["prof"])   # a warm-up, its clocks discarded
+    torch.cuda.synchronize()
+    assert prof.nnc_train_bf16_profile(sums) == 0
+    bwd(prof, flats["prof"])
+    torch.cuda.synchronize()
+    assert torch.equal(flats["prof"], flats["shipped"]), \
+        "the build with clock marks computes other gradients"
+    _show_clocks(prof.nnc_train_bf16_profile, TRAIN_BF16_BWD_SLOTS, tiles,
+                 "backward without dW", 7)
 
 
 def bf16_chain(libs, dev):
@@ -597,6 +636,7 @@ def main(argv=None):
                                                         vp]
     for name in (n for n in libs if n.startswith("train_bf16")):
         libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
+        libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci, vp]
     if 1 in sections:
         issue_rate(libs["issue_rate"], dev)
     if 2 in sections:
@@ -616,7 +656,7 @@ def main(argv=None):
         int8_kernel({k: v for k, v in libs.items() if k.startswith("int8")},
                     dev)
     if 7 in sections:
-        train_bf16_fwd(libs, dev)
+        train_bf16(libs, dev)
 
 
 if __name__ == "__main__":

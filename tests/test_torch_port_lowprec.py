@@ -78,6 +78,8 @@ def _int8_bound(ref):
 
 @pytest.mark.parametrize("n", [33, 2048])
 def test_fused_nerf_mlp_matches_pallas_interpret(flagship, n):
+    """fused_nerf_mlp, whose float32 route passes packed_mma_for's buffer
+    (None on the CPU), and the wrapper given the kernel's buffer."""
     cfg, jparams, jls, model = flagship
     rng = np.random.default_rng(n)
     pe = rng.standard_normal((n, 63)).astype(np.float32)
@@ -88,6 +90,10 @@ def test_fused_nerf_mlp_matches_pallas_interpret(flagship, n):
     got = mlp_fused.fused_nerf_mlp(model, torch.from_numpy(pe),
                                    torch.from_numpy(ve))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    given = mlp_fused.mlp_embedded(
+        mlp_fused.pack_weights(model), torch.from_numpy(pe),
+        torch.from_numpy(ve), packed_mma=mlp_fused.pack_weights_mma(model))
+    assert torch.equal(given, got)
     # CPU tensors take the plain version: no kernel launch is counted
     assert _build.launch_counts() == before
 
@@ -341,6 +347,16 @@ def test_wrappers_check_inputs(flagship):
     with pytest.raises(ValueError, match="device"):
         mlp_fused.mlp_embedded(packed.to("meta"), e63.to("meta"),
                                e27.to("meta"))
+    # K-B5's fragment-ordered buffer: a short one is refused on the CPU too
+    packed_mma = mlp_fused.repack_mma(packed)
+    with pytest.raises(ValueError, match="packed_mma"):
+        mlp_fused.mlp_embedded(packed, e63, e27, packed_mma=packed_mma[:-64])
+    with pytest.raises(ValueError, match="packed_mma"):
+        mlp_fused.mlp_embedded(packed, e63, e27,
+                               packed_mma=packed_mma.double())
+    assert torch.equal(
+        mlp_fused.mlp_embedded(packed, e63, e27, packed_mma=packed_mma),
+        mlp_fused.fused_nerf_mlp_plain(packed, e63, e27))
     with pytest.raises(ValueError, match="device"):
         mlp_fused.mlp_int8_from_points(wq, scales, biases, r3.to("meta"),
                                        r3.to("meta"))
@@ -451,17 +467,20 @@ def test_renderer_other_posenc_route_matches_reference(flagship, monkeypatch,
 def test_renderer_embedded_route_reaches_the_kernel_wrapper(flagship,
                                                             monkeypatch):
     """With the flagship architecture the embedded route ends in the K-B5
-    wrapper (the plain version here, on CPU tensors)."""
+    wrapper (the plain version here, on CPU tensors), given the kernel's
+    buffer by keyword (None on the CPU)."""
     _cfg, _jparams, _jls, model = flagship
     calls = []
     real = mlp_fused.mlp_embedded
-    monkeypatch.setattr(mlp_fused, "mlp_embedded",
-                        lambda *a: calls.append(a[1].shape) or real(*a))
+    monkeypatch.setattr(
+        mlp_fused, "mlp_embedded",
+        lambda *a, **kw: calls.append((a[1].shape, kw)) or real(*a, **kw))
     g = torch.Generator().manual_seed(0)
     pe, ve = torch.randn(6, 4, 63, generator=g), torch.randn(6, 4, 27,
                                                              generator=g)
     out = mlp_fused.fused_nerf_mlp(model, pe, ve)
-    assert calls == [(24, 63)] and out.shape == (6, 4, 4)
+    assert calls == [((24, 63), {"packed_mma": None})]
+    assert out.shape == (6, 4, 4)
 
 
 def test_check_supported_refuses_only_occupancy():

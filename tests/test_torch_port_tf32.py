@@ -1,6 +1,6 @@
-"""The tensor-core chain of K-B3 / K-B2 (csrc/nerf_mlp_mma.cuh) as far as the
-CPU reaches it: the TF32 split, the fragment-ordered weight buffer and the
-plain model of the compensated product.
+"""The tensor-core chain of K-B3 / K-B5 / K-B2 (csrc/nerf_mlp_mma.cuh) as far
+as the CPU reaches it: the TF32 split, the fragment-ordered weight buffer and
+the plain model of the compensated product.
 
 Tolerances: a TF32 value keeps 10 explicit mantissa bits, so rounding to
 nearest is off by at most 2^-11 |x| and hi + lo (lo cut to TF32, as the
@@ -209,19 +209,35 @@ def test_modelled_chain_matches_jax_mlp_at_small_width():
     assert np.abs(got - want).max() * 20 <= np.abs(one - want).max()
 
 
-def test_wrappers_take_the_plain_version_on_the_cpu(flagship_model):
-    """On CPU tensors the wrappers ignore packed_mma and run the exact
-    float32 plain version on pack_weights' buffer; packed_mma_for gives
-    nothing to pack there."""
+# (wrapper, its plain version, model-level entry, widths of its two inputs):
+# K-B3 on points and directions, K-B5 on their embeddings
+_MMA_WRAPPERS = {
+    "mlp_from_points": (mlp_fused.mlp_from_points,
+                        mlp_fused.fused_nerf_mlp_from_points_plain,
+                        mlp_fused.fused_nerf_mlp_from_points, (3, 3)),
+    "mlp_embedded": (mlp_fused.mlp_embedded, mlp_fused.fused_nerf_mlp_plain,
+                     mlp_fused.fused_nerf_mlp, (63, 27)),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(_MMA_WRAPPERS))
+def test_wrappers_take_the_plain_version_on_the_cpu(flagship_model, wrapper):
+    """On CPU tensors the wrappers read no packed_mma (one given is checked
+    for its size) and run the exact float32 plain version on pack_weights'
+    buffer; packed_mma_for gives nothing to pack there."""
+    run, plain, entry, widths = _MMA_WRAPPERS[wrapper]
     packed = mlp_fused.pack_weights(flagship_model)
     g = torch.Generator().manual_seed(1)
-    pts, vd = torch.randn(70, 3, generator=g), torch.randn(70, 3, generator=g)
-    want = mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd)
-    assert torch.equal(mlp_fused.mlp_from_points(packed, pts, vd), want)
-    assert torch.equal(mlp_fused.mlp_from_points(
-        packed, pts, vd, mlp_fused.repack_mma(packed)), want)
-    assert mlp_fused.packed_mma_for(flagship_model, pts.device) is None
+    a, b = (torch.randn(70, w, generator=g) for w in widths)
+    want = plain(packed, a, b)
+    assert torch.equal(run(packed, a, b), want)
+    packed_mma = mlp_fused.repack_mma(packed)
+    assert torch.equal(run(packed, a, b, packed_mma), want)
+    assert torch.equal(run(packed, a, b, packed_mma=packed_mma), want)
+    with pytest.raises(ValueError, match="packed_mma"):
+        run(packed, a, b, packed_mma[:-64])
+    assert mlp_fused.packed_mma_for(flagship_model, a.device) is None
     misses = mlp_fused.PACKS.misses
-    mlp_fused.fused_nerf_mlp_from_points(flagship_model, pts, vd)
-    mlp_fused.fused_nerf_mlp_from_points(flagship_model, pts, vd)
+    entry(flagship_model, a, b)
+    entry(flagship_model, a, b)
     assert mlp_fused.PACKS.misses <= misses + 1   # only the float32 buffer
