@@ -54,10 +54,13 @@ Phases:
      of 32,768 rays and the ragged last one, 64 and 128 samples: 1.7M to
      4.2M points), and the K-B4 view against the same view rendered through
      the plain int8 version.
- 11. kernel K-B6 (one shard's column + row pair of the tensor-parallel MLP)
-     against its plain version at 262,144 points: the three pair shapes of
-     the forward at M = 4 shards, and the lightest and the heaviest pair at
-     M = 1 and at M = 8;
+ 11. kernel K-B6 (one shard's column + row pair of the tensor-parallel MLP,
+     3xTF32 products on the tensor cores) against its exact float32 plain
+     version (cuBLAS) and the plain model of its 3xTF32 arithmetic at 262,144
+     points: the three pair shapes of the forward at M = 4 shards, and the
+     lightest and the heaviest pair at M = 1 and at M = 8; reruns
+     bit-equal, HMMA in its SASS, timed beside cuBLAS and the SIMT kernel
+     it replaced (from PERF.md);
  12. the tensor-parallel slice at full width: fused_nerf_mlp_tp on a mesh of
      4 x cuda:0 on the embeddings of the first launch of a 378x504 NDC view
      (32,768 rays x 64 samples), against K-B5 on the same tensors; then the
@@ -106,7 +109,9 @@ Phases:
      distance: K-B5 bf16 on phase 2's net and points embedded by torch and
      at three ragged sizes, and against K-B3 bf16 on the same points; K-B6
      bf16 at phase 11's pair shapes; reruns bit-equal, timed beside the
-     float32 kernels and the plain bf16 versions;
+     float32 kernels and the plain bf16 versions, K-B5 bf16 beside the
+     kernel that loaded its embedding between two tiles' products (from
+     PERF.md);
  19. the bf16 tensor-parallel slice on phase 5's NDC scene and teacher:
      fused_nerf_mlp_tp of the bf16 model on 4 x cuda:0 on phase 12's
      embeddings against K-B5 bf16 and the dense plain bf16 MLP, then each of
@@ -124,7 +129,7 @@ compression and the three bench_train_step runs of phase 17, and phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
-peak for their type: for K-B1, K-B2, K-B3 and K-B5, whose float32
+peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
 products are three TF32 products each, a third of the tensor cores' TF32 peak; for the bf16 kernels the dense bf16 peak. The last two lines are the kernel table and the result
 as JSON. Writes its files under build/chip_smoke/.
 """
@@ -220,8 +225,8 @@ LSA_BF16_KERNELS = ("mlp_train_fwd_bf16", "mlp_train_bwd_bf16")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # device memory bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s
 # and TF32 FLOP/s of the tensor cores. A float32 product computed as three
-# TF32 products (K-B1 without dW, K-B2, K-B3, K-B5) is bounded by a third of
-# the TF32 peak.
+# TF32 products (K-B1, K-B2, K-B3, K-B5, K-B6) is bounded by a third of the
+# TF32 peak.
 PEAK_BYTES, PEAK_FP32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BF16 = 989e12   # dense bf16, the bound of every bf16 kernel
@@ -239,11 +244,14 @@ TOL_RAW = 3e-5
 # forward storing u from the fragments at 196,608 points; K-B4 on __dp4a at
 # 262,144 points; K-B3 and K-B5 on the SIMT chain of float32 FMAs at 262,144
 # points; K-B1 bf16's backward without dW loading u after its products at
-# 196,608 points
+# 196,608 points; K-B6 on the SIMT cores at 262,144 points, M = 4, K 256,
+# O2 256; K-B5 bf16 loading each tile's embedding between two tiles'
+# products at 262,144 points
 REPLACED_MS = {"mlp_train_bwd_dw": 32.737, "mlp_train_bwd_dw_bf16": 34.796,
                "render_pass_bf16": 2.056, "mlp_train_fwd_bf16": 2.574,
                "mlp_int8_from_points": 4.976, "mlp_from_points": 14.019,
-               "mlp_embedded": 14.105, "mlp_train_bwd_bf16": 1.448}
+               "mlp_embedded": 14.105, "mlp_train_bwd_bf16": 1.448,
+               "mlp_tp_pair": 1.292, "mlp_embedded_bf16": 1.007}
 REPLACED_POINTS_BF16 = 568_448
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
@@ -254,7 +262,7 @@ INT8_MACS = sum(rows * out for *_, rows, out in mlp_fused.INT8_BLOCKS)
 BWD_MACS = INT8_MACS - 2 * 63 * 256 - 27 * 128
 
 
-SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 8)
+SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 11)
 SASS_PATH = os.path.join(OUT, "libnnc_kernels.sass")
 
 
@@ -1222,14 +1230,21 @@ def _pair_inputs(n, k, s, o2, g, dev):
 
 
 def phase_tp_pair(dev):
-    """K-B6 against its plain version (torch.addmm, relu, torch.mm: cuBLAS).
-    Bound on the error: 1e-4 of max |ref| + 1e-5 (two float32 products, sums
-    over at most 256 terms in another order). library_ms is None: the
+    """K-B6 against its plain version (torch.addmm, relu, torch.mm: cuBLAS
+    in float32). Bound on the error: 1e-4 of max |ref| + 1e-5 (two float32
+    products, sums over at most 256 terms in another order); against the
+    plain model of its 3xTF32 arithmetic TOL_RAW. library_ms is None: the
     function is three PyTorch calls, whose summed time is plain_ms."""
     g = torch.Generator().manual_seed(7)
     n = N_POINTS
     shapes = [(TP_SHARDS, *head) for head in PAIR_HEADS] + \
         [(m, *head) for m in (1, 8) for head in PAIR_HEADS[:2]]
+    # its products on the tensor cores: HMMA in its SASS, no FFMA loop
+    ops = library_opcodes("18mlp_tp_pair_kernelILi")
+    check(ops["HMMA"] > 0 and ops["FFMA"] == 0,
+          f"K-B6's SASS: {ops['HMMA']} HMMA, {ops['FFMA']} FFMA")
+    print(f"[11] K-B6's SASS (8 instances): {ops['HMMA']} HMMA, "
+          f"{ops['FFMA']} FFMA")
     row = None
     for m, k, o2, relu_mid in shapes:
         s = 256 // m
@@ -1238,20 +1253,31 @@ def phase_tp_pair(dev):
         torch.cuda.synchronize()
         want = mlp_tp_fused.fused_pair_plain(*args)
         err, limit = maxabs(got, want), 1e-4 * float(want.abs().max()) + 1e-5
+        err_model = maxabs(got, mlp_tp_fused.fused_pair_3xtf32_plain(*args))
         check(torch.isfinite(got).all().item(), "K-B6 output not finite")
         check(err <= limit, f"K-B6 M={m} K={k} S={s} O2={o2}: max |d| {err} "
               f"> {limit}")
+        check(err_model <= TOL_RAW, f"K-B6 M={m} K={k} S={s} O2={o2} against "
+              f"the plain 3xTF32 model: max |d| {err_model} > {TOL_RAW}")
         check(torch.equal(got, mlp_tp_fused.fused_pair(*args)),
               "K-B6 reruns differ")
-        ms = cuda_ms(lambda: mlp_tp_fused.fused_pair(*args))
-        plain_ms = cuda_ms(lambda: mlp_tp_fused.fused_pair_plain(*args))
-        ops = 2 * n * s * (k + o2)
-        b = bound(nbytes(*args[:4], got), ops, PEAK_FP32)
+        times = [[cuda_ms(fn) for fn in (
+            lambda: mlp_tp_fused.fused_pair(*args),
+            lambda: mlp_tp_fused.fused_pair_plain(*args))] for _ in range(2)]
+        ms, plain_ms = (min(t) for t in zip(*times))
+        flop = 2 * n * s * (k + o2)
+        b = bound(nbytes(*args[:4], got), flop, PEAK_3XTF32)
         print(f"[11] K-B6 {n} points M={m} K={k} S={s} O2={o2} "
-              f"relu_mid={relu_mid}: max|d| {err:.3e} (bound {limit:.3e}); "
-              f"kernel {ms:.3f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
-              f"{b['bound_by']}")
+              f"relu_mid={relu_mid}: max|d| {err:.3e} (bound {limit:.3e}, "
+              f"{err / float(want.abs().max()):.2e} of max|ref|), "
+              f"{err_model:.3e} against the 3xTF32 model; in turns, ms: "
+              f"kernel {[f'{t[0]:.3f}' for t in times]} "
+              f"({flop / ms / 1e9:.2f} TFLOP/s), cuBLAS "
+              f"{[f'{t[1]:.3f}' for t in times]}; bound {b['bound_ms']:.3f} "
+              f"ms by {b['bound_by']} ({100 * b['bound_ms'] / ms:.1f}% "
+              f"reached)" + (f"; the SIMT kernel it replaced "
+                             f"{REPLACED_MS['mlp_tp_pair']:.3f} ms (PERF.md)"
+                             if (m, k, o2) == (TP_SHARDS, 256, 256) else ""))
         if (m, k, o2) == (TP_SHARDS, 256, 256):
             # the row of the kernel table: the pair that the forward runs
             # three times per shard (w2 -> w3, w4 -> w5b, w6 -> w7)
@@ -2149,7 +2175,8 @@ def phase_bf16_tp_kernels(dev, ctx):
           f"{[f'{t[3]:.3f}' for t in times]}; {flop / ms / 1e9:.1f} TFLOP/s, "
           f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}: "
           f"{100 * b['bound_ms'] / ms:.1f}% reached (K-B3 bf16 {kb3_ms:.3f} "
-          f"ms)")
+          f"ms; the kernel that loaded its embedding between two tiles' "
+          f"products {REPLACED_MS['mlp_embedded_bf16']:.3f} ms, PERF.md)")
 
     # K-B6 bf16 at phase 11's pair shapes; the float32 pair of the unrounded
     # operands is the far end of the distance

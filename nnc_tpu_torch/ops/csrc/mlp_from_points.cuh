@@ -1,10 +1,11 @@
 // The kernel of K-B3, posenc + the NeRF MLP from raw points, over a chain:
 // mma::Chain (float32 as 3xTF32, nerf_mlp_mma.cuh; mlp_from_points.cu) or
 // bf16::Chain<MT> (nerf_mlp_bf16.cuh; mlp_from_points_bf16.cu). Beside it
-// the kernel of K-B5 over the same two chains (mlp_embedded.cu,
-// mlp_embedded_bf16.cu), the same walk over tiles with the embedding read
-// from device memory (Chain::load_embedded) in place of the points'
-// coordinates and Chain::embed.
+// the kernel of K-B5 float32 (mlp_embedded.cu), the same walk over tiles
+// with the embedding read from device memory (Chain::load_embedded) in place
+// of the points' coordinates and Chain::embed. K-B5 bf16
+// (mlp_embedded_bf16.cu) launches a kernel of its own on this file's
+// launch_persistent, which brings the next tile's pts in beside the products.
 //
 // Design: persistent CTAs of 256 threads, one per SM, each walking tiles of
 // Chain::kPoints points (tile = blockIdx.x, + gridDim.x, ...). The embedding
@@ -63,7 +64,10 @@ mlp_from_points_kernel(const float* __restrict__ P,
 // pts_emb: (n, kInPts), views_emb: (n, kInViews), the embeddings computed
 // outside; the rest as mlp_from_points_kernel. A tile's load of its
 // embedding writes s.emb after the previous tile's last read of it (the
-// barrier that ends Chain::mlp) and before Chain::mlp's first barrier.
+// barrier that ends Chain::mlp) and before Chain::mlp's first barrier. The
+// clock marks (-DNNC_MMA_PROFILE) put thread 0's own share of the load in
+// slot 0 and its wait for the other threads' shares in slot 1 (Chain::mlp's
+// first barrier).
 template <class Chain>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_embedded_kernel(const float* __restrict__ P,
@@ -75,16 +79,20 @@ mlp_embedded_kernel(const float* __restrict__ P,
   typename Chain::Smem& s =
       *reinterpret_cast<typename Chain::Smem*>(smem_raw);
   const int tid = threadIdx.x;
+  mma::prof_begin();
   typename Chain::Pipe pipe;
   Chain::begin(s, pipe, P);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long base = static_cast<long long>(tile) * kPoints;
     Chain::load_embedded(s, pts_emb, views_emb, base, n);
+    NNC_PROF(0);
     Chain::mlp(s, pipe, P);
     for (int i = tid; i < kPoints * 4; i += kThreads)
       if (base + i / 4 < n) out[base * 4 + i] = s.raw[i];
+    NNC_PROF(8);
   }
   pipe.drain();
+  mma::prof_end();
 }
 
 // One persistent CTA per SM (at most one per tile) of `kernel` with `smem`

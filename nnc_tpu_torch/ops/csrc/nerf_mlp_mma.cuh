@@ -9,10 +9,12 @@
 // loops, mma_segment, from here and bring epilogues of their own, because
 // training keeps u = x @ W apart from its scale and bias).
 //
+// K-B6 (mlp_tp_pair.cu) takes the split, the products and cp.async from
+// here for its two products on row-major weights.
+//
 // Replaces, for those kernels, the SIMT chain of float32 FMAs (weights
 // re-read from L1/L2 by __ldg at every k step, three 64 x 256 buffers in
-// shared memory) of which nerf_mlp.cuh keeps only the dense layer that
-// mlp_tp_pair.cu (K-B6) runs. It computes the same function as the Pallas
+// shared memory). It computes the same function as the Pallas
 // bodies _kernel_pts and _kernel (nnc_tpu/ops/mlp_pallas.py:238, :191) and
 // _make_kernel (nnc_tpu/ops/render_pallas.py:88).
 //

@@ -953,7 +953,14 @@ def mlp_embedded_bf16(packed_bf16, pts_emb, views_emb):
     (N, 63) and view directions (N, 27), the weights as
     :func:`pack_weights_bf16` gives them.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which copies a tile's rows of both
+    embeddings as one bulk copy each and so needs them 16-byte aligned (a
+    view that starts at a row that is a multiple of 4 is); CPU tensors take
+    the plain version."""
+    if pts_emb.is_cuda and (pts_emb.data_ptr() % 16 or
+                            views_emb.data_ptr() % 16):
+        raise ValueError("mlp_embedded_bf16: pts_emb and views_emb must be "
+                         "16-byte aligned")
     return _run("mlp_embedded_bf16", fused_nerf_mlp_bf16_plain,
                 (_check_bf16(packed_bf16),),
                 {"pts_emb": (pts_emb, 63), "views_emb": (views_emb, 27)})
@@ -1010,6 +1017,9 @@ def fused_nerf_mlp(model: nerf.NeRF, pts_emb, views_emb):
     flat = (pts_emb.reshape(-1, 63).float().contiguous(),
             views_emb.reshape(-1, 27).float().contiguous())
     if model.config.compute_dtype == torch.bfloat16:
+        # the kernel needs 16-byte-aligned embeddings: copy a view that is not
+        flat = tuple(t.clone() if t.is_cuda and t.data_ptr() % 16 else t
+                     for t in flat)
         raw = mlp_embedded_bf16(packed_bf16_for(model), *flat)
     else:
         raw = mlp_embedded(PACKS.get(model, "float32", pack_weights), *flat,

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from .. import parallel
 from ..models import nerf
-from . import _build
+from . import _build, mlp_fused
 from .mlp_fused import PACKS, _check, bf16_round, supports
 
 # column-sharded layer -> (its bias, the row-sharded layer behind it)
@@ -115,6 +115,27 @@ def fused_pair_plain(x, wa, ba, wb, relu_mid: bool = True):
     return torch.mm(F.relu(h) if relu_mid else h, wb)
 
 
+def fused_pair_3xtf32_plain(x, wa, ba, wb, relu_mid: bool = True):
+    """The arithmetic of K-B6 (``csrc/mlp_tp_pair.cu``) in plain PyTorch:
+    ``act(x @ wa + ba) @ wb`` with every product as
+    :func:`mlp_fused.matmul_3xtf32_plain` and the kernel's sums in two
+    levels: 32 channels (of K for the first product, of S for the second)
+    sum in a tile of their own, which joins the running sum in float32, in
+    channel order; the first sum starts from the bias, the second from
+    zero. A model of the kernel's arithmetic, not a fast path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mm = mlp_fused.matmul_3xtf32_plain
+    h = ba.expand(x.shape[0], -1)
+    for k0 in range(0, x.shape[1], 32):
+        h = h + mm(x[:, k0:k0 + 32], wa[k0:k0 + 32])
+    h = F.relu(h) if relu_mid else h
+    out = torch.zeros(x.shape[0], wb.shape[1], dtype=x.dtype,
+                      device=x.device)
+    for s0 in range(0, h.shape[1], 32):
+        out = out + mm(h[:, s0:s0 + 32], wb[s0:s0 + 32])
+    return out
+
+
 def fused_pair_bf16_plain(x, wa, ba, wb, relu_mid: bool = True):
     """Plain PyTorch version of K-B6 in bf16: ``bf16(act(bf16(x) @ wa +
     ba)) @ wb`` (mlp_tp_pallas.py:69-74) for float32 x and ba, bf16 wa and
@@ -147,11 +168,10 @@ def _pair_call(name, plain, x, wa, ba, wb, relu_mid, wdtype):
             (o2, bool(relu_mid)) not in KERNEL_HEADS:
         raise ValueError(f"{name}: no kernel for K={k}, S={s}, O2={o2}, "
                          f"relu_mid={relu_mid}")
-    if wdtype == torch.bfloat16 and (wa.data_ptr() % 16 or
-                                     wb.data_ptr() % 16 or
-                                     (k % 4 == 0 and x.data_ptr() % 16)):
-        raise ValueError(f"{name}: wa, wb and (for K = 256) x must be "
-                         "16-byte aligned")
+    if wa.data_ptr() % 16 or wb.data_ptr() % 16:
+        raise ValueError(f"{name}: wa and wb must be 16-byte aligned")
+    if wdtype == torch.bfloat16 and k % 4 == 0 and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned for K = 256")
     lib = _build.lib()
     out = torch.empty((n, o2), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -167,9 +187,11 @@ def fused_pair(x, wa, ba, wb, relu_mid: bool = True):
     """K-B6 wrapper: one shard's fused column + row pair, a partial sum.
 
     x (N, K), wa (K, S), ba (S,), wb (S, O2) -> (N, O2), contiguous float32
-    on one device. CUDA tensors launch the kernel, which is compiled for
-    K <= 256, S in {32, 64, 128, 256} and (O2, relu_mid) = (256, True) or
-    (128, False); CPU tensors take the plain version."""
+    on one device. CUDA tensors launch the kernel (3xTF32 products on the
+    tensor cores, :func:`fused_pair_3xtf32_plain`'s arithmetic), which is
+    compiled for K <= 256, S in {32, 64, 128, 256} and (O2, relu_mid) =
+    (256, True) or (128, False), and needs wa and wb 16-byte aligned; CPU
+    tensors take the plain version."""
     return _pair_call("mlp_tp_pair", fused_pair_plain, x, wa, ba, wb,
                       relu_mid, torch.float32)
 

@@ -2,10 +2,10 @@
 their times, in a form that runs unchanged in an earlier checkout of the port.
 
     python -m nnc_tpu_torch.tools.kernel_compare
-        [--kernels kb1_bf16,kb1_dw,kb4,kb5] [--iters 5] [--repeats 2]
-        [--profile] [--out FILE]
+        [--kernels kb1_bf16,kb1_dw,kb4,kb5,kb5_bf16,kb6] [--iters 5]
+        [--repeats 2] [--profile] [--out FILE]
 
-Each name in ``--kernels`` (all four by default) adds its part:
+Each name in ``--kernels`` (all six by default) adds its part:
 
 - ``kb1_bf16``: K-B1's bf16 forward (``mlp_train_fwd_bf16``) on chip_smoke.py
   phase 16's inputs (full-width weights with LSA scales of std 0.05 and
@@ -32,6 +32,18 @@ Each name in ``--kernels`` (all four by default) adds its part:
   net and points, embedded by ``positional_encoding``): the SHA-256 of
   raw, whether a rerun gave the same bytes, its max |d raw| from the exact
   float32 plain version, and its time.
+- ``kb5_bf16``: K-B5 bf16 (``mlp_embedded_bf16``) on phase 18's inputs (the
+  same net and points, the weights by ``pack_weights_bf16``) and at
+  ``RAGGED`` sizes whose last tile is partial (points from seed 18): the
+  SHA-256 of raw at each size, whether a rerun gave the same bytes, and its
+  time at 262,144 points.
+- ``kb6``: K-B6 float32 (``mlp_tp_pair``) at chip_smoke.py phase 11's seven
+  pair shapes and draws (seed 7, 262,144 points): at each, the max |d| from
+  the exact plain version (``fused_pair_plain``: ``torch.addmm``, ``relu``,
+  ``torch.mm`` in cuBLAS float32) and, where the checkout has it, from the
+  plain model of the 3xTF32 arithmetic (``fused_pair_3xtf32_plain``), each
+  over max |ref|, whether a rerun gave the same bytes, and the kernel's and
+  cuBLAS's times in turns.
 
 A time is CUDA events over ``--iters`` launches after a warm-up, taken
 ``--repeats`` times, the parts' runs in turns. The card's name and power
@@ -66,7 +78,12 @@ from ..utils.device import require_cuda
 
 N_TRAIN = (65_536, 196_608)
 N_POINTS = 262_144
-KERNELS = ("kb1_bf16", "kb1_dw", "kb4", "kb5")
+RAGGED = (33, 10_001, 3_414_016)
+KERNELS = ("kb1_bf16", "kb1_dw", "kb4", "kb5", "kb5_bf16", "kb6")
+# phase 11's pairs: (M, K, O2, relu_mid), S = 256 / M
+PAIRS = ((4, 63, 256, True), (4, 256, 256, True), (4, 256, 128, False),
+         (1, 63, 256, True), (1, 256, 256, True), (8, 63, 256, True),
+         (8, 256, 256, True))
 
 
 def digest(t: torch.Tensor) -> str:
@@ -333,6 +350,62 @@ def kb5(device, args):
             **timed({"kb5 ms": run}, args.iters, args.repeats)}
 
 
+def kb5_bf16(device, args):
+    """Phase 18's inputs: phase 2's net and points, embedded by torch, and
+    ragged sizes."""
+    g = torch.Generator().manual_seed(0)
+    model = _model(device, g)
+    pts, vd, _cot = _points(N_POINTS, g, device)
+    buf = mlp_fused.pack_weights_bf16(model)
+    embed = lambda p, v: (positional_encoding(p, 10).contiguous(),
+                          positional_encoding(v, 4).contiguous())
+    pe, ve = embed(pts, vd)
+    run = lambda p=pe, v=ve: mlp_fused.mlp_embedded_bf16(buf, p, v)
+    raw = run()
+    torch.cuda.synchronize()
+    out = {f"kb5_bf16 raw {N_POINTS}": digest(raw),
+           "kb5_bf16 rerun equal": bool(torch.equal(run(), raw))}
+    g = torch.Generator().manual_seed(18)
+    for n in RAGGED:
+        p, v, _c = _points(n, g, device)
+        e, f = embed(p, v)
+        out[f"kb5_bf16 raw {n}"] = digest(run(e, f))
+        del e, f
+    out.update(timed({"kb5_bf16 ms": run}, args.iters, args.repeats))
+    return out
+
+
+def kb6(device, args):
+    """Phase 11's pairs and draws; times of the kernel and of cuBLAS."""
+    from ..ops import mlp_tp_fused as T
+    model = getattr(T, "fused_pair_3xtf32_plain", None)
+    g = torch.Generator().manual_seed(7)
+    out = {}
+    for m, k, o2, relu_mid in PAIRS:
+        s = 256 // m
+        x = torch.randn(N_POINTS, k, generator=g).to(device)
+        wa = (torch.randn(k, s, generator=g) / k ** 0.5).to(device)
+        ba = torch.randn(s, generator=g).to(device)
+        wb = (torch.randn(s, o2, generator=g) / s ** 0.5).to(device)
+        call = (x, wa, ba, wb, relu_mid)
+        key = f"kb6 M={m} K={k} O2={o2}"
+        got = T.fused_pair(*call)
+        torch.cuda.synchronize()
+        want = T.fused_pair_plain(*call)
+        scale = float(want.abs().max())
+        out[f"{key} err / max|ref|"] = float((got - want).abs().max()) / scale
+        if model is not None:
+            out[f"{key} err model / max|ref|"] = \
+                float((got - model(*call)).abs().max()) / scale
+        out[f"{key} rerun equal"] = bool(torch.equal(T.fused_pair(*call),
+                                                     got))
+        out.update(timed({f"{key} ms": lambda: T.fused_pair(*call),
+                          f"{key} cuBLAS ms": lambda: T.fused_pair_plain(
+                              *call)}, args.iters, args.repeats))
+        del x, got, want
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
@@ -353,7 +426,8 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4, "kb5": kb5}
+    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4, "kb5": kb5,
+             "kb5_bf16": kb5_bf16, "kb6": kb6}
     out = {"card": card}
     for name in kernels:
         out.update(parts[name](device, args))

@@ -44,7 +44,14 @@ Prints, after the card's name and power limit:
      backward's without dW on that workspace, and, built with clock marks,
      the share of a tile's clocks in each part of the forward (group 0's
      first thread) and of the backward (thread 0; its dls and db bit-equal
-     to the shipped build's).
+     to the shipped build's);
+  8. K-B5 in bf16 (``mlp_embedded_bf16.cu``) at 262,144 points embedded by
+     ``positional_encoding``, as shipped and with clock marks: its time and
+     the share of a 128-point tile's clocks in each part (raw bit-equal);
+  9. K-B6 float32 (``mlp_tp_pair.cu``) at the forward's three pair shapes
+     at M = 4 shards (S = 64), 262,144 points, as shipped and with clock
+     marks: its time and the share of a 64-point tile's clocks in each part
+     (outputs bit-equal).
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
@@ -60,6 +67,7 @@ import torch
 from ..data import synthetic
 from ..models import nerf
 from ..ops import _build, mlp_fused, mlp_train_fused
+from ..ops.posenc import positional_encoding
 
 OUT = os.path.join(_build.BUILD_DIR, "mma_probe")
 N_POINTS = 262_144
@@ -100,6 +108,19 @@ TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
                    "epilogue: column sums (shuffles, the CTA's row)",
                    "du to shared memory", "barrier after the stores",
                    "end of the tile")
+
+KB5_BF16_SLOTS = ("next tile: wait, round pts stage, load views",
+                  "barrier, pts copy issued, barrier before layer 0",
+                  "product loops", "barrier after the products",
+                  "epilogue stores", "barrier after the stores", "alpha head",
+                  "rgb head and barrier", "store the logits")
+
+KB6_SLOTS = ("issue the tile's copies (x, Wa[0]); zero padding",
+             "wait for x and Wa[c], barrier; x split (chunk 0)",
+             "first product",
+             "epilogue: activation, split, hidden chunk stored",
+             "wait for Wb[c], barrier", "second product (Wa[c + 1] issued)",
+             "barrier after the second product", "store the partial sums")
 
 MMA_RATE_CU = r"""
 #include <cuda_runtime.h>
@@ -568,9 +589,77 @@ def int8_kernel(libs, dev):
               f"{100 * sums[slot] / total:5.1f}%")
 
 
+def kb5_bf16(libs, dev):
+    """Section 8: K-B5 bf16 as shipped and with clock marks."""
+    g = torch.Generator().manual_seed(0)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    buf = mlp_fused.pack_weights_bf16(model)
+    pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(N_POINTS, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    outs = {k: torch.empty(N_POINTS, 4, device=dev) for k in libs}
+
+    def launch(name):
+        rc = libs[name].nnc_mlp_embedded_bf16(
+            buf.data_ptr(), pe.data_ptr(), ve.data_ptr(),
+            outs[name].data_ptr(), N_POINTS,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    times = [_ms(lambda: launch("kb5_bf16")) for _ in range(2)]
+    sums = (ctypes.c_ulonglong * len(KB5_BF16_SLOTS))()
+    launch("kb5_bf16_profile")   # a warm-up, its clocks discarded
+    torch.cuda.synchronize()
+    assert libs["kb5_bf16_profile"].nnc_mma_profile(sums) == 0
+    launch("kb5_bf16_profile")
+    torch.cuda.synchronize()
+    assert torch.equal(outs["kb5_bf16"], outs["kb5_bf16_profile"]), \
+        "the build with clock marks computes another raw"
+    print(f"[8] K-B5 bf16 {N_POINTS} points, ms: "
+          f"{[f'{t:.3f}' for t in times]}")
+    _show_clocks(libs["kb5_bf16_profile"].nnc_mma_profile, KB5_BF16_SLOTS,
+                 -(-N_POINTS // 128), "K-B5 bf16", 8, 128)
+
+
+def kb6(libs, dev):
+    """Section 9: K-B6 at M = 4 as shipped and with clock marks."""
+    g = torch.Generator().manual_seed(7)
+    n, s = N_POINTS, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, o2, relu in ((63, 256, True), (256, 256, True), (256, 128, False)):
+        x = torch.randn(n, k, generator=g).to(dev)
+        wa = (torch.randn(k, s, generator=g) / k ** 0.5).to(dev)
+        ba = torch.randn(s, generator=g).to(dev)
+        wb = (torch.randn(s, o2, generator=g) / s ** 0.5).to(dev)
+        outs = {name: torch.empty(n, o2, device=dev) for name in libs}
+
+        def launch(name):
+            rc = libs[name].nnc_mlp_tp_pair(
+                x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(),
+                outs[name].data_ptr(), n, k, s, o2, int(relu), stream)
+            assert rc == 0, (name, rc)
+
+        times = [_ms(lambda: launch("kb6")) for _ in range(2)]
+        sums = (ctypes.c_ulonglong * len(PROFILE_SLOTS))()
+        launch("kb6_profile")   # a warm-up, its clocks discarded
+        torch.cuda.synchronize()
+        assert libs["kb6_profile"].nnc_mma_profile(sums) == 0
+        launch("kb6_profile")
+        torch.cuda.synchronize()
+        assert torch.equal(outs["kb6"], outs["kb6_profile"]), \
+            "the build with clock marks computes another result"
+        print(f"[9] K-B6 {n} points K={k} S={s} O2={o2}, ms: "
+              f"{[f'{t:.3f}' for t in times]}")
+        _show_clocks(libs["kb6_profile"].nnc_mma_profile,
+                     KB6_SLOTS + ("(unused)",), -(-n // 64), "K-B6", 9)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sections", default="1,2,3,4,5,6,7",
+    ap.add_argument("--sections", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated section numbers to run")
     sections = {int(x) for x in ap.parse_args(argv).sections.split(",")}
     dev = torch.device("cuda", 0)
@@ -587,6 +676,8 @@ def main(argv=None):
     kb3_bf16 = os.path.join(_build.SRC_DIR, "mlp_from_points_bf16.cu")
     kb1_bf16 = os.path.join(_build.SRC_DIR, "mlp_train_bf16.cu")
     kb4 = os.path.join(_build.SRC_DIR, "mlp_int8_from_points.cu")
+    kb5_bf16_src = os.path.join(_build.SRC_DIR, "mlp_embedded_bf16.cu")
+    kb6_src = os.path.join(_build.SRC_DIR, "mlp_tp_pair.cu")
     # (section numbers that need it, source, flags)
     builds = {"issue_rate": ({1, 5, 6}, rate_cu),
               "shipped": ({2, 3, 5}, kb3),
@@ -603,7 +694,11 @@ def main(argv=None):
               "int8": ({6}, kb4),
               "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
               "train_bf16": ({7}, kb1_bf16),
-              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE")}
+              "train_bf16_profile": ({7}, kb1_bf16, "-DNNC_MMA_PROFILE"),
+              "kb5_bf16": ({8}, kb5_bf16_src),
+              "kb5_bf16_profile": ({8}, kb5_bf16_src, "-DNNC_MMA_PROFILE"),
+              "kb6": ({9}, kb6_src),
+              "kb6_profile": ({9}, kb6_src, "-DNNC_MMA_PROFILE")}
     procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
                             *args[2:]) for name, args in builds.items()
              if args[0] & sections}
@@ -634,6 +729,10 @@ def main(argv=None):
     for name in (n for n in libs if n.startswith("int8")):
         libs[name].nnc_mlp_int8_from_points.argtypes = [vp, vp, vp, vp, ci,
                                                         vp]
+    for name in (n for n in libs if n.startswith("kb5_bf16")):
+        libs[name].nnc_mlp_embedded_bf16.argtypes = [vp, vp, vp, vp, ci, vp]
+    for name in (n for n in libs if n.startswith("kb6")):
+        libs[name].nnc_mlp_tp_pair.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     for name in (n for n in libs if n.startswith("train_bf16")):
         libs[name].nnc_mlp_train_fwd_bf16.argtypes = [vp] * 7 + [ci, vp]
         libs[name].nnc_mlp_train_bwd_bf16.argtypes = [vp] * 8 + [ci, ci, vp]
@@ -657,6 +756,11 @@ def main(argv=None):
                     dev)
     if 7 in sections:
         train_bf16(libs, dev)
+    if 8 in sections:
+        kb5_bf16({k: v for k, v in libs.items() if k.startswith("kb5_bf16")},
+                 dev)
+    if 9 in sections:
+        kb6({k: v for k, v in libs.items() if k.startswith("kb6")}, dev)
 
 
 if __name__ == "__main__":

@@ -27,8 +27,10 @@ K-B1's gradients
 (sums over every point, in another order, through relu masks that may flip
 at ties): the criterion of tests/test_mlp_train_pallas.py:41-50, 99.9% of
 the elements within rtol 5e-2 / atol 5e-3 of the gradient's max, and none
-off by more than 5% of it. K-B6 (two float32 products, sums over at most 256
-terms in another order than cuBLAS's): 1e-4 of max |ref| + 1e-5; the
+off by more than 5% of it. K-B6 (two float32 products as 3xTF32 on the
+tensor cores, sums over at most 256 terms in another order than cuBLAS's):
+1e-4 of max |ref| + 1e-5 against the exact plain version, 3e-5 against the
+plain model of its arithmetic (fused_pair_3xtf32_plain; ~2e-6 expected); the
 tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
 output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3,
 K-B2, K-B1, K-B5 and K-B6 are held to the distance between their plain bf16
@@ -669,11 +671,35 @@ def test_cuda_mlp_tp_pair_matches_plain(cuda_device, m, n):
         assert got.shape == (n, o2) and torch.isfinite(got).all()
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max()) + 1e-5, (k, s, o2)
+        model = mlp_tp_fused.fused_pair_3xtf32_plain(x, wa, ba, wb, relu_mid)
+        assert float((got - model).abs().max()) <= 3e-5, (k, s, o2)
         # every sum runs in a fixed order: bit-identical reruns
         assert torch.equal(got, mlp_tp_fused.fused_pair(x, wa, ba, wb,
                                                         relu_mid))
     with pytest.raises(ValueError, match="no kernel"):
         mlp_tp_fused.fused_pair(x, wa, ba, wb, True)    # (128, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [63, 200, 256])
+def test_cuda_mlp_tp_pair_any_alignment_of_x(cuda_device, k):
+    """x at an offset of one float (the kernel's 4-byte copies) and K that is
+    no multiple of 32 give the model's values; weights that are not 16-byte
+    aligned are refused."""
+    g = torch.Generator().manual_seed(10)
+    n = 1_000
+    flat = torch.randn(n * k + 1, generator=g).to(cuda_device)
+    x = flat[1:].view(n, k)
+    wa = (torch.randn(k, 64, generator=g) / k ** 0.5).to(cuda_device)
+    ba = torch.randn(64, generator=g).to(cuda_device)
+    wb = (torch.randn(64, 256, generator=g) / 8).to(cuda_device)
+    got = mlp_tp_fused.fused_pair(x, wa, ba, wb)
+    model = mlp_tp_fused.fused_pair_3xtf32_plain(x, wa, ba, wb)
+    assert float((got - model).abs().max()) <= 3e-5
+    assert torch.equal(got, mlp_tp_fused.fused_pair(x.clone(), wa, ba, wb))
+    shifted = torch.cat([wb.reshape(-1).new_zeros(1), wb.reshape(-1)])[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        mlp_tp_fused.fused_pair(x, wa, ba, shifted.reshape(64, 256))
 
 
 @pytest.mark.cuda
@@ -1106,7 +1132,7 @@ def _bf16_twin(model):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [33, 64, 10_000, 3_414_016])
+@pytest.mark.parametrize("n", [33, 64, 10_000, 10_001, 3_414_016])
 def test_cuda_mlp_embedded_bf16_matches_plain(cuda_device, n):
     """K-B5 bf16 against its plain bf16 version, against K-B3 bf16 on the
     points the embeddings were made of, and through fused_nerf_mlp."""
@@ -1135,6 +1161,39 @@ def test_cuda_mlp_embedded_bf16_matches_plain(cuda_device, n):
         via = mlp_fused.fused_nerf_mlp(_bf16_twin(model), pe[None], ve[None])
     assert via.shape == (1, n, 4) and torch.equal(via[0], got)
     assert _build.launch_counts()["mlp_embedded"] == before["mlp_embedded"]
+
+
+@pytest.mark.cuda
+def test_cuda_mlp_embedded_bf16_needs_aligned_embeddings(cuda_device):
+    """The kernel copies a tile's rows as one bulk copy: a view that starts
+    at a row that is a multiple of 4 runs (and gives the values of a copy
+    of it), one that does not is refused."""
+    model = _fog_model(cuda_device)
+    pts, vd = _points(1_000, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    buf = mlp_fused.pack_weights_bf16(model)
+    assert torch.equal(
+        mlp_fused.mlp_embedded_bf16(buf, pe[4:], ve[4:]),
+        mlp_fused.mlp_embedded_bf16(buf, pe[4:].clone(), ve[4:].clone()))
+    for a, b in ((pe[1:], ve[4:-3]), (pe[4:-3], ve[1:])):
+        with pytest.raises(ValueError, match="aligned"):
+            mlp_fused.mlp_embedded_bf16(buf, a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_nerf_mlp_bf16_any_alignment(cuda_device):
+    """The model-level entry takes the views the float32 route takes: one
+    that starts at a row that is not a multiple of 4 is copied before the
+    bf16 kernel, and gives the values of an aligned copy of it."""
+    twin = _bf16_twin(_fog_model(cuda_device))
+    pts, vd = _points(1_000, cuda_device)
+    pe = positional_encoding(pts, 10).contiguous()
+    ve = positional_encoding(vd, 4).contiguous()
+    for a, b in ((pe[1:], ve[:-1]), (pe[:-1], ve[1:]), (pe[3:], ve[3:])):
+        assert torch.equal(mlp_fused.fused_nerf_mlp(twin, a, b),
+                           mlp_fused.fused_nerf_mlp(twin, a.clone(),
+                                                    b.clone()))
 
 
 @pytest.mark.cuda

@@ -10,6 +10,11 @@ held to 4e-6 x sum |x||w| (two float32 ulps of the worst case), and must be
 at least 100x closer than the single TF32 product. The modelled chain at
 width 32 against the JAX MLP in float32: rtol 1e-4, atol 1e-5 (ten layers of
 sums in another order), the tolerance of tests/test_torch_port_fused.py.
+K-B6's model (``fused_pair_3xtf32_plain``: 3xTF32 products, sums in two
+levels of 32 channels) against the reference's Pallas pair in interpret mode:
+rtol 1e-5, atol 1e-5, the bar of the exact plain version against it
+(tests/test_torch_port_parallel.py (b)); the modelled error is ~1.5e-6 at
+outputs up to ~6, and a single TF32 product lies far outside the bar.
 """
 import numpy as np
 import jax
@@ -18,8 +23,9 @@ import pytest
 import torch
 
 from nnc_tpu.models import nerf as jnerf
+from nnc_tpu.ops import mlp_pallas, mlp_tp_pallas
 from nnc_tpu_torch.models import nerf as tnerf
-from nnc_tpu_torch.ops import mlp_fused
+from nnc_tpu_torch.ops import mlp_fused, mlp_tp_fused
 
 
 def _values(n, seed):
@@ -241,3 +247,36 @@ def test_wrappers_take_the_plain_version_on_the_cpu(flagship_model, wrapper):
     entry(flagship_model, a, b)
     entry(flagship_model, a, b)
     assert mlp_fused.PACKS.misses <= misses + 1   # only the float32 buffer
+
+
+@pytest.mark.parametrize("k", [63, 256])
+@pytest.mark.parametrize("s", [32, 64])
+@pytest.mark.parametrize("o2,relu_mid", [(256, True), (128, False)])
+def test_pair_3xtf32_model_matches_pallas(k, s, o2, relu_mid):
+    """K-B6's arithmetic at N = 201 (no multiple of the kernel's 64-point
+    tile; the reference's input padded to its 2,048-row tile with zeros)
+    against nnc_tpu's fused_pair in interpret mode, and against the exact
+    plain version; the same pair with one TF32 product instead of three
+    misses the bar."""
+    rng = np.random.default_rng(k + s + o2)
+    n = 201
+    x = rng.standard_normal((n, k)).astype(np.float32)
+    wa = (rng.standard_normal((k, s)) / np.sqrt(k)).astype(np.float32)
+    ba = rng.standard_normal(s).astype(np.float32)
+    wb = (rng.standard_normal((s, o2)) / np.sqrt(s)).astype(np.float32)
+    xp = np.zeros((mlp_pallas.TILE, k), np.float32)
+    xp[:n] = x
+    want = np.asarray(mlp_tp_pallas.fused_pair(
+        jnp.asarray(xp), jnp.asarray(wa), jnp.asarray(ba)[None],
+        jnp.asarray(wb), relu_mid=relu_mid, interpret=True))[:n]
+    t = torch.from_numpy
+    got = mlp_tp_fused.fused_pair_3xtf32_plain(t(x), t(wa), t(ba), t(wb),
+                                               relu_mid).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    exact = mlp_tp_fused.fused_pair_plain(t(x), t(wa), t(ba), t(wb),
+                                          relu_mid).numpy()
+    np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-5)
+    r = mlp_fused.tf32_round
+    h = t(ba) + r(t(x)) @ r(t(wa))
+    one = (r(torch.relu(h) if relu_mid else h) @ r(t(wb))).numpy()
+    assert np.abs(got - want).max() * 20 <= np.abs(one - want).max()
