@@ -75,14 +75,16 @@ Phases:
      view without a mesh, with culling and early termination off (equal
      bits expected) and on; a joint LSA of 2 scenes against each scene
      tuned alone;
- 14. the bf16 kernels: K-B3 bf16 at 262,144 points and three ragged sizes
+ 14. the bf16 kernels: K-B3 bf16 (warpgroup wgmma products on slabs laid
+     out as shared-memory images) at 262,144 points and three ragged sizes
      and K-B2 bf16 (early termination per ray, persistent CTAs on a ray
      queue) on phase 3's rays at S=64 and S=192, early termination off and
      at 1e-4, each against its plain bf16 version in units of the distance
      between the plain bf16 and the plain float32 version on the same
      inputs, reruns bit-equal, timed beside the float32 kernel and the plain
-     version, K-B2 bf16's points and time beside those of the tiles of four
-     rays it replaced (from PERF.md);
+     version; K-B3 bf16's SASS holds HGMMA and no HMMA, its time beside the
+     mma.sync kernel it replaced, K-B2 bf16's points and time beside those
+     of the tiles of four rays it replaced (both from PERF.md);
  15. the bf16 serving slice at full width: test_model through an executer
      built with NeRFConfig(compute_dtype=torch.bfloat16) and use_fused_mlp on
      phase 4's scene and decoded weights (K-B2 bf16, coarse and fine) against
@@ -246,12 +248,14 @@ TOL_RAW = 3e-5
 # points; K-B1 bf16's backward without dW loading u after its products at
 # 196,608 points; K-B6 on the SIMT cores at 262,144 points, M = 4, K 256,
 # O2 256; K-B5 bf16 loading each tile's embedding between two tiles'
-# products at 262,144 points
+# products at 262,144 points; K-B3 bf16 on the mma.sync chain at 262,144
+# points
 REPLACED_MS = {"mlp_train_bwd_dw": 32.737, "mlp_train_bwd_dw_bf16": 34.796,
                "render_pass_bf16": 2.056, "mlp_train_fwd_bf16": 2.574,
                "mlp_int8_from_points": 4.976, "mlp_from_points": 14.019,
                "mlp_embedded": 14.105, "mlp_train_bwd_bf16": 1.448,
-               "mlp_tp_pair": 1.292, "mlp_embedded_bf16": 1.007}
+               "mlp_tp_pair": 1.292, "mlp_embedded_bf16": 1.007,
+               "mlp_from_points_bf16": 0.907}
 REPLACED_POINTS_BF16 = 568_448
 _DIMS = nerf._layer_dims(nerf.NeRFConfig()).values()
 # multiply-adds of the MLP per point: all weights and biases (595,844); the
@@ -262,7 +266,7 @@ INT8_MACS = sum(rows * out for *_, rows, out in mlp_fused.INT8_BLOCKS)
 BWD_MACS = INT8_MACS - 2 * 63 * 256 - 27 * 128
 
 
-SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 11)
+SASS_DUMP = None   # cuobjdump's run on the built library (phases 1 to 14)
 SASS_PATH = os.path.join(OUT, "libnnc_kernels.sass")
 
 
@@ -1545,14 +1549,21 @@ def phase_bf16_kernels(dev, ctx):
     lib = _build.lib()
     check(lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
           and lib.nnc_bf16_tile_points()
-          == render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK,
+          == render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK
+          and lib.nnc_bf16_wgmma_size() == mlp_fused.WG_SIZE,
           "the bf16 kernels' and the packing's sizes differ")
+    ops = library_opcodes("mlp_from_points_bf16_kernel")
+    check(ops["HGMMA"] > 0 and ops["HMMA"] == 0,
+          f"K-B3 bf16's SASS: HGMMA {ops['HGMMA']}, HMMA {ops['HMMA']} "
+          f"(warpgroup products only, no mma.sync loop expected)")
     packed, packed_mma = ctx["packed"], ctx["packed_mma"]
     pts, vd, n = ctx["pts"], ctx["vd"], ctx["pts"].shape[0]
     buf = mlp_fused.repack_bf16(packed)
     check(torch.equal(buf, mlp_fused.pack_weights_bf16(ctx["model"])),
           "repack_bf16 and pack_weights_bf16 differ")
-    run = lambda p=pts, v=vd: mlp_fused.mlp_from_points_bf16(buf, p, v)
+    wg = mlp_fused.repack_bf16_wgmma(buf)
+    run = lambda p=pts, v=vd: mlp_fused.mlp_from_points_bf16(buf, p, v,
+                                                             packed_wg=wg)
     plain = lambda p=pts, v=vd: \
         mlp_fused.fused_nerf_mlp_from_points_bf16_plain(buf, p, v)
     got = run()
@@ -1588,7 +1599,9 @@ def phase_bf16_kernels(dev, ctx):
           f"{[f'{t[2]:.3f}' for t in times]}; {flop / ms / 1e9:.1f} TFLOP/s, "
           f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} at "
           f"{PEAK_BF16 / 1e12:.0f} TFLOP/s: {100 * b['bound_ms'] / ms:.1f}% "
-          f"reached")
+          f"reached; the mma.sync kernel it replaced (PERF.md): "
+          f"{REPLACED_MS['mlp_from_points_bf16']:.3f} ms; SASS HGMMA "
+          f"{ops['HGMMA']}, HMMA {ops['HMMA']}")
 
     R, rt = N_RAYS, render_fused.RAY_TILE_BF16
     for model, rays, S, want_w in render_cases(dev):
@@ -2141,7 +2154,8 @@ def phase_bf16_tp_kernels(dev, ctx):
     # K-B3 bf16 on the points the embeddings were made of: its sincosf and
     # torch's sin / cos differ in the last bit of a few embedding values,
     # which may then round to the other bf16 neighbour
-    kb3 = lambda: mlp_fused.mlp_from_points_bf16(buf, pts, vd)
+    wg = mlp_fused.repack_bf16_wgmma(buf)
+    kb3 = lambda: mlp_fused.mlp_from_points_bf16(buf, pts, vd, packed_wg=wg)
     k_rms, k_max, *_ = held_to_bf16_distance(
         "K-B5 bf16 against K-B3 bf16", got, kb3(), ctx["raw_plain"])
     g = torch.Generator().manual_seed(18)

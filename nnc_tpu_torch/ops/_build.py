@@ -173,8 +173,11 @@ def lib() -> ctypes.CDLL:
         handle.nnc_bf16_params_size.restype = ci
         handle.nnc_bf16_tile_points.argtypes = []
         handle.nnc_bf16_tile_points.restype = ci
-        handle.nnc_mlp_from_points_bf16.argtypes = \
-            handle.nnc_mlp_from_points.argtypes
+        handle.nnc_bf16_wgmma_size.argtypes = []
+        handle.nnc_bf16_wgmma_size.restype = ci
+        # (K-B3 bf16 takes its wgmma slabs after the weights)
+        handle.nnc_mlp_from_points_bf16.argtypes = [vp, vp, vp, vp, vp, ci,
+                                                    vp]
         handle.nnc_mlp_from_points_bf16.restype = ci
         # (the bf16 kernel takes its ray queue's counter after the weights)
         handle.nnc_render_pass_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp,

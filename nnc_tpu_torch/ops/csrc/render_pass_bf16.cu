@@ -20,6 +20,11 @@
 #include "render_pass.cuh"
 #include "nerf_mlp_bf16.cuh"
 
+extern "C" int nnc_bf16_params_size() { return nerf::bf16::kParamsSize; }
+// points of the chain's tile: K-B2 bf16 takes them as tile / 32 rays x 32
+// samples
+extern "C" int nnc_bf16_tile_points() { return 16 * NNC_BF16_MT; }
+
 // params: the weights as pack_weights_bf16 lays them out; queue: one int,
 // zero, which the kernel counts the rays it hands out on.
 extern "C" int nnc_render_pass_bf16(const float* params, const float* rays_o,

@@ -1,7 +1,8 @@
 // A stream of 32 KB weight slabs through a ring of shared-memory stages
 // that every warp of the CTA reads in full, for kernels whose two groups of
 // warps walk the same slabs at their own pace: mlp_int8_from_points.cu
-// (K-B4) and the bf16 training forward of mlp_train_bf16.cu (K-B1).
+// (K-B4), the bf16 training forward of mlp_train_bf16.cu (K-B1) and the
+// wgmma chain of K-B3 bf16 (nerf_mlp_wgmma.cuh).
 //
 // Slab j of the CTA's sequence (slab j % SLABS of the packed buffer) lands
 // in stage j % STAGES by one bulk copy (cp.async.bulk, the tensor memory
@@ -59,7 +60,7 @@ struct SlabRing {
   RingSmem<STAGES>* s;
   const float* src;   // the packed buffer; its slabs first, 16-byte aligned
   int total;          // slabs this CTA reads
-  int j;              // the slab this warp acquires next
+  int j;              // the slab this warp releases next
   static constexpr int kWarps = 8;   // warps that read every slab
 
   // One thread: the barriers, then the first STAGES slabs. The CTA must
@@ -91,10 +92,12 @@ struct SlabRing {
         : "memory");
   }
 
-  // The next slab (its stage's first float), landed; all lanes call it.
-  __device__ __forceinline__ const float* acquire() const {
-    const int st = j % STAGES;
-    mbar_wait(smem_u32(&s->full[st]), (j / STAGES) & 1);
+  // The next slab to release (its stage's first float), landed; all lanes
+  // call it. ahead = 1: the one after it (a warpgroup's wgmma chain, which
+  // keeps one slab's products in flight while it issues the next).
+  __device__ __forceinline__ const float* acquire(int ahead = 0) const {
+    const int st = (j + ahead) % STAGES;
+    mbar_wait(smem_u32(&s->full[st]), ((j + ahead) / STAGES) & 1);
     return s->stages + st * kSlabFloats;
   }
 

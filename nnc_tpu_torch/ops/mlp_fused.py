@@ -26,12 +26,15 @@ read :func:`pack_weights`' and :func:`pack_weights_int8`'s buffers, and
 fragment orders back, so the CPU tests check the layouts the kernels read.
 A model with ``config.compute_dtype == torch.bfloat16`` takes
 the bf16 variant of K-B3 (``csrc/mlp_from_points_bf16.cu`` on
-``csrc/nerf_mlp_bf16.cuh``: ``mma.sync`` bf16 products, float32 sums), which
-reads :func:`pack_weights_bf16`'s buffer; its plain version is
-:func:`fused_nerf_mlp_from_points_bf16_plain`. Such a model's K-B5 takes its
-bf16 variant (``csrc/mlp_embedded_bf16.cu``: K-B3 bf16's kernel and chain
-with the embedding loaded from device memory and rounded once), on the same
-buffer; its plain version is :func:`fused_nerf_mlp_bf16_plain`. K-B4
+``csrc/nerf_mlp_wgmma.cuh``: warpgroup ``wgmma`` bf16 products, float32
+sums), which reads the biases and heads of :func:`pack_weights_bf16`'s buffer
+and its slabs laid out as shared-memory images, :func:`repack_bf16_wgmma`;
+its plain version is :func:`fused_nerf_mlp_from_points_bf16_plain`. Such a
+model's K-B5 takes its bf16 variant (``csrc/mlp_embedded_bf16.cu``: the
+``mma.sync`` bf16 chain of ``csrc/nerf_mlp_bf16.cuh``, which K-B2 bf16 runs
+too, with the embedding loaded from device memory and rounded once), on
+:func:`pack_weights_bf16`'s buffer; its plain version is
+:func:`fused_nerf_mlp_bf16_plain`. K-B4
 quantizes from the float32 weights whatever ``compute_dtype``, as the
 reference's does.
 
@@ -477,6 +480,89 @@ def unpack_weights_bf16(packed_bf16: torch.Tensor):
     return unpack_weights(flat[:PARAMS_SIZE])
 
 
+# --- K-B3 bf16's wgmma chain: its weight slabs -------------------------------
+# csrc/nerf_mlp_wgmma.cuh. The 37 slabs of MMA_RUNS again, each now the exact
+# shared-memory image that a wgmma descriptor reads as operand B: K-major
+# (the slab's depth rows of one output channel contiguous), 64 values of the
+# depth to a 128-byte row, eight rows to a 1,024-byte atom whose 16-byte
+# chunk c of row r lies at chunk c ^ r (the 128-byte swizzle), and the next
+# 64 values of the depth one block of n_out rows further. A 256-wide layer's
+# slab holds 64 depth rows x 256 channels, a view layer's 128 x 128 (two
+# blocks); both 32 KB, which one bulk copy brings into a ring stage as they
+# are. The buffer holds the slabs alone: the biases and heads stay in
+# pack_weights_bf16's tail.
+WG_SLAB_ROWS = {256: 64, 128: 128}   # depth rows of a slab, by n_out
+
+
+def wgmma_positions(n_out, depth):
+    """Where the 128-byte-swizzled K-major image of a (depth, n_out) operand
+    holds value (k, n), in 16-bit values: an int64 array (depth, n_out).
+    depth is a multiple of 64."""
+    k = np.arange(depth)[:, None]
+    n = np.arange(n_out)[None, :]
+    byte = (k >> 6) * n_out * 128 + n * 128 \
+        + ((((k >> 3) & 7) ^ (n & 7)) << 4) + (k & 7) * 2
+    return (byte // 2).astype(np.int64)
+
+
+def wgmma_image(w: torch.Tensor) -> torch.Tensor:
+    """w (depth, n_out) as the image :func:`wgmma_positions` describes: a
+    flat tensor of w's type."""
+    depth, n_out = w.shape
+    pos = torch.from_numpy(wgmma_positions(n_out, depth).reshape(-1))
+    out = w.new_zeros(depth * n_out)
+    out[pos.to(w.device)] = w.reshape(-1)
+    return out
+
+
+def _wgmma_index():
+    """For every 16-bit value of the wgmma slabs, the index of its bf16 value
+    among the slab part of repack_bf16's buffer, or BF16_SLAB_INDEX.size (a
+    zero appended) where it is zero padding."""
+    segs = {name: (din, dout, off) for name, din, dout, off
+            in _segments(FLAGSHIP)[0]}
+    inv = np.full(PARAMS_SIZE + 1, BF16_SLAB_INDEX.size, dtype=np.int64)
+    real = BF16_SLAB_INDEX < PARAMS_SIZE
+    inv[BF16_SLAB_INDEX[real]] = np.nonzero(real)[0]
+    parts = []
+    for name, row0, rows, padded in MMA_RUNS:
+        _din, dout, off = segs[name]
+        per = WG_SLAB_ROWS[dout]
+        pos = wgmma_positions(dout, per).reshape(-1)
+        for first in range(0, padded, per):
+            k = first + np.arange(per)[:, None]
+            n = np.arange(dout)[None, :]
+            src = np.where(k < rows, off + (row0 + k) * dout + n, PARAMS_SIZE)
+            slab = np.empty(per * dout, dtype=np.int64)
+            slab[pos] = inv[src].reshape(-1)
+            parts.append(slab)
+    return np.concatenate(parts)
+
+
+WG_INDEX = _wgmma_index()
+WG_SIZE = WG_INDEX.size // 2   # int32 words: 37 slabs of 8,192
+_wg_index_on = {}   # device -> WG_INDEX as a tensor there
+
+
+def repack_bf16_wgmma(packed_bf16: torch.Tensor) -> torch.Tensor:
+    """The slabs of a :func:`repack_bf16` buffer as K-B3 bf16's wgmma chain
+    reads them: int32 (WG_SIZE,), one gather where the buffer lies."""
+    _check("packed_bf16", packed_bf16, (BF16_PARAMS_SIZE,), torch.int32)
+    index = _wg_index_on.get(packed_bf16.device)
+    if index is None:
+        index = _wg_index_on[packed_bf16.device] = \
+            torch.from_numpy(WG_INDEX).to(packed_bf16.device)
+    n_slab = BF16_SLAB_INDEX.size // 2
+    src = packed_bf16[:n_slab].view(torch.bfloat16)
+    src = torch.cat([src, src.new_zeros(1)])
+    return src[index].view(torch.int32)
+
+
+def packed_wg_for(model: nerf.NeRF) -> torch.Tensor:
+    """The model's cached :func:`repack_bf16_wgmma` buffer."""
+    return PACKS.get(model, "bf16_wgmma",
+                     lambda m: repack_bf16_wgmma(packed_bf16_for(m)))
+
 def mlp_bf16_plain(L, pe, ve):
     """The MLP (weights as :func:`unpack_weights_bf16` gives them, any
     width) on float32 embeddings as the bf16 chain computes it
@@ -892,14 +978,31 @@ def _check_bf16(packed_bf16):
     return packed_bf16
 
 
-def mlp_from_points_bf16(packed_bf16, pts, dirs):
+def mlp_from_points_bf16(packed_bf16, pts, dirs, packed_wg=None):
     """K-B3 wrapper, bf16: raw (N, 4) float32 for float32 points and view
     directions (N, 3), the weights as :func:`pack_weights_bf16` gives them.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which reads the biases and heads from
+    ``packed_bf16`` and the slabs from ``packed_wg``
+    (:func:`repack_bf16_wgmma` of ``packed_bf16``). Made here if not given,
+    it is gathered anew at every call (1.2 MB): a caller that launches more
+    than once passes it, as :func:`fused_nerf_mlp_from_points` does from
+    ``PACKS``. CPU tensors take the plain version (a ``packed_wg`` given is
+    checked all the same)."""
+    _check_bf16(packed_bf16)
+    if packed_wg is None and packed_bf16.is_cuda:
+        packed_wg = repack_bf16_wgmma(packed_bf16)
+    if packed_wg is not None:
+        _check("packed_wg", packed_wg, (WG_SIZE,), torch.int32)
+        if packed_wg.device != packed_bf16.device or \
+                (packed_wg.is_cuda and packed_wg.data_ptr() % 16):
+            raise ValueError("packed_wg must lie on packed_bf16's device, "
+                             "16-byte aligned")
+    kernel_weights = (packed_bf16, packed_wg) if packed_bf16.is_cuda \
+        else None
     return _run("mlp_from_points_bf16", fused_nerf_mlp_from_points_bf16_plain,
-                (_check_bf16(packed_bf16),),
-                {"pts": (pts, 3), "dirs": (dirs, 3)})
+                (packed_bf16,), {"pts": (pts, 3), "dirs": (dirs, 3)},
+                kernel_weights=kernel_weights)
 
 
 def _check_int8(wq, scales, biases):
@@ -978,7 +1081,9 @@ def fused_nerf_mlp_from_points(model: nerf.NeRF, pts, viewdirs):
     flat = (pts.reshape(-1, 3).float().contiguous(),
             vd.reshape(-1, 3).float().contiguous())
     if model.config.compute_dtype == torch.bfloat16:
-        raw = mlp_from_points_bf16(packed_bf16_for(model), *flat)
+        raw = mlp_from_points_bf16(
+            packed_bf16_for(model), *flat,
+            packed_wg=packed_wg_for(model) if pts.is_cuda else None)
     else:
         raw = mlp_from_points(PACKS.get(model, "float32", pack_weights),
                               *flat,

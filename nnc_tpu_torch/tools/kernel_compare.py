@@ -2,10 +2,11 @@
 their times, in a form that runs unchanged in an earlier checkout of the port.
 
     python -m nnc_tpu_torch.tools.kernel_compare
-        [--kernels kb1_bf16,kb1_dw,kb4,kb5,kb5_bf16,kb6] [--iters 5]
+        [--kernels kb1_bf16,kb1_dw,kb2_bf16,kb3_bf16,kb4,kb5,kb5_bf16,kb6]
+        [--iters 5]
         [--repeats 2] [--profile] [--out FILE]
 
-Each name in ``--kernels`` (all six by default) adds its part:
+Each name in ``--kernels`` (all eight by default) adds its part:
 
 - ``kb1_bf16``: K-B1's bf16 forward (``mlp_train_fwd_bf16``) on chip_smoke.py
   phase 16's inputs (full-width weights with LSA scales of std 0.05 and
@@ -25,6 +26,18 @@ Each name in ``--kernels`` (all six by default) adds its part:
   prints the share of a CTA's clocks in each part of the GEMM's loop, and
   times a build whose chunks all read the first chunk's rows, which stay in
   L2 (``-DNNC_DW_PROBE_HOT``; its sums are wrong), beside the GEMM.
+- ``kb2_bf16``: K-B2 bf16 (``render_pass_bf16``) on 4,096 rays of a solid
+  full-width model (seed 14) at S = 64 with weights and S = 192 without,
+  early termination off and at 1e-4: the SHA-256 of its maps and weights,
+  whether a rerun gave the same bytes, and its time at S = 192, 1e-4. Its
+  chain (``nerf_mlp_bf16.cuh``, shared with K-B5 bf16) untouched gives the
+  parent's bytes.
+- ``kb3_bf16``: K-B3 bf16 (``mlp_from_points_bf16``) on phase 14's inputs
+  (phase 2's net and points) and at ``RAGGED`` sizes (points from seed 14):
+  the error of raw against the plain bf16 version as [rms, max], each over
+  the same statistic of the bf16-to-float32 distance, the SHA-256 of raw at
+  each size, whether a rerun gave the same bytes, and its time at 262,144
+  points (the wgmma slabs made once where the wrapper takes them).
 - ``kb4``: K-B4 (``mlp_int8_from_points``) on phase 9's inputs (phase 2's
   net and 262,144 points from seed 0): the SHA-256 of raw, whether a rerun
   gave the same bytes, and its time.
@@ -79,7 +92,8 @@ from ..utils.device import require_cuda
 N_TRAIN = (65_536, 196_608)
 N_POINTS = 262_144
 RAGGED = (33, 10_001, 3_414_016)
-KERNELS = ("kb1_bf16", "kb1_dw", "kb4", "kb5", "kb5_bf16", "kb6")
+KERNELS = ("kb1_bf16", "kb1_dw", "kb2_bf16", "kb3_bf16", "kb4", "kb5",
+           "kb5_bf16", "kb6")
 # phase 11's pairs: (M, K, O2, relu_mid), S = 256 / M
 PAIRS = ((4, 63, 256, True), (4, 256, 256, True), (4, 256, 128, False),
          (1, 63, 256, True), (1, 256, 256, True), (8, 63, 256, True),
@@ -350,6 +364,93 @@ def kb5(device, args):
             **timed({"kb5 ms": run}, args.iters, args.repeats)}
 
 
+def _to_distance(got, plain16, plain32):
+    """[rms, max] of got's error from the plain bf16 version, each over the
+    same statistic of the distance between the plain bf16 and the plain
+    float32 version on the same inputs."""
+    rms = lambda t: float(t.double().pow(2).mean().sqrt())
+    err, dist = got - plain16, plain16 - plain32
+    return [rms(err) / rms(dist),
+            float(err.abs().max()) / float(dist.abs().max())]
+
+
+def kb3_bf16(device, args):
+    """Phase 14's inputs: phase 2's net and points, and RAGGED sizes (points
+    from seed 14)."""
+    g = torch.Generator().manual_seed(0)
+    model = _model(device, g)
+    pts, vd, _cot = _points(N_POINTS, g, device)
+    packed = mlp_fused.pack_weights(model)
+    buf = mlp_fused.repack_bf16(packed)
+    # the kernel's own slabs, made once, where the wrapper takes them
+    kw = {"packed_wg": mlp_fused.repack_bf16_wgmma(buf)} \
+        if "packed_wg" in inspect.signature(
+            mlp_fused.mlp_from_points_bf16).parameters else {}
+    run = lambda p=pts, v=vd: mlp_fused.mlp_from_points_bf16(buf, p, v, **kw)
+    raw = run()
+    torch.cuda.synchronize()
+
+    def distance(got, p, v):
+        return _to_distance(
+            got, mlp_fused.fused_nerf_mlp_from_points_bf16_plain(buf, p, v),
+            mlp_fused.fused_nerf_mlp_from_points_plain(packed, p, v))
+
+    out = {f"kb3_bf16 raw {N_POINTS}": digest(raw),
+           "kb3_bf16 rerun equal": bool(torch.equal(run(), raw)),
+           f"kb3_bf16 err / distance {N_POINTS}": distance(raw, pts, vd)}
+    g = torch.Generator().manual_seed(14)
+    for n in RAGGED:
+        p, v, _c = _points(n, g, device)
+        got = run(p, v)
+        out[f"kb3_bf16 raw {n}"] = digest(got)
+        out[f"kb3_bf16 err / distance {n}"] = distance(got, p, v)
+        del p, v, got
+    out.update(timed({"kb3_bf16 ms": run}, args.iters, args.repeats))
+    return out
+
+
+def kb2_bf16(device, args):
+    """K-B2 bf16 on 4,096 rays of a solid full-width model (seed 14): rays
+    from a sphere of radius 4 towards the centre, a quarter in dead culling
+    groups, sorted samples in [2, 6]; S = 64 with weights and S = 192
+    without, early termination off and at 1e-4."""
+    from ..ops import render_fused
+    g = torch.Generator().manual_seed(14)
+    model = synthetic.make_solid_mlp(noise_std=1e-2, generator=g,
+                                     device=device)
+    buf = mlp_fused.pack_weights_bf16(model)
+    R = 4096
+    ro = torch.randn(R, 3, generator=g)
+    ro = 4 * ro / torch.linalg.norm(ro, dim=-1, keepdim=True)
+    rd = -ro / 4 + 0.1 * torch.randn(R, 3, generator=g)
+    ro, rd = ro.to(device), rd.to(device)
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    live = ((torch.arange(R, device=device) // 64) % 4 != 3).to(torch.int32)
+    out = {}
+    for S, want_w in ((64, True), (192, False)):
+        z, _ = torch.sort(2 + 4 * torch.rand(R, S, generator=g), dim=-1)
+        z = z.to(device)
+        dists = torch.cat([z[:, 1:] - z[:, :-1],
+                           torch.full_like(z[:, :1], 1e10)], -1) \
+            * torch.linalg.norm(rd, dim=-1, keepdim=True)
+        for eps in (0.0, 1e-4):
+            term = -float(np.log(eps)) if eps > 0 else float("inf")
+            call = (buf, ro, rd, vd, z, dists, live, term, want_w)
+            maps, w = render_fused.render_pass_bf16(*call)
+            torch.cuda.synchronize()
+            key = f"kb2_bf16 S={S} eps={eps}"
+            out[f"{key} maps"] = digest(maps)
+            if want_w:
+                out[f"{key} weights"] = digest(w)
+            again = render_fused.render_pass_bf16(*call)
+            out[f"{key} rerun equal"] = bool(torch.equal(again[0], maps))
+            if S == 192 and eps > 0:
+                out.update(timed({"kb2_bf16 ms": lambda: render_fused
+                                  .render_pass_bf16(*call)},
+                                 args.iters, args.repeats))
+    return out
+
+
 def kb5_bf16(device, args):
     """Phase 18's inputs: phase 2's net and points, embedded by torch, and
     ragged sizes."""
@@ -426,7 +527,8 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb4": kb4, "kb5": kb5,
+    parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb2_bf16": kb2_bf16,
+             "kb3_bf16": kb3_bf16, "kb4": kb4, "kb5": kb5,
              "kb5_bf16": kb5_bf16, "kb6": kb6}
     out = {"card": card}
     for name in kernels:

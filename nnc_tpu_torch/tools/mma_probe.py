@@ -1,6 +1,7 @@
 """What holds the tensor-core chains of K-B3 / K-B2 / K-B1
 (ops/csrc/nerf_mlp_mma.cuh, float32 as 3xTF32; ops/csrc/nerf_mlp_bf16.cuh,
-bf16) and K-B4's int8 products on the card they run on. Needs a CUDA device
+bf16; ops/csrc/nerf_mlp_wgmma.cuh, K-B3 bf16's warpgroup products) and K-B4's
+int8 products on the card they run on. Needs a CUDA device
 and nvcc:
 
     python -m nnc_tpu_torch.tools.mma_probe
@@ -25,13 +26,13 @@ Prints, after the card's name and power limit:
      and with clock marks: the forward's two times in turns and its time without
      the workspace, the backward's time, and the share of a tile's clocks in
      each part of the forward and of the backward without dW;
-  5. the bf16 chain: the rate at which a sub-partition issues
-     ``mma.sync.m16n8k16 .bf16`` (as in 1), then K-B3 bf16
-     (``mlp_from_points_bf16.cu``) at 262,144 points built with tiles of 128
-     points (``NNC_BF16_MT=8``, shipped) and of 64 (``-DNNC_BF16_MT=4``;
-     the outputs must be bit-equal), each also with clock marks: the two
-     times in turns beside the float32 kernel's, the weight bytes a point
-     reads from L2, and the share of a tile's clocks in each part;
+  5. the bf16 chains: the rate at which a sub-partition issues
+     ``mma.sync.m16n8k16 .bf16`` (as in 1; K-B2 bf16 and K-B5 bf16's
+     chain), then K-B3 bf16 (``mlp_from_points_bf16.cu``, the ``wgmma``
+     chain of ``nerf_mlp_wgmma.cuh``) at 262,144 points as shipped and with
+     clock marks (raw bit-equal): its time in turns beside the float32
+     kernel's, the weight bytes a point reads from L2, and the share of a
+     128-point tile's clocks in each part, by warpgroup 0's first thread;
   6. the int8 path: the rate at which a sub-partition issues
      ``mma.sync.m16n8k32 .s8`` (as in 1, in TOP/s), the SASS opcode counts
      of K-B4 (``mlp_int8_from_points.cu``) as shipped, and K-B4 at 262,144
@@ -51,7 +52,18 @@ Prints, after the card's name and power limit:
   9. K-B6 float32 (``mlp_tp_pair.cu``) at the forward's three pair shapes
      at M = 4 shards (S = 64), 262,144 points, as shipped and with clock
      marks: its time and the share of a 64-point tile's clocks in each part
-     (outputs bit-equal).
+     (outputs bit-equal);
+ 10. ``wgmma`` (ops/csrc/nerf_mlp_wgmma.cuh): one warpgroup's layer
+     m64n256k16 and m64n128k16, K 256, A and B from shared memory through the
+     128-byte swizzle and hand-built descriptors, against ``torch.mm`` of the
+     same bf16 values in float32; then a chain of them on resident operands,
+     one and two warpgroups a CTA: clocks per product an SM.
+ 11. whether L2 bounds K-B3 bf16: the kernel as shipped in turns with a
+     build whose slab ring stops copying after its first stages (each
+     stage's barrier re-armed without a copy, so every tile reuses the
+     first four slabs and raw is wrong), with clock marks: if the bytes from
+     L2 held the kernel back, the second would be faster and wait less on
+     the full barriers.
 ``--sections 6,7`` runs only those sections (and builds only what they
 need). Everything is built under ``build/nnc_tpu_torch/mma_probe/``.
 """
@@ -108,6 +120,13 @@ TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
                    "epilogue: column sums (shuffles, the CTA's row)",
                    "du to shared memory", "barrier after the stores",
                    "end of the tile")
+
+KB3_BF16_SLOTS = ("embedding: coordinates, sincosf, swizzled stores",
+                  "waiting for a slab (full barrier)",
+                  "issuing a slab's products", "wgmma.wait_group, release",
+                  "epilogue: relu, bf16, swizzled stores (alpha head)",
+                  "the warpgroup's named barriers", "heads' logits out",
+                  "bias into the accumulators (a layer's start)", "(unused)")
 
 KB5_BF16_SLOTS = ("next tile: wait, round pts stage, load views",
                   "barrier, pts copy issued, barrier before layer 0",
@@ -218,6 +237,244 @@ extern "C" int nnc_issue_rate(int nacc, int threads, int blocks, int iters,
 }
 """
 
+# Section 10: one layer of wgmma products against torch.mm, then their issue
+# rate. Built with -I ops/csrc: the probe reads the operands through the
+# same swizzle map and descriptors as K-B3 bf16 (nerf_mlp_wgmma.cuh).
+WGMMA_PROBE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "nerf_mlp_wgmma.cuh"
+namespace wg = nerf::wg;
+
+// One warpgroup: d (64 x N) = a (64 x K, row-major) @ w, w given as the
+// shared-memory image of its K / 64 blocks (mlp_fused.wgmma_image). a is
+// stored into shared memory through wg::swz, as the kernel's epilogues do.
+template <int N>
+__global__ void __launch_bounds__(128) layer_probe(
+    const __nv_bfloat16* a, const uint4* b_img, float* d, int K) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* sa = smem;
+  unsigned char* sb = smem + 64 * K * 2;
+  if (wg::smem_u32(smem) % 1024) __trap();
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 64 * K / 2; i += 128) {
+    const int r = 2 * i / K, c = 2 * i % K;
+    *reinterpret_cast<uint32_t*>(sa + wg::swz(r, c, 64)) =
+        *reinterpret_cast<const uint32_t*>(a + r * K + c);
+  }
+  for (int i = tid; i < K * N / 8; i += 128)
+    reinterpret_cast<uint4*>(sb)[i] = b_img[i];
+  wg::fence_async_smem();
+  __syncthreads();
+  float acc[128];   // N = 128: the first 64
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  wg::fence_operands(acc);
+  wg::fence();
+  const uint32_t a0 = wg::smem_u32(sa), b0 = wg::smem_u32(sb);
+#pragma unroll 1
+  for (int ks = 0; ks < K / 16; ++ks)
+    wg::product<N>(acc, wg::desc_k(a0, ks, 64), wg::desc_k(b0, ks, N));
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operands(acc);
+  const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float* o = d + (16 * w + g) * N + 8 * j + 2 * t;
+    o[0] = acc[4 * j];
+    o[1] = acc[4 * j + 1];
+    o[8 * N] = acc[4 * j + 2];
+    o[8 * N + 1] = acc[4 * j + 3];
+  }
+}
+
+// `groups` warpgroups a CTA each issue iters x 4 products m64nNk16 on
+// operands resident in shared memory (A 32 KB a group, one 32 KB slab), a
+// group of four committed at a time, one group kept in flight.
+template <int N>
+__global__ void __launch_bounds__(256, 1) chain_probe(
+    float* out, long long* clk, int iters, int groups) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  for (int i = threadIdx.x; i < 3 * 32768 / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(smem)[i] = 0x3c003c00u ^ (i & 0x00ff00ff);
+  wg::fence_async_smem();
+  __syncthreads();
+  const int group = threadIdx.x >> 7;
+  if (group >= groups) return;
+  float acc[128];   // N = 128: the first 64
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  wg::fence_operands(acc);
+  wg::fence();
+  const uint32_t a0 = wg::smem_u32(smem + group * 32768);
+  const uint32_t b0 = wg::smem_u32(smem + 65536);
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::product<N>(acc, wg::desc_k(a0, ks, 64), wg::desc_k(b0, ks, N));
+    wg::commit();
+    wg::wait<1>();
+  }
+  wg::wait<0>();
+  const long long t1 = clock64();
+  wg::fence_operands(acc);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if ((threadIdx.x & 127) == 0) clk[2 * blockIdx.x + group] = t1 - t0;
+}
+
+extern "C" int nnc_wgmma_layer(const void* a, const void* b_img, float* d,
+                               int K, int N) {
+  const int smem = 64 * K * 2 + K * N * 2;
+  cudaError_t err;
+  if (N == 256) {
+    err = cudaFuncSetAttribute(layer_probe<256>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      layer_probe<256><<<1, 128, smem>>>(
+          static_cast<const __nv_bfloat16*>(a),
+          static_cast<const uint4*>(b_img), d, K);
+  } else {
+    err = cudaFuncSetAttribute(layer_probe<128>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      layer_probe<128><<<1, 128, smem>>>(
+          static_cast<const __nv_bfloat16*>(a),
+          static_cast<const uint4*>(b_img), d, K);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : cudaDeviceSynchronize());
+}
+
+extern "C" int nnc_wgmma_chain(float* out, long long* clk, int blocks,
+                               int iters, int groups, int N) {
+  const int smem = 3 * 32768;
+  cudaError_t err;
+  if (N == 256) {
+    err = cudaFuncSetAttribute(chain_probe<256>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      chain_probe<256><<<blocks, 256, smem>>>(out, clk, iters, groups);
+  } else {
+    err = cudaFuncSetAttribute(chain_probe<128>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      chain_probe<128><<<blocks, 256, smem>>>(out, clk, iters, groups);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : cudaDeviceSynchronize());
+}
+"""
+
+
+def build_wgmma_probe():
+    """Compiles section 10's probe (``WGMMA_PROBE_CU`` against this
+    checkout's ``nerf_mlp_wgmma.cuh``) and loads it."""
+    os.makedirs(OUT, exist_ok=True)
+    src = os.path.join(OUT, "wgmma_probe.cu")
+    with open(src, "w") as f:
+        f.write(WGMMA_PROBE_CU)
+    so = os.path.join(OUT, "wgmma_probe.so")
+    proc = _compile(src, so, "-I", _build.SRC_DIR)
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the wgmma probe:\n{log}")
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nnc_wgmma_layer.argtypes = [vp, vp, vp, ci, ci]
+    lib.nnc_wgmma_chain.argtypes = [vp, vp, ci, ci, ci, ci]
+    return lib, log
+
+
+def wgmma_layer_errors(lib, dev, seed=10):
+    """One warpgroup's layer a (64 x 256) @ w (256 x N) for N = 256 and 128,
+    bf16 operands from a seed, against ``torch.mm`` of the same values in
+    float32: {N: (max |d|, max |ref|)}. A wrong descriptor or swizzle reads
+    other values and misses by the size of the result itself."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for n_out in (256, 128):
+        k = 256
+        a = torch.randn(64, k, generator=g).to(torch.bfloat16)
+        w = torch.randn(k, n_out, generator=g).to(torch.bfloat16)
+        d = torch.full((64, n_out), float("nan"), device=dev)
+        a_d = a.to(dev)
+        img = mlp_fused.wgmma_image(w).to(dev)
+        rc = lib.nnc_wgmma_layer(a_d.data_ptr(), img.data_ptr(),
+                                 d.data_ptr(), k, n_out)
+        assert rc == 0, rc
+        want = torch.mm(a.float(), w.float())
+        out[n_out] = (float((d.cpu() - want).abs().max()),
+                      float(want.abs().max()))
+    return out
+
+
+def wgmma_probe(lib, dev):
+    """Section 10: the layer against torch.mm, then the chain's clocks per
+    product with one and two warpgroups a CTA, one CTA an SM."""
+    errs = wgmma_layer_errors(lib, dev)
+    for n_out, (err, top) in errs.items():
+        print(f"[10] wgmma m64n{n_out}k16, K 256, A and B from shared memory "
+              f"(128-byte swizzle, descriptors of nerf_mlp_wgmma.cuh) "
+              f"against torch.mm in float32: max |d| {err:.3e} of max "
+              f"|ref| {top:.3e}")
+        assert err <= 1e-4 * top, "the wgmma probe disagrees with torch.mm"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 256, device=dev)
+    clk = torch.zeros(2 * sms, dtype=torch.int64, device=dev)
+    iters = 2000
+    for n_out in (256, 128):
+        for groups in (1, 2):
+            args = (out.data_ptr(), clk.data_ptr(), sms, iters, groups, n_out)
+            assert lib.nnc_wgmma_chain(*args) == 0
+            ms = _ms(lambda: lib.nnc_wgmma_chain(*args), iters=3, warmup=1)
+            per = clk.view(sms, 2)[:, :groups].double().max(1).values.mean()
+            products = iters * 4 * groups
+            flop = sms * products * 2 * 64 * n_out * 16
+            print(f"[10] wgmma m64n{n_out}k16 chain, {groups} warpgroup(s) "
+                  f"a CTA, one CTA an SM: {per.item() / products:.1f} clocks "
+                  f"per product an SM ({2 * 64 * n_out * 16 * products / per.item():.0f} "
+                  f"FLOP a clock), {flop / ms / 1e9:.1f} TFLOP/s over the "
+                  f"card (launch included)")
+
+
+# Section 11's build: slab_ring.cuh's issue() re-arms a stage's barrier
+# without a copy once the first stages are in.
+NO_COPY = ("""  __device__ __forceinline__ void issue(int slab_j) const {
+    const int st = slab_j % STAGES;
+    const uint32_t bar = smem_u32(&s->full[st]);
+""", """  __device__ __forceinline__ void issue(int slab_j) const {
+    const int st = slab_j % STAGES;
+    const uint32_t bar = smem_u32(&s->full[st]);
+    if (slab_j >= STAGES) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+                   : "memory");
+      return;
+    }
+""")
+
+
+def no_copy_source():
+    """A copy of ops/csrc under the probe's build directory with NO_COPY
+    applied; returns K-B3 bf16's source in it."""
+    import shutil
+    dst = os.path.join(OUT, "no_copy_src")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(_build.SRC_DIR, dst)
+    ring = os.path.join(dst, "slab_ring.cuh")
+    with open(ring) as f:
+        text = f.read()
+    assert NO_COPY[0] in text, "slab_ring.cuh's issue() changed"
+    with open(ring, "w") as f:
+        f.write(text.replace(NO_COPY[0], NO_COPY[1]))
+    return os.path.join(dst, "mlp_from_points_bf16.cu")
 
 def _compile(src, so, *flags):
     return subprocess.Popen(
@@ -475,14 +732,15 @@ def train_bf16(libs, dev):
 
 
 def bf16_chain(libs, dev):
-    """Section 5: K-B3 bf16 with tiles of 128 and of 64 points."""
+    """Section 5: K-B3 bf16 (the wgmma chain) as shipped and with clock
+    marks, beside the float32 kernel."""
     g = torch.Generator().manual_seed(0)
     model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
     model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
     packed = mlp_fused.pack_weights(model)
-    buffers = {"shipped": mlp_fused.repack_mma(packed)}
-    buffers.update({name: mlp_fused.repack_bf16(packed) for name in libs
-                    if name.startswith("bf16")})
+    packed_mma = mlp_fused.repack_mma(packed)
+    buf = mlp_fused.repack_bf16(packed)
+    wg = mlp_fused.repack_bf16_wgmma(buf)
     pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
     vd = torch.randn(N_POINTS, 3, generator=g)
     vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
@@ -490,48 +748,83 @@ def bf16_chain(libs, dev):
 
     def launch(name):
         out = outs.setdefault(name, torch.empty(N_POINTS, 4, device=dev))
-        fn = libs[name].nnc_mlp_from_points if name == "shipped" \
-            else libs[name].nnc_mlp_from_points_bf16
-        rc = fn(buffers[name].data_ptr(), pts.data_ptr(), vd.data_ptr(),
-                out.data_ptr(), N_POINTS,
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "shipped":
+            rc = libs[name].nnc_mlp_from_points(
+                packed_mma.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+                out.data_ptr(), N_POINTS, stream)
+        else:
+            rc = libs[name].nnc_mlp_from_points_bf16(
+                buf.data_ptr(), wg.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+                out.data_ptr(), N_POINTS, stream)
         assert rc == 0, (name, rc)
 
-    tiles = {"bf16": 128, "bf16_mt4": 64}
-    for name, points in tiles.items():
-        assert libs[name].nnc_bf16_tile_points() == points, name
-    names = ("bf16", "bf16_mt4", "shipped")
+    names = ("bf16", "shipped")
     times = [{name: _ms(lambda: launch(name)) for name in names}
              for _ in range(2)]
-    assert torch.equal(outs["bf16"], outs["bf16_mt4"]), \
-        "tiles of 128 and of 64 points disagree"
     shown = {name: [f"{t[name]:.3f}" for t in times] for name in names}
-    slab_bytes = 4 * mlp_fused.BF16_SLABS * mlp_fused.MMA_SLAB
-    print(f"[5] K-B3 bf16 {N_POINTS} points in turns, ms: tiles of 128 "
-          f"points (shipped) {shown['bf16']}, of 64 {shown['bf16_mt4']}, "
-          f"the float32 kernel {shown['shipped']}; the two tiles' outputs "
-          f"bit-equal; weight bytes a point reads from L2: "
-          f"{slab_bytes / 128:.0f} / {slab_bytes / 64:.0f} "
-          f"({slab_bytes * N_POINTS / 128 / 1e9:.2f} / "
-          f"{slab_bytes * N_POINTS / 64 / 1e9:.2f} GB a launch; the float32 "
-          f"kernel {4 * mlp_fused.MMA_SLABS * mlp_fused.MMA_SLAB / 64:.0f})")
-    for name, points in tiles.items():
-        prof = libs[name + "_profile"]
-        buffers[name + "_profile"] = buffers[name]
-        sums = (ctypes.c_ulonglong * len(PROFILE_SLOTS))()
+    slab_bytes = 4 * mlp_fused.WG_SIZE
+    print(f"[5] K-B3 bf16 {N_POINTS} points in turns, ms: wgmma chain "
+          f"{shown['bf16']}, the float32 kernel {shown['shipped']}; weight "
+          f"bytes a point reads from L2: {slab_bytes / 128:.0f} "
+          f"({slab_bytes * N_POINTS / 128 / 1e9:.2f} GB a launch)")
+    prof = libs["bf16_profile"]
+    sums = (ctypes.c_ulonglong * len(KB3_BF16_SLOTS))()
+    for _ in range(2):   # the first is a warm-up, discarded
+        launch("bf16_profile")
+        torch.cuda.synchronize()
+        assert prof.nnc_mma_profile(sums) == 0
+    assert torch.equal(outs["bf16"], outs["bf16_profile"]), \
+        "the build with clock marks computes another raw"
+    n_tiles = -(-N_POINTS // 128)
+    total = sum(sums)
+    print(f"[5] clocks of a bf16 tile of 128 points by warpgroup 0's first "
+          f"thread's marks, {total / n_tiles:.0f} in all "
+          f"({total / N_POINTS:.1f} a point; raw bit-equal to the shipped "
+          f"build's):")
+    for slot, what in enumerate(KB3_BF16_SLOTS):
+        print(f"      {what:48s} {sums[slot] / n_tiles:9.0f}  "
+              f"{100 * sums[slot] / total:5.1f}%")
+
+
+def l2_question(libs, dev):
+    """Section 11: K-B3 bf16 as shipped in turns with the build that copies
+    no slab after the first stages, each with clock marks."""
+    g = torch.Generator().manual_seed(0)
+    model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
+    model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
+    buf = mlp_fused.repack_bf16(mlp_fused.pack_weights(model))
+    wg = mlp_fused.repack_bf16_wgmma(buf)
+    pts = (4 * torch.rand(N_POINTS, 3, generator=g) - 2).to(dev)
+    vd = torch.randn(N_POINTS, 3, generator=g)
+    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+    out = torch.empty(N_POINTS, 4, device=dev)
+
+    def launch(name):
+        rc = libs[name].nnc_mlp_from_points_bf16(
+            buf.data_ptr(), wg.data_ptr(), pts.data_ptr(), vd.data_ptr(),
+            out.data_ptr(), N_POINTS, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    names = {"bf16": "as shipped", "no_copy": "no copies after the first "
+             "stages (raw wrong)"}
+    times = [{k: _ms(lambda: launch(k), iters=20) for k in names}
+             for _ in range(3)]
+    print("[11] K-B3 bf16 262144 points in turns, ms: " + "; ".join(
+        f"{what} {[f'{t[k]:.4f}' for t in times]}"
+        for k, what in names.items()))
+    for k, what in names.items():
+        prof = libs[k + "_profile"]
+        sums = (ctypes.c_ulonglong * len(KB3_BF16_SLOTS))()
         for _ in range(2):   # the first is a warm-up, discarded
-            launch(name + "_profile")
+            launch(k + "_profile")
             torch.cuda.synchronize()
             assert prof.nnc_mma_profile(sums) == 0
-        n_tiles = -(-N_POINTS // points)
+        tiles = -(-N_POINTS // 128)
         total = sum(sums)
-        print(f"[5] clocks of a bf16 tile of {points} points by thread 0's "
-              f"marks, {total / n_tiles:.0f} in all "
-              f"({total / N_POINTS:.1f} a point):")
-        for slot, what in enumerate(PROFILE_SLOTS):
-            print(f"      {what:28s} {sums[slot] / n_tiles:9.0f}  "
-                  f"{100 * sums[slot] / total:5.1f}%")
-
+        print(f"[11] {what}: clocks of a tile {total / tiles:.0f}, waiting "
+              f"for a slab {sums[1] / tiles:.0f} "
+              f"({100 * sums[1] / total:.1f}%)")
 
 def sass_counts(so):
     print(f"[3] SASS opcodes of the shipped K-B3: "
@@ -659,7 +952,7 @@ def kb6(libs, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sections", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--sections", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated section numbers to run")
     sections = {int(x) for x in ap.parse_args(argv).sections.split(",")}
     dev = torch.device("cuda", 0)
@@ -686,11 +979,8 @@ def main(argv=None):
               "train": ({4}, kb1),
               "train_direct": ({4}, kb1, "-DNNC_TRAIN_DIRECT_U"),
               "train_profile": ({4}, kb1, "-DNNC_MMA_PROFILE"),
-              "bf16": ({5}, kb3_bf16),
-              "bf16_profile": ({5}, kb3_bf16, "-DNNC_MMA_PROFILE"),
-              "bf16_mt4": ({5}, kb3_bf16, "-DNNC_BF16_MT=4"),
-              "bf16_mt4_profile": ({5}, kb3_bf16, "-DNNC_BF16_MT=4",
-                                   "-DNNC_MMA_PROFILE"),
+              "bf16": ({5, 11}, kb3_bf16),
+              "bf16_profile": ({5, 11}, kb3_bf16, "-DNNC_MMA_PROFILE"),
               "int8": ({6}, kb4),
               "int8_profile": ({6}, kb4, "-DNNC_MMA_PROFILE"),
               "train_bf16": ({7}, kb1_bf16),
@@ -699,6 +989,10 @@ def main(argv=None):
               "kb5_bf16_profile": ({8}, kb5_bf16_src, "-DNNC_MMA_PROFILE"),
               "kb6": ({9}, kb6_src),
               "kb6_profile": ({9}, kb6_src, "-DNNC_MMA_PROFILE")}
+    if 11 in sections:
+        no_copy = no_copy_source()
+        builds["no_copy"] = ({11}, no_copy)
+        builds["no_copy_profile"] = ({11}, no_copy, "-DNNC_MMA_PROFILE")
     procs = {name: _compile(args[1], os.path.join(OUT, name + ".so"),
                             *args[2:]) for name, args in builds.items()
              if args[0] & sections}
@@ -719,8 +1013,8 @@ def main(argv=None):
         if name in libs:
             libs[name].nnc_mlp_from_points.argtypes = [vp, vp, vp, vp, ci,
                                                        vp]
-    for name in (n for n in libs if n.startswith("bf16")):
-        libs[name].nnc_mlp_from_points_bf16.argtypes = [vp, vp, vp, vp, ci, vp]
+    for name in (n for n in libs if n.startswith(("bf16", "no_copy"))):
+        libs[name].nnc_mlp_from_points_bf16.argtypes = [vp] * 5 + [ci, vp]
     for name in ("train", "train_direct", "train_profile"):
         if name in libs:
             libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
@@ -761,6 +1055,15 @@ def main(argv=None):
                  dev)
     if 9 in sections:
         kb6({k: v for k, v in libs.items() if k.startswith("kb6")}, dev)
+    if 10 in sections:
+        lib, log = build_wgmma_probe()
+        for line in log.splitlines():
+            if "registers" in line or "wgmma" in line.lower():
+                print(f"    ptxas, wgmma probe: {line.strip()}")
+        wgmma_probe(lib, dev)
+    if 11 in sections:
+        l2_question({k: v for k, v in libs.items()
+                     if k.startswith(("bf16", "no_copy"))}, dev)
 
 
 if __name__ == "__main__":

@@ -767,6 +767,7 @@ def test_cuda_bf16_build_and_layout(cuda_device):
     assert lib.nnc_bf16_params_size() == mlp_fused.BF16_PARAMS_SIZE
     assert lib.nnc_bf16_tile_points() == \
         render_fused.SLOTS_BF16 * render_fused.SAMPLE_BLOCK
+    assert lib.nnc_bf16_wgmma_size() == mlp_fused.WG_SIZE
 
 
 @pytest.mark.cuda
@@ -788,6 +789,14 @@ def test_cuda_mlp_from_points_bf16_matches_plain(cuda_device, n):
         got, mlp_fused.fused_nerf_mlp_from_points_bf16_plain(buf, pts, vd),
         mlp_fused.fused_nerf_mlp_from_points_plain(packed, pts, vd))
     assert torch.equal(mlp_fused.mlp_from_points_bf16(buf, pts, vd), got)
+    # the wgmma slabs given (as the model-level entry passes them) or made
+    # by the wrapper: the same kernel, the same bytes
+    wg = mlp_fused.repack_bf16_wgmma(buf)
+    assert torch.equal(wg, mlp_fused.repack_bf16_wgmma(buf.cpu()).cuda())
+    assert torch.equal(
+        mlp_fused.mlp_from_points_bf16(buf, pts, vd, packed_wg=wg), got)
+    assert _build.launch_counts()["mlp_from_points_bf16"] == \
+        before["mlp_from_points_bf16"] + 3
     # the model-level entry picks the variant from the config
     bf16_model = nerf.NeRF(nerf.NeRFConfig(compute_dtype=torch.bfloat16),
                            device=cuda_device)
@@ -813,6 +822,39 @@ def test_cuda_bf16_buffer_must_be_aligned_and_sized(cuda_device):
     for bad in (shifted, buf[:-64], buf.cpu(), buf.float()):
         with pytest.raises(ValueError):
             mlp_fused.mlp_from_points_bf16(bad, pts, vd)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_buffer_must_be_aligned_and_sized(cuda_device):
+    """K-B3 bf16's slabs reach the ring by 16-byte bulk copies: a misaligned,
+    wrong-sized, wrongly typed or misplaced packed_wg raises, with no launch
+    and no fallback."""
+    model = _fog_model(cuda_device)
+    pts, vd = _points(64, cuda_device)
+    buf = mlp_fused.pack_weights_bf16(model)
+    wg = mlp_fused.repack_bf16_wgmma(buf)
+    shifted = torch.cat([wg.new_zeros(1), wg])[1:]
+    assert shifted.data_ptr() % 16
+    before = _build.launch_counts()["mlp_from_points_bf16"]
+    for bad in (shifted, wg[:-4], wg.cpu(), wg.float()):
+        with pytest.raises(ValueError):
+            mlp_fused.mlp_from_points_bf16(buf, pts, vd, packed_wg=bad)
+    assert _build.launch_counts()["mlp_from_points_bf16"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_probe_one_layer_matches_torch_mm(cuda_device):
+    """One warpgroup's wgmma layer (m64n256k16 and m64n128k16, K 256, A and
+    B from shared memory through nerf_mlp_wgmma.cuh's swizzle and
+    descriptors; tools/mma_probe.py section 10) against torch.mm of the same
+    bf16 values in float32: sums of 256 exact products in another order,
+    within 1e-4 of the largest output (3.1e-5 of 65 measured on an H100; a
+    wrong descriptor reads other values and misses by the output itself)."""
+    from nnc_tpu_torch.tools import mma_probe
+    lib, _log = mma_probe.build_wgmma_probe()
+    for n_out, (err, top) in mma_probe.wgmma_layer_errors(
+            lib, cuda_device).items():
+        assert top > 10 and err <= 1e-4 * top, (n_out, err, top)
 
 
 @pytest.mark.cuda
