@@ -122,13 +122,33 @@ Phases:
      called as fused_nerf_mlp (phase 10's swap), K-B5 bf16 on the
      renderer's chunks, each launch of one more view held against its plain
      version, the PSNR against phase 15's K-B3 bf16 render;
-     nnc_tpu_torch.tools.tp_mlp_bench in bf16.
+     nnc_tpu_torch.tools.tp_mlp_bench in bf16;
+ 20. the occupancy-grid mode (render/occupancy.py), in float32 and in bf16:
+     compress_model(lsa=True, occupancy_tuning=True, occupancy_renders=True)
+     on phase 4's scene and teacher (20 LSA steps on the occupancy loss
+     through K-B1, its i_save views through grids swept by K-B3 and frames
+     through K-B2), the decode's test view and a 400x400 frame through the
+     grid, timed beside the exact render; then the grid through K-B3
+     against the grid through its plain version (voxels apart only at a
+     threshold tie), the frame through K-B2 against the same selection
+     through its plain version (phase 3's tolerances, bf16 in units of the
+     bf16-to-float32 distance), each kernel timed at this mode's shapes
+     (a sweep chunk of 262,144 voxel centres, 160,000 rays of 16 compacted
+     samples with the points needed against those computed, 1,024 rays x 32
+     selected samples); the reference's quality sweep (bench.py:145-212:
+     160x256, 4 poses, res 128, 48 candidates, budget 16, subsample 4):
+     devPSNR of the fast render against the exact render through the
+     kernels, at least 47.0 dB on the solid teacher (the reference's 47.19),
+     four fog teachers' beside the reference's 33.23 with their open
+     boundary detected; an LSA step on the occupancy loss timed beside the
+     exact one.
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
 the two test_model renders and the compression of phase 15, the
-compression and the three bench_train_step runs of phase 17, and phase 19's
-bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run.
+compression and the three bench_train_step runs of phase 17, phase 19's
+bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run,
+and phase 20's compression, test view and frames, per type.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
@@ -160,7 +180,7 @@ from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
 from nnc_tpu_torch.ops.posenc import positional_encoding
 from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
-from nnc_tpu_torch.render import renderer
+from nnc_tpu_torch.render import occupancy, renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
 from nnc_tpu_torch.tools import bench_train_step, tp_mlp_bench
 from nnc_tpu_torch.train import lsa, presets
@@ -317,7 +337,8 @@ def bound(n_bytes, ops, peak_ops):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def phase_environment():
@@ -803,18 +824,18 @@ def phase_train_kernels(dev):
     return row
 
 
-def _lsa_run(ex, model_c, model_f, draws, mesh=None):
+def _lsa_run(ex, model_c, model_f, draws, mesh=None, grid=None):
     """TRAJ_STEPS LSA steps from the given models on the executer's batches
-    and the given draws, data-parallel over ``mesh`` if given; returns
-    (scales {name: (out,)} of both models, mean step ms on the host
-    clock)."""
+    and the given draws, data-parallel over ``mesh`` if given, on the
+    occupancy loss over ``grid`` if given; returns (scales {name: (out,)}
+    of both models, mean step ms on the host clock)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ls_c, ls_f, *_ = lsa.tune_lsa_scales(
         model_c, model_f, ex._make_batcher(), ex.rc, ex.scene["near"],
         ex.scene["far"], learning_rate=ex.learning_rate,
         learning_rate_decay=0.0, epochs=1, n_iters=TRAJ_STEPS,
-        verbose=False, draws=draws, mesh=mesh)
+        verbose=False, draws=draws, mesh=mesh, grid=grid)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / TRAJ_STEPS
     return torch.cat([torch.cat(list(d.values())) for d in (ls_c, ls_f)]), ms
@@ -2365,6 +2386,454 @@ def phase_bf16_tp_slice(dev, scene, sd, psnr_kb3_bf16):
     return launches
 
 
+# phase 20: the occupancy-grid mode ------------------------------------------
+# the reference's quality sweep (bench.py:145-212): 160x256 views at focal
+# 0.8 W of 4 poses from look_at_poses(4, seed=1), grids at res 128 from the
+# coarse network, 48 candidates, a budget of 16, blocks of 4 x 4 rays; its
+# figures (VERDICT r5), device-independent: devPSNR 47.19 dB on the solid
+# teacher, 33.23 dB on the fog teacher
+OCC_SWEEP_HW = (160, 256)
+OCC_RES, OCC_CANDIDATES, OCC_BUDGET, OCC_SUBSAMPLE = 128, 48, 16, 4
+OCC_REF_DEVPSNR = {"solid": 47.19, "fog": 33.23}
+# the fog teachers' generator seeds, (coarse, fine): the reference's are
+# PRNGKey(7) / PRNGKey(8), which the port cannot draw; a random fog's
+# devPSNR depends on the draw, so four pairs are swept
+OCC_FOG_SEEDS = ((7, 8), (0, 1), (2, 3), (4, 5))
+OCC_SOLID_MIN = 47.0
+OCC_STEPS = 20
+OCC_TYPES = {"float32": (torch.float32, "mlp_from_points", "render_pass",
+                         "mlp_train_fwd", "mlp_train_bwd"),
+             "bf16": (torch.bfloat16, "mlp_from_points_bf16",
+                      "render_pass_bf16", "mlp_train_fwd_bf16",
+                      "mlp_train_bwd_bf16")}
+
+
+def _kb3_plain():
+    """A block in which K-B3's wrappers (both types) run their plain
+    versions on CUDA tensors."""
+    stack = contextlib.ExitStack()
+    for name, plain in (
+            ("mlp_from_points", mlp_fused.fused_nerf_mlp_from_points_plain),
+            ("mlp_from_points_bf16",
+             mlp_fused.fused_nerf_mlp_from_points_bf16_plain)):
+        stack.enter_context(swapped(
+            mlp_fused, name, lambda packed, pts, dirs, _p=plain, **_kernel:
+            _p(packed, pts, dirs)))
+    return stack
+
+
+def _kb2_plain():
+    """A block in which K-B2's wrappers (both types) run their plain
+    versions on CUDA tensors."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(
+        render_fused, "render_pass",
+        lambda packed, *a, packed_mma=None, **kw:
+        render_fused.fused_render_pass_plain(packed, *a, **kw)))
+    stack.enter_context(swapped(render_fused, "render_pass_bf16",
+                                render_fused.fused_render_pass_bf16_plain))
+    return stack
+
+
+def _sweep_sigma(model, dev):
+    """The grid's density sweep (occupancy.build_occupancy_grid at res
+    OCC_RES over (-2, 2)^3): sigma (res^3,) through whatever K-B3's
+    wrappers are, and the first chunk's (pts, dirs)."""
+    axes = [-2.0 + (np.arange(OCC_RES, dtype=np.float32) + 0.5) * 4.0
+            / OCC_RES] * 3
+    pts = torch.as_tensor(np.stack(np.meshgrid(*axes, indexing="ij"),
+                                   axis=-1).reshape(-1, 3), device=dev)
+    vd = torch.zeros(N_POINTS, 3, device=dev)
+    vd[:, 2] = 1.0
+    chunks = torch.split(pts, N_POINTS)
+    sigma = torch.cat([torch.relu(mlp_fused.fused_nerf_mlp_from_points(
+        model, p, vd[:p.shape[0]])[:, 3]) for p in chunks])
+    return sigma, (chunks[0].contiguous(), vd[:chunks[0].shape[0]])
+
+
+def _recorded(module, name, calls):
+    """Inside the block every call of <module>.<name> also appends its
+    arguments to ``calls``."""
+    real = getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    return swapped(module, name, record)
+
+
+def _occ_views(hw, focal, poses):
+    K = np.array([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2], [0, 0, 1]],
+                 np.float32)
+    return [get_rays_np(hw[0], hw[1], K, p[:3, :4]) for p in poses]
+
+
+def _dev_psnr(model_c, model_f, rc, views):
+    """The reference's devPSNR: min over the views of the fast render (the
+    grid from the coarse network, the fine network along the selected
+    samples) against the exact hierarchical render, both through the
+    kernels. Returns (min devPSNR, max |d rgb|, open_boundary)."""
+    grid = occupancy.build_occupancy_grid(model_c, res=OCC_RES)
+    worst, dmax = math.inf, 0.0
+    for ro, rd in views:
+        exact = renderer.render_image(model_c, model_f, ro, rd, 2.0, 6.0,
+                                      rc)["rgb_map"].cpu().numpy()
+        fast = occupancy.render_image_fast(
+            model_f, ro, rd, 2.0, 6.0, rc, grid, n_candidates=OCC_CANDIDATES,
+            budget=OCC_BUDGET, subsample=OCC_SUBSAMPLE)["rgb_map"]
+        mse = float(np.mean((fast - exact) ** 2))
+        worst = min(worst, -10.0 * math.log10(max(mse, 1e-12)))
+        dmax = max(dmax, float(np.abs(fast - exact).max()))
+    return worst, dmax, grid.open_boundary
+
+
+def _kb2_points(args, model):
+    """(points the compacted rays need, points K-B2's tiles compute) for
+    one launch's inputs: a sample is needed when its dist is not 0, its ray
+    is live and its transmittance before it is still >= eps; a tile (two
+    rays in float32, one in bf16) computes each SAMPLE_BLOCK block of
+    samples in which one of its live rays has a dist that is not 0, while
+    one of them is still above eps at the block's start."""
+    _packed, ro, rd, vd, z, dists, live, term = args[:8]
+    R, S = z.shape
+    pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
+    raw = mlp_fused.fused_nerf_mlp_from_points(
+        model, pts.reshape(-1, 3), vd[:, None, :].expand(R, S, 3)
+        .reshape(-1, 3))
+    before = optical_depth_before(raw, dists)
+    on = live[:, None] > 0
+    needed = int(((before < term) & (dists > 0) & on).sum())
+    tile = render_fused.ray_tile(model.config)
+    sb = render_fused.SAMPLE_BLOCK
+    nb, pad = -(-S // sb), -R % tile
+    blk = lambda t, v: torch.nn.functional.pad(
+        t, (0, nb * sb - S, 0, pad), value=v).reshape(-1, tile, nb, sb)
+    work = (blk((dists > 0) & on, False).any(dim=3).any(dim=1)
+            & (blk(before, math.inf).amin(dim=3).amin(dim=1) < term))
+    return needed, int(work.sum()) * tile * sb
+
+
+def _grid_against_plain(what, model, grid, dev, model32=None):
+    """The grid through K-B3 against the grid through its plain version,
+    before and after the dilation: a voxel may differ only at a threshold
+    tie, where the two sigmas lie within the kernel's tolerance (TOL_RAW;
+    in bf16 the sweep's largest bf16-to-float32 distance, ``model32`` the
+    float32 model of the same weights). Returns (voxels apart before the
+    dilation, after, the first sweep chunk's (pts, dirs))."""
+    sig_k, chunk0 = _sweep_sigma(model, dev)
+    with _kb3_plain():
+        sig_p, _ = _sweep_sigma(model, dev)
+        grid_p = occupancy.build_occupancy_grid(model)
+        tol = TOL_RAW if model32 is None else float(
+            (sig_p - _sweep_sigma(model32, dev)[0]).abs().max())
+    thr = 1e-2
+    d0 = ((sig_k > thr) != (sig_p > thr)).reshape((OCC_RES,) * 3)
+    d3 = grid.occ != grid_p.occ
+    ties = (sig_k - sig_p).abs().reshape(d0.shape)[d0]
+    worst = float(ties.max()) if ties.numel() else 0.0
+    check(worst <= tol, f"grid ({what}): {int(d0.sum())} voxels differ "
+          f"before the dilation, |d sigma| up to {worst} against {tol}")
+    check(not bool((d3 & ~occupancy._dilate(d0, 3)).any())
+          and grid.open_boundary == grid_p.open_boundary,
+          f"grid ({what}): voxels differ away from a threshold tie, or the "
+          f"open boundary")
+    return int(d0.sum()), int(d3.sum()), chunk0
+
+
+def phase_occupancy(dev, scene, sd, tar, dec0):
+    """Phase 20: the occupancy-grid mode on phase 4's scene and teacher and
+    on the reference's quality sweep, in float32 and in bf16."""
+    c = LEGO_HW / 2
+    K = np.array([[LEGO_FOCAL, 0, c], [0, LEGO_FOCAL, c], [0, 0, 1]],
+                 np.float32)
+    pose = scene["poses"][scene["i_test"][0]]
+    ro, rd = get_rays_np(LEGO_HW, LEGO_HW, K, pose[:3, :4])
+    sweep = _occ_views(OCC_SWEEP_HW, 0.8 * OCC_SWEEP_HW[1],
+                       synthetic.look_at_poses(4, seed=1))
+    launches, shapes = {}, {}
+    for tname, (dtype, kb3, kb2, kb1f, kb1b) in OCC_TYPES.items():
+        cfg = nerf.NeRFConfig(compute_dtype=dtype)
+        bf = dtype == torch.bfloat16
+        peak = PEAK_BF16 if bf else PEAK_3XTF32
+        ex = presets.create_nerf_model_executer(
+            scene=scene, device=dev, use_fused_mlp=True, mlp_config=cfg,
+            learning_rate=LSA_LR, verbose=False)
+        ex.rc = dataclasses.replace(ex.rc, use_occupancy_renders=True,
+                                    use_occupancy_tuning=True)
+        model_c, model_f = ex._split_params(sd)
+        # the solid teacher (no weight noise): phase 4's teacher carries
+        # N(0, 1e-2) noise on every weight, whose density leaks through the
+        # whole box (an open boundary), so the compacted frames are timed on
+        # the solid one, the regime the grid is for
+        solid = synthetic.make_solid_mlp(cfg, device=dev)
+        f32 = lambda m: nerf.params_from_state_dict(
+            nerf.params_to_state_dict(m, ""), "", nerf.NeRFConfig(),
+            device=dev)
+
+        # the main path, counted: compress_model with both flags (the LSA
+        # steps on the occupancy loss, its i_save views through the grid),
+        # the decode's test view and a 400x400 frame of each teacher
+        lsa_dir = os.path.join(OUT, f"occupancy_{tname}")
+        bs = os.path.join(lsa_dir, "bitstream", "lego_occ.nnc")
+        os.makedirs(os.path.dirname(bs))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        nnc_tpu_torch.compress_model(
+            tar, bitstream_path=bs, qp=-20, lsa=True, ioq=False, scene=scene,
+            use_fused_mlp=True, learning_rate=LSA_LR, N_iters=OCC_STEPS,
+            epochs=1, i_save=OCC_STEPS, render_factor=4, mlp_config=cfg,
+            occupancy_renders=True, occupancy_tuning=True, device=dev,
+            verbose=False)
+        torch.cuda.synchronize()
+        t_compress = time.perf_counter() - t0
+        dec = nnc_tpu_torch.decompress_model(bs, verbose=False)
+        psnr_occ = ex.test_model(dec)
+        frames, kb2_calls = {}, []
+        for label, (m_c, m_f) in (("phase 4's teacher", (model_c, model_f)),
+                                  ("solid", (solid, solid))):
+            grid = occupancy.build_occupancy_grid(m_f)
+            run = lambda m_f=m_f, grid=grid: occupancy.render_image_fast(
+                m_f, ro, rd, 2.0, 6.0, ex.rc, grid)
+            with _recorded(render_fused, kb2, kb2_calls):
+                fast = run()
+            t_fast = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                t_fast.append(time.perf_counter() - t0)
+            frames[label] = (m_c, m_f, grid, run, fast, t_fast)
+        counts = _build.launch_counts()
+        mine = {k: counts[k] for k in (kb3, kb2, kb1f, kb1b)}
+        check(all(n > 0 for n in mine.values()) and not any(
+            n for k, n in counts.items() if k not in mine),
+            f"occupancy mode ({tname}) launched {counts}")
+        for k, n in mine.items():
+            launches[k] = launches.get(k, 0) + n
+
+        _psnrs, loss_log = read_result_file(os.path.join(lsa_dir,
+                                                         "result.txt"))
+        moved = max(float(np.abs(dec[k] - dec0[k]).max()) for k in dec0)
+        check(len(loss_log) == OCC_STEPS and np.isfinite(loss_log).all()
+              and os.path.exists(os.path.join(
+                  lsa_dir, f"testset_step{OCC_STEPS}", "003.png"))
+              and np.isfinite(psnr_occ) and psnr_occ > 20.0 and moved > 0.0,
+              f"occupancy LSA ({tname}): {len(loss_log)} losses logged, "
+              f"test PSNR {psnr_occ} dB, decoded weights moved {moved}, or "
+              f"its i_save view is missing")
+        print(f"[20] occupancy mode, {tname}, lego {LEGO_HW}x{LEGO_HW}: "
+              f"compress(lsa, {OCC_STEPS} steps on the occupancy loss, "
+              f"i_save views through the grid) {t_compress:.1f} s, loss "
+              f"{loss_log[0]:.3e} -> {loss_log[-1]:.3e}, decoded weights "
+              f"moved up to {moved:.3e}; test view through the grid "
+              f"{psnr_occ:.4f} dB; launches {mine}")
+
+        # -- after the counts were read: timing of the exact frames, and
+        # every kernel held against its plain version
+        for label, (m_c, m_f, grid, run, fast, t_fast) in frames.items():
+            t_exact = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exact = renderer.render_image(m_c, m_f, ro, rd, 2.0, 6.0,
+                                              ex.rc)
+                torch.cuda.synchronize()
+                t_exact.append(time.perf_counter() - t0)
+            mse = float(np.mean((fast["rgb_map"]
+                                 - exact["rgb_map"].cpu().numpy()) ** 2))
+            n0, n3, chunk0 = _grid_against_plain(
+                f"{tname}, {label}", m_f, grid, dev,
+                f32(m_f) if bf else None)
+            print(f"     {label}: a {LEGO_HW}x{LEGO_HW} frame through the "
+                  f"grid {[f'{t:.4f}' for t in t_fast]} s, exact through the "
+                  f"kernels {[f'{t:.4f}' for t in t_exact]} s, devPSNR "
+                  f"{-10 * math.log10(max(mse, 1e-12)):.2f} dB; grid "
+                  f"occupancy {float(grid.occ.float().mean()):.4f}, open "
+                  f"boundary {grid.open_boundary}; through {kb3} against "
+                  f"its plain version {n0} voxels apart before the "
+                  f"dilation, {n3} after")
+
+        # K-B3 at the sweep's shape: a chunk of 262,144 voxel centres
+        p0, v0 = chunk0
+        if bf:
+            buf, w3 = mlp_fused.packed_bf16_for(solid), \
+                mlp_fused.packed_wg_for(solid)
+            run3 = lambda: mlp_fused.mlp_from_points_bf16(buf, p0, v0,
+                                                          packed_wg=w3)
+            plain3 = lambda: mlp_fused.fused_nerf_mlp_from_points_bf16_plain(
+                buf, p0, v0)
+        else:
+            buf = mlp_fused.pack_weights(solid)
+            w3 = mlp_fused.repack_mma(buf)
+            run3 = lambda: mlp_fused.mlp_from_points(buf, p0, v0, w3)
+            plain3 = lambda: mlp_fused.fused_nerf_mlp_from_points_plain(
+                buf, p0, v0)
+        raw3 = run3()
+        shapes[f"{kb3}, grid sweep"] = {
+            "points": p0.shape[0], "max_abs_err": maxabs(raw3, plain3()),
+            "ms": cuda_ms(run3), "plain_ms": cuda_ms(plain3),
+            **bound(nbytes(w3, p0, v0, raw3), 2 * MLP_MACS * p0.shape[0],
+                    peak)}
+
+        # the solid frame through K-B2 against the same selection through
+        # its plain version (in bf16 also the float32 plain frame)
+        _m_c, m_f, grid, run, fast, _t = frames["solid"]
+        with _kb2_plain():
+            fast_p = run()
+            fast_32 = occupancy.render_image_fast(
+                f32(m_f), ro, rd, 2.0, 6.0, dataclasses.replace(
+                    ex.rc, mlp=nerf.NeRFConfig()), grid) if bf else None
+        if bf:
+            e = held_to_bf16_distance(
+                "occupancy frame rgb (bf16)",
+                *(torch.as_tensor(f["rgb_map"])
+                  for f in (fast, fast_p, fast_32)))
+            frame_err = f"rgb {e[0] / e[2]:.3f} / {e[1] / e[3]:.3f} " \
+                f"(rms / max) of the bf16-to-float32 distance"
+        else:
+            eps = ex.rc.early_term_eps
+            d = {k: maxabs(torch.as_tensor(fast[k]),
+                           torch.as_tensor(fast_p[k]))
+                 for k in ("rgb_map", "acc_map", "depth_map")}
+            check(max(d["rgb_map"], d["acc_map"]) <= 2 * eps
+                  and d["depth_map"] <= 2 * eps * 6.0,
+                  f"occupancy frame against plain K-B2: {d}")
+            frame_err = f"max|d| {d}"
+        # K-B2 at the frame's shape: the solid frame's one launch's inputs
+        check(len(kb2_calls) == 2, f"two frames launched {kb2} "
+              f"{len(kb2_calls)} times")
+        args, kw = kb2_calls[1]
+        run2 = lambda: getattr(render_fused, kb2)(*args, **kw)
+        plain2 = render_fused.fused_render_pass_bf16_plain if bf \
+            else render_fused.fused_render_pass_plain
+        maps2 = run2()[0]
+        needed, computed = _kb2_points(args, m_f)
+        R2, S2 = args[4].shape
+        shapes[f"{kb2}, compacted"] = {
+            "rays": R2, "samples": S2, "points_needed": needed,
+            "points_computed": computed,
+            "max_abs_err": maxabs(maps2, plain2(*args, want_weights=False)[0]),
+            "ms": cuda_ms(run2),
+            "plain_ms": cuda_ms(lambda: plain2(*args, want_weights=False)),
+            **bound(nbytes(args[0] if kw.get("packed_mma") is None
+                           else kw["packed_mma"], *args[1:7], maps2),
+                    2 * MLP_MACS * needed, peak)}
+        print(f"     the solid frame through {kb2} against its plain "
+              f"version: {frame_err}; its launch: {R2} rays x {S2} "
+              f"samples, {needed} points needed, {computed} computed")
+
+        # the reference's quality sweep: devPSNR of the fast render against
+        # the exact one through the kernels, on the solid and the fog
+        # teacher
+        rc_q = renderer.RenderConfig(
+            mlp=cfg, n_samples=64, n_importance=128, white_bkgd=True,
+            use_fused_mlp=True, use_fused_compositing=True)
+        psnr_s, dmax_s, open_s = _dev_psnr(solid, solid, rc_q, sweep)
+        fogs = {}
+        for seeds in OCC_FOG_SEEDS:
+            fog = [synthetic._activate(nerf.init_params(cfg, g), g).to(dev)
+                   for g in (torch.Generator().manual_seed(s)
+                             for s in seeds)]
+            fogs[seeds] = _dev_psnr(*fog, rc_q, sweep)
+        print(f"     quality sweep {OCC_SWEEP_HW[0]}x{OCC_SWEEP_HW[1]}, 4 "
+              f"poses, res {OCC_RES}, {OCC_CANDIDATES} candidates, budget "
+              f"{OCC_BUDGET}, subsample {OCC_SUBSAMPLE}: devPSNR solid "
+              f"{psnr_s:.2f} dB (max |d| {dmax_s:.4f}; the reference "
+              f"{OCC_REF_DEVPSNR['solid']}), open boundary {open_s}; fog "
+              f"teachers (seeds: devPSNR dB, max |d|, open boundary; the "
+              f"reference's fog teacher {OCC_REF_DEVPSNR['fog']}) "
+              + ", ".join(f"{s}: {p:.2f}, {d:.4f}, {o}"
+                          for s, (p, d, o) in fogs.items()))
+        check(psnr_s >= OCC_SOLID_MIN and not open_s
+              and all(o and np.isfinite(p) for p, _d, o in fogs.values()),
+              f"quality sweep ({tname}): solid {psnr_s} dB (bar "
+              f"{OCC_SOLID_MIN}), open boundary {open_s}; fog {fogs}")
+
+        # K-B1 on the occupancy loss's points: one batch of 1,024 training
+        # rays, 32 selected samples each on the tuning grid (dilate 1) of
+        # phase 4's teacher, LSA scales std 0.05
+        grid1 = occupancy.build_occupancy_grid(model_f, dilate=1)
+        b_ro, b_rd, _tgt = ex._make_batcher().next_batch()
+        b_ro, b_rd = (torch.as_tensor(a, device=dev) for a in (b_ro, b_rd))
+        z = occupancy.select_occupied_samples(grid1, b_ro, b_rd, 2.0, 6.0,
+                                              64, 32)[0]
+        n1 = z.numel()
+        pts1 = (b_ro[:, None, :] + b_rd[:, None, :] * z[..., None]) \
+            .reshape(-1, 3)
+        vd1 = (b_rd / torch.linalg.norm(b_rd, dim=-1, keepdim=True))[
+            :, None, :].expand(*z.shape, 3).reshape(-1, 3).contiguous()
+        cot = 1e-3 * torch.randn(n1, 4, device=dev, generator=torch
+                                 .Generator(device=dev).manual_seed(20))
+        tensors = mlp_train_fused._layer_tensors(nerf.init_lsa_scales(
+            ex._split_params(sd)[1], std=0.05,
+            generator=torch.Generator().manual_seed(21)))
+        params, params_t, ls = mlp_train_fused.pack_train(
+            tensors[0::3], tensors[1::3], tensors[2::3])
+        biases = mlp_train_fused.gather_biases(params)
+        packs = (mlp_train_fused.pack_train_bf16 if bf
+                 else mlp_train_fused.pack_train_mma)(tensors[0::3])
+        fwd = mlp_train_fused.mlp_train_fwd_bf16 if bf \
+            else mlp_train_fused.mlp_train_fwd
+        bwd = mlp_train_fused.mlp_train_bwd_bf16 if bf \
+            else mlp_train_fused.mlp_train_bwd
+        fwd_p = mlp_train_fused.mlp_train_fwd_bf16_plain if bf \
+            else mlp_train_fused.mlp_train_fwd_plain
+        bwd_p = mlp_train_fused.mlp_train_bwd_bf16_plain if bf \
+            else mlp_train_fused.mlp_train_bwd_plain
+        run_f = lambda: fwd(params, ls, pts1, vd1, True, packs[0], biases)
+        raw1, ws1 = run_f()
+        run_b = lambda: bwd(params, params_t, ls, pts1, vd1, cot, ws1,
+                            False, packs[1], biases)
+        flat1 = run_b()
+        torch.cuda.synchronize()
+        raw1_p = fwd_p(params, ls, pts1, vd1)
+        flat1_p = bwd_p(params, params_t, ls, pts1, vd1, cot, False)
+        if bf:
+            e = held_to_bf16_distance(
+                "K-B1 bf16 on the occupancy loss's points", raw1, raw1_p,
+                mlp_train_fused.mlp_train_fwd_plain(params, ls, pts1, vd1))
+            gerr = grads_to_bf16_distance(
+                "K-B1 bf16 backward on the occupancy loss's points", flat1,
+                flat1_p, mlp_train_fused.mlp_train_bwd_plain(
+                    params, params_t, ls, pts1, vd1, cot, False), False)
+            kb1_err = f"raw {e[0] / e[2]:.3f} / {e[1] / e[3]:.3f} of the " \
+                f"distance, gradients {gerr}"
+        else:
+            err_raw = maxabs(raw1, raw1_p)
+            err_g, _abs, ok = grad_errors(
+                mlp_train_fused.split_grads(flat1, False),
+                mlp_train_fused.split_grads(flat1_p, False))
+            check(err_raw <= 1e-3 and ok, f"K-B1 on the occupancy loss's "
+                  f"points: raw {err_raw}, gradients {err_g} of their max")
+            kb1_err = f"max|draw| {err_raw:.3e}, gradients {err_g:.3e} of " \
+                f"their max"
+        f_ms, b_ms = cuda_ms(run_f), cuda_ms(run_b)
+        shapes[f"{kb1f}, occupancy loss"] = {
+            "points": n1, "max_abs_err": maxabs(raw1, raw1_p), "ms": f_ms,
+            "plain_ms": cuda_ms(lambda: fwd_p(params, ls, pts1, vd1)),
+            **bound(nbytes(packs[0], ls, biases, pts1, vd1, raw1, ws1),
+                    2 * MLP_MACS * n1, peak)}
+        shapes[f"{kb1b}, occupancy loss"] = {
+            "points": n1, "max_abs_err": maxabs(flat1, flat1_p), "ms": b_ms,
+            **bound(nbytes(packs[1], ls, biases, cot, ws1, flat1),
+                    2 * BWD_MACS * n1, peak)}
+        del ws1
+        # an LSA step on the occupancy loss beside the exact step, in turns
+        ms_occ, ms_exact = [], []
+        for _ in range(2):
+            ms_occ.append(_lsa_run(ex, *ex._split_params(dec0), None,
+                                   grid=grid1)[1])
+            ms_exact.append(_lsa_run(ex, *ex._split_params(dec0), None)[1])
+        shapes[f"LSA step, {tname}"] = {"occupancy_ms": min(ms_occ),
+                                        "exact_ms": min(ms_exact)}
+        print(f"     K-B1 on the occupancy loss's points ({b_ro.shape[0]} "
+              f"rays x 32 = {n1}): {kb1_err}; fwd {f_ms:.3f} ms, bwd "
+              f"{b_ms:.3f} ms; LSA step ({TRAJ_STEPS} steps, in turns) "
+              f"occupancy {[f'{t:.2f}' for t in ms_occ]} ms, exact "
+              f"{[f'{t:.2f}' for t in ms_exact]} ms")
+    print("occupancy shapes: " + json.dumps(shapes))
+    return launches
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2423,6 +2892,9 @@ def run_phases(t_start, seconds):
     del ctx
     launches.update(phase(phase_bf16_tp_slice, dev, scene_ndc, sd_ndc,
                           psnr_ndc16))
+    # (resets the launch counts first)
+    for name, n in phase(phase_occupancy, dev, scene, sd, tar, dec0).items():
+        launches[name] = launches.get(name, 0) + n
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():

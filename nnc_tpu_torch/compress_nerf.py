@@ -12,8 +12,9 @@ and its pipeline (reference: compress_nerf.py:5-63):
   5. convert back to a standard nerf-pytorch .tar
 The device is the one the ``NNC_TPU_TORCH_DEVICE`` environment variable
 names (``cpu`` runs the plain versions of the kernels), else the first CUDA
-device, as the root CLI reads ``JAX_PLATFORMS``. Occupancy mode is not
-ported: its flags set to true raise.
+device, as the root CLI reads ``JAX_PLATFORMS``. ``--occupancy_renders`` /
+``--occupancy_tuning`` run the frame renders / the LSA loss through an
+occupancy grid (``render/occupancy.py``) on the flagship architecture.
 """
 import argparse
 import os

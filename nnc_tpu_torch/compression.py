@@ -17,6 +17,7 @@ device mesh are not ported: asking for them raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from collections import OrderedDict
 
@@ -123,10 +124,6 @@ def compress_model(model_path_or_object,
     must exist."""
     from .framework import tf_io, torch_io
 
-    if occupancy_renders or occupancy_tuning:
-        raise NotImplementedError(
-            "occupancy mode is not ported to nnc_tpu_torch yet (ROADMAP A4)")
-
     if tf_io.is_tef_model(model_path_or_object):
         if isinstance(model_path_or_object, str):
             nnc_mdl, parameters = tf_io.create_NNC_model_instance_from_file(
@@ -188,6 +185,14 @@ def compress_model(model_path_or_object,
             render_factor=render_factor, precrop_iters=precrop_iters,
             precrop_frac=precrop_frac, n_rand=N_rand,
             n_samples=n_samples, n_importance=n_importance, mesh=mesh)
+        if occupancy_renders or occupancy_tuning:
+            # reference: nnc_tpu/compression.py:179-187
+            model_executer.rc = dataclasses.replace(
+                model_executer.rc,
+                use_occupancy_renders=occupancy_renders
+                or model_executer.rc.use_occupancy_renders,
+                use_occupancy_tuning=occupancy_tuning
+                or model_executer.rc.use_occupancy_tuning)
 
     result = compress(
         parameters,

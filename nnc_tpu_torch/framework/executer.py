@@ -6,7 +6,11 @@ render probe (one ray batch), ``test_model`` renders the test views, and
 ``tune_model`` trains the LSA scales (and, for fine-tuning, the biases)
 against the dequantized weights by rendering training rays
 (``train/lsa.py``), checkpointing and rendering the test views at every
-i_save.
+i_save. With ``use_occupancy_renders`` the frame renders, and with
+``use_occupancy_tuning`` the LSA loss, go through an occupancy grid built
+from the fine network (``render/occupancy.py``) where the architecture has
+the kernels (``mlp_fused.supports``); other architectures render and tune
+exactly, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 from ..core.model import ModelExecute
 from ..data.rays import RayBatcher
 from ..models import nerf
-from ..render import renderer
+from ..ops import mlp_fused
+from ..render import occupancy, renderer
 from ..render.rays import get_rays_np, ndc_rays
 from ..train import lsa
 from ..utils.images import write_png
@@ -92,9 +97,26 @@ class NeRFModelExecuter(ModelExecute):
                 nerf.params_from_state_dict(parameters, "model_fine.", cfg,
                                             device=self.device))
 
+    def _occupancy_grid(self, model_c, model_f, **kw):
+        """The grid of occupancy mode, from the fine network (the coarse
+        one without a fine), or None where the architecture has no kernel
+        (reference: executer.py:110-124, :253-270): over the NDC cube for
+        NDC scenes, else over ``scene["aabb"]`` or (-2, 2)^3."""
+        if not mlp_fused.supports(self.rc.mlp):
+            return None
+        if self.scene.get("ndc", False):
+            aabb = ((-1.0,) * 3, (1.0,) * 3)
+        else:
+            aabb = self.scene.get("aabb", ((-2.0,) * 3, (2.0,) * 3))
+        return occupancy.build_occupancy_grid(
+            model_f if model_f is not None else model_c, lo=tuple(aabb[0]),
+            hi=tuple(aabb[1]), **kw)
+
     def _render_poses(self, model_c, model_f, poses, savedir=None,
                       names=None, render_factor=0):
-        """Render camera poses; returns (n, H, W, 3) numpy.
+        """Render camera poses; returns (n, H, W, 3) numpy. With
+        ``use_occupancy_renders`` one grid is built for the call and every
+        pose renders through it (``occupancy.render_image_fast``).
         render_factor > 0 renders at (H//rf, W//rf) with focal/rf
         (reference: run_nerf.py:161-172)."""
         scene = self.scene
@@ -106,6 +128,8 @@ class NeRFModelExecuter(ModelExecute):
             K = K.copy()
             K[0, 0] /= rf; K[1, 1] /= rf; K[0, 2] /= rf; K[1, 2] /= rf
         is_ndc = bool(scene.get("ndc", False))
+        grid = self._occupancy_grid(model_c, model_f) \
+            if self.rc.use_occupancy_renders else None
         rgbs = []
         for i, pose in enumerate(np.asarray(poses)):
             ro, rd = get_rays_np(H, W, K, pose[:3, :4])
@@ -117,10 +141,14 @@ class NeRFModelExecuter(ModelExecute):
                                   torch.as_tensor(ro, device=self.device),
                                   torch.as_tensor(rd, device=self.device))
                 near, far = 0.0, 1.0
-            out = renderer.render_image(model_c, model_f, ro, rd, near, far,
-                                        self.rc, viewdirs=vd,
-                                        device=self.device)
-            rgb = out["rgb_map"].cpu().numpy()
+            if grid is not None:
+                rgb = occupancy.render_image_fast(
+                    model_f if model_f is not None else model_c, ro, rd,
+                    near, far, self.rc, grid, viewdirs=vd)["rgb_map"]
+            else:
+                rgb = renderer.render_image(
+                    model_c, model_f, ro, rd, near, far, self.rc,
+                    viewdirs=vd, device=self.device)["rgb_map"].cpu().numpy()
             rgbs.append(rgb)
             if savedir is not None:
                 name = names[i] if names is not None else i
@@ -214,6 +242,10 @@ class NeRFModelExecuter(ModelExecute):
         if self.resume and basedir_save:
             global_step0, opt_state0 = self._resume_point(
                 basedir_save, model_c, model_f, biases=ft_flag)
+        # occupancy tuning: one grid from the dequantized fine network; per-
+        # ray selection needs no dilation for subsample blocks (dilate=1)
+        occ_grid = self._occupancy_grid(model_c, model_f, dilate=1) \
+            if self.rc.use_occupancy_tuning else None
         ls_c, ls_f, _psnr, _loss, _step, biases = lsa.tune_lsa_scales(
             model_c, model_f, self._make_batcher(), self.rc, scene["near"],
             scene["far"], learning_rate=self.learning_rate,
@@ -223,7 +255,7 @@ class NeRFModelExecuter(ModelExecute):
             seed=self.seed, verbose=self.verbose or verbose,
             save_hook=self._save_hook(basedir_save) if basedir_save else None,
             tune_biases=ft_flag, tune_scales=lsa_flag,
-            opt_state0=opt_state0, mesh=self.mesh)
+            opt_state0=opt_state0, mesh=self.mesh, grid=occ_grid)
 
         as_np = lambda t: t.cpu().numpy()
         lsa_params, ft_params = {}, {}

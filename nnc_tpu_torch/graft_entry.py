@@ -12,10 +12,12 @@ import numpy as np
 import torch
 
 from . import parallel
+from .data import synthetic
 from .models import nerf
 from .ops import mlp_tp_fused
 from .parallel import multi_scene
-from .render import renderer
+from .render import occupancy, renderer
+from .render.rays import get_rays_np
 from .train import lsa
 from .utils.device import resolve_device
 
@@ -89,11 +91,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
        scan and takes them as plain steps;
     3. the tensor-parallel fused MLP over the 'model' axis (K-B6 on CUDA);
     4. the mesh render through the fused kernels, data-sharded;
-    5. joint multi-scene LSA on a ('scene', 'data') mesh, held against the
+    5. an occupancy-mode frame (an all-ones 16^3 grid, 16 candidates, 8
+       samples a ray) with its rows sharded over the mesh, each shard's
+       selection and K-B2 on its device, held against the same frame
+       without a mesh (max |d rgb| 1e-5);
+    6. joint multi-scene LSA on a ('scene', 'data') mesh, held against the
        sequential run of scene 0 (rtol 2e-4, atol 2e-6).
-    The reference's occupancy frame render under a mesh is left out:
-    ``render/occupancy.py`` is not ported (ROADMAP queue A). Every failed
-    check raises."""
+    Every failed check raises."""
     axes = ("data", "model") if n_devices % 2 == 0 and n_devices > 1 \
         else ("data",)
     mesh = parallel.make_mesh(n_devices, axes, devices=devices)
@@ -184,6 +188,30 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     _finite(out["rgb_map"], "the mesh render")
     print(f"dryrun_multichip({n_devices}) fused mesh render OK: rgb "
           f"{tuple(out['rgb_map'].shape)}")
+
+    H, W = 4 * n_devices, 16
+    Kc = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]],
+                  np.float32)
+    ro_f, rd_f = get_rays_np(H, W, Kc,
+                             synthetic.look_at_poses(1, seed=0)[0][:3, :4])
+    grid = occupancy.OccupancyGrid(
+        occ=torch.ones((16, 16, 16), dtype=torch.bool, device=first),
+        lo=(-2.0,) * 3, hi=(2.0,) * 3)
+    rc_occ = renderer.RenderConfig(mlp=mlp_fl, n_samples=8, n_importance=0,
+                                   use_fused_mlp=True,
+                                   use_fused_compositing=True,
+                                   occ_ray_tile=32)
+    frame = lambda **kw: occupancy.render_image_fast(
+        p_fl, ro_f, rd_f, 2.0, 6.0, rc_occ, grid, n_candidates=16, budget=8,
+        subsample=2, row_chunk=H, **kw)["rgb_map"]
+    sharded, single = frame(mesh=render_mesh), frame()
+    _finite(sharded, "the occupancy mesh frame")
+    d_occ = float(np.abs(sharded - single).max())
+    if d_occ > 1e-5:
+        raise RuntimeError(f"dryrun_multichip: the occupancy mesh frame is "
+                           f"{d_occ} off the single-device frame")
+    print(f"dryrun_multichip({n_devices}) occupancy mesh frame OK: rgb "
+          f"{sharded.shape}, max |d| {d_occ:.1e} from one device")
 
     if n_devices % 2 == 0 and n_devices > 1:
         S = 2

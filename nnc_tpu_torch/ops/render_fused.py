@@ -170,6 +170,12 @@ def render_pass_bf16(packed_bf16, rays_o, rays_d, viewdirs, z_vals, dists,
                         queue=True)
 
 
+def ray_tile(config: nerf.NeRFConfig) -> int:
+    """The rays that stop together in K-B2 for ``config``'s compute type."""
+    return RAY_TILE_BF16 if config.compute_dtype == torch.bfloat16 \
+        else RAY_TILE
+
+
 def unpack_maps(maps):
     """Split packed per-ray maps (R, 5) into the render output dict."""
     acc = maps[:, 3]
@@ -181,19 +187,23 @@ def unpack_maps(maps):
 
 def fused_render_pass(model: nerf.NeRF, rays_o, rays_d, viewdirs, z_vals, *,
                       early_term_eps: float = 0.0, ray_flags=None,
-                      r_t: int = 64, dists=None, return_weights: bool = True):
+                      r_t: int = 64, dists=None, return_weights: bool = True,
+                      raw_maps: bool = False):
     """Fully fused deterministic render pass with early termination.
 
     rays_*: (R, 3); z_vals: (R, S), any S. ``ray_flags``: bool (R,) — rays
     whose ``r_t``-tile is all False are skipped (their outputs are 0; the
     caller substitutes). ``dists`` overrides the per-sample integration span
     (entries of 0 contribute nothing). Returns dict(rgb_map, acc_map,
-    depth_map, disp_map[, weights]). ``model.config.compute_dtype`` picks
-    the float32 or the bf16 variant of K-B2."""
+    depth_map, disp_map[, weights]); with ``raw_maps`` the packed per-ray
+    maps (R, 5) [rgb, acc, depth] under "maps" in place of the four maps,
+    for callers that permute rays (one gather, then :func:`unpack_maps`).
+    ``model.config.compute_dtype`` picks the float32 or the bf16 variant of
+    K-B2."""
     bf16 = model.config.compute_dtype == torch.bfloat16
-    ray_tile = RAY_TILE_BF16 if bf16 else RAY_TILE
-    if r_t % ray_tile:
-        raise ValueError(f"r_t must be a multiple of {ray_tile}: {r_t}")
+    tile = ray_tile(model.config)
+    if r_t % tile:
+        raise ValueError(f"r_t must be a multiple of {tile}: {r_t}")
     R, S = z_vals.shape
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     if dists is None:
@@ -220,7 +230,7 @@ def fused_render_pass(model: nerf.NeRF, rays_o, rays_d, viewdirs, z_vals, *,
             PACKS.get(model, "float32", pack_weights), *inputs,
             want_weights=return_weights,
             packed_mma=packed_mma_for(model, z_vals.device))
-    out = unpack_maps(maps)
+    out = {"maps": maps} if raw_maps else unpack_maps(maps)
     if return_weights:
         out["weights"] = weights
     return out

@@ -46,8 +46,11 @@ class RenderConfig:
     """The reference's fields and defaults (nnc_tpu RenderConfig).
     ``fusion_sample_block`` and the ``occ_*`` tiles are the TPU kernels'
     block sizes; the port's K-B2 walks samples in blocks of
-    ``render_fused.SAMPLE_BLOCK``. ``fusion_ray_tile`` is the culling
-    granularity of the fine pass."""
+    ``render_fused.SAMPLE_BLOCK`` and occupancy mode culls at its ray tile.
+    ``fusion_ray_tile`` is the culling granularity of the fine pass.
+    ``use_occupancy_renders`` sends the executer's frame renders, and
+    ``use_occupancy_tuning`` its LSA loss, through the occupancy grid
+    (``render/occupancy.py``, ``train/lsa.double_mse_loss_occ``)."""
     mlp: nerf.NeRFConfig = dataclasses.field(default_factory=nerf.NeRFConfig)
     n_samples: int = 64
     n_importance: int = 128
@@ -74,10 +77,9 @@ class RenderConfig:
 
 
 def check_supported(rc: RenderConfig) -> None:
-    """Raise for the render options that are not ported yet."""
-    if rc.use_occupancy_renders or rc.use_occupancy_tuning:
-        raise NotImplementedError("not ported to nnc_tpu_torch yet: "
-                                  "occupancy mode (ROADMAP A4)")
+    """Raise for a render option the port does not run. Every option of
+    :class:`RenderConfig` runs, occupancy mode (``render/occupancy.py``)
+    included, so nothing raises."""
 
 
 def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,

@@ -3,11 +3,13 @@ and backpropagating photometric MSE through the volume renderer.
 
 Counterpart of ``nnc_tpu/train/lsa.py`` (reference hot loop: run_nerf.py:
 685-799; loss at :741-752; scale-only grads: pytorch_model/__init__.py:
-1129-1145), without the occupancy loss. The TPU package batches steps into
+1129-1145). The TPU package batches steps into
 one ``lax.scan`` call to amortise dispatch; here each step is a plain
 iteration: render the batch coarse then fine (the MLP through kernel pair
 K-B1 with ``use_fused_train``), the double MSE loss, backward, one Adam
-update of the trained tensors.
+update of the trained tensors. With an occupancy ``grid`` the loss is
+:func:`double_mse_loss_occ`: both networks integrate the grid-selected
+samples instead of the hierarchical sweep.
 
 With a ``mesh`` (``parallel.Mesh``) the step is data-parallel: the ray batch
 and its random draws, drawn once for the whole batch, are split over the
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 from .. import parallel
-from ..render import renderer
+from ..render import occupancy, renderer
+from ..render.volume import raw2outputs
 from ..utils.logging import ResultLogger, mse2psnr
 
 BETAS = (0.9, 0.999)
@@ -57,6 +60,54 @@ def double_mse_loss(model_c, model_f, rays_o, rays_d, viewdirs, target, near,
     if "rgb0" in out:
         loss = loss + torch.mean((out["rgb0"] - target) ** 2)
     return loss, img_loss
+
+
+def double_mse_loss_occ(model_c, model_f, rays_o, rays_d, viewdirs, target,
+                        near, far, rc: renderer.RenderConfig, grid,
+                        n_candidates: int = 64, budget: int = 32,
+                        draws: Optional[dict] = None,
+                        generator: Optional[torch.Generator] = None):
+    """Occupancy-accelerated LSA loss (reference: nnc_tpu/train/lsa.py:
+    56-100): the rays' samples are selected on ``grid`` without gradient
+    (``budget`` of ``n_candidates`` a ray, render/occupancy.py), and both
+    networks integrate the SAME z with ``raw2outputs(dists=)``, their MLP
+    on the training route (K-B1 with ``use_fused_train``). Returns (loss,
+    img_loss) as :func:`double_mse_loss`. ``draws``: optional ``noise0`` /
+    ``noise1`` (R, budget), the raw noise of the coarse / fine network; the
+    rest come from ``generator``, in that order."""
+    if viewdirs is None:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    with torch.no_grad():
+        z, dists, _ = occupancy.select_occupied_samples(
+            grid.to(rays_o.device), rays_o, rays_d, near, far, n_candidates,
+            budget)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    noise = dict(draws or {})
+    if rc.raw_noise_std > 0:
+        for k in ("noise0", "noise1"):
+            if noise.get(k) is None:
+                noise[k] = torch.randn(z.shape, generator=generator,
+                                       device=z.device)
+
+    def one(model, key):
+        raw = renderer._query_mlp(model, pts, viewdirs, rc, allow_fused=False)
+        return raw2outputs(raw, z, rays_d, rc.raw_noise_std, rc.white_bkgd,
+                           noise=noise.get(key), dists=dists)["rgb_map"]
+
+    fine = model_f if model_f is not None else model_c
+    img_loss = torch.mean((one(fine, "noise1") - target) ** 2)
+    loss = img_loss + torch.mean((one(model_c, "noise0") - target) ** 2)
+    return loss, img_loss
+
+
+def occ_step_draws(n_rays: int, rc: renderer.RenderConfig, budget: int,
+                   generator: torch.Generator, device=None) -> dict:
+    """The random draws of one :func:`double_mse_loss_occ` of ``n_rays``
+    rays, in the order in which it takes them from a generator."""
+    if rc.raw_noise_std <= 0:
+        return {}
+    return {k: torch.randn((n_rays, budget), generator=generator,
+                           device=device) for k in ("noise0", "noise1")}
 
 
 def make_lr_schedule(lr: float, decay: float, steps_per_epoch: int,
@@ -134,13 +185,15 @@ def make_places(mesh, model_c, model_f, tune_scales=True, tune_biases=False):
     return places, others
 
 
-def sharded_loss_backward(places, batch, near, far, rc, draws: dict):
+def sharded_loss_backward(places, batch, near, far, rc, draws: dict,
+                          loss_fn=double_mse_loss):
     """One data-parallel loss and backward. ``batch``: (rays_o, rays_d,
     viewdirs, target) of the whole step on the first device, ``draws`` its
     random draws; both are split in ray order into equal parts over
     ``places``. Every shard's gradient, scaled to the mean over the shards,
-    is accumulated in its replica's ``.grad``. Returns the mean (loss,
-    img_loss), detached, on the first device."""
+    is accumulated in its replica's ``.grad``. ``loss_fn``:
+    :func:`double_mse_loss` or a loss of its signature. Returns the mean
+    (loss, img_loss), detached, on the first device."""
     n = len(places)
     n_rays = batch[0].shape[0]
     if n_rays % n:
@@ -150,7 +203,7 @@ def sharded_loss_backward(places, batch, near, far, rc, draws: dict):
     total = None
     for i, (d, m_c, m_f) in enumerate(places):
         cut = lambda t: t[i * part:(i + 1) * part].to(d)
-        loss, img_loss = double_mse_loss(
+        loss, img_loss = loss_fn(
             m_c, m_f, *(cut(t) for t in batch), near, far, rc,
             draws={k: cut(v) for k, v in draws.items()})
         (loss / n).backward()
@@ -186,7 +239,8 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                     global_step0=0, seed=451, verbose=True, save_hook=None,
                     tune_biases=False, tune_scales=True, opt_state0=None,
                     draws: Optional[Callable[[int], dict]] = None,
-                    mesh: Optional[parallel.Mesh] = None):
+                    mesh: Optional[parallel.Mesh] = None, grid=None,
+                    occ_candidates: int = 64, occ_budget: int = 32):
     """Run the full LSA optimization on the models' own tensors (trained in
     place). Returns (ls_c, ls_f, mean_psnr, mean_loss (of the last epoch),
     global_step, biases): ``ls_*`` as {layer name: (out,)}, ``biases`` as
@@ -201,7 +255,9 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     ``global_step0`` offsets the schedule. ``draws(i)`` gives the random
     draws of this call's i-th step (0-based) in place of the generator's.
     ``mesh``: run each step data-parallel over its 'data' devices (see the
-    module docstring); the models must be on the first of them.
+    module docstring); the models must be on the first of them. ``grid``
+    (an ``occupancy.OccupancyGrid``): train on :func:`double_mse_loss_occ`
+    with ``occ_candidates`` / ``occ_budget``.
     """
     device = model_c.device
     trained = trained_tensors(model_c, model_f, tune_scales, tune_biases)
@@ -224,6 +280,11 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     schedule = make_lr_schedule(learning_rate, learning_rate_decay, n_iters,
                                 offset=offset)
     generator = torch.Generator(device=device).manual_seed(seed)
+    loss_fn = double_mse_loss
+    if grid is not None:
+        loss_fn = lambda *a, **kw: double_mse_loss_occ(
+            *a, grid=grid, n_candidates=occ_candidates, budget=occ_budget,
+            **kw)
     logger = ResultLogger(basedir_save) if basedir_save else None
 
     def get_batch():
@@ -247,16 +308,19 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
             optimizer.zero_grad(set_to_none=True)
             step_draws = None if draws is None else draws(step)
             if places is None:
-                loss, img_loss = double_mse_loss(
+                loss, img_loss = loss_fn(
                     model_c, model_f, ro, rd, vd, tgt, near, far, rc,
                     draws=step_draws, generator=generator)
                 loss.backward()
             else:
-                step_draws = {**renderer.step_draws(ro.shape[0], rc,
-                                                    generator, device),
-                              **(step_draws or {})}
+                made = renderer.step_draws(ro.shape[0], rc, generator,
+                                           device) if grid is None else \
+                    occ_step_draws(ro.shape[0], rc, occ_budget, generator,
+                                   device)
+                step_draws = {**made, **(step_draws or {})}
                 loss, img_loss = sharded_loss_backward(
-                    places, (ro, rd, vd, tgt), near, far, rc, step_draws)
+                    places, (ro, rd, vd, tgt), near, far, rc, step_draws,
+                    loss_fn)
                 reduce_grads(trained, others)
             optimizer.step()
             if others:

@@ -6,7 +6,10 @@ hyperparameters (reference: framework/applications/utils/train_nerf.py:37-70):
     N_importance=128, N_rand=1024, half_res, near 2 / far 6
   llff (fern): factor=8, llffhold=8, N_rand=1024, N_samples=64,
     N_importance=64, raw_noise_std=1.0, NDC near 0 / far 1
-The dataset loaders are the port's own ``data.blender`` and ``data.llff``.
+  deepvoxels (the scene in $NNC_TPU_DV_SHAPE, default greek): near / far
+    1 around the mean camera radius; LINEMOD: the split files' near / far
+The dataset loaders are the port's own ``data.blender``, ``data.llff``,
+``data.deepvoxels`` and ``data.linemod``.
 """
 from __future__ import annotations
 
@@ -88,9 +91,49 @@ def load_scene(dataset_type: str, data_dir: str = None, half_res=True,
             "n_importance": 64,
             "dataset_type": "llff",
         }
-    raise ValueError(f"dataset_type '{dataset_type}' is not ported to "
-                     "nnc_tpu_torch (expected 'blender' or 'llff', or pass "
-                     "scene=...)")
+    if dataset_type == "deepvoxels":
+        from ..data.deepvoxels import load_dv_data
+        images, poses, render_poses, hwf, i_split = load_dv_data(
+            scene=os.environ.get("NNC_TPU_DV_SHAPE", "greek"),
+            basedir=data_dir, testskip=testskip)
+        i_train, _i_val, i_test = i_split
+        hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+        H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+        return {
+            "images": images[..., :3].astype(np.float32),
+            "poses": poses[:, :3, :4],
+            "render_poses": render_poses[:, :3, :4],
+            "K": _intrinsics(H, W, focal), "H": H, "W": W,
+            "i_train": i_train, "i_test": i_test,
+            "near": hemi_r - 1.0, "far": hemi_r + 1.0,
+            "white_bkgd": False, "ndc": False,
+            "batching_mode": "image",
+            "raw_noise_std": 0.0,
+            "n_importance": 128,
+            "dataset_type": "deepvoxels",
+        }
+    if dataset_type == "LINEMOD":
+        from ..data.linemod import load_LINEMOD_data
+        images, poses, render_poses, hwf, K, i_split, near, far = \
+            load_LINEMOD_data(data_dir, half_res=half_res, testskip=testskip)
+        i_train, _i_val, i_test = i_split
+        H, W = int(hwf[0]), int(hwf[1])
+        return {
+            "images": images[..., :3].astype(np.float32),
+            "poses": poses[:, :3, :4],
+            "render_poses": np.asarray(render_poses)[:, :3, :4],
+            "K": np.asarray(K, np.float32), "H": H, "W": W,
+            "i_train": i_train, "i_test": i_test,
+            "near": float(near), "far": float(far),
+            "white_bkgd": False, "ndc": False,
+            "batching_mode": "image",
+            "raw_noise_std": 0.0,
+            "n_importance": 128,
+            "dataset_type": "LINEMOD",
+        }
+    raise ValueError(f"dataset_type '{dataset_type}' is not implemented "
+                     "(expected 'blender', 'llff', 'deepvoxels', 'LINEMOD', "
+                     "or pass scene=...)")
 
 
 def load_scene_from_config(config_path: str, data_dir: str = None):

@@ -1305,3 +1305,175 @@ def test_cuda_fused_nerf_mlp_tp_bf16_matches_dense(cuda_device, m):
     with torch.no_grad():
         assert torch.equal(mlp_tp_fused.fused_nerf_mlp_tp(twin, pe, ve, mesh),
                            got)
+
+
+# occupancy mode (render/occupancy.py): the grid swept through K-B3, compacted
+# rays through K-B2, the occupancy LSA loss through K-B1. Each against the
+# same work through the plain versions, swapped in on the CUDA tensors; the
+# grid may differ only at a threshold tie (|d sigma| within K-B3's 3e-5, or
+# in bf16 within the sweep's bf16-to-float32 distance), the maps and the
+# gradients by the bars above.
+def _plain_kb3(monkeypatch):
+    for name, plain in (
+            ("mlp_from_points", mlp_fused.fused_nerf_mlp_from_points_plain),
+            ("mlp_from_points_bf16",
+             mlp_fused.fused_nerf_mlp_from_points_bf16_plain)):
+        monkeypatch.setattr(mlp_fused, name,
+                            lambda packed, pts, dirs, _p=plain, **_kw:
+                            _p(packed, pts, dirs))
+
+
+def _sigma(model, res):
+    axes = (torch.arange(res, dtype=torch.float32) + 0.5) * 4.0 / res - 2.0
+    pts = torch.stack(torch.meshgrid(axes, axes, axes, indexing="ij"),
+                      -1).reshape(-1, 3).to(model.device)
+    vd = torch.zeros_like(pts)
+    vd[:, 2] = 1.0
+    return torch.relu(mlp_fused.fused_nerf_mlp_from_points(model, pts,
+                                                           vd)[:, 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_cuda_occupancy_grid_matches_plain(cuda_device, bf16, monkeypatch):
+    """The solid teacher without weight noise (noise on its weights leaks
+    density through the whole box)."""
+    from nnc_tpu_torch.render import occupancy
+    model = synthetic.make_solid_mlp(device=cuda_device)
+    twin = _bf16_twin(model) if bf16 else model
+    res = 64
+    before = _build.launch_counts()
+    grid = occupancy.build_occupancy_grid(twin, res=res, chunk=65_536)
+    name = "mlp_from_points_bf16" if bf16 else "mlp_from_points"
+    assert _build.launch_counts()[name] == before[name] + 4
+    sig_k = _sigma(twin, res)
+    with monkeypatch.context() as mp:
+        _plain_kb3(mp)
+        grid_p = occupancy.build_occupancy_grid(twin, res=res, chunk=65_536)
+        sig_p = _sigma(twin, res)
+        tol = float((sig_p - _sigma(model, res)).abs().max()) if bf16 \
+            else 3e-5
+    assert _build.launch_counts()[name] == before[name] + 5
+    d0 = ((sig_k > 1e-2) != (sig_p > 1e-2)).reshape(res, res, res)
+    if d0.any():
+        assert float((sig_k - sig_p).abs().reshape(d0.shape)[d0].max()) \
+            <= tol
+    assert not ((grid.occ != grid_p.occ) & ~occupancy._dilate(d0, 3)).any()
+    assert (grid.occ_lo, grid.open_boundary) == \
+        (grid_p.occ_lo, grid_p.open_boundary)
+    assert 0.01 < float(grid.occ.float().mean()) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("layout", [None, (64, 64)], ids=["per_ray", "tiled"])
+def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
+                                             monkeypatch):
+    """16 compacted samples a ray, zero-dist tails, rays sorted by their
+    occupied count: K-B2 against its plain version on the same selection.
+    The grid is the solid teacher's; the weights rendered carry noise, so
+    that every product is dense."""
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.render.rays import get_rays_np
+    model = synthetic.make_solid_mlp(noise_std=1e-3, device=cuda_device,
+                                     generator=torch.Generator()
+                                     .manual_seed(7))
+    twin = _bf16_twin(model) if bf16 else model
+    grid = occupancy.build_occupancy_grid(
+        synthetic.make_solid_mlp(device=cuda_device), res=64)
+    K = torch.tensor([[51.2, 0, 32], [0, 51.2, 32], [0, 0, 1]]).numpy()
+    ro, rd = (torch.as_tensor(a.reshape(-1, 3), device=cuda_device)
+              for a in get_rays_np(64, 64, K, synthetic.look_at_poses(1)[0]
+                                   [:3, :4]))
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    rc = lambda m: renderer.RenderConfig(mlp=m.config, white_bkgd=True)
+    run = lambda m: occupancy.render_rays_fast(
+        m, ro, rd, vd, 2.0, 6.0, grid, rc(m), layout=layout)
+    name = "render_pass_bf16" if bf16 else "render_pass"
+    before = _build.launch_counts()[name]
+    got = run(twin)
+    assert _build.launch_counts()[name] == before + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(render_fused, "render_pass",
+                   lambda packed, *a, packed_mma=None, **kw:
+                   render_fused.fused_render_pass_plain(packed, *a, **kw))
+        mp.setattr(render_fused, "render_pass_bf16",
+                   render_fused.fused_render_pass_bf16_plain)
+        want = run(twin)
+        want32 = run(model) if bf16 else None
+    assert _build.launch_counts()[name] == before + 1
+    acc = got["acc_map"]
+    assert 0.05 < float((acc > 0.5).float().mean()) < 0.95
+    if bf16:
+        for k in ("rgb_map", "acc_map"):
+            _held_to_bf16_distance(got[k], want[k], want32[k])
+    else:
+        # the render's early termination is on (1e-4): 2 eps, depth 20 eps
+        eps = rc(model).early_term_eps
+        for k in ("rgb_map", "acc_map"):
+            assert float((got[k] - want[k]).abs().max()) <= 2 * eps, k
+        assert float((got["depth_map"] - want["depth_map"]).abs().max()) \
+            <= 20 * eps
+    assert all(torch.equal(run(twin)[k], got[k]) for k in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_cuda_occupancy_loss_kb1_matches_plain(cuda_device, bf16):
+    """double_mse_loss_occ through K-B1 (use_fused_train) against the same
+    loss through K-B1's plain versions on the same selected points: the loss
+    and the scale gradients of both networks."""
+    import contextlib
+
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.train import lsa
+    grid = occupancy.build_occupancy_grid(
+        synthetic.make_solid_mlp(device=cuda_device), res=64, dilate=1)
+    g = torch.Generator().manual_seed(8)
+    R = 1024
+    ro = (0.1 * torch.randn(R, 3, generator=g)
+          + torch.tensor([0.0, 0.0, 4.0])).to(cuda_device)
+    rd = (0.2 * torch.randn(R, 3, generator=g)
+          + torch.tensor([0.0, 0.0, -1.0])).to(cuda_device)
+    tgt = torch.rand(R, 3, generator=g).to(cuda_device)
+    rc = renderer.RenderConfig(
+        mlp=nerf.NeRFConfig(compute_dtype=torch.bfloat16 if bf16
+                            else torch.float32),
+        white_bkgd=True, use_fused_train=True)
+    names = ("mlp_train_fwd_bf16", "mlp_train_bwd_bf16") if bf16 \
+        else ("mlp_train_fwd", "mlp_train_bwd")
+
+    def grads(plain):
+        models = [_fog_model(cuda_device, seed=s) for s in (1, 2)]
+        models = [_bf16_twin(m) if bf16 else m for m in models]
+        lsa.trained_tensors(*models)
+        stack = contextlib.ExitStack()
+        if plain:
+            mp = stack.enter_context(pytest.MonkeyPatch.context())
+            mp.setattr(mlp_train_fused, "TRAIN_PACKS",
+                       type("NoPacks", (), {"get": lambda *a: None})())
+            mp.setattr(mlp_train_fused, "_fwd",
+                       lambda bf, params, ls, pts, dirs, *a:
+                       (mlp_train_fused._FORMS[bf]["fwd_plain"](
+                           params, ls, pts, dirs), None))
+            mp.setattr(mlp_train_fused, "_bwd",
+                       lambda bf, params, params_t, ls, pts, dirs, g_, ws,
+                       with_dw, *a: mlp_train_fused._FORMS[bf]["bwd_plain"](
+                           params, params_t, ls, pts, dirs, g_, with_dw))
+        with stack:
+            before = _build.launch_counts()
+            loss, _img = lsa.double_mse_loss_occ(*models, ro, rd, None, tgt,
+                                                 2.0, 6.0, rc, grid)
+            loss.backward()
+            launched = {k: _build.launch_counts()[k] - before[k]
+                        for k in names}
+        flat = torch.cat([layer.weight_scaling.grad.reshape(-1)
+                          for m in models for layer in m.layers().values()])
+        return float(loss), flat, launched
+
+    loss_k, flat_k, launched_k = grads(False)
+    loss_p, flat_p, launched_p = grads(True)
+    assert launched_k == {k: 2 for k in names}
+    assert launched_p == {k: 0 for k in names}
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    _grads_close(flat_k, flat_p, "scale gradients")

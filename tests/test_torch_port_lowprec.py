@@ -483,13 +483,16 @@ def test_renderer_embedded_route_reaches_the_kernel_wrapper(flagship,
     assert out.shape == (6, 4, 4)
 
 
-def test_check_supported_refuses_only_occupancy():
+def test_check_supported_passes_every_config():
+    """Every render option is ported, occupancy mode included
+    (tests/test_torch_port_occupancy.py)."""
     for kw in ({"use_int8_mlp": True},
                {"use_int8_mlp": True, "use_fused_mlp": True},
                {"use_fused_mlp": True, "multires": 6},
-               {"use_fused_mlp": True, "multires_views": 2}):
-        trenderer.check_supported(trenderer.RenderConfig(**kw))
-    for kw in ({"use_occupancy_renders": True},
-               {"use_occupancy_tuning": True}):
-        with pytest.raises(NotImplementedError, match="occupancy"):
-            trenderer.check_supported(trenderer.RenderConfig(**kw))
+               {"use_fused_mlp": True, "multires_views": 2},
+               {"use_occupancy_renders": True},
+               {"use_occupancy_tuning": True},
+               {"use_occupancy_renders": True, "use_occupancy_tuning": True,
+                "use_fused_mlp": True, "use_fused_compositing": True}):
+        assert trenderer.check_supported(trenderer.RenderConfig(**kw)) \
+            is None

@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
         "nnc_tpu_torch.__path__, 'nnc_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "for n in ('parallel', 'parallel.multi_scene', 'ops.mlp_tp_fused',"
-        " 'graft_entry', 'tools.bench_train_step', 'tools.tp_mlp_bench'):"
+        " 'graft_entry', 'tools.bench_train_step', 'tools.tp_mlp_bench',"
+        " 'render.occupancy', 'data.deepvoxels', 'data.linemod'):"
         " assert 'nnc_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules if m == 'jax' or "
@@ -55,7 +56,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 46
+    assert int(out.stdout.strip().splitlines()[-1]) >= 49
 
 
 def _imported_modules(path):

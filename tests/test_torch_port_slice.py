@@ -219,15 +219,82 @@ def test_presets_match_jax(tmp_path, kind):
         (scene_j["white_bkgd"], scene_j["n_importance"])
 
 
-def test_compress_model_refuses_unported_stages(tmp_path):
-    """Occupancy mode is not ported; LSA and fine-tuning are
+@pytest.mark.parametrize("kind", ["deepvoxels", "LINEMOD"])
+def test_presets_load_deepvoxels_and_linemod_like_jax(tmp_path, monkeypatch,
+                                                      kind):
+    """The two loaders the port copies (data/deepvoxels.py, data/linemod.py)
+    and their load_scene branches, on fixture trees made as
+    tests/test_data_loaders.py makes them: identical scene dicts and render
+    presets."""
+    from test_data_loaders import make_deepvoxels_tree, make_linemod_tree
+    monkeypatch.setenv("NNC_TPU_DV_SHAPE", "cube")
+    if kind == "deepvoxels":
+        make_deepvoxels_tree(str(tmp_path), n=2, size=512)
+        kw = {"testskip": 1}
+    else:
+        make_linemod_tree(str(tmp_path))
+        kw = {"half_res": False, "testskip": 1}
+    want = jpresets.load_scene(kind, str(tmp_path), **kw)
+    got = tpresets.load_scene(kind, str(tmp_path), **kw)
+    assert set(got) == set(want) and got["dataset_type"] == kind
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                                      err_msg=k)
+    rc_j = jpresets.make_render_config(want)
+    rc_t = tpresets.make_render_config(got)
+    for f in dataclasses.fields(rc_j):
+        if f.name != "mlp":
+            assert getattr(rc_t, f.name) == getattr(rc_j, f.name), f.name
+
+
+def _recorded_grids(monkeypatch):
+    """The port's occupancy grids built at res 16; their dilations are
+    recorded."""
+    from nnc_tpu_torch.render import occupancy as tocc
+    built, orig = [], tocc.build_occupancy_grid
+
+    def small(*a, **kw):
+        built.append(kw.get("dilate", 3))
+        return orig(*a, **{**kw, "res": 16})
+
+    monkeypatch.setattr(tocc, "build_occupancy_grid", small)
+    return built
+
+
+def test_compress_model_runs_occupancy_stages(tmp_path, monkeypatch):
+    """Both occupancy flags run through compress_model(lsa=True) on the
+    CPU: the flagship's executer tunes on a grid built with dilate 1 and
+    renders its i_save views through grids built with dilate 3
+    (tests/test_torch_port_occupancy.py holds the mode against the
+    reference); the narrow net has no kernel, so it renders and tunes
+    exactly, as in the reference. LSA and fine-tuning are ported
     (tests/test_torch_port_train.py), and so is a device mesh
     (tests/test_torch_port_parallel.py)."""
+    from nnc_tpu_torch.data import synthetic as tsynthetic
+    built = _recorded_grids(monkeypatch)
+    flags = dict(occupancy_renders=True, occupancy_tuning=True, lsa=True,
+                 device="cpu", verbose=False, N_iters=1, epochs=1,
+                 N_rand=16)
+    mlp = tnerf.NeRFConfig()
+    rc = trenderer.RenderConfig(mlp=mlp, n_samples=8, n_importance=4,
+                                chunk=64)
+    scene, teachers = tsynthetic.make_scene(n_images=2, H=8, W=8, mlp=mlp,
+                                            rc=rc, seed=3)
+    sd = tnerf.params_to_state_dict(teachers[0], "model.")
+    sd.update(tnerf.params_to_state_dict(teachers[1], "model_fine."))
+    (tmp_path / "flagship" / "bitstream").mkdir(parents=True)
+    nnc_tpu_torch.compress_model(
+        sd, bitstream_path=str(tmp_path / "flagship" / "bitstream" / "x.nnc"),
+        scene=scene, i_save=1, n_samples=8, n_importance=4, **flags)
+    assert built[0] == 1 and len(built) > 1 and set(built[1:]) == {3}
+    assert len(list((tmp_path / "flagship" / "testset_step1")
+                    .glob("*.png"))) == len(scene["i_test"])
+
     scene, sd = _scene("inward")
-    for kw in ({"occupancy_renders": True}, {"occupancy_tuning": True}):
-        with pytest.raises(NotImplementedError):
-            nnc_tpu_torch.compress_model(
-                sd, bitstream_path=str(tmp_path / "x.nnc"), ioq=True,
-                lsa=True, scene=scene, device="cpu", verbose=False, **kw)
+    n_built = len(built)
+    nnc_tpu_torch.compress_model(
+        sd, bitstream_path=str(tmp_path / "x.nnc"), scene=scene, i_save=0,
+        **flags)
+    assert len(built) == n_built
     _ex_j, ex_t = _executers(scene)
     assert ex_t.has_tune_lsa() and ex_t.has_tune_ft()

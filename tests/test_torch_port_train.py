@@ -550,17 +550,41 @@ def test_cli_lsa_subprocess_on_cpu(tmp_path):
                for k in plain if k.endswith(".weight")) > 0.0
 
 
-def test_cli_refuses_occupancy(tmp_path, monkeypatch):
-    model = tnerf.NeRF(MLP_T)
+def test_cli_runs_occupancy(tmp_path, monkeypatch):
+    """The CLI with --occupancy_renders true --occupancy_tuning true on a
+    flagship checkpoint and a blender tree: one LSA step on the occupancy
+    loss, the step's test views and spiral through the grid (its grids
+    built at res 16 here), the bitstream and the reconstructed .tar."""
+    from test_data_loaders import make_blender_tree
+    from nnc_tpu_torch.render import occupancy as tocc
+    built, orig = [], tocc.build_occupancy_grid
+    monkeypatch.setattr(tocc, "build_occupancy_grid", lambda *a, **kw: (
+        built.append(kw.get("dilate", 3)), orig(*a, **{**kw, "res": 16}))[1])
+    data_dir = tmp_path / "blender"
+    data_dir.mkdir()
+    make_blender_tree(str(data_dir), n=2, size=16)
+    g = torch.Generator().manual_seed(1)
+    model = tsynthetic._activate(tnerf.init_params(tnerf.NeRFConfig(), g), g)
     sd = tnerf.params_to_state_dict(model, "model.")
     sd.update(tnerf.params_to_state_dict(model, "model_fine."))
     cku.wrapper_dict_to_nerf_tar(sd, str(tmp_path / "x.tar"))
     args = tcli.build_parser().parse_args(
-        ["--ckpt_path", str(tmp_path / "x.tar"), "--base_path_to_save",
-         str(tmp_path / "runs"), "--occupancy_renders", "true"])
+        ["--ckpt_path", str(tmp_path / "x.tar"), "--ckpt_nickname", "x",
+         "--base_path_to_save", str(tmp_path / "runs"),
+         "--dataset_path", str(data_dir), "--occupancy_renders", "true",
+         "--occupancy_tuning", "true", "--qp", "-20", "--lsa", "true",
+         "--epochs", "1", "--N_iters", "1", "--i_save", "1",
+         "--N_rand", "16", "--n_samples", "4", "--n_importance", "2",
+         "--render_factor", "2"])
     monkeypatch.setenv("NNC_TPU_TORCH_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        tcli.main(args)
+    tcli.main(args)
+    assert built[0] == 1 and len(built) == 3 and built[1:] == [3, 3]
+    (run,) = list((tmp_path / "runs").iterdir())
+    assert list((run / "bitstream").glob("*.nnc"))
+    assert list((run / "testset_step1").glob("*.png"))
+    (rec_tar,) = list((run / "reconstructed").glob("*_reconstructed.tar"))
+    wrapper, _ = cku.nerf_tar_to_wrapper_dict(str(rec_tar))
+    assert set(wrapper) == set(sd)
 
 
 # PNG writer -----------------------------------------------------------------
