@@ -141,14 +141,28 @@ Phases:
      kernels, at least 47.0 dB on the solid teacher (the reference's 47.19),
      four fog teachers' beside the reference's 33.23 with their open
      boundary detected; an LSA step on the occupancy loss timed beside the
-     exact one.
+     exact one;
+ 21. the reference's multi-step LSA call on phase 7's scene, in float32 and
+     in bf16, on the exact loss and on the occupancy loss (phase 20's
+     tuning grid): tune_lsa_scales over 24 steps with i_save 10 at
+     steps_per_call=8 (two full calls, each one replay of a CUDA graph of 8
+     steps through K-B1) and at steps_per_call=1, the scales equal bit for
+     bit and K-B1's launches counted with the graph's replays and its
+     warm-up step; then each route timed in turns (8, 1, 1, 8) over 32
+     steps by tools/lsa_profile.measure: step ms, device-busy ms and idle
+     share under torch.profiler, the graph's capture s and pool MB, beside
+     the card's name and power limit.
+Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
+of 8: a run's first full call captures its graph after one warm-up step,
+whose K-B1 launches count (lsa.WARMUP_STEPS).
 The launch counts are reset just before each path and read just after it:
 phases 4-5 (the render path), phase 7 (the LSA path), the two renders of
 phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
 the two test_model renders and the compression of phase 15, the
 compression and the three bench_train_step runs of phase 17, phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run,
-and phase 20's compression, test view and frames, per type.
+phase 20's compression, test view and frames, per type, and each of phase
+21's runs.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
@@ -182,7 +196,7 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import occupancy, renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import bench_train_step, tp_mlp_bench
+from nnc_tpu_torch.tools import bench_train_step, lsa_profile, tp_mlp_bench
 from nnc_tpu_torch.train import lsa, presets
 from nnc_tpu_torch.utils import ckpt
 from nnc_tpu_torch.utils.device import require_cuda
@@ -1434,9 +1448,11 @@ def phase_multi_device(dev, scene, dec0, sets):
     _build.reset_launch_counts()
     ls_4, ms_4 = _lsa_run(ex, *ex._split_params(dec0), draws, mesh=mesh)
     four = _build.launch_counts()
-    check(all(one[k] == 2 * TRAJ_STEPS and four[k] == 4 * one[k]
-              for k in LSA_KERNELS), f"K-B1 launches: one device {one}, "
-          f"mesh {four}")
+    # one device: a graph of 8 steps (its warm-up step launches too) and
+    # two single steps; the mesh runs every step eagerly on 4 shards
+    check(all(one[k] == 2 * (TRAJ_STEPS + lsa.WARMUP_STEPS)
+              and four[k] == 4 * 2 * TRAJ_STEPS for k in LSA_KERNELS),
+          f"K-B1 launches: one device {one}, mesh {four}")
     drift = float((ls_4 - ls_1).abs().max())
     span = float((ls_1 - 1.0).abs().max())
     print(f"[13] data-parallel LSA, {TRAJ_STEPS} steps, N_rand 1024 on mesh "
@@ -2034,6 +2050,9 @@ def _kb1_plain():
         def get(self, *_args):
             return None
 
+        def entries(self):
+            return []
+
     def fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
         return mlp_train_fused._FORMS[bf16]["fwd_plain"](params, ls, pts,
                                                          dirs), None
@@ -2077,11 +2096,12 @@ def phase_lsa_bf16(dev, scene, tar, dec0, sets, ls32, psnr_lsa32):
     torch.cuda.synchronize()
     after = _build.launch_counts()
     _psnrs, loss_log = read_result_file(os.path.join(lsa_dir, "result.txt"))
-    # every training render (coarse and fine of each step) through K-B1
-    # bf16 and none through the float32 pair; the i_save renders and the
+    # every training render (coarse and fine of each step, and of the
+    # warm-up step of the run's CUDA graph) through K-B1 bf16 and none
+    # through the float32 pair; the i_save renders and the
     # test render through K-B2 bf16
     check(counts["mlp_train_fwd_bf16"] == counts["mlp_train_bwd_bf16"]
-          == 2 * steps and counts["mlp_train_fwd"] == 0
+          == 2 * (steps + lsa.WARMUP_STEPS) and counts["mlp_train_fwd"] == 0
           and counts["mlp_train_bwd"] == 0
           and counts["mlp_train_bwd_dw_bf16"] == 0
           and counts["render_pass_bf16"] > 0 and counts["render_pass"] == 0
@@ -2815,6 +2835,8 @@ def phase_occupancy(dev, scene, sd, tar, dec0):
                     2 * MLP_MACS * n1, peak)}
         shapes[f"{kb1b}, occupancy loss"] = {
             "points": n1, "max_abs_err": maxabs(flat1, flat1_p), "ms": b_ms,
+            "plain_ms": cuda_ms(lambda: bwd_p(params, params_t, ls, pts1,
+                                              vd1, cot, False)),
             **bound(nbytes(packs[1], ls, biases, cot, ws1, flat1),
                     2 * BWD_MACS * n1, peak)}
         del ws1
@@ -2833,6 +2855,91 @@ def phase_occupancy(dev, scene, sd, tar, dec0):
               f"{[f'{t:.2f}' for t in ms_exact]} ms")
     print("occupancy shapes: " + json.dumps(shapes))
     return launches
+
+# phase 21: the multi-step LSA call -------------------------------------------
+SCAN_K = 8            # tune_lsa_scales' default steps_per_call
+SCAN_ITERS, SCAN_SAVE = 24, 10   # calls [1, 8, 1, 8, 1 x 6] at K = 8
+SCAN_TIMED = 4 * SCAN_K          # the timed runs: four full calls
+
+
+def phase_scan(dev, scene, sd, dec0, card):
+    """Phase 21: the reference's multi-step LSA call on phase 7's scene, in
+    float32 and bf16, on the exact loss and the occupancy loss: K = 8 steps
+    a call (one replay of a CUDA graph each) against single steps."""
+    rows = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        cfg = nerf.NeRFConfig(compute_dtype=dtype)
+        kb1 = LSA_KERNELS if dtype == torch.float32 else LSA_BF16_KERNELS
+        ex = presets.create_nerf_model_executer(
+            scene=scene, device=dev, use_fused_mlp=True, mlp_config=cfg,
+            learning_rate=LSA_LR, verbose=False)
+        # phase 20's tuning grid: phase 4's fine network, dilated once
+        grid = occupancy.build_occupancy_grid(ex._split_params(sd)[1],
+                                              dilate=1)
+        for loss, g in (("exact", None), ("occupancy", grid)):
+            runs = {}
+            for k in (SCAN_K, 1):
+                stats = {}
+                _build.reset_launch_counts()
+                ls_c, ls_f, *_ = lsa.tune_lsa_scales(
+                    *ex._split_params(dec0), ex._make_batcher(), ex.rc,
+                    scene["near"], scene["far"], learning_rate=LSA_LR,
+                    epochs=1, n_iters=SCAN_ITERS, i_save=SCAN_SAVE,
+                    steps_per_call=k, grid=g, verbose=False, stats=stats)
+                torch.cuda.synchronize()
+                counts = _build.launch_counts()
+                runs[k] = (torch.cat([torch.cat(list(d.values()))
+                                      for d in (ls_c, ls_f)]), counts, stats)
+            (ls8, n8, st8), (ls1, n1, _st1) = runs[SCAN_K], runs[1]
+            calls = [c[0] for c in st8["calls"]]
+            check(calls == [c for e in lsa.call_lengths(
+                1, SCAN_ITERS, SCAN_K, SCAN_SAVE) for c in e]
+                and calls.count(SCAN_K) == 2,
+                f"phase 21 calls at K = {SCAN_K}: {calls}")
+            # the two routes run the same kernels on the same inputs in the
+            # same order, and none of the step's kernels sums with atomics:
+            # the scales must agree bit for bit
+            diff = float((ls8 - ls1).abs().max())
+            check(torch.equal(ls8, ls1),
+                  f"phase 21 ({tname}, {loss}): {SCAN_K} steps a call and "
+                  f"single steps differ by {diff} in the scales")
+            want8 = 2 * (SCAN_ITERS + st8["warmup_steps"])
+            check(all(n8[k] == want8 and n1[k] == 2 * SCAN_ITERS
+                      for k in kb1) and not any(
+                          v for k, v in n8.items() if k not in kb1),
+                  f"phase 21 ({tname}, {loss}) launches: K = {SCAN_K} "
+                  f"{n8}, single steps {n1}")
+            timed = {}
+            for k in (SCAN_K, 1, 1, SCAN_K):
+                m = lsa_profile.measure(
+                    ex, lambda: ex._split_params(dec0), k, SCAN_TIMED, g)
+                timed.setdefault(k, []).append(m)
+            line = []
+            for k, ms in timed.items():
+                best = min(ms, key=lambda m: m["step_ms"])
+                row = {"step_ms": [m["step_ms"] for m in ms],
+                       "busy_ms": best["busy_ms"], "idle": best["idle"],
+                       "launches": {n: n8[n] if k == SCAN_K else n1[n]
+                                    for n in kb1},
+                       "capture_s": st8["capture_s"] if k == SCAN_K else 0.0,
+                       "pool_mb": st8["pool_bytes"] / 2 ** 20
+                       if k == SCAN_K else 0.0}
+                rows[f"{tname}, {loss}, K={k}"] = row
+                steps = ", ".join(f"{t:.3f}" for t in row["step_ms"])
+                line.append(
+                    f"K={k}: step {steps} ms, device busy "
+                    f"{row['busy_ms']:.3f} ms, idle "
+                    f"{100 * row['idle']:.1f}%, K-B1 launches "
+                    f"{row['launches']}, capture {row['capture_s']:.3f} s, "
+                    f"graph pool {row['pool_mb']:.0f} MB")
+            print(f"[21] {tname}, {loss} loss, {SCAN_ITERS} steps "
+                  f"(i_save {SCAN_SAVE}), scales bit-equal across routes; "
+                  f"{SCAN_TIMED}-step runs in turns on {card}: "
+                  + "; ".join(line))
+    print("multi-step LSA: " + json.dumps(rows))
+    return rows
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2895,6 +3002,7 @@ def run_phases(t_start, seconds):
     # (resets the launch counts first)
     for name, n in phase(phase_occupancy, dev, scene, sd, tar, dec0).items():
         launches[name] = launches.get(name, 0) + n
+    phase(phase_scan, dev, scene, sd, dec0, card)
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():

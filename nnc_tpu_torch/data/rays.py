@@ -6,7 +6,9 @@ Two sampling modes mirroring the reference hot loop
     pixels from it (blender path).
   * "pool" (use_batching): precompute rays for all training images, shuffle
     the flat pool, walk it in N_rand slices, reshuffle per epoch (llff path).
-The draw sequence for a seed is the reference's, draw for draw.
+The draw sequence for a seed is the reference's, draw for draw. An "image"
+batch computes its rays at the drawn pixels only (:func:`rays_at_pixels`),
+the same values as the reference's rays of the whole image there.
 """
 from __future__ import annotations
 
@@ -60,8 +62,6 @@ class RayBatcher:
 
         img_i = self.rng.choice(self.i_train)
         target = self.images[img_i]
-        rays_o, rays_d = get_rays_np(self.H, self.W, self.K,
-                                     self.poses[img_i, :3, :4])
         if self._step < self.precrop_iters:
             dH = int(self.H // 2 * self.precrop_frac)
             dW = int(self.W // 2 * self.precrop_frac)
@@ -74,6 +74,22 @@ class RayBatcher:
                                   replace=False)
             ys, xs = sel // self.W, sel % self.W
         self._step += 1
-        return (rays_o[ys, xs].astype(np.float32),
-                rays_d[ys, xs].astype(np.float32),
-                target[ys, xs].astype(np.float32))
+        rays_o, rays_d = rays_at_pixels(ys, xs, self.K,
+                                        self.poses[img_i, :3, :4])
+        return rays_o, rays_d, target[ys, xs].astype(np.float32)
+
+
+def rays_at_pixels(ys, xs, K, c2w):
+    """The rays of :func:`get_rays_np` at the pixels (ys, xs) only, each
+    (n, 3) float32, with get_rays_np's arithmetic, so bit for bit its
+    rays at those pixels."""
+    K = np.asarray(K)
+    c2w = np.asarray(c2w)
+    i = np.asarray(xs).astype(np.float32)
+    j = np.asarray(ys).astype(np.float32)
+    dirs = np.stack([(i - K[0, 2]) / K[0, 0],
+                     -(j - K[1, 2]) / K[1, 1],
+                     -np.ones_like(i)], axis=-1)
+    rays_d = np.sum(dirs[..., None, :] * c2w[:3, :3], axis=-1)
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape).copy()
+    return rays_o.astype(np.float32), rays_d.astype(np.float32)

@@ -86,9 +86,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
        after the tensor-parallel placement of the weights
        (``shard_params_tp``) where the mesh has a 'model' axis. The port has
        no automatic partitioner, so the step itself runs on replicas;
-    2. three more steps on ray batches split by ``shard_scan_inputs``. The
-       reference runs them as one ``lax.scan`` call; the port's loop has no
-       scan and takes them as plain steps;
+    2. three more steps as one call of three steps (``steps_per_call=3``),
+       its (3, N, 12) stack split over the mesh by ``shard_scan_inputs``,
+       as the reference runs them as one ``lax.scan`` call;
     3. the tensor-parallel fused MLP over the 'model' axis (K-B6 on CUDA);
     4. the mesh render through the fused kernels, data-sharded;
     5. an occupancy-mode frame (an all-ones 16^3 grid, 16 candidates, 8
@@ -141,21 +141,16 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
           f"loss={loss:.5f}")
 
     K = 3
-    vd = batch[1] / np.linalg.norm(batch[1], axis=-1, keepdims=True)
-    packed = np.tile(np.concatenate(
-        [batch[0], batch[1], vd, batch[2]], axis=-1)[None], (K, 1, 1))
-    parts = parallel.shard_scan_inputs(mesh, packed)
-    whole = torch.cat([p.to(first) for p in parts], dim=1).cpu().numpy()
-    losses = []
-    for k in range(K):
-        step_batch = tuple(whole[k][:, c:c + 3] for c in (0, 3, 6, 9))
-        out = lsa.tune_lsa_scales(
-            model_c, model_f, _OneBatch(step_batch), rc, 2.0, 6.0, epochs=1,
-            n_iters=1, seed=4 + k, verbose=False, mesh=mesh)
-        losses.append(out[3])
-    _finite(losses, "the losses of the split scan batches")
+    stats = {}
+    out = lsa.tune_lsa_scales(
+        model_c, model_f, _OneBatch(batch), rc, 2.0, 6.0, epochs=1,
+        n_iters=K, seed=4, verbose=False, mesh=mesh, steps_per_call=K,
+        stats=stats)
+    if [c[0] for c in stats["calls"]] != [K]:
+        raise RuntimeError(f"dryrun_multichip: calls {stats['calls']}")
+    _finite(out[3], "the mean loss of the K-step call")
     print(f"dryrun_multichip({n_devices}) {K} steps over shard_scan_inputs "
-          f"OK: losses={[round(v, 5) for v in losses]}")
+          f"OK: one call, mean loss={out[3]:.5f}")
 
     mlp_fl = nerf.NeRFConfig()
     if "model" in mesh.shape:

@@ -10,7 +10,9 @@ and the CUDA stream pass as ``c_void_p``.
 
 Each kernel wrapper adds one to its launch count (:func:`count_launch`)
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. A launch captured in a CUDA graph is
+counted at every replay of the graph instead (:func:`recording_launches`,
+:func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -46,8 +48,39 @@ _lib = None
 _launches = {name: 0 for name in KERNELS}
 
 
+_recording = None   # the counts of a CUDA graph being captured
+
+
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    counts = _launches if _recording is None else _recording
+    counts[name] += 1
+
+
+class _Recording:
+    def __enter__(self):
+        global _recording
+        _recording = collections.Counter()
+        return _recording
+
+    def __exit__(self, *_exc):
+        global _recording
+        _recording = None
+        return False
+
+
+def recording_launches() -> _Recording:
+    """A block for a CUDA graph's capture, which launches nothing: inside
+    it the launches that :func:`count_launch` sees go into the Counter that
+    ``with`` gives, not into the counts, and :func:`add_launches` adds them
+    at every replay."""
+    return _Recording()
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a CUDA graph (``counts``: those
+    recorded while it was captured)."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def launch_counts() -> dict:

@@ -320,6 +320,12 @@ class TrainPackCache:
             self._entries.popitem(last=False)
         return value
 
+    def entries(self) -> list:
+        """The cached buffers, each entry's value: a holder of this list
+        keeps them alive after the cache lets them go (a CUDA graph that
+        read them)."""
+        return [entry[2] for entry in self._entries.values()]
+
 
 TRAIN_PACKS = TrainPackCache()
 

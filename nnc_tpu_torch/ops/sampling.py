@@ -13,11 +13,31 @@ import numpy as np
 import torch
 
 
+_LINSPACE = {}
+
+
 def _linspace01(n: int, device=None) -> torch.Tensor:
     """linspace(0, 1, n) in float32, rounded as the reference's (numpy's and
-    XLA's) linspace rounds it; torch.linspace differs in the last bit."""
-    return torch.from_numpy(np.linspace(np.float32(0.0), np.float32(1.0), n,
-                                        dtype=np.float32)).to(device)
+    XLA's) linspace rounds it; torch.linspace differs in the last bit. Made
+    on the host once per (n, device) and kept there, so that a CUDA graph
+    capturing a training step finds it on the device (a copy from the host
+    cannot be captured). Read it, never write it."""
+    key = (n, torch.device("cpu" if device is None else device))
+    out = _LINSPACE.get(key)
+    if out is None:
+        out = _LINSPACE[key] = torch.from_numpy(np.linspace(
+            np.float32(0.0), np.float32(1.0), n, dtype=np.float32)).to(device)
+    return out
+
+
+def _column(v, n_rays: int, device) -> torch.Tensor:
+    """near or far as (n_rays, 1) float32; a number is filled in on the
+    device, with no copy from the host."""
+    if not torch.is_tensor(v) and np.ndim(v) == 0:
+        return torch.full((n_rays, 1), float(v), dtype=torch.float32,
+                          device=device)
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=device).expand(n_rays, 1)
 
 
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -41,10 +61,7 @@ def stratified_samples(near, far, n_samples: int, n_rays: int,
     """z_vals: (n_rays, n_samples). near/far: scalars or (n_rays, 1).
     ``t_rand`` (n_rays, n_samples) in [0, 1) is the stratified jitter."""
     t_vals = _linspace01(n_samples, device)
-    near = torch.as_tensor(near, dtype=torch.float32,
-                           device=device).expand(n_rays, 1)
-    far = torch.as_tensor(far, dtype=torch.float32,
-                          device=device).expand(n_rays, 1)
+    near, far = (_column(v, n_rays, device) for v in (near, far))
     if lindisp:
         z_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
     else:

@@ -4,7 +4,8 @@ Counterpart of ``nnc_tpu/parallel/multi_scene.py``. The reference stacks the
 scenes' models on a leading axis and ``vmap`` s the loss over it; here a loop
 over the scenes takes its place. The joint loss is the SUM of the per-scene
 losses and one Adam updates every scene's scales: Adam is elementwise, so
-this equals independent per-scene optimizers. On a mesh with axes
+this equals independent per-scene optimizers, which is how it runs here
+(``lsa.Adam`` on each scene's device). On a mesh with axes
 ('scene', 'data') each device group owns one scene's models and splits that
 scene's ray batch over its 'data' devices (``train/lsa.py``'s data-parallel
 step). The reference's ``key_schedule`` becomes :func:`scene_seeds`: every
@@ -73,29 +74,27 @@ def tune_multi_scene(scenes, models_list, rc: renderer.RenderConfig, *,
             places, others = lsa.make_places(row, model_c, model_f)
         generator = torch.Generator(device=model_c.device) \
             .manual_seed(seeds[i])
-        per_scene.append((trained, places, others, generator))
-    optimizer = torch.optim.Adam(
-        [t for trained, *_ in per_scene for t in trained], lr=learning_rate,
-        betas=lsa.BETAS, eps=lsa.EPS)
+        per_scene.append((lsa.Adam(trained), places, others, generator))
 
     img_losses = [None] * S
-    for _it in range(n_iters):
-        optimizer.zero_grad(set_to_none=True)
-        for i, (trained, places, others, generator) in enumerate(per_scene):
+    for it in range(n_iters):
+        hyper = lsa.Adam.hyper(learning_rate, it)
+        for i, (adam, places, others, generator) in enumerate(per_scene):
             device = places[0][0]
             ro, rd, tgt = batchers[i].next_batch()
             vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
-            batch = tuple(torch.as_tensor(a, dtype=torch.float32,
-                                          device=device)
-                          for a in (ro, rd, vd, tgt))
+            batch = torch.as_tensor(np.concatenate([ro, rd, vd, tgt], -1),
+                                    dtype=torch.float32, device=device)
+            for t in adam.trained:
+                t.grad = None
             _loss, img_losses[i] = lsa.sharded_loss_backward(
-                places, batch, scenes[i]["near"], scenes[i]["far"], rc,
-                renderer.step_draws(batch[0].shape[0], rc, generator,
-                                    device))
-            lsa.reduce_grads(trained, others)
-        optimizer.step()
-        for trained, _places, others, _g in per_scene:
-            lsa.broadcast(trained, others)
+                places, lsa.shard_batch(batch, places), scenes[i]["near"],
+                scenes[i]["far"], rc,
+                renderer.step_draws(batch.shape[0], rc, generator, device))
+            lsa.reduce_grads(adam.trained, others)
+            adam.update([t.grad for t in adam.trained],
+                        torch.from_numpy(hyper).to(device))
+            lsa.broadcast(adam.trained, others)
     psnrs = [mse2psnr(float(m)) for m in img_losses]
     if verbose:
         print(f"multi-scene LSA, {S} scenes, {n_iters} steps: last-step "

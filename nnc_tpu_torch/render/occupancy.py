@@ -175,8 +175,7 @@ def _ray_span(grid: OccupancyGrid, rays_o, rays_d, near, far):
         return t0, t1
     for d in range(3):
         o, dd = rays_o[..., d], rays_d[..., d]
-        tiny = torch.where(dd < 0, torch.tensor(-1e-9, **opts),
-                           torch.tensor(1e-9, **opts))
+        tiny = torch.where(dd < 0, -1e-9, 1e-9)
         safe = torch.where(torch.abs(dd) < 1e-9, tiny, dd)
         ta = (grid.occ_lo[d] - o) / safe
         tb = (grid.occ_hi[d] - o) / safe

@@ -12,6 +12,27 @@ import torch
 import torch.nn.functional as F
 
 
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod over the last axis of a tensor with no zero in it, and
+    the backward that torch's own takes for such an input, the reversed
+    cumulative sum of output * grad over the input. torch's backward first
+    reads ``(input == 0).any()`` back to the host to pick its formula, which
+    a CUDA graph's capture cannot do; :func:`raw2outputs`' factors are
+    ``1 - alpha + 1e-10`` and ones, never zero, so the formula is the one
+    torch would pick and the gradients are the same bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
+
+
 def raw2outputs(raw, z_vals, rays_d, raw_noise_std: float = 0.0,
                 white_bkgd: bool = False,
                 noise: Optional[torch.Tensor] = None, dists=None):
@@ -33,9 +54,9 @@ def raw2outputs(raw, z_vals, rays_d, raw_noise_std: float = 0.0,
         sigma = sigma + raw_noise_std * noise
 
     alpha = 1.0 - torch.exp(-F.relu(sigma) * dists)              # (R, S)
-    trans = torch.cumprod(
+    trans = _Cumprod.apply(
         torch.cat([torch.ones_like(alpha[..., :1]),
-                   1.0 - alpha + 1e-10], -1), -1)[..., :-1]
+                   1.0 - alpha + 1e-10], -1))[..., :-1]
     weights = alpha * trans
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

@@ -1477,3 +1477,68 @@ def test_cuda_occupancy_loss_kb1_matches_plain(cuda_device, bf16):
     assert launched_p == {k: 0 for k in names}
     assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
     _grads_close(flat_k, flat_p, "scale gradients")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["exact", "occupancy"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_cuda_lsa_graph_call_equals_eager_call(cuda_device, bf16, loss):
+    """Three calls of 8 LSA steps through K-B1 (flagship width, 256 rays,
+    16 + 16 samples or 32 selected on an occupancy grid): the replays of the
+    CUDA graph that captured the 8 steps against the same calls run
+    eagerly, bit for bit in the losses, the scales and Adam's moments; the
+    graph's launches counted on every replay, plus its warm-up step."""
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.train import lsa
+    R, K = 256, 8
+    rc = renderer.RenderConfig(
+        mlp=nerf.NeRFConfig(compute_dtype=torch.bfloat16 if bf16
+                            else torch.float32),
+        n_samples=16, n_importance=16, raw_noise_std=0.5,
+        use_fused_train=True)
+    names = ("mlp_train_fwd_bf16", "mlp_train_bwd_bf16") if bf16 \
+        else ("mlp_train_fwd", "mlp_train_bwd")
+    grid = occupancy.build_occupancy_grid(
+        synthetic.make_solid_mlp(device=cuda_device), res=64, dilate=1)
+    loss_fn = lsa.double_mse_loss if loss == "exact" else \
+        lambda *a, **kw: lsa.double_mse_loss_occ(*a, grid=grid, **kw)
+    runs = []
+    for graph in (True, False):
+        models = [_fog_model(cuda_device, seed=s) for s in (1, 2)]
+        models = [_bf16_twin(m) if bf16 else m for m in models]
+        adam = lsa.Adam(lsa.trained_tensors(*models))
+        step = lsa.make_train_step(*models, rc, 2.0, 6.0, adam, loss_fn)
+        call = lsa.ScanTrainStep(step, adam, K, R, cuda_device, graph=graph)
+        g = torch.Generator().manual_seed(3)
+        dg = torch.Generator(device=cuda_device).manual_seed(4)
+        before = _build.launch_counts()
+        losses = []
+        for c in range(3):
+            batches = []
+            for _ in range(K):
+                ro = 0.1 * torch.randn(R, 3, generator=g) \
+                    + torch.tensor([0.0, 0.0, 4.0])
+                rd = 0.2 * torch.randn(R, 3, generator=g) \
+                    + torch.tensor([0.0, 0.0, -1.0])
+                vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+                tgt = torch.rand(R, 3, generator=g)
+                batches.append(torch.cat([ro, rd, vd, tgt], -1).numpy())
+            draws = [renderer.step_draws(R, rc, dg, cuda_device)
+                     if loss == "exact" else
+                     lsa.occ_step_draws(R, rc, 32, dg, cuda_device)
+                     for _ in range(K)]
+            host = lsa.pack_call(batches, [lsa.Adam.hyper(1e-3, K * c + j)
+                                           for j in range(K)])
+            losses.append(torch.from_numpy(call(host, draws)))
+        launched = {k: _build.launch_counts()[k] - before[k] for k in names}
+        runs.append((torch.cat(losses), torch.cat(
+            [t.detach().reshape(-1) for t in adam.trained]),
+            adam.m.clone(), adam.v.clone(), launched, call))
+    (*got, launched_g, call_g), (*want, launched_e, _c) = runs
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert call_g.replays == 3 and call_g.captured == {k: 2 * K
+                                                       for k in names}
+    assert launched_e == {k: 2 * 3 * K for k in names}
+    assert launched_g == {k: 2 * (3 * K + lsa.WARMUP_STEPS) for k in names}
+    assert bool(torch.isfinite(got[0]).all()) and call_g.pool_bytes > 0
