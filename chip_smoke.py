@@ -151,7 +151,27 @@ Phases:
      warm-up step; then each route timed in turns (8, 1, 1, 8) over 32
      steps by tools/lsa_profile.measure: step ms, device-busy ms and idle
      share under torch.profiler, the graph's capture s and pool MB, beside
-     the card's name and power limit.
+     the card's name and power limit;
+ 22. the classification side and the JAX-free tools: the registry's
+     NERF_PYT handler for one epoch of 16 LSA steps on phase 7's scene from
+     its no-LSA decode (two CUDA-graph calls through K-B1) under
+     utils/profiling.trace_if, its scales bit-equal to the direct
+     tune_lsa_scales call with the reference's arguments, K-B1's launches
+     2 x (16 + 1 warm-up), the trace holding the annotated region and
+     K-B1's kernels; a ClassificationExecuter at 3072-1024-1024-10 on 4,096
+     seeded samples through compress_model(lsa, ioq, qp=-38) (decoded top1
+     no more than 0.05 under the float model's) and its LSA epochs against
+     the same run on the CPU; a TorchModuleExecuter on a conv net (3x32x32,
+     64 / 128 / 256 channels, the last reflect-padded) through
+     compress_model(lsa, fine_tune), its tuning against the CPU with
+     the executer's float32 convolutions and the difference of one built
+     with allow_tf32 beside it; then the port's tools as their command
+     lines: demo_synthetic --full-mlp --iters 100 (LSA must gain PSNR),
+     rd_sweep --synthetic at 2 qps (finite PSNR, LSA losing none),
+     render_video --synthetic (4 frames, grid route), multi_scene
+     --synthetic (2 scenes, 8 steps, finite PSNR) and profile_codec; the
+     first K-B2 launch of each shape the tools make is held against its
+     plain version.
 Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
 of 8: a run's first full call captures its graph after one warm-up step,
 whose K-B1 launches count (lsa.WARMUP_STEPS).
@@ -161,8 +181,8 @@ phase 10, the tensor-parallel call of phase 12, the runs of phase 13,
 the two test_model renders and the compression of phase 15, the
 compression and the three bench_train_step runs of phase 17, phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run,
-phase 20's compression, test view and frames, per type, and each of phase
-21's runs.
+phase 20's compression, test view and frames, per type, each of phase
+21's runs, and phase 22's NERF_PYT epoch, demo_synthetic and render_video.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
@@ -188,6 +208,8 @@ import nnc_tpu_torch
 from nnc_tpu_torch import coder, graft_entry, parallel
 from nnc_tpu_torch.coder import cabac
 from nnc_tpu_torch.data import synthetic
+from nnc_tpu_torch.data.rays import RayBatcher
+from nnc_tpu_torch.framework import torch_executer, use_cases
 from nnc_tpu_torch.models import nerf
 from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
                                mlp_train_fused, render_fused)
@@ -196,9 +218,12 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import occupancy, renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import bench_train_step, lsa_profile, tp_mlp_bench
-from nnc_tpu_torch.train import lsa, presets
-from nnc_tpu_torch.utils import ckpt
+from nnc_tpu_torch.tools import (bench_train_step, demo_synthetic,
+                                 lsa_profile, profile_codec, rd_sweep,
+                                 render_video, tp_mlp_bench)
+from nnc_tpu_torch.tools import multi_scene as multi_scene_tool
+from nnc_tpu_torch.train import classification, lsa, presets
+from nnc_tpu_torch.utils import ckpt, profiling
 from nnc_tpu_torch.utils.device import require_cuda
 from nnc_tpu_torch.utils.logging import read_result_file
 
@@ -2940,6 +2965,376 @@ def phase_scan(dev, scene, sd, dec0, card):
     print("multi-step LSA: " + json.dumps(rows))
     return rows
 
+NERF_PYT_STEPS = 16   # two full calls of steps_per_call 8
+CLS_DIMS = (3072, 1024, 1024, 10)
+CLS_N = 4096
+CONV_N = 2048
+CLS_BATCH = 256
+# a stated tolerance of a card run against the same run on the CPU: the
+# max and the L2 norm of the difference, each within 1e-2 of how far the
+# CPU run moved the tensors from where they started (phase 7's rule: a
+# wrong gradient term moves a tensor by O(1) of that, float32 reassociation
+# by ~1e-6 of it)
+MOTION_TOL = 1e-2
+
+
+def _against_cpu(what, got, want, start):
+    """got / want / start: flat float64 numpy vectors. Returns the printed
+    comparison; fails beyond MOTION_TOL of the motion."""
+    d, m = got - want, want - start
+    dmax, mmax = float(np.abs(d).max()), float(np.abs(m).max())
+    dl2 = float(np.linalg.norm(d) / np.linalg.norm(m))
+    check(mmax > 0 and dmax <= MOTION_TOL * mmax and dl2 <= MOTION_TOL,
+          f"{what}: the card's run differs from the CPU's by max {dmax} "
+          f"(bound {MOTION_TOL} x {mmax}), L2 {dl2} (bound {MOTION_TOL})")
+    return (f"max |card - cpu| {dmax:.3e} of max motion {mmax:.3e}, L2 "
+            f"{dl2:.3e} of the motion")
+
+
+def _flat(*dicts):
+    return np.concatenate([np.asarray(d[k], np.float64).ravel()
+                           for d in dicts for k in sorted(d)])
+
+
+def _nerf_pyt_phase(dev, scene, dec0, card):
+    """(a) + (d): the NERF_PYT handler's epoch under trace_if against the
+    direct tune_lsa_scales call with the reference's arguments."""
+    rc = presets.make_render_config(scene, use_fused_mlp=True)
+    trace_dir = os.path.join(OUT, "trace_nerf_pyt")
+    sd = dict(dec0)
+    kw = dict(learning_rate=LSA_LR, n_rand=1024)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace_if(trace_dir):
+        with profiling.annotate("nerf_pyt_train"):
+            psnr, loss = use_cases.use_cases["NERF_PYT"]().train(
+                nerf_wrapper=sd, scene=scene, rc=rc, N_iters=NERF_PYT_STEPS,
+                device=dev, **kw)
+    torch.cuda.synchronize()
+    t_handler = time.perf_counter() - t0
+    launches = {k: _build.launch_counts()[k] for k in LSA_KERNELS}
+    check(not any(v for k, v in _build.launch_counts().items()
+                  if k not in LSA_KERNELS),
+          f"the NERF_PYT epoch launched other kernels: "
+          f"{_build.launch_counts()}")
+
+    models = [nerf.params_from_state_dict(dec0, p, rc.mlp, device=dev)
+              for p in ("model.", "model_fine.")]
+    batcher = RayBatcher(scene["images"], scene["poses"], scene["K"],
+                         scene["i_train"], kw["n_rand"],
+                         mode=scene.get("batching_mode", "image"), seed=451)
+    stats = {}
+    ls_c, ls_f, *_ = lsa.tune_lsa_scales(
+        *models, batcher, rc, scene["near"], scene["far"],
+        learning_rate=LSA_LR, learning_rate_decay=0, epochs=1,
+        n_iters=NERF_PYT_STEPS, i_save=0, seed=451, verbose=False,
+        stats=stats)
+    torch.cuda.synchronize()
+    moved = 0.0
+    for prefix, scales in (("model.", ls_c), ("model_fine.", ls_f)):
+        for name, v in scales.items():
+            got = sd[prefix + name + ".weight_scaling"]
+            check(np.array_equal(got, v.cpu().numpy().reshape(-1, 1)),
+                  f"NERF_PYT's {prefix}{name} scales differ from the "
+                  f"direct tune_lsa_scales call's")
+            moved = max(moved, float(np.abs(got - 1.0).max()))
+    check(moved > 0.0, "the NERF_PYT epoch did not move the scales")
+    # lsa's accounting: two K-B1 launches a step (coarse, fine), and the
+    # graph's warm-up step before its capture
+    want = 2 * (NERF_PYT_STEPS + stats["warmup_steps"])
+    check(all(launches[k] == want for k in LSA_KERNELS),
+          f"NERF_PYT's K-B1 launches {launches}, want {want} each")
+    trace_path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    with open(trace_path) as f:
+        trace = f.read()
+    check("nerf_pyt_train" in trace and "mlp_train_fwd_kernel" in trace
+          and "mlp_train_bwd" in trace,
+          "the trace lacks the annotated region or K-B1's kernels")
+    print(f"[22a] NERF_PYT().train at lego geometry, full width, N_rand "
+          f"1024, {NERF_PYT_STEPS} steps on {card}: {t_handler:.2f} s under "
+          f"trace_if, mean PSNR {psnr:.4f} dB, loss {loss:.4e}; scales "
+          f"bit-equal to the direct tune_lsa_scales call, moved up to "
+          f"{moved:.3e}; K-B1 launches {launches} (2 x ({NERF_PYT_STEPS} "
+          f"+ {stats['warmup_steps']} warm-up))")
+    print(f"[22d] trace_if wrote {os.path.getsize(trace_path)} bytes "
+          f"holding the 'nerf_pyt_train' region and "
+          f"mlp_train_fwd_kernel / mlp_train_bwd kernels")
+    return launches
+
+
+def _classifier_phase(dev, card):
+    """(b): ClassificationExecuter at 3072-1024-1024-10 through
+    compress(lsa, ioq) on the card, and its LSA epochs against the CPU."""
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((CLS_N, CLS_DIMS[0])).astype(np.float32)
+    teacher = rng.standard_normal((CLS_DIMS[0], CLS_DIMS[-1]))
+    y = np.argmax(x @ teacher, axis=1)
+    # random ReLU features, the head fitted to the teacher's logits: a
+    # float model with an accuracy for IOQ to keep
+    d, h = {}, x.astype(np.float64)
+    for i, (din, dout) in enumerate(zip(CLS_DIMS[:-2], CLS_DIMS[1:-1])):
+        w = rng.standard_normal((dout, din)) / np.sqrt(din)
+        d[f"fc{i + 1}.weight"], d[f"fc{i + 1}.bias"] = w, np.zeros(dout)
+        h = np.maximum(h @ w.T, 0.0)
+    d["fc3.weight"] = np.linalg.lstsq(h, x @ teacher, rcond=None)[0].T
+    d["fc3.bias"] = np.zeros(CLS_DIMS[-1])
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+
+    def loader():
+        for i in range(0, CLS_N, CLS_BATCH):
+            yield x[i:i + CLS_BATCH], y[i:i + CLS_BATCH]
+
+    layers = ["fc1", "fc2", "fc3"]
+    ex = classification.ClassificationExecuter(
+        classification.mlp_classifier_builder(layers, device=dev), loader,
+        verbose=False)
+    top1_float = ex.eval_model(d)[0]
+    bs = os.path.join(OUT, "classifier_ioq.nnc")
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(d, bitstream_path=bs, qp=-38, lsa=True,
+                                 ioq=True, model_executer=ex,
+                                 task_type="Classification", verbose=False)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    rec = nnc_tpu_torch.decompress(bs, verbose=False)
+    top1_dec = ex.eval_model(rec)[0]
+    check(top1_dec >= top1_float - 0.05,
+          f"classifier IOQ top1 {top1_dec} against float {top1_float}")
+
+    runs = []
+    for device in (dev, "cpu"):
+        cex = classification.ClassificationExecuter(
+            classification.mlp_classifier_builder(layers, device=device),
+            loader, verbose=False)
+        runs.append(cex.tune_model(parameters=d, lsa_flag=True)[0])
+    cmp = _against_cpu("classifier LSA scales", _flat(runs[0]),
+                       _flat(runs[1]), 1.0)
+    print(f"[22b] ClassificationExecuter {'-'.join(map(str, CLS_DIMS))}, "
+          f"{CLS_N} samples in batches of {CLS_BATCH}, 2 epochs on {card}: "
+          f"compress(lsa, ioq, qp=-38) {t_compress:.2f} s, "
+          f"{os.path.getsize(bs)} bytes; top1 float {top1_float:.4f}, "
+          f"decoded {top1_dec:.4f} (bar: no lower than 0.05 under); LSA "
+          f"scales against the CPU run: {cmp}")
+
+
+def _conv_phase(dev, card):
+    """(c): TorchModuleExecuter on a conv net, LSA + FT through
+    compress_model on the card, and its tuning against the CPU with cuDNN's
+    TF32 off (the TF32-on difference printed beside it)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(22)
+        net = torch.nn.Sequential(
+            torch.nn.Conv2d(3, 64, 3, padding=1), torch.nn.ReLU(),
+            torch.nn.Conv2d(64, 128, 3, stride=2, padding=1),
+            torch.nn.ReLU(),
+            torch.nn.Conv2d(128, 256, 3, stride=2, padding=1,
+                            padding_mode="reflect"), torch.nn.ReLU(),
+            torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+            torch.nn.Linear(256, 10))
+    sd = {k: v.numpy().copy() for k, v in net.state_dict().items()}
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((CONV_N, 3, 32, 32)).astype(np.float32)
+    y = np.argmax(x.reshape(CONV_N, -1) @ rng.standard_normal((3072, 10)),
+                  axis=1)
+
+    def loader():
+        for i in range(0, CONV_N, CLS_BATCH):
+            yield x[i:i + CLS_BATCH], y[i:i + CLS_BATCH]
+
+    kw = dict(learning_rate=1e-3, verbose=False)
+    # the executer's own float32 convolutions (its default: TF32 off)
+    ex = torch_executer.TorchModuleExecuter(net, loader, device=dev, **kw)
+    bs = os.path.join(OUT, "conv_lsa_ft.nnc")
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(sd, bitstream_path=bs, qp=-38, lsa=True,
+                                 fine_tune=True, model_executer=ex,
+                                 task_type="Classification", verbose=False)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    rec = nnc_tpu_torch.decompress(bs, verbose=False)
+    check(set(rec) == set(sd) and all(np.isfinite(v).all()
+                                      for v in rec.values()),
+          "the conv net's bitstream does not decode to its tensors")
+    acc = (ex.eval_model(sd)[0], ex.eval_model(rec)[0])
+
+    # the comparison: two batches of one epoch, LSA and FT together
+    cmp_kw = dict(kw, epochs=1, max_batches=2)
+    start = _flat({k: np.ones(v.shape[0]) for k, v in sd.items()
+                   if k.endswith(".weight")},
+                  {k: v for k, v in sd.items() if k.endswith(".bias")})
+    threads = torch.get_num_threads()
+    ex_cpu = torch_executer.TorchModuleExecuter(net, loader, device="cpu",
+                                                **cmp_kw)
+    want = _flat(*ex_cpu.tune_model(parameters=sd, lsa_flag=True,
+                                    ft_flag=True))
+    torch.set_num_threads(threads)   # the CPU executer tunes on one thread
+    got = {}
+    for tf32 in (False, True):
+        ex_card = torch_executer.TorchModuleExecuter(
+            net, loader, device=dev, allow_tf32=tf32, **cmp_kw)
+        got[tf32] = _flat(*ex_card.tune_model(parameters=sd, lsa_flag=True,
+                                              ft_flag=True))
+    cmp = _against_cpu("conv net LSA + FT", got[False], want, start)
+    d_tf32 = float(np.abs(got[True] - want).max())
+    print(f"[22c] TorchModuleExecuter on a conv net (3x32x32 -> 64 -> 128 "
+          f"/2 -> 256 /2 reflect -> pool -> 10), {CONV_N} samples on "
+          f"{card}: compress(lsa, fine_tune, qp=-38) {t_compress:.2f} s, "
+          f"{os.path.getsize(bs)} bytes, decodes; top1 float {acc[0]:.4f}, "
+          f"decoded {acc[1]:.4f}; scales + biases after 2 steps against "
+          f"the CPU (the executer's float32 convolutions): {cmp}; built "
+          f"with allow_tf32: max {d_tf32:.3e}")
+
+
+def _kb2_recorded(records):
+    """Inside the block the first K-B2 render pass of each (compute type,
+    samples, weights) that the renderer or the occupancy mode makes on the
+    card is recorded: its model's tensors and config, its inputs and the
+    maps the kernel gave, for :func:`_kb2_against_plain` after the path's
+    counts were read."""
+    real = render_fused.fused_render_pass
+    copy = lambda v: v.clone() if torch.is_tensor(v) else v
+
+    def record(model, *args, **kw):
+        out = real(model, *args, **kw)
+        key = (str(model.config.compute_dtype).split(".")[-1],
+               args[3].shape[1], kw.get("return_weights", True))
+        if key not in records and args[3].is_cuda:
+            records[key] = (nerf.params_to_state_dict(model, ""),
+                            model.config, [copy(a) for a in args],
+                            {k: copy(v) for k, v in kw.items()},
+                            {k: copy(v) for k, v in out.items()})
+        return out
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(render_fused, "fused_render_pass", record))
+    stack.enter_context(swapped(renderer, "fused_render_pass", record))
+    return stack
+
+
+def _rgb_acc_depth(out):
+    m = out.get("maps")
+    if m is not None:
+        return m[:, :3], m[:, 3], m[:, 4]
+    return out["rgb_map"], out["acc_map"], out["depth_map"]
+
+
+def _kb2_against_plain(records, dev):
+    """Each recorded K-B2 launch against its plain version on the same
+    inputs: float32 at phase 3's bars (with early termination 2 eps for
+    rgb / acc / weights and 2 eps x 6 for depth), bf16 held to the
+    bf16-to-float32 distance as phase 20 holds its frames."""
+    shown = []
+    for (tname, S, want_w), (sd, cfg, args, kw, got) in sorted(
+            records.items()):
+        model = nerf.params_from_state_dict(sd, "", cfg, device=dev)
+        with _kb2_plain():
+            plain = render_fused.fused_render_pass(model, *args, **kw)
+        R = args[3].shape[0]
+        (rgb, acc, depth), (rgb_p, acc_p, depth_p) = (
+            _rgb_acc_depth(o) for o in (got, plain))
+        check(all(torch.isfinite(t).all().item() for t in (rgb, acc, depth)),
+              f"K-B2 {tname} S={S} at a tool's shape: maps not finite")
+        if tname == "bfloat16":
+            model32 = nerf.params_from_state_dict(sd, "", nerf.NeRFConfig(),
+                                                  device=dev)
+            kw32 = dict(kw, r_t=math.lcm(kw.get("r_t", 64),
+                                         render_fused.RAY_TILE))
+            with _kb2_plain():
+                rgb_32 = _rgb_acc_depth(render_fused.fused_render_pass(
+                    model32, *args, **kw32))[0]
+            e = held_to_bf16_distance(f"K-B2 bf16 S={S} at a tool's shape",
+                                      rgb, rgb_p, rgb_32)
+            shown.append(f"bf16 {R} rays S={S}: rgb {e[0] / e[2]:.3f} / "
+                         f"{e[1] / e[3]:.3f} (rms / max) of the "
+                         f"bf16-to-float32 distance")
+            continue
+        eps = kw.get("early_term_eps", 0.0)
+        tol, tol_depth = (1e-5, 1e-4) if eps == 0 else (2 * eps,
+                                                         2 * eps * 6.0)
+        d = {"rgb/acc": max(maxabs(rgb, rgb_p), maxabs(acc, acc_p)),
+             "depth": maxabs(depth, depth_p)}
+        if want_w:
+            d["weights"] = maxabs(got["weights"], plain["weights"])
+        check(d["rgb/acc"] <= tol and d["depth"] <= tol_depth
+              and d.get("weights", 0.0) <= (1e-4 if eps == 0 else tol),
+              f"K-B2 float32 S={S} at a tool's shape, eps {eps}: {d}")
+        shown.append(f"float32 {R} rays S={S} weights={want_w} eps={eps}: "
+                     + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+    return shown
+
+
+def _tools_phase(dev, card):
+    """(e): the port's tools on the card, each run as its command line; the
+    first K-B2 launch of each shape they make is held against its plain
+    version after the run."""
+    launches, kb2 = {}, {}
+
+    def counted(fn, argv, kernels):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _kb2_recorded(kb2):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k in kernels:
+            check(counts[k] > 0, f"{fn.__module__} launched no {k}")
+            launches[k] = launches.get(k, 0) + counts[k]
+        return out, time.perf_counter() - t0, {k: counts[k] for k in kernels}
+
+    demo, t, n = counted(
+        demo_synthetic.main, ["--full-mlp", "--iters", "100", "--out",
+                              os.path.join(OUT, "demo")],
+        LSA_KERNELS + ("render_pass",))
+    print(f"[22e] demo_synthetic --full-mlp --iters 100 on {card}: "
+          f"{t:.1f} s, launches {n}: " + json.dumps(demo))
+    check(np.isfinite([demo["psnr_quantized"], demo["psnr_quantized_lsa"]])
+          .all() and demo["psnr_quantized_lsa"] > demo["psnr_quantized"],
+          f"LSA gained no PSNR in demo_synthetic: {demo}")
+    recs, t, _n = counted(rd_sweep.main, [
+        "--synthetic", "--qps", "-20", "-38", "--lsa-iters", "100", "--out",
+        os.path.join(OUT, "rd")], ())
+    by_qp = {(r["qp"], r["lsa"]): r["psnr"] for r in recs}
+    check(len(recs) == 4 and np.isfinite(list(by_qp.values())).all()
+          and all(by_qp[qp, True] >= by_qp[qp, False] for qp in (-20, -38)),
+          f"rd_sweep records (finite PSNR, LSA losing none): {recs}")
+    print(f"    rd_sweep --synthetic --qps -20 -38 --lsa-iters 100: {t:.1f} "
+          f"s, (qp, lsa, bytes, psnr) " + json.dumps(
+              [(r["qp"], r["lsa"], r["bytes"], r["psnr"]) for r in recs]))
+    video_dir = os.path.join(OUT, "video")
+    path, t, n = counted(render_video.main, [
+        "--synthetic", "--frames", "4", "--out", video_dir],
+        ("mlp_from_points_bf16", "render_pass_bf16"))
+    check(len([f for f in os.listdir(video_dir)
+               if f.startswith("frame_")]) == 4, "render_video's frames")
+    print(f"    render_video --synthetic --frames 4 (grid route, 128x128, "
+          f"bf16): {t:.1f} s with the grid, launches {n}, video {path}")
+    psnrs, t, _n = counted(multi_scene_tool.main, [
+        "--synthetic", "--n-scenes", "2", "--iters", "8"], ())
+    check(len(psnrs) == 2 and np.isfinite(psnrs).all(),
+          f"multi_scene PSNRs {psnrs}")
+    print(f"    multi_scene --synthetic --n-scenes 2 --iters 8: {t:.1f} s, "
+          f"last-step PSNR {psnrs}")
+    rate = profile_codec.main(["--qp", "-20"])
+    print(f"    profile_codec --qp -20 on this machine's host: encode "
+          f"{rate['encode_mb_s']:.1f} MB/s, decode {rate['decode_mb_s']:.1f} "
+          f"MB/s ({rate['raw_bytes']} -> {rate['bitstream_bytes']} bytes)")
+    # demo_synthetic's test views (coarse S=64 with weights, fine S=96) in
+    # float32, render_video's compacted frames in bf16
+    check({k[0] for k in kb2} == {"float32", "bfloat16"},
+          f"the tools' K-B2 launches recorded: {sorted(kb2)}")
+    print("    K-B2 at the tools' shapes against its plain version: "
+          + "; ".join(_kb2_against_plain(kb2, dev)))
+    return launches
+
+
+def phase_tools(dev, scene, dec0, card):
+    """Phase 22: the classification side and the JAX-free tools."""
+    launches = _nerf_pyt_phase(dev, scene, dec0, card)
+    _classifier_phase(dev, card)
+    _conv_phase(dev, card)
+    for name, n in _tools_phase(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3003,6 +3398,9 @@ def run_phases(t_start, seconds):
     for name, n in phase(phase_occupancy, dev, scene, sd, tar, dec0).items():
         launches[name] = launches.get(name, 0) + n
     phase(phase_scan, dev, scene, sd, dec0, card)
+    # (resets the launch counts before each of its paths)
+    for name, n in phase(phase_tools, dev, scene, dec0, card).items():
+        launches[name] = launches.get(name, 0) + n
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():

@@ -17,18 +17,15 @@ device, as the root CLI reads ``JAX_PLATFORMS``. ``--occupancy_renders`` /
 occupancy grid (``render/occupancy.py``) on the flagship architecture.
 """
 import argparse
-import os
 
 import nnc_tpu_torch
 from nnc_tpu_torch.train.presets import load_scene_from_config
 from nnc_tpu_torch.utils import ckpt as utils
-from nnc_tpu_torch.utils.device import resolve_device
-
-DEVICE_ENV = "NNC_TPU_TORCH_DEVICE"
+from nnc_tpu_torch.utils.platform import device_from_env
 
 
 def main(args):
-    device = resolve_device(os.environ.get(DEVICE_ENV) or None)
+    device = device_from_env()
     wrapper_dict, _gstep = utils.nerf_tar_to_wrapper_dict(args.ckpt_path)
 
     scene = None

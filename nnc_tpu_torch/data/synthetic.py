@@ -4,7 +4,10 @@ Counterpart of ``nnc_tpu/data/synthetic.py``: a "teacher" NeRF renders
 ground-truth images, giving a self-consistent scene any student model can be
 compressed and tested against. Random teachers draw from a
 ``torch.Generator``, so their weights differ from the JAX package's for the
-same seed; ``make_solid_mlp`` is deterministic and matches it exactly.
+same seed; ``make_solid_mlp`` is deterministic and matches it exactly. A
+random teacher can hold no density inside the cameras' view (at W=64, seed 0
+every pixel renders 0), so ``make_scene`` / ``make_scene_ndc`` draw the next
+pair from the same generator until every view holds density.
 """
 from __future__ import annotations
 
@@ -86,11 +89,36 @@ def make_solid_mlp(config: Optional[nerf.NeRFConfig] = None,
     return model.to(device)
 
 
-def _random_teachers(mlp, seed):
-    g = torch.Generator().manual_seed(seed)
-    teacher_c = _activate(nerf.init_params(mlp, g), g)
-    teacher_f = _activate(nerf.init_params(mlp, g), g)
+# a random teacher is redrawn while one of its views stops less than this
+# share of the light (mean opacity): such a view renders (almost) black, so
+# any student matches it and its PSNR says nothing
+MIN_VIEW_OPACITY = 0.05
+MAX_TEACHER_DRAWS = 16
+
+
+def _random_teachers(mlp, generator):
+    teacher_c = _activate(nerf.init_params(mlp, generator), generator)
+    teacher_f = _activate(nerf.init_params(mlp, generator), generator)
     return teacher_c, teacher_f
+
+
+def _teachers_and_images(mlp, seed, teachers, render_view, n_images,
+                         device):
+    """``teachers`` (moved to ``device``), or random ones from a generator
+    seeded with ``seed``, redrawn until every view's mean opacity reaches
+    MIN_VIEW_OPACITY; with the (n_images, H, W, 3) images they render.
+    ``render_view(teacher_c, teacher_f, i)`` renders view i."""
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(MAX_TEACHER_DRAWS):
+        tc, tf = teachers or _random_teachers(mlp, g)
+        tc, tf = tc.to(device), tf.to(device)
+        outs = [render_view(tc, tf, i) for i in range(n_images)]
+        opacity = min(float(o["acc_map"].mean()) for o in outs)
+        if teachers or opacity >= MIN_VIEW_OPACITY:
+            images = np.stack([o["rgb_map"].cpu().numpy() for o in outs])
+            return (tc, tf), images.astype(np.float32)
+    raise RuntimeError(f"no random teacher of {mlp} in {MAX_TEACHER_DRAWS} "
+                       f"draws from seed {seed} holds density in every view")
 
 
 def _scene_dict(images, poses, K, H, W, near, far, **extra):
@@ -113,24 +141,24 @@ def make_scene(n_images=4, H=16, W=16, mlp=None, rc=None, seed=0,
                radius=4.0, device=None):
     """Inward-facing scene: cameras on a sphere of ``radius`` around the
     origin. Returns (scene dict, (teacher_c, teacher_f)). ``teachers``
-    replaces the random teachers; ``rc`` renders the ground truth, and its
+    replaces the random teachers, which are redrawn until every view holds
+    density (MIN_VIEW_OPACITY); ``rc`` renders the ground truth, and its
     ``white_bkgd`` is recorded in the scene."""
     mlp = mlp or nerf.NeRFConfig(W=32)
     rc = rc or renderer.RenderConfig(mlp=mlp, n_samples=16, n_importance=8,
                                      chunk=H * W)
-    teacher_c, teacher_f = teachers or _random_teachers(mlp, seed)
-    teacher_c, teacher_f = teacher_c.to(device), teacher_f.to(device)
     focal = 0.8 * W if focal is None else focal
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
                  np.float32)
     poses = look_at_poses(n_images, radius=radius, seed=seed)
-    images = []
-    for i in range(n_images):
+
+    def render_view(teacher_c, teacher_f, i):
         ro, rd = get_rays_np(H, W, K, poses[i, :3, :4])
-        out = renderer.render_image(teacher_c, teacher_f, ro, rd, near, far,
-                                    rc, device=device)
-        images.append(out["rgb_map"].cpu().numpy())
-    images = np.stack(images).astype(np.float32)
+        return renderer.render_image(teacher_c, teacher_f, ro, rd, near, far,
+                                     rc, device=device)
+
+    (teacher_c, teacher_f), images = _teachers_and_images(
+        mlp, seed, teachers, render_view, n_images, device)
     scene = _scene_dict(images, poses, K, H, W, near, far,
                         white_bkgd=rc.white_bkgd)
     return scene, (teacher_c, teacher_f)
@@ -144,8 +172,6 @@ def make_scene_ndc(n_images=4, H=16, W=16, mlp=None, rc=None, seed=0, *,
     mlp = mlp or nerf.NeRFConfig(W=32)
     rc = rc or renderer.RenderConfig(mlp=mlp, n_samples=16, n_importance=8,
                                      chunk=H * W)
-    teacher_c, teacher_f = teachers or _random_teachers(mlp, seed)
-    teacher_c, teacher_f = teacher_c.to(device), teacher_f.to(device)
     focal = 0.9 * W
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
                  np.float32)
@@ -157,16 +183,17 @@ def make_scene_ndc(n_images=4, H=16, W=16, mlp=None, rc=None, seed=0, *,
         poses.append(np.concatenate([np.eye(3, dtype=np.float32),
                                      eye[:, None]], axis=-1))
     poses = np.stack(poses).astype(np.float32)
-    images = []
-    for i in range(n_images):
+
+    def render_view(teacher_c, teacher_f, i):
         ro, rd = get_rays_np(H, W, K, poses[i, :3, :4])
         vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
         ro_n, rd_n = ndc_rays(H, W, focal, 1.0, torch.as_tensor(ro),
                               torch.as_tensor(rd))
-        out = renderer.render_image(teacher_c, teacher_f, ro_n, rd_n, 0.0,
-                                    1.0, rc, viewdirs=vd, device=device)
-        images.append(out["rgb_map"].cpu().numpy())
-    images = np.stack(images).astype(np.float32)
+        return renderer.render_image(teacher_c, teacher_f, ro_n, rd_n, 0.0,
+                                     1.0, rc, viewdirs=vd, device=device)
+
+    (teacher_c, teacher_f), images = _teachers_and_images(
+        mlp, seed, teachers, render_view, n_images, device)
     scene = _scene_dict(images, poses, K, H, W, 0.0, 1.0, ndc=True,
                         dataset_type="synthetic_ndc",
                         white_bkgd=rc.white_bkgd,

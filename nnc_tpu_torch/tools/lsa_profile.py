@@ -44,13 +44,13 @@ import subprocess
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from ..data import synthetic
 from ..models import nerf
 from ..ops import _build, mlp_train_fused
 from ..render import occupancy, renderer
 from ..train import lsa, presets
+from ..utils import profiling
 
 HW = 400
 FOCAL = 0.5 * HW / math.tan(0.5 * 0.6911112070083618)
@@ -122,11 +122,9 @@ def measure(ex, make_models, steps_per_call, n_iters, grid=None,
     launches = {k: after[k] - before[k] for k in after
                 if k.startswith("mlp_train") and after[k] > before[k]}
     prof_stats = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace_if(None) as prof:
         _tune(ex, make_models(), steps_per_call, n_iters, grid, draws,
               prof_stats)
-        torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if _device_time(e) > 0]
     run = n_iters + prof_stats["warmup_steps"]
     busy = sum(_device_time(e) for e in events) / 1e3 / run

@@ -42,7 +42,13 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "for n in ('parallel', 'parallel.multi_scene', 'ops.mlp_tp_fused',"
         " 'graft_entry', 'tools.bench_train_step', 'tools.tp_mlp_bench',"
-        " 'render.occupancy', 'data.deepvoxels', 'data.linemod'):"
+        " 'render.occupancy', 'data.deepvoxels', 'data.linemod',"
+        " 'train.classification', 'framework.torch_executer',"
+        " 'framework.use_cases', 'data.imagenet',"
+        " 'train.evaluation_nerf_mock', 'utils.profiling', 'utils.platform',"
+        " 'tools.demo_synthetic', 'tools.merge_rd', 'tools.rd_sweep',"
+        " 'tools.profile_codec', 'tools.render_video',"
+        " 'tools.multi_scene'):"
         " assert 'nnc_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules if m == 'jax' or "
@@ -56,7 +62,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 49
+    assert int(out.stdout.strip().splitlines()[-1]) >= 68
 
 
 def _imported_modules(path):
