@@ -171,7 +171,21 @@ Phases:
      render_video --synthetic (4 frames, grid route), multi_scene
      --synthetic (2 scenes, 8 steps, finite PSNR) and profile_codec; the
      first K-B2 launch of each shape the tools make is held against its
-     plain version.
+     plain version;
+ 23. the render-side tools in float32 and in bf16, each as its command line
+     at the reference's sizes with RENDER_TOOL_ITERS iterations:
+     bench_render_v2 --check (a 64x128 frame of the solid teacher at 64+128
+     samples through the plain, fused_mlp, fused_noet and fused_et_64x32
+     routes), tune_fast_mode --floor (a 160x256 frame, its 128^3 grid through
+     K-B3, the exact frame through K-B2, four operating points of the
+     occupancy mode) and profile_fast_frame (the stages of a 400x400 frame,
+     K-B2's own time inside it), and profile_fast_frame's stages on phase
+     20's 400x400 solid frame (lego geometry); the first K-B2 and K-B3
+     launch of each shape each run makes is held against the plain version
+     (K-B2 as phase 22 holds it; K-B3 float32 at phase 2's bar grown with
+     the raw's size; bf16 in units of the bf16-to-float32 distance, or equal
+     where the plain bf16 and float32 versions agree bit for bit), and the
+     tools' results are printed as the `render tools:` JSON line.
 Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
 of 8: a run's first full call captures its graph after one warm-up step,
 whose K-B1 launches count (lsa.WARMUP_STEPS).
@@ -182,7 +196,8 @@ the two test_model renders and the compression of phase 15, the
 compression and the three bench_train_step runs of phase 17, phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run,
 phase 20's compression, test view and frames, per type, each of phase
-21's runs, and phase 22's NERF_PYT epoch, demo_synthetic and render_video.
+21's runs, phase 22's NERF_PYT epoch, demo_synthetic and render_video, and
+each of phase 23's tool runs.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
@@ -218,9 +233,10 @@ from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
 from nnc_tpu_torch.render import occupancy, renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
-from nnc_tpu_torch.tools import (bench_train_step, demo_synthetic,
-                                 lsa_profile, profile_codec, rd_sweep,
-                                 render_video, tp_mlp_bench)
+from nnc_tpu_torch.tools import (bench_render_v2, bench_train_step,
+                                 demo_synthetic, lsa_profile, profile_codec,
+                                 profile_fast_frame, rd_sweep, render_video,
+                                 render_work, tp_mlp_bench, tune_fast_mode)
 from nnc_tpu_torch.tools import multi_scene as multi_scene_tool
 from nnc_tpu_torch.train import classification, lsa, presets
 from nnc_tpu_torch.utils import ckpt, profiling
@@ -2275,8 +2291,17 @@ def phase_bf16_tp_kernels(dev, ctx):
             f"K-B6 bf16 M={m} K={k} O2={o2}", got, plain(),
             mlp_tp_fused.fused_pair_plain(x, wa, ba, wb, relu_mid))
         check(torch.equal(run(), got), "K-B6 bf16 reruns differ")
-        times = [[cuda_ms(fn) for fn in (run, f32, plain)] for _ in range(2)]
-        ms, f32_ms, plain_ms = (min(t) for t in zip(*times))
+        # the library's chain on the types the kernel reads and writes: x
+        # cast to bf16, addmm on bf16 operands (cuBLAS sums in float32, its
+        # output bf16, as the kernel rounds its hidden tile), relu, mm, the
+        # result cast to float32
+        ba16, wa16, wb16 = ba.bfloat16(), args[1], args[3]
+        act = torch.relu if relu_mid else (lambda h: h)
+        lib = lambda: torch.mm(act(torch.addmm(ba16, x.bfloat16(), wa16)),
+                               wb16).float()
+        times = [[cuda_ms(fn) for fn in (run, f32, plain, lib)]
+                 for _ in range(2)]
+        ms, f32_ms, plain_ms, cublas_ms = (min(t) for t in zip(*times))
         ops = 2 * n * s * (k + o2)
         b = bound(nbytes(*args[:4], got), ops, PEAK_BF16)
         print(f"[18] K-B6 bf16 {n} points M={m} K={k} S={s} O2={o2} "
@@ -2284,13 +2309,14 @@ def phase_bf16_tp_kernels(dev, ctx):
               f"{e_max / d_max:.3f} of the bf16-to-float32 distance (rms "
               f"{d_rms:.3e}, max {d_max:.3e}), reruns bit-equal; kernel "
               f"{ms:.3f} ms ({ops / ms / 1e9:.2f} TFLOP/s), float32 kernel "
-              f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.3f} ms by {b['bound_by']} "
-              f"({100 * b['bound_ms'] / ms:.1f}% reached)")
+              f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuBLAS bf16 "
+              f"chain {cublas_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+              f"{b['bound_by']} ({100 * b['bound_ms'] / ms:.1f}% reached)")
         if (m, k, o2) == (TP_SHARDS, 256, 256):
             rows["mlp_tp_pair_bf16"] = {
                 "max_abs_err": e_max, "ms": ms, "plain_ms": plain_ms, **b,
-                "peak_tflops": PEAK_BF16 / 1e12, "float32_ms": f32_ms}
+                "peak_tflops": PEAK_BF16 / 1e12, "float32_ms": f32_ms,
+                "cublas_bf16_ms": cublas_ms}
     return rows
 
 
@@ -2532,32 +2558,6 @@ def _dev_psnr(model_c, model_f, rc, views):
     return worst, dmax, grid.open_boundary
 
 
-def _kb2_points(args, model):
-    """(points the compacted rays need, points K-B2's tiles compute) for
-    one launch's inputs: a sample is needed when its dist is not 0, its ray
-    is live and its transmittance before it is still >= eps; a tile (two
-    rays in float32, one in bf16) computes each SAMPLE_BLOCK block of
-    samples in which one of its live rays has a dist that is not 0, while
-    one of them is still above eps at the block's start."""
-    _packed, ro, rd, vd, z, dists, live, term = args[:8]
-    R, S = z.shape
-    pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
-    raw = mlp_fused.fused_nerf_mlp_from_points(
-        model, pts.reshape(-1, 3), vd[:, None, :].expand(R, S, 3)
-        .reshape(-1, 3))
-    before = optical_depth_before(raw, dists)
-    on = live[:, None] > 0
-    needed = int(((before < term) & (dists > 0) & on).sum())
-    tile = render_fused.ray_tile(model.config)
-    sb = render_fused.SAMPLE_BLOCK
-    nb, pad = -(-S // sb), -R % tile
-    blk = lambda t, v: torch.nn.functional.pad(
-        t, (0, nb * sb - S, 0, pad), value=v).reshape(-1, tile, nb, sb)
-    work = (blk((dists > 0) & on, False).any(dim=3).any(dim=1)
-            & (blk(before, math.inf).amin(dim=3).amin(dim=1) < term))
-    return needed, int(work.sum()) * tile * sb
-
-
 def _grid_against_plain(what, model, grid, dev, model32=None):
     """The grid through K-B3 against the grid through its plain version,
     before and after the dilation: a voxel may differ only at a threshold
@@ -2752,7 +2752,7 @@ def phase_occupancy(dev, scene, sd, tar, dec0):
         plain2 = render_fused.fused_render_pass_bf16_plain if bf \
             else render_fused.fused_render_pass_plain
         maps2 = run2()[0]
-        needed, computed = _kb2_points(args, m_f)
+        needed, computed = render_work.kb2_points(kb2, args)
         R2, S2 = args[4].shape
         shapes[f"{kb2}, compacted"] = {
             "rays": R2, "samples": S2, "points_needed": needed,
@@ -3217,6 +3217,20 @@ def _rgb_acc_depth(out):
     return out["rgb_map"], out["acc_map"], out["depth_map"]
 
 
+def _bf16_held(what, got, plain16, plain32):
+    """:func:`held_to_bf16_distance`, whose limit where the plain bf16 and
+    float32 versions agree bit for bit (a teacher whose colour is a constant
+    and whose rays are opaque or empty) is the kernel equal to them. Returns
+    the errors as text."""
+    if torch.equal(plain16, plain32):
+        check(torch.equal(got, plain16), f"{what}: the plain bf16 and float32 "
+              f"versions agree bit for bit and the kernel parts from them")
+        return "equal to the plain bf16 version, itself equal to float32"
+    e = held_to_bf16_distance(what, got, plain16, plain32)
+    return (f"{e[0] / e[2]:.3f} / {e[1] / e[3]:.3f} (rms / max) of the "
+            f"bf16-to-float32 distance")
+
+
 def _kb2_against_plain(records, dev):
     """Each recorded K-B2 launch against its plain version on the same
     inputs: float32 at phase 3's bars (with early termination 2 eps for
@@ -3241,11 +3255,8 @@ def _kb2_against_plain(records, dev):
             with _kb2_plain():
                 rgb_32 = _rgb_acc_depth(render_fused.fused_render_pass(
                     model32, *args, **kw32))[0]
-            e = held_to_bf16_distance(f"K-B2 bf16 S={S} at a tool's shape",
-                                      rgb, rgb_p, rgb_32)
-            shown.append(f"bf16 {R} rays S={S}: rgb {e[0] / e[2]:.3f} / "
-                         f"{e[1] / e[3]:.3f} (rms / max) of the "
-                         f"bf16-to-float32 distance")
+            shown.append(f"bf16 {R} rays S={S}: rgb " + _bf16_held(
+                f"K-B2 bf16 S={S} at a tool's shape", rgb, rgb_p, rgb_32))
             continue
         eps = kw.get("early_term_eps", 0.0)
         tol, tol_depth = (1e-5, 1e-4) if eps == 0 else (2 * eps,
@@ -3336,6 +3347,152 @@ def phase_tools(dev, scene, dec0, card):
     return launches
 
 
+# phase 23: the render-side tools --------------------------------------------
+# the tools' own kernels, by compute type: K-B3 (the fused_mlp route, the
+# grids) and K-B2
+RENDER_TOOL_KERNELS = {"float32": ("mlp_from_points", "render_pass"),
+                       "bfloat16": ("mlp_from_points_bf16",
+                                    "render_pass_bf16")}
+RENDER_TOOL_ITERS = 3
+
+
+def _kb3_recorded(records):
+    """Inside the block the first K-B3 launch of each (compute type,
+    points) that ``fused_nerf_mlp_from_points`` makes on the card is
+    recorded: its model's tensors and config, its inputs and the raw the
+    kernel gave, for :func:`_kb3_against_plain` after the path's counts were
+    read."""
+    real = mlp_fused.fused_nerf_mlp_from_points
+
+    def record(model, pts, viewdirs):
+        out = real(model, pts, viewdirs)
+        n = pts.numel() // 3
+        key = (str(model.config.compute_dtype).split(".")[-1], n)
+        if key not in records and pts.is_cuda \
+                and mlp_fused.supports(model.config):
+            records[key] = (
+                nerf.params_to_state_dict(model, ""), model.config,
+                pts.reshape(-1, 3).float().clone(),
+                torch.broadcast_to(viewdirs, pts.shape).reshape(-1, 3)
+                .float().clone(), out.reshape(-1, 4).clone())
+        return out
+    return swapped(mlp_fused, "fused_nerf_mlp_from_points", record)
+
+
+def _kb3_against_plain(records, dev):
+    """Each recorded K-B3 launch against its plain version on the same
+    inputs: float32 at phase 2's bar (TOL_RAW at raw values up to 2.7) grown
+    with the largest |raw| where that exceeds 2.7 (3xTF32's error is
+    relative to its operands; the solid teacher's density reaches 150), bf16
+    held to the bf16-to-float32 distance as phase 14 holds it."""
+    shown = []
+    for (tname, n), (sd, cfg, pts, vd, got) in sorted(records.items()):
+        model32 = nerf.params_from_state_dict(sd, "", nerf.NeRFConfig(),
+                                              device=dev)
+        plain32 = mlp_fused.fused_nerf_mlp_from_points_plain(
+            mlp_fused.pack_weights(model32), pts, vd)
+        if tname == "bfloat16":
+            model = nerf.params_from_state_dict(sd, "", cfg, device=dev)
+            shown.append(f"bf16 {n} points: raw " + _bf16_held(
+                f"K-B3 bf16 {n} points at a tool's shape", got,
+                mlp_fused.fused_nerf_mlp_from_points_bf16_plain(
+                    mlp_fused.pack_weights_bf16(model), pts, vd), plain32))
+            continue
+        err, top = maxabs(got, plain32), float(plain32.abs().max())
+        tol = TOL_RAW * max(1.0, top / 2.7)
+        check(torch.isfinite(got).all().item() and err <= tol,
+              f"K-B3 float32 {n} points at a tool's shape: max |draw| {err} "
+              f"> {tol} (values up to {top})")
+        shown.append(f"float32 {n} points: max|draw| {err:.3e} at values up "
+                     f"to {top:.1f} (bar {tol:.2e})")
+    return shown
+
+
+def _phase20_frame_stages(dev, scene, tname):
+    """profile_fast_frame's stages on the 400x400 frame that phase 20 times:
+    lego geometry, phase 4's first test pose, the solid teacher through its
+    own grid."""
+    cfg = nerf.NeRFConfig(compute_dtype=render_work.DTYPES[tname])
+    solid = synthetic.make_solid_mlp(cfg, device=dev)
+    grid = occupancy.build_occupancy_grid(solid)
+    c = LEGO_HW / 2
+    K = np.array([[LEGO_FOCAL, 0, c], [0, LEGO_FOCAL, c], [0, 0, 1]],
+                 np.float32)
+    pose = scene["poses"][scene["i_test"][0]]
+    ro, rd = (torch.as_tensor(a.reshape(-1, 3), device=dev)
+              for a in get_rays_np(LEGO_HW, LEGO_HW, K, pose[:3, :4]))
+    t = profile_fast_frame.profile(solid, grid, ro, rd, (LEGO_HW, LEGO_HW),
+                                   iters=RENDER_TOOL_ITERS)
+    busy = "" if t["busy"] is None else \
+        f", the device busy {t['busy']:.2f} ms"
+    print(f"     phase 20's solid frame ({LEGO_HW}x{LEGO_HW}, lego focal): "
+          f"select {t['select']:.2f} ms, + sort and gather #1 "
+          f"{t['presort']:.2f}, render_rays_fast {t['full']:.2f} (K-B2 "
+          f"{t['kb2']:.2f} of device time{busy}), render_image_fast "
+          f"{t['frame']:.2f} ms")
+    return t
+
+
+def phase_render_tools(dev, card, scene):
+    """Phase 23: the render-side tools on the card, in float32 and bf16, as
+    their command lines at the reference's sizes with few iterations, and
+    profile_fast_frame's stages on phase 20's frame; each run's first K-B2
+    and K-B3 launch of each shape held against the plain versions after
+    it."""
+    launches, summary = {}, {}
+    for tname, kernels in RENDER_TOOL_KERNELS.items():
+        iters = ["--iters", str(RENDER_TOOL_ITERS), "--dtype", tname]
+        runs = (
+            ("bench_render_v2", lambda: bench_render_v2.main(
+                ["--check"] + iters)),
+            ("tune_fast_mode", lambda: tune_fast_mode.main(
+                ["--floor"] + iters)),
+            ("profile_fast_frame", lambda: profile_fast_frame.main(iters)),
+            ("phase 20's frame", lambda: _phase20_frame_stages(dev, scene,
+                                                               tname)))
+        for label, run in runs:
+            kb2, kb3 = {}, {}
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _kb2_recorded(kb2), _kb3_recorded(kb3):
+                res = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            mine = {k: counts[k] for k in kernels}
+            check(all(n > 0 for n in mine.values()) and not any(
+                n for k, n in counts.items() if k not in mine),
+                f"{label} ({tname}) launched {counts}")
+            for k, n in mine.items():
+                launches[k] = launches.get(k, 0) + n
+            held = _kb2_against_plain(kb2, dev) + _kb3_against_plain(kb3, dev)
+            print(f"[23] {label}, {tname}, on {card}: {seconds:.1f} s, "
+                  f"launches {mine}; against the plain versions: "
+                  + "; ".join(held))
+            summary[f"{label} {tname}"] = res
+        # the quality of the points, as phase 20's sweep holds it (47 dB at
+        # 48 / 16 / 4 there); every number the tools print finite
+        psnrs = [p["dev_psnr"]
+                 for p in summary[f"tune_fast_mode {tname}"]["points"]]
+        check(min(psnrs) > 40.0, f"tune_fast_mode ({tname}) devPSNR {psnrs}")
+    check(np.isfinite(list(_numbers(summary))).all(),
+          "a render tool printed a number that is not finite")
+    print("render tools: " + json.dumps(summary))
+    return launches
+
+
+def _numbers(tree):
+    """Every number in a tool's result, depth first (None skipped)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _numbers(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _numbers(v)
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield tree
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3400,6 +3557,9 @@ def run_phases(t_start, seconds):
     phase(phase_scan, dev, scene, sd, dec0, card)
     # (resets the launch counts before each of its paths)
     for name, n in phase(phase_tools, dev, scene, dec0, card).items():
+        launches[name] = launches.get(name, 0) + n
+    # (resets the launch counts before each tool's run)
+    for name, n in phase(phase_render_tools, dev, card, scene).items():
         launches[name] = launches.get(name, 0) + n
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))

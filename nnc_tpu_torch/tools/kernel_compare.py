@@ -2,11 +2,12 @@
 their times, in a form that runs unchanged in an earlier checkout of the port.
 
     python -m nnc_tpu_torch.tools.kernel_compare
-        [--kernels kb1_bf16,kb1_dw,kb2_bf16,kb3_bf16,kb4,kb5,kb5_bf16,kb6]
+        [--kernels kb1_bf16,kb1_dw,kb2_bf16,kb2_occ,kb3_bf16,kb4,kb5,kb5_bf16,
+                   kb6]
         [--iters 5]
         [--repeats 2] [--profile] [--out FILE]
 
-Each name in ``--kernels`` (all eight by default) adds its part:
+Each name in ``--kernels`` (all nine by default) adds its part:
 
 - ``kb1_bf16``: K-B1's bf16 forward (``mlp_train_fwd_bf16``) on chip_smoke.py
   phase 16's inputs (full-width weights with LSA scales of std 0.05 and
@@ -32,6 +33,11 @@ Each name in ``--kernels`` (all eight by default) adds its part:
   whether a rerun gave the same bytes, and its time at S = 192, 1e-4. Its
   chain (``nerf_mlp_bf16.cuh``, shared with K-B5 bf16) untouched gives the
   parent's bytes.
+- ``kb2_occ``: K-B2 float32 on occupancy mode's compacted rays (16 samples
+  a ray, zero-dist tails; the inputs of the card test
+  ``test_cuda_occupancy_render_matches_plain``), per-ray and tiled: where
+  the kernel parts from its plain version and why, from K-B3's raw on the
+  launch's points against the plain MLP's (see :func:`kb2_occ`).
 - ``kb3_bf16``: K-B3 bf16 (``mlp_from_points_bf16``) on phase 14's inputs
   (phase 2's net and points) and at ``RAGGED`` sizes (points from seed 14):
   the error of raw against the plain bf16 version as [rms, max], each over
@@ -92,8 +98,8 @@ from ..utils.device import require_cuda
 N_TRAIN = (65_536, 196_608)
 N_POINTS = 262_144
 RAGGED = (33, 10_001, 3_414_016)
-KERNELS = ("kb1_bf16", "kb1_dw", "kb2_bf16", "kb3_bf16", "kb4", "kb5",
-           "kb5_bf16", "kb6")
+KERNELS = ("kb1_bf16", "kb1_dw", "kb2_bf16", "kb2_occ", "kb3_bf16", "kb4",
+           "kb5", "kb5_bf16", "kb6")
 # phase 11's pairs: (M, K, O2, relu_mid), S = 256 / M
 PAIRS = ((4, 63, 256, True), (4, 256, 256, True), (4, 256, 128, False),
          (1, 63, 256, True), (1, 256, 256, True), (8, 63, 256, True),
@@ -451,6 +457,89 @@ def kb2_bf16(device, args):
     return out
 
 
+def kb2_occ(device, args):
+    """K-B2 float32 on occupancy mode's compacted rays, the inputs of
+    tests/test_torch_port_cuda.py's test_cuda_occupancy_render_matches_plain:
+    a solid teacher with N(0, 1e-3) on every weight (seed 7) rendered
+    through the noise-free solid teacher's grid at res 64, a 64x64 frame
+    (focal 51.2, the first ``look_at_poses`` pose), 48 candidates, budget
+    16, subsample 4, early termination at 1e-4, per-ray and tiled
+    selection. For each: max |d| of rgb / acc / depth against the plain
+    version; the rays whose rgb or acc differ by more than 1e-5; the blocks
+    whose termination decision differs between K-B3's and the plain MLP's
+    optical depths; max |d| against the plain compositing of K-B3's raw on
+    the same points (K-B2's chain is K-B3's); and, per ray, E = sum of
+    dist * |d sigma| between K-B3 and the plain MLP, with the largest
+    |d rgb| / E, |d acc| / E and |d depth| / E over the rays above 1e-5."""
+    from ..ops import render_fused
+    from ..render import occupancy, renderer
+    from ..render.rays import get_rays_np
+    from . import render_work
+    model = synthetic.make_solid_mlp(
+        noise_std=1e-3, device=device,
+        generator=torch.Generator().manual_seed(7))
+    grid = occupancy.build_occupancy_grid(
+        synthetic.make_solid_mlp(device=device), res=64)
+    K = np.array([[51.2, 0, 32], [0, 51.2, 32], [0, 0, 1]], np.float32)
+    ro, rd = (torch.as_tensor(a.reshape(-1, 3), device=device)
+              for a in get_rays_np(64, 64, K, synthetic.look_at_poses(1)[0]
+                                   [:3, :4]))
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    rc = renderer.RenderConfig(mlp=model.config, white_bkgd=True)
+    out = {}
+    for label, layout in (("per_ray", None), ("tiled", (64, 64))):
+        calls = []
+        with render_work.kb2_launches(calls):
+            occupancy.render_rays_fast(model, ro, rd, vd, 2.0, 6.0, grid, rc,
+                                       layout=layout)
+        (_name, call, kw), = calls
+        packed, r_o, r_d, v_d, z, dists, live, term = call[:8]
+        pm = kw["packed_mma"]
+        maps = render_fused.render_pass(*call, **kw)[0]
+        plain = render_fused.fused_render_pass_plain(*call)[0]
+        kb3 = lambda p, pts, d: mlp_fused.mlp_from_points(p, pts, d, pm)
+        mixed = render_fused.fused_render_pass_plain(*call,
+                                                     mlp_plain=kb3)[0]
+        R, S = z.shape
+        pts = (r_o[:, None] + r_d[:, None] * z[..., None]).reshape(-1, 3)
+        dirs = v_d[:, None].expand(R, S, 3).reshape(-1, 3).contiguous()
+        raw_k = kb3(packed, pts, dirs).reshape(R, S, 4)
+        raw_p = mlp_fused.fused_nerf_mlp_from_points_plain(
+            packed, pts, dirs).reshape(R, S, 4)
+        sig_k, sig_p = (torch.relu(r[..., 3]) for r in (raw_k, raw_p))
+        E = (dists * (sig_k - sig_p).abs()).sum(dim=-1)
+        sb = render_fused.SAMPLE_BLOCK
+        starts = [torch.cat([torch.zeros_like(s[:, :1]),
+                             torch.cumsum(s * dists, -1)[:, :-1]], -1)[:, ::sb]
+                  for s in (sig_k, sig_p)]
+        tile = render_fused.RAY_TILE
+        stop = [st.reshape(-1, tile, st.shape[1]).amin(dim=1) < term
+                for st in starts]
+        d = (maps - plain).abs()
+        big = (d[:, :4] > 1e-5).any(dim=1)
+        key = f"kb2_occ {label}"
+        out[f"{key} rays x samples"] = [R, S]
+        out[f"{key} max|d| rgb, acc, depth"] = [
+            float(d[:, :3].max()), float(d[:, 3].max()), float(d[:, 4].max())]
+        out[f"{key} rays above 1e-5"] = int(big.sum())
+        out[f"{key} termination decisions apart"] = int(
+            (stop[0] != stop[1]).sum())
+        out[f"{key} max|d| against plain compositing of K-B3's raw"] = float(
+            (maps - mixed).abs().max())
+        out[f"{key} max|d sigma|, max sigma"] = [
+            float((sig_k - sig_p).abs().max()), float(sig_p.max())]
+        out[f"{key} max sigma * dist"] = float((sig_p * dists).max())
+        out[f"{key} max E"] = float(E.max())
+        if big.any():
+            e = E[big].clamp_min(1e-30)
+            out[f"{key} above 1e-5: max |d rgb| / E, |d acc| / E, "
+                f"|d depth| / E"] = [
+                float((d[big, :3].amax(dim=1) / e).max()),
+                float((d[big, 3] / e).max()), float((d[big, 4] / e).max())]
+            out[f"{key} above 1e-5: min E"] = float(E[big].min())
+    return out
+
+
 def kb5_bf16(device, args):
     """Phase 18's inputs: phase 2's net and points, embedded by torch, and
     ragged sizes."""
@@ -528,7 +617,7 @@ def main(argv=None):
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb2_bf16": kb2_bf16,
-             "kb3_bf16": kb3_bf16, "kb4": kb4, "kb5": kb5,
+             "kb2_occ": kb2_occ, "kb3_bf16": kb3_bf16, "kb4": kb4, "kb5": kb5,
              "kb5_bf16": kb5_bf16, "kb6": kb6}
     out = {"card": card}
     for name in kernels:

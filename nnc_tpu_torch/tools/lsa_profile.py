@@ -43,7 +43,6 @@ import subprocess
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from ..data import synthetic
 from ..models import nerf
@@ -75,19 +74,6 @@ def _scene(dev):
     noisy = {k: (np.asarray(v) * (1 + 0.05 * rng.standard_normal(
         np.shape(v)))).astype(np.float32) for k, v in sd.items()}
     return scene, noisy
-
-
-def _device_time(evt):
-    """Microseconds on the device of a key_averages() entry that stands for
-    device work (a kernel, a memcpy, a memset). The entries of host
-    operators carry the time of the kernels launched inside them as well,
-    and count for nothing here."""
-    if evt.device_type != DeviceType.CUDA:
-        return 0.0
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return getattr(evt, attr)
-    return 0.0
 
 
 def _tune(ex, models, steps_per_call, n_iters, grid, draws, stats):
@@ -125,19 +111,19 @@ def measure(ex, make_models, steps_per_call, n_iters, grid=None,
     with profiling.trace_if(None) as prof:
         _tune(ex, make_models(), steps_per_call, n_iters, grid, draws,
               prof_stats)
-    events = [e for e in prof.key_averages() if _device_time(e) > 0]
+    events = [e for e in prof.key_averages() if profiling.device_us(e) > 0]
     run = n_iters + prof_stats["warmup_steps"]
-    busy = sum(_device_time(e) for e in events) / 1e3 / run
+    busy = sum(profiling.device_us(e) for e in events) / 1e3 / run
     step_ms = _step_ms(stats)
     return {"step_ms": step_ms, "busy_ms": busy,
             "idle": 1 - busy / step_ms,
             "idle_profiled": 1 - busy / _step_ms(prof_stats),
-            "kb1_ms": sum(_device_time(e) for e in events
+            "kb1_ms": sum(profiling.device_us(e) for e in events
                           if "mlp_train" in e.key) / 1e3 / run,
             "events": sum(e.count for e in events) / run,
             "launches": launches, "capture_s": stats["capture_s"],
             "pool_mb": stats["pool_bytes"] / 2 ** 20,
-            "top": sorted(events, key=_device_time, reverse=True)[:5],
+            "top": sorted(events, key=profiling.device_us, reverse=True)[:5],
             "run_steps": run}
 
 
@@ -151,7 +137,8 @@ def report(tag, steps_per_call, m):
           f"{m['launches']}; capture {m['capture_s']:.3f} s, graph pool "
           f"{m['pool_mb']:.1f} MB")
     print("    most device time: " + "; ".join(
-        f"{e.key[:48]} {_device_time(e) / 1e3 / m['run_steps']:.3f} ms x "
+        f"{e.key[:48]} "
+        f"{profiling.device_us(e) / 1e3 / m['run_steps']:.3f} ms x "
         f"{e.count / m['run_steps']:.0f}" for e in m["top"]))
 
 

@@ -19,6 +19,7 @@ import time
 from typing import Optional
 
 import torch
+from torch.autograd import DeviceType
 
 TRACE_FILE = "trace.json"
 
@@ -44,6 +45,19 @@ def trace_if(log_dir: Optional[str], enabled: bool = True):
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def device_us(evt) -> float:
+    """Microseconds on the device of a ``key_averages()`` entry that stands
+    for device work (a kernel, a memcpy, a memset). The entries of host
+    operators carry the time of the kernels launched inside them as well,
+    and count for nothing here."""
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    return 0.0
 
 
 @contextlib.contextmanager

@@ -525,8 +525,25 @@ def test_bf16_executer_test_and_eval_model_match_jax(small_scene):
     assert ex_t32.test_model(sd) != te_t
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, the count given back after it.
+    IOQ's ~190 probes are small renders; at a thread a core beside five
+    busy test workers they spent ~800 s waiting on each other's threads,
+    against ~30 s alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_bf16_compress_ioq_writes_a_bitstream_that_decodes(small_scene,
-                                                           tmp_path):
+                                                           tmp_path,
+                                                           one_thread):
+    """IOQ through a bf16 executer: the given config reaches it, the
+    bitstream decodes, and the decoded test views read above 15 dB. Each
+    probe renders a batch of 256 rays (the probe's PSNR only ranks the
+    candidates; the test views are rendered in full)."""
     scene, sd = small_scene
     bs = str(tmp_path / "bf16.nnc")
     # the given config reaches the executer: the one inferred from the
@@ -542,7 +559,7 @@ def test_bf16_compress_ioq_writes_a_bitstream_that_decodes(small_scene,
         nnc_tpu_torch.compress_model(sd, bitstream_path=bs, qp=-20, ioq=True,
                                      lsa=False, scene=scene, mlp_config=MLP_T,
                                      use_fused_mlp=True, n_samples=N_SAMPLES,
-                                     device="cpu", verbose=False)
+                                     N_rand=256, device="cpu", verbose=False)
     finally:
         tpresets.create_nerf_model_executer = real
     assert seen == [MLP_T]

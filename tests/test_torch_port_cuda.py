@@ -1391,7 +1391,12 @@ def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
         m, ro, rd, vd, 2.0, 6.0, grid, rc(m), layout=layout)
     name = "render_pass_bf16" if bf16 else "render_pass"
     before = _build.launch_counts()[name]
-    got = run(twin)
+    calls = []
+    with monkeypatch.context() as mp:
+        real = getattr(render_fused, name)
+        mp.setattr(render_fused, name, lambda *a, **kw: (
+            calls.append((a, kw)), real(*a, **kw))[1])
+        got = run(twin)
     assert _build.launch_counts()[name] == before + 1
     with monkeypatch.context() as mp:
         mp.setattr(render_fused, "render_pass",
@@ -1408,13 +1413,58 @@ def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
         for k in ("rgb_map", "acc_map"):
             _held_to_bf16_distance(got[k], want[k], want32[k])
     else:
-        # the render's early termination is on (1e-4): 2 eps, depth 20 eps
+        # the frame, as before: early termination is on (1e-4), 2 eps, depth
+        # 20 eps
         eps = rc(model).early_term_eps
         for k in ("rgb_map", "acc_map"):
             assert float((got[k] - want[k]).abs().max()) <= 2 * eps, k
         assert float((got["depth_map"] - want["depth_map"]).abs().max()) \
             <= 20 * eps
+        _compacted_launch_within_its_mlp_error(*calls[0], eps)
     assert all(torch.equal(run(twin)[k], got[k]) for k in got)
+
+
+def _compacted_launch_within_its_mlp_error(args, kw, eps):
+    """K-B2 float32 on a compacted launch against its plain version, ray by
+    ray, with the bar stated from where the two part. The rays carry at most
+    SAMPLE_BLOCK samples, one block, whose start is always computed, so
+    early termination cannot act: the two part only through the MLP. The
+    solid teacher's density reaches ~150 and a sample's sigma * dist ~33, so
+    the 3xTF32 products' ~2e-6 relative error in sigma (3e-4 absolute)
+    shows in the maps. K-B2's chain is K-B3's: the plain compositing of
+    K-B3's raw on the launch's points gives the kernel's maps within the
+    bars of early termination off (1e-5, depth 1e-4; 4.8e-7 measured on an
+    H100). And with E = sum over a ray's samples of dist * |d sigma| and dc
+    its largest |d colour| between K-B3 and the plain MLP, the first-order
+    propagation bounds each ray: acc by 1e-5 + E, rgb by 1e-5 + 2 E + dc,
+    depth by 1e-4 + 2 E z_max (measured at most 0.79 E, 0.51 E and 3.1 E on
+    the rays beyond 1e-5), each capped at the frame's 2 eps (depth 20
+    eps)."""
+    packed, ro, rd, vd, z, dists = args[:6]
+    R, S = z.shape
+    assert S <= render_fused.SAMPLE_BLOCK
+    maps = render_fused.render_pass(*args, **kw)[0]
+    plain = render_fused.fused_render_pass_plain(*args)[0]
+    kb3 = lambda p, pts, d: mlp_fused.mlp_from_points(p, pts, d,
+                                                      kw["packed_mma"])
+    mixed = render_fused.fused_render_pass_plain(*args, mlp_plain=kb3)[0]
+    assert float((maps - mixed)[:, :4].abs().max()) <= 1e-5
+    assert float((maps - mixed)[:, 4].abs().max()) <= 1e-4
+    pts = (ro[:, None] + rd[:, None] * z[..., None]).reshape(-1, 3)
+    dirs = vd[:, None].expand(R, S, 3).reshape(-1, 3).contiguous()
+    raw_k = kb3(packed, pts, dirs).reshape(R, S, 4)
+    raw_p = mlp_fused.fused_nerf_mlp_from_points_plain(
+        packed, pts, dirs).reshape(R, S, 4)
+    E = (dists * (torch.relu(raw_k[..., 3])
+                  - torch.relu(raw_p[..., 3])).abs()).sum(dim=-1)
+    dc = (torch.sigmoid(raw_k[..., :3])
+          - torch.sigmoid(raw_p[..., :3])).abs().amax(dim=(1, 2))
+    d = (maps - plain).abs()
+    assert bool((d[:, :3].amax(dim=1)
+                 <= torch.clamp(1e-5 + 2 * E + dc, max=2 * eps)).all())
+    assert bool((d[:, 3] <= torch.clamp(1e-5 + E, max=2 * eps)).all())
+    assert bool((d[:, 4] <= torch.clamp(1e-4 + 2 * E * z.amax(dim=1),
+                                        max=20 * eps)).all())
 
 
 @pytest.mark.cuda
