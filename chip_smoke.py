@@ -185,7 +185,22 @@ Phases:
      (K-B2 as phase 22 holds it; K-B3 float32 at phase 2's bar grown with
      the raw's size; bf16 in units of the bf16-to-float32 distance, or equal
      where the plain bf16 and float32 versions agree bit for bit), and the
-     tools' results are printed as the `render tools:` JSON line.
+     tools' results are printed as the `render tools:` JSON line;
+ 24. the port's bench (nnc_tpu_torch/bench.py, the reference's bench.py)
+     in float32 and in bf16, as its command line at the reference's sizes
+     with BENCH_ARGV's cut iterations: the exact 160x256 crop, the 128^3
+     grid, the fast crop and the 400x400 frame at 48 / 16 / 4, the quality
+     sweep (solid, fog, turbo), the LSA step on the exact and the occupancy
+     loss as single steps and in calls of 8, and the codec; each run must
+     launch K-B1's forward and backward, K-B2 and K-B3 of its type and no
+     other kernel; its first K-B2 and K-B3 launch of each shape is held
+     against the plain versions as phase 23 holds them, and its first K-B1
+     forward and backward of each shape against mlp_train_*_plain at phase
+     20's bars (the launch read the teacher's own weight buffers); the
+     solid devPSNR at least OCC_SOLID_MIN, the turbo point's finite and
+     above BENCH_TURBO_MIN (printed beside the reference's 46.53), the
+     reference's open-boundary gate (the bench raises) and every number of
+     the line finite; both bench lines are printed.
 Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
 of 8: a run's first full call captures its graph after one warm-up step,
 whose K-B1 launches count (lsa.WARMUP_STEPS).
@@ -197,7 +212,7 @@ compression and the three bench_train_step runs of phase 17, phase 19's
 bf16 tensor-parallel call, its test_model render and its tp_mlp_bench run,
 phase 20's compression, test view and frames, per type, each of phase
 21's runs, phase 22's NERF_PYT epoch, demo_synthetic and render_video, and
-each of phase 23's tool runs.
+each of phase 23's tool runs and both of phase 24's bench runs.
 Every failed check raises. Each kernel's bound is the larger of
 its bytes over the card's memory rate and its operations over the card's
 peak for their type: for K-B1, K-B2, K-B3, K-B5 and K-B6, whose float32
@@ -220,6 +235,7 @@ import numpy as np
 import torch
 
 import nnc_tpu_torch
+from nnc_tpu_torch import bench as port_bench
 from nnc_tpu_torch import coder, graft_entry, parallel
 from nnc_tpu_torch.coder import cabac
 from nnc_tpu_torch.data import synthetic
@@ -242,6 +258,7 @@ from nnc_tpu_torch.train import classification, lsa, presets
 from nnc_tpu_torch.utils import ckpt, profiling
 from nnc_tpu_torch.utils.device import require_cuda
 from nnc_tpu_torch.utils.logging import read_result_file
+from nnc_tpu_torch.utils.platform import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
@@ -398,10 +415,7 @@ def nbytes(*tensors):
 
 def phase_environment():
     dev = require_cuda()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -3356,12 +3370,14 @@ RENDER_TOOL_KERNELS = {"float32": ("mlp_from_points", "render_pass"),
 RENDER_TOOL_ITERS = 3
 
 
-def _kb3_recorded(records):
+def _kb3_recorded(records, dense=False):
     """Inside the block the first K-B3 launch of each (compute type,
     points) that ``fused_nerf_mlp_from_points`` makes on the card is
-    recorded: its model's tensors and config, its inputs and the raw the
-    kernel gave, for :func:`_kb3_against_plain` after the path's counts were
-    read."""
+    recorded (with ``dense``, the first whose raw holds a positive density:
+    a grid's chunk that meets the solid, not empty space, whose raw does
+    not depend on the layers that carry the density): its model's tensors
+    and config, its inputs and the raw the kernel gave, for
+    :func:`_kb3_against_plain` after the path's counts were read."""
     real = mlp_fused.fused_nerf_mlp_from_points
 
     def record(model, pts, viewdirs):
@@ -3369,7 +3385,8 @@ def _kb3_recorded(records):
         n = pts.numel() // 3
         key = (str(model.config.compute_dtype).split(".")[-1], n)
         if key not in records and pts.is_cuda \
-                and mlp_fused.supports(model.config):
+                and mlp_fused.supports(model.config) \
+                and (not dense or bool((out[..., 3] > 0).any())):
             records[key] = (
                 nerf.params_to_state_dict(model, ""), model.config,
                 pts.reshape(-1, 3).float().clone(),
@@ -3481,6 +3498,159 @@ def phase_render_tools(dev, card, scene):
     return launches
 
 
+# phase 24: the bench ---------------------------------------------------------
+BENCH_ARGV = ("--iters", "5", "--train-iters", "16")
+# the bench's own kernels, by compute type: K-B3 (the grids), K-B2 (every
+# render), K-B1 (the LSA steps)
+BENCH_KERNELS = {
+    "float32": ("mlp_from_points", "render_pass", "mlp_train_fwd",
+                "mlp_train_bwd"),
+    "bfloat16": ("mlp_from_points_bf16", "render_pass_bf16",
+                 "mlp_train_fwd_bf16", "mlp_train_bwd_bf16")}
+BENCH_REF_TURBO = 46.53   # the reference's turbo devPSNR (BENCH_r05.json)
+BENCH_TURBO_MIN = 40.0
+
+
+def _kb1_recorded(records):
+    """Inside the block the first K-B1 forward and backward launch of each
+    (type, points) on the card outside a graph's capture is recorded: its
+    inputs, the weight buffers and biases it read and what the kernel gave,
+    for :func:`_kb1_against_plain` after the path's counts were read."""
+    real_fwd, real_bwd = mlp_train_fused._fwd, mlp_train_fused._bwd
+    keep = lambda *ts: [t.detach().clone() if torch.is_tensor(t) else t
+                        for t in ts]
+    first = lambda key, pts: key not in records and pts.is_cuda \
+        and not torch.cuda.is_current_stream_capturing()
+
+    def fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
+        out = real_fwd(bf16, params, ls, pts, dirs, save_u, packed, biases)
+        if first(("fwd", bf16, pts.shape[0]), pts):
+            records["fwd", bf16, pts.shape[0]] = keep(ls, pts, dirs, packed,
+                                                      biases, out[0])
+        return out
+
+    def bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
+            biases, du=None):
+        out = real_bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw,
+                       packed_t, biases, du)
+        if first(("bwd", bf16, pts.shape[0]), pts):
+            records["bwd", bf16, pts.shape[0]] = keep(
+                ls, pts, dirs, packed_t, biases, out, g, with_dw)
+        return out
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(mlp_train_fused, "_fwd", fwd))
+    stack.enter_context(swapped(mlp_train_fused, "_bwd", bwd))
+    return stack
+
+
+def _kb1_against_plain(records, dev):
+    """Each recorded K-B1 launch of the bench against its plain version on
+    the same inputs and the bench's teacher (the solid one with its scales),
+    whose weight buffers and biases the launch must have read: float32 at
+    phase 20's bars (raw within 1e-3, gradients by :func:`grad_errors`),
+    bf16 in units of the bf16-to-float32 distance, or equal where the plain
+    bf16 and float32 versions agree bit for bit."""
+    shown = []
+    for (kind, bf16, n), rec in sorted(records.items()):
+        cfg = nerf.NeRFConfig(compute_dtype=torch.bfloat16 if bf16
+                              else torch.float32)
+        tensors = mlp_train_fused._layer_tensors(nerf.init_lsa_scales(
+            synthetic.make_solid_mlp(cfg, device=dev)))
+        weights, biases = tensors[0::3], tensors[1::3]
+        params, params_t, _ = mlp_train_fused.pack_train(
+            weights, biases, tensors[2::3])
+        packs = (mlp_train_fused.pack_train_bf16 if bf16
+                 else mlp_train_fused.pack_train_mma)(weights)
+        form = mlp_train_fused._FORMS[bf16]
+        ls, pts, dirs, packed, bias, got = rec[:6]
+        what = f"K-B1 {'bf16 ' if bf16 else ''}{kind} at {n} bench points"
+        check(torch.equal(packed, packs[kind == "bwd"]) and torch.equal(
+            bias, torch.cat([b.float() for b in biases])),
+            f"{what}: the launch read other weights than the bench's teacher")
+        if kind == "fwd":
+            plain = form["fwd_plain"](params, ls, pts, dirs)
+            plain32 = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts,
+                                                          dirs)
+            if bf16:
+                shown.append(f"{what}: raw " + _bf16_held(what, got, plain,
+                                                          plain32))
+                continue
+            err = maxabs(got, plain)
+            check(err <= 1e-3, f"{what}: max |draw| {err}")
+            shown.append(f"{what}: max|draw| {err:.3e}")
+            continue
+        g, with_dw = rec[6:]
+        plain = form["bwd_plain"](params, params_t, ls, pts, dirs, g,
+                                  with_dw)
+        if bf16:
+            plain32 = mlp_train_fused.mlp_train_bwd_plain(
+                params, params_t, ls, pts, dirs, g, with_dw)
+            if torch.equal(plain, plain32):
+                check(torch.equal(got, plain), f"{what}: the plain bf16 and "
+                      f"float32 gradients agree bit for bit and the kernel "
+                      f"parts from them")
+                shown.append(f"{what}: gradients equal to the plain bf16 "
+                             f"version, itself equal to float32")
+                continue
+            shown.append(f"{what}: gradients " + str(grads_to_bf16_distance(
+                what, got, plain, plain32, with_dw)))
+            continue
+        err_g, _abs, ok = grad_errors(
+            mlp_train_fused.split_grads(got, with_dw),
+            mlp_train_fused.split_grads(plain, with_dw))
+        check(ok, f"{what}: gradients {err_g} of their max")
+        shown.append(f"{what}: gradients {err_g:.3e} of their max (largest "
+                     f"|g| {float(plain.abs().max()):.3e})")
+    return shown
+
+
+def phase_bench(dev, card):
+    """Phase 24: the port's bench in float32 and bf16 as its command line,
+    with cut iterations; each run's first K-B1 and K-B2 launch of each
+    shape, and its first K-B3 launch whose raw holds a positive density,
+    held against the plain versions after it."""
+    launches, lines = {}, {}
+    for tname, kernels in BENCH_KERNELS.items():
+        kb1, kb2, kb3 = {}, {}, {}
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _kb1_recorded(kb1), _kb2_recorded(kb2), \
+                _kb3_recorded(kb3, dense=True):
+            line = port_bench.main(["--dtype", tname, *BENCH_ARGV])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        mine = {k: counts[k] for k in kernels}
+        check(all(n > 0 for n in mine.values()) and not any(
+            n for k, n in counts.items() if k not in mine),
+            f"the bench ({tname}) launched {counts}")
+        for k, n in mine.items():
+            launches[k] = launches.get(k, 0) + n
+        check(len(kb1) == 6, f"the bench's K-B1 launches recorded ({tname}): "
+              f"{sorted(kb1)}")
+        check(len(kb3) == 1, f"the bench's K-B3 launches that met the "
+              f"solid, recorded ({tname}): {sorted(kb3)}")
+        held = (_kb2_against_plain(kb2, dev) + _kb3_against_plain(kb3, dev)
+                + _kb1_against_plain(kb1, dev))
+        em = line["extra_metrics"]
+        solid = em["fast_mode_min_devpsnr_posesweep"]
+        turbo = em["fast_mode_min_devpsnr_turbo_sub8"]
+        check(solid >= OCC_SOLID_MIN, f"bench ({tname}): solid devPSNR "
+              f"{solid} dB (bar {OCC_SOLID_MIN})")
+        check(np.isfinite(turbo) and turbo > BENCH_TURBO_MIN,
+              f"bench ({tname}): turbo devPSNR {turbo} dB")
+        check(np.isfinite(list(_numbers(line))).all(),
+              f"bench ({tname}): a number that is not finite: {line}")
+        print(f"[24] bench {' '.join(BENCH_ARGV)}, {tname}, on {card}: "
+              f"{seconds:.1f} s, launches {mine}; frame {line['value']:.0f} "
+              f"rays/s; devPSNR solid {solid} dB (bar {OCC_SOLID_MIN}), "
+              f"turbo {turbo} dB (the reference's {BENCH_REF_TURBO}); "
+              f"against the plain versions: " + "; ".join(held))
+        lines[tname] = line
+    print("bench lines: " + json.dumps(lines))
+    return launches
+
+
 def _numbers(tree):
     """Every number in a tool's result, depth first (None skipped)."""
     if isinstance(tree, dict):
@@ -3560,6 +3730,9 @@ def run_phases(t_start, seconds):
         launches[name] = launches.get(name, 0) + n
     # (resets the launch counts before each tool's run)
     for name, n in phase(phase_render_tools, dev, card, scene).items():
+        launches[name] = launches.get(name, 0) + n
+    # (resets the launch counts before each of its runs)
+    for name, n in phase(phase_bench, dev, card).items():
         launches[name] = launches.get(name, 0) + n
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))

@@ -28,7 +28,6 @@ limit.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import torch
@@ -39,6 +38,7 @@ from ..ops import _build
 from ..render import renderer
 from ..train import lsa
 from ..utils.device import require_cuda
+from ..utils.platform import card_line
 
 NEAR, FAR = 2.0, 6.0
 LR = 1e-4
@@ -121,10 +121,7 @@ def main(argv=None):
     else:
         device = require_cuda() if args.device == "cuda" \
             else torch.device(args.device)
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip())
+        print(card_line())
         torch.backends.cuda.matmul.allow_tf32 = False
     rays = batch(args.n_rand, device)
     rc = renderer.RenderConfig(n_samples=args.n_samples,

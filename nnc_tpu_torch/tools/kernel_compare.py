@@ -94,6 +94,7 @@ from ..ops import _build, mlp_fused
 from ..ops import mlp_train_fused as M
 from ..ops.posenc import positional_encoding
 from ..utils.device import require_cuda
+from ..utils.platform import card_line
 
 N_TRAIN = (65_536, 196_608)
 N_POINTS = 262_144
@@ -611,9 +612,7 @@ def main(argv=None):
     if unknown:
         ap.error(f"unknown kernels {sorted(unknown)}")
     device = require_cuda()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     parts = {"kb1_bf16": kb1_bf16, "kb1_dw": kb1_dw, "kb2_bf16": kb2_bf16,

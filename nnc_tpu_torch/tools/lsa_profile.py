@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import subprocess
 
 import numpy as np
 import torch
@@ -50,6 +49,7 @@ from ..ops import _build, mlp_train_fused
 from ..render import occupancy, renderer
 from ..train import lsa, presets
 from ..utils import profiling
+from ..utils.platform import card_line
 
 HW = 400
 FOCAL = 0.5 * HW / math.tan(0.5 * 0.6911112070083618)
@@ -151,9 +151,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     mlp = nerf.NeRFConfig(compute_dtype=getattr(torch, args.dtype))
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
     scene, sd = _scene(dev)

@@ -80,6 +80,7 @@ from ..data import synthetic
 from ..models import nerf
 from ..ops import _build, mlp_fused, mlp_train_fused
 from ..ops.posenc import positional_encoding
+from ..utils.platform import card_line
 
 OUT = os.path.join(_build.BUILD_DIR, "mma_probe")
 N_POINTS = 262_144
@@ -956,9 +957,7 @@ def main(argv=None):
                     help="comma-separated section numbers to run")
     sections = {int(x) for x in ap.parse_args(argv).sections.split(",")}
     dev = torch.device("cuda", 0)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+    print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(OUT, exist_ok=True)
     rate_cu = os.path.join(OUT, "issue_rate.cu")

@@ -36,13 +36,15 @@ KB2 = ("render_pass", "render_pass_bf16")
 COUNT_CHUNK = 262_144
 
 
-def frame_rays(H: int, W: int, device, seed: int = 0):
+def frame_rays(H: int, W: int, device, seed: int = 0, pose=None):
     """Flat rays (H * W, 3) of the bench frame: focal 0.8 W, the principal
-    point at the centre, the first of ``look_at_poses(1, seed=seed)``."""
+    point at the centre, seen from ``pose`` (4x4), by default the first of
+    ``look_at_poses(1, seed=seed)``."""
     focal = 0.8 * W
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
                  np.float32)
-    pose = look_at_poses(1, seed=seed)[0]
+    if pose is None:
+        pose = look_at_poses(1, seed=seed)[0]
     ro, rd = get_rays_np(H, W, K, pose[:3, :4])
     return (torch.as_tensor(ro.reshape(-1, 3), device=device),
             torch.as_tensor(rd.reshape(-1, 3), device=device))

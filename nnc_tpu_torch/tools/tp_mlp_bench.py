@@ -23,7 +23,6 @@ calls after two warm-ups, as the reference times 10 calls. With
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import torch
@@ -31,6 +30,7 @@ import torch
 from ..models import nerf
 from ..ops import _build, mlp_fused, mlp_tp_fused
 from ..utils.device import require_cuda
+from ..utils.platform import card_line
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SHARDS = (1, 2, 4)
@@ -78,10 +78,7 @@ def main(argv=None):
     else:
         device = require_cuda() if args.device == "cuda" \
             else torch.device(args.device)
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip())
+        print(card_line())
         torch.backends.cuda.matmul.allow_tf32 = False
     model = nerf.init_params(nerf.NeRFConfig(compute_dtype=dtype),
                              torch.Generator().manual_seed(0)).to(device)

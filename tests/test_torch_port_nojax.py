@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_blocked():
         " 'tools.profile_codec', 'tools.render_video',"
         " 'tools.multi_scene', 'tools.render_work',"
         " 'tools.bench_render_v2', 'tools.tune_fast_mode',"
-        " 'tools.profile_fast_frame'):"
+        " 'tools.profile_fast_frame', 'bench', 'utils.contenders',"
+        " 'tools.bench_loops'):"
         " assert 'nnc_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules if m == 'jax' or "
@@ -92,7 +93,8 @@ def test_no_jax_loading_imports(forbidden):
 # package, a file or a value that may not parse. A file not named here may
 # hold none, so a new module is checked by default.
 TRY_ALLOWED = ("hls/syntax.py", "coder/cabac.py", "framework/torch_io.py",
-               "utils/config_txt.py", "utils/video.py")
+               "utils/config_txt.py", "utils/video.py",
+               "utils/contenders.py")
 KERNEL_SIDE = {"ops", "render", "_build", "mlp_fused", "render_fused",
                "mlp_train_fused", "mlp_tp_fused", "renderer", "parallel",
                "multi_scene", "graft_entry"}
