@@ -157,7 +157,7 @@ Phases:
      its no-LSA decode (two CUDA-graph calls through K-B1) under
      utils/profiling.trace_if, its scales bit-equal to the direct
      tune_lsa_scales call with the reference's arguments, K-B1's launches
-     2 x (16 + 1 warm-up), the trace holding the annotated region and
+     2 x (16 + 1 warm-up), the trace holding the region's span and
      K-B1's kernels; a ClassificationExecuter at 3072-1024-1024-10 on 4,096
      seeded samples through compress_model(lsa, ioq, qp=-38) (decoded top1
      no more than 0.05 under the float model's) and its LSA epochs against
@@ -3020,7 +3020,7 @@ def _nerf_pyt_phase(dev, scene, dec0, card):
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     with profiling.trace_if(trace_dir):
-        with profiling.annotate("nerf_pyt_train"):
+        with profiling.span("nerf_pyt_train"):
             psnr, loss = use_cases.use_cases["NERF_PYT"]().train(
                 nerf_wrapper=sd, scene=scene, rc=rc, N_iters=NERF_PYT_STEPS,
                 device=dev, **kw)
@@ -3061,9 +3061,10 @@ def _nerf_pyt_phase(dev, scene, dec0, card):
     trace_path = os.path.join(trace_dir, profiling.TRACE_FILE)
     with open(trace_path) as f:
         trace = f.read()
-    check("nerf_pyt_train" in trace and "mlp_train_fwd_kernel" in trace
-          and "mlp_train_bwd" in trace,
-          "the trace lacks the annotated region or K-B1's kernels")
+    check("nerf_pyt_train" in trace and "nnc.lsa.call" in trace
+          and "mlp_train_fwd_kernel" in trace and "mlp_train_bwd" in trace,
+          "the trace lacks the region, the LSA calls' spans or K-B1's "
+          "kernels")
     print(f"[22a] NERF_PYT().train at lego geometry, full width, N_rand "
           f"1024, {NERF_PYT_STEPS} steps on {card}: {t_handler:.2f} s under "
           f"trace_if, mean PSNR {psnr:.4f} dB, loss {loss:.4e}; scales "
@@ -3071,7 +3072,7 @@ def _nerf_pyt_phase(dev, scene, dec0, card):
           f"{moved:.3e}; K-B1 launches {launches} (2 x ({NERF_PYT_STEPS} "
           f"+ {stats['warmup_steps']} warm-up))")
     print(f"[22d] trace_if wrote {os.path.getsize(trace_path)} bytes "
-          f"holding the 'nerf_pyt_train' region and "
+          f"holding the 'nerf_pyt_train' region, the nnc.lsa spans and "
           f"mlp_train_fwd_kernel / mlp_train_bwd kernels")
     return launches
 

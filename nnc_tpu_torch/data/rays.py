@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..render.rays import get_rays_np
+from ..utils import profiling
 
 
 class RayBatcher:
@@ -47,14 +48,19 @@ class RayBatcher:
             rays_rgb = np.concatenate(
                 [rays, self.images[self.i_train][:, None]], 1)
             self.pool = rays_rgb.transpose(0, 2, 3, 1, 4).reshape(-1, 3, 3)
-            self.rng.shuffle(self.pool)
+            self._shuffle()
             self.i_batch = 0
+
+    def _shuffle(self):
+        """Shuffle the pool in place, as the span ``nnc.rays.shuffle``."""
+        with profiling.span("nnc.rays.shuffle", rays=self.pool.shape[0]):
+            self.rng.shuffle(self.pool)
 
     def next_batch(self):
         """Returns (rays_o, rays_d, target), each (n_rand, 3) float32."""
         if self.mode == "pool":
             if self.i_batch + self.n_rand > self.pool.shape[0]:
-                self.rng.shuffle(self.pool)
+                self._shuffle()
                 self.i_batch = 0
             batch = self.pool[self.i_batch:self.i_batch + self.n_rand]
             self.i_batch += self.n_rand

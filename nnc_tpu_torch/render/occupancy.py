@@ -32,6 +32,7 @@ from .. import parallel
 from ..models import nerf
 from ..ops import mlp_fused, render_fused
 from ..ops.posenc import positional_encoding
+from ..utils import profiling
 
 MAPS = ("rgb_map", "acc_map", "depth_map", "disp_map")
 
@@ -330,33 +331,38 @@ def _render_tiled_sorted(model, rays_o, rays_d, viewdirs, near, far, grid,
     n_rays = H * W
     device = rays_o.device
 
-    z_s, dists_s, any_s = _select_sub(grid, rays_o, rays_d, near, far,
-                                      n_candidates, budget, layout, fac)
-    counts = (dists_s > 0).sum(dim=-1, dtype=torch.int32)
-    order_s = torch.argsort(-counts, stable=True)
-    pos_s = torch.argsort(order_s)
+    with profiling.span("nnc.frame.select"):
+        z_s, dists_s, any_s = _select_sub(grid, rays_o, rays_d, near, far,
+                                          n_candidates, budget, layout, fac)
+    with profiling.span("nnc.frame.sort"):
+        counts = (dists_s > 0).sum(dim=-1, dtype=torch.int32)
+        order_s = torch.argsort(-counts, stable=True)
+        pos_s = torch.argsort(order_s)
 
-    # kernel row k * nb + o holds ray (by * fac + o // fac, bx * fac +
-    # o % fac) of block order_s[k]
-    by, bx = order_s // Ws, order_s % Ws
-    ar = torch.arange(fac, device=device)
-    offs = (ar[:, None] * W + ar[None, :]).reshape(-1)
-    ray_idx = ((by * fac * W + bx * fac)[:, None] + offs[None, :]) \
-        .reshape(-1)
-    rays9_s = torch.cat([rays_o, rays_d, viewdirs], dim=1)[ray_idx]
-    expand_rows = lambda a: a[order_s].repeat_interleave(nb, dim=0)
-    out = render_fused.fused_render_pass(
-        model, rays9_s[:, 0:3], rays9_s[:, 3:6], rays9_s[:, 6:9],
-        expand_rows(z_s), early_term_eps=rc.early_term_eps,
-        ray_flags=expand_rows(any_s), dists=expand_rows(dists_s),
-        r_t=render_fused.ray_tile(model.config), return_weights=False,
-        raw_maps=True)
+        # kernel row k * nb + o holds ray (by * fac + o // fac, bx * fac +
+        # o % fac) of block order_s[k]
+        by, bx = order_s // Ws, order_s % Ws
+        ar = torch.arange(fac, device=device)
+        offs = (ar[:, None] * W + ar[None, :]).reshape(-1)
+        ray_idx = ((by * fac * W + bx * fac)[:, None] + offs[None, :]) \
+            .reshape(-1)
+        rays9_s = torch.cat([rays_o, rays_d, viewdirs], dim=1)[ray_idx]
+        expand_rows = lambda a: a[order_s].repeat_interleave(nb, dim=0)
+        z_k, any_k, dists_k = (expand_rows(a) for a in (z_s, any_s, dists_s))
+    with profiling.span("nnc.frame.kb2"):
+        out = render_fused.fused_render_pass(
+            model, rays9_s[:, 0:3], rays9_s[:, 3:6], rays9_s[:, 6:9], z_k,
+            early_term_eps=rc.early_term_eps, ray_flags=any_k, dists=dists_k,
+            r_t=render_fused.ray_tile(model.config), return_weights=False,
+            raw_maps=True)
 
-    # inverse: ray r of block b sits at kernel row pos_s[b] * nb + slot(r)
-    pos_up = _upsample(pos_s, Hs, Ws, fac)[:, 0]
-    iota = torch.arange(n_rays, device=device)
-    slot = (iota // W % fac) * fac + iota % W % fac
-    return render_fused.unpack_maps(out["maps"][pos_up * nb + slot])
+    with profiling.span("nnc.frame.unpack"):
+        # inverse: ray r of block b sits at kernel row pos_s[b] * nb +
+        # slot(r)
+        pos_up = _upsample(pos_s, Hs, Ws, fac)[:, 0]
+        iota = torch.arange(n_rays, device=device)
+        slot = (iota // W % fac) * fac + iota % W % fac
+        return render_fused.unpack_maps(out["maps"][pos_up * nb + slot])
 
 
 @torch.no_grad()
@@ -377,7 +383,24 @@ def render_image_fast(model: nerf.NeRF, rays_o, rays_d, near, far, rc,
     devices, each rendered (selection and K-B2) on its device by its
     replica of the model and the grid, and joined in row order; without a
     mesh the frame renders on the model's device. Returns a dict of host
-    numpy maps shaped (H, W, ...)."""
+    numpy maps shaped (H, W, ...).
+
+    While a torch profiler records, the call is an ``nnc.frame`` request
+    span (``utils/profiling``) whose children are each row chunk's
+    ``nnc.frame.select``, ``.sort``, ``.kb2`` and ``.unpack``, then
+    ``nnc.frame.wait`` (a synchronize of the devices, taken only then: the
+    first copy would wait there anyway) and ``nnc.frame.copy`` (the maps to
+    the host)."""
+    H, W = rays_o.shape[:2]
+    with profiling.request("nnc.frame", rays=H * W):
+        return _render_image_fast(model, rays_o, rays_d, near, far, rc, grid,
+                                  n_candidates, budget, subsample, row_chunk,
+                                  outputs, mesh, rgb_uint8, viewdirs)
+
+
+def _render_image_fast(model, rays_o, rays_d, near, far, rc, grid,
+                       n_candidates, budget, subsample, row_chunk, outputs,
+                       mesh, rgb_uint8, viewdirs):
     H, W = rays_o.shape[:2]
     if grid is None:
         grid = build_occupancy_grid(model)
@@ -406,12 +429,19 @@ def render_image_fast(model: nerf.NeRF, rays_o, rays_d, near, far, rc,
             cut = [None if a is None else
                    a[r0 + i * part:r0 + (i + 1) * part].reshape(-1, 3).to(d)
                    for a in frame]
-            res = _render_frame_rows(m, *cut, near, far, g, rc,
-                                     n_candidates, budget, (part, W),
-                                     subsample, tuple(outputs), rgb_uint8)
-            outs.append({k: v.cpu().numpy() for k, v in res.items()})
-    return {k: np.concatenate([o[k] for o in outs]).reshape(
-                (H, W) + outs[0][k].shape[1:]) for k in outs[0]}
+            outs.append(_render_frame_rows(m, *cut, near, far, g, rc,
+                                           n_candidates, budget, (part, W),
+                                           subsample, tuple(outputs),
+                                           rgb_uint8))
+    with profiling.span("nnc.frame.wait") as recording:
+        if recording is not None:
+            for d in {torch.device(p[0]) for p in places}:
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
+    with profiling.span("nnc.frame.copy"):
+        outs = [{k: v.cpu().numpy() for k, v in res.items()} for res in outs]
+        return {k: np.concatenate([o[k] for o in outs]).reshape(
+                    (H, W) + outs[0][k].shape[1:]) for k in outs[0]}
 
 
 def _render_frame_rows(model, ro, rd, vd, near, far, grid, rc, n_candidates,

@@ -26,6 +26,7 @@ scale is folded into the weight before the rounding.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ from ..ops import mlp_fused, mlp_train_fused
 from ..ops.posenc import positional_encoding
 from ..ops.render_fused import fused_render_pass
 from ..ops.sampling import sample_pdf, stratified_samples
+from ..utils import profiling
 from .volume import raw2outputs
 
 
@@ -250,7 +252,20 @@ def render_image(model, model_fine, rays_o, rays_d, near, far,
     tile border may be culled or stopped in one render and not in the other:
     a mesh render equals the render without a mesh exactly where both are
     off, and else within the bound of a culled render against the exact one
-    (5e-3 in the tests)."""
+    (5e-3 in the tests).
+
+    While a torch profiler records, the call is an ``nnc.render.view``
+    request span (``utils/profiling``) with an ``nnc.render.chunk`` span
+    around each ``render_chunk``. With the rays on the device nothing here
+    waits for it, so the view's span is the host's dispatch of the view."""
+    with profiling.request("nnc.render.view",
+                           rays=math.prod(rays_o.shape[:-1])):
+        return _render_image(model, model_fine, rays_o, rays_d, near, far,
+                             rc, viewdirs, device, mesh)
+
+
+def _render_image(model, model_fine, rays_o, rays_d, near, far, rc,
+                  viewdirs, device, mesh):
     device = torch.device(device) if device is not None else model.device
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32)
                                      if not torch.is_tensor(a) else a,
@@ -277,9 +292,10 @@ def render_image(model, model_fine, rays_o, rays_d, near, far,
             lo, hi = start + i * part, min(start + (i + 1) * part, end)
             if hi <= lo:
                 break
-            res = render_chunk(m_c, m_f, ro[lo:hi].to(d), rd[lo:hi].to(d),
-                               near, far, rc, True,
-                               None if vd is None else vd[lo:hi].to(d))
+            with profiling.span("nnc.render.chunk", rays=hi - lo):
+                res = render_chunk(m_c, m_f, ro[lo:hi].to(d),
+                                   rd[lo:hi].to(d), near, far, rc, True,
+                                   None if vd is None else vd[lo:hi].to(d))
             outs.append({k: res[k].to(device)
                          for k in ("rgb_map", "disp_map", "acc_map")})
     return {k: torch.cat([o[k] for o in outs]).reshape(

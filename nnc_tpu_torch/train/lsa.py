@@ -56,6 +56,7 @@ from .. import parallel
 from ..ops import _build, mlp_train_fused
 from ..render import occupancy, renderer
 from ..render.volume import raw2outputs
+from ..utils import profiling
 from ..utils.logging import ResultLogger, mse2psnr
 
 BETAS = (0.9, 0.999)
@@ -452,14 +453,18 @@ class ScanTrainStep:
     def __call__(self, host: np.ndarray, draws: List[dict]) -> np.ndarray:
         if self.graph:
             return self._replay(host, draws)
-        packed, hyper = self._views(_upload(host, self.device))
-        if self.mesh is not None:
-            parts = parallel.shard_scan_inputs(self.mesh, packed)
-            packed = [[p[i] for p in parts] for i in range(self.k)]
-        out = torch.stack([self.train_step(
-            packed[i], {n: v.to(self.device) for n, v in draws[i].items()},
-            hyper[i]) for i in range(self.k)])
-        return _readback(out)
+        with profiling.span("nnc.lsa.upload"):
+            packed, hyper = self._views(_upload(host, self.device))
+            if self.mesh is not None:
+                parts = parallel.shard_scan_inputs(self.mesh, packed)
+                packed = [[p[i] for p in parts] for i in range(self.k)]
+        with profiling.span("nnc.lsa.steps"):
+            out = torch.stack([self.train_step(
+                packed[i],
+                {n: v.to(self.device) for n, v in draws[i].items()},
+                hyper[i]) for i in range(self.k)])
+        with profiling.span("nnc.lsa.readback"):
+            return _readback(out)
 
     def _replay(self, host, draws):
         if self._graph is None:
@@ -468,16 +473,20 @@ class ScanTrainStep:
             self._stacks = {n: torch.empty((self.k, *v.shape), dtype=v.dtype,
                                            device=self.device)
                             for n, v in draws[0].items()}
-        _upload(host, self.device, out=self._static)
-        for i, d in enumerate(draws):
-            for n, v in d.items():
-                self._stacks[n][i].copy_(v)
+        with profiling.span("nnc.lsa.upload"):
+            _upload(host, self.device, out=self._static)
+            for i, d in enumerate(draws):
+                for n, v in d.items():
+                    self._stacks[n][i].copy_(v)
         if self._graph is None:
-            self._capture()
-        self._graph.replay()
+            with profiling.span("nnc.lsa.capture"):
+                self._capture()
+        with profiling.span("nnc.lsa.steps"):
+            self._graph.replay()
         self.replays += 1
         _build.add_launches(self.captured)
-        return _readback(self._losses)
+        with profiling.span("nnc.lsa.readback"):
+            return _readback(self._losses)
 
     def _step_args(self, i):
         packed, hyper = self._views(self._static)
@@ -546,7 +555,12 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     receives every call's (steps, wall seconds from its batches to its
     readback, whether it captured the graph) as ``calls``, the graph's
     ``capture_s``, ``pool_bytes`` and ``captured`` launches, and the
-    ``warmup_steps`` run before the capture.
+    ``warmup_steps`` run before the capture. While a torch profiler
+    records, each call is an ``nnc.lsa.call`` request span
+    (``utils/profiling``; counts ``steps`` and ``rays``, the call's rays)
+    over the interval ``calls`` times, its phases the spans
+    ``nnc.lsa.batches``, ``.pack``, ``.draws``, ``.upload``, ``.capture``
+    (the first full call), ``.steps`` and ``.readback``.
     """
     device = model_c.device
     trained = trained_tensors(model_c, model_f, tune_scales, tune_biases)
@@ -610,16 +624,23 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                               global_step0):
         psnrs, losses = [], []
         for k in calls:
-            t0 = time.perf_counter()
-            batches = [get_batch() for _ in range(k)]
-            n_rays = batches[0].shape[0]
-            host = pack_call(batches, [Adam.hyper(schedule(count + j),
-                                                  count + j)
-                                       for j in range(k)])
-            run = runner(k, n_rays)
-            capturing = run.graph and not run.replays
-            out = run(host, [step_draws(step + j, n_rays) for j in range(k)])
-            call_s.append((k, time.perf_counter() - t0, capturing))
+            with profiling.request("nnc.lsa.call", steps=k) as call:
+                t0 = time.perf_counter()
+                with profiling.span("nnc.lsa.batches"):
+                    batches = [get_batch() for _ in range(k)]
+                n_rays = batches[0].shape[0]
+                if call is not None:
+                    call.counts["rays"] = k * n_rays
+                with profiling.span("nnc.lsa.pack"):
+                    host = pack_call(batches, [
+                        Adam.hyper(schedule(count + j), count + j)
+                        for j in range(k)])
+                run = runner(k, n_rays)
+                capturing = run.graph and not run.replays
+                with profiling.span("nnc.lsa.draws"):
+                    made = [step_draws(step + j, n_rays) for j in range(k)]
+                out = run(host, made)
+                call_s.append((k, time.perf_counter() - t0, capturing))
             for loss_v, img_v in out:
                 psnr_v = mse2psnr(float(img_v))
                 psnrs.append(psnr_v)

@@ -65,12 +65,12 @@ def test_device_from_env(monkeypatch):
 
 def test_trace_if_writes_a_trace_with_the_annotation(tmp_path):
     with profiling.trace_if(str(tmp_path / "on")):
-        with profiling.annotate("nnc_region_marker"):
+        with profiling.span("nnc_region_marker"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     text = (tmp_path / "on" / profiling.TRACE_FILE).read_text()
     assert "nnc_region_marker" in json.dumps(json.loads(text))
     with profiling.trace_if(str(tmp_path / "off"), enabled=False):
-        with profiling.annotate("nnc_region_marker"):
+        with profiling.span("nnc_region_marker"):
             torch.ones(4)
     assert not (tmp_path / "off").exists()
 
@@ -81,22 +81,13 @@ def test_trace_if_without_a_log_dir_yields_the_profile(tmp_path,
     file is written; not enabled: None."""
     monkeypatch.chdir(tmp_path)
     with profiling.trace_if(None) as prof:
-        with profiling.annotate("nnc_region_marker"):
+        with profiling.span("nnc_region_marker"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert "nnc_region_marker" in {e.key for e in prof.key_averages()}
     assert not list(tmp_path.iterdir())
     with profiling.trace_if(None, enabled=False) as prof:
         pass
     assert prof is None
-
-
-def test_throughput():
-    meter = profiling.Throughput()
-    meter.add(1000)
-    meter.add(24)
-    assert meter.items == 1024 and meter.rate() > 0
-    meter.reset()
-    assert meter.items == 0 and meter.rate() == 0.0
 
 
 @pytest.mark.parametrize("mode", ["finite", "infinite"])
