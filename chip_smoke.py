@@ -791,9 +791,9 @@ def phase_train_kernels(dev):
     tensors = mlp_train_fused._layer_tensors(model)
     params, params_t, ls = mlp_train_fused.pack_train(
         tensors[0::3], tensors[1::3], tensors[2::3])
-    # what the tensor-core kernels read: the cached fragment-ordered weights
+    # what the tensor-core kernels read: the cached wgmma weight images
     # and the bias vector, as fused_nerf_mlp_train hands them over
-    packed_mma, packed_mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    packed_wg, packed_wg_t = mlp_train_fused.pack_train_wgmma(tensors[0::3])
     biases = mlp_train_fused.gather_biases(params)
     row = {}
     for n in N_TRAIN:
@@ -804,13 +804,13 @@ def phase_train_kernels(dev):
 
         def fwd():
             return mlp_train_fused.mlp_train_fwd(
-                params, ls, pts, vd, save_u=True, packed_mma=packed_mma,
+                params, ls, pts, vd, save_u=True, packed_wg=packed_wg,
                 biases=biases)
 
         def bwd(with_dw):
             return mlp_train_fused.mlp_train_bwd(
                 params, params_t, ls, pts, vd, cot, ws, with_dw,
-                packed_mma_t=packed_mma_t, biases=biases)
+                packed_wg_t=packed_wg_t, biases=biases)
 
         raw, ws = fwd()
         torch.cuda.synchronize()
@@ -866,12 +866,12 @@ def phase_train_kernels(dev):
             rows = {"mlp_train_fwd": {
                         "max_abs_err": err_raw, "ms": fwd_ms,
                         "plain_ms": plain_fwd_ms,
-                        **bound(nbytes(packed_mma, ls, biases, pts, vd, raw,
+                        **bound(nbytes(packed_wg, ls, biases, pts, vd, raw,
                                        ws), 2 * MLP_MACS * n, PEAK_3XTF32)},
                     bwd_name: {
                         "max_abs_err": err_g_abs, "ms": bwd_ms,
                         "plain_ms": plain_bwd_ms,
-                        **bound(nbytes(packed_mma_t, ls, biases, cot, ws,
+                        **bound(nbytes(packed_wg_t, ls, biases, cot, ws,
                                        flat) + (nbytes(pts, vd) if with_dw
                                                 else 0),
                                 2 * (BWD_MACS + (INT8_MACS if with_dw
@@ -1966,7 +1966,7 @@ def phase_train_bf16_kernels(dev):
     # what the kernels read: the bf16 streams of the unscaled weights and
     # the bias vector, as fused_nerf_mlp_train hands them over
     fwd_b, bwd_b = mlp_train_fused.pack_train_bf16(tensors[0::3])
-    mma, mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    wg, wg_t = mlp_train_fused.pack_train_wgmma(tensors[0::3])
     biases = mlp_train_fused.gather_biases(params)
     rows = None
     for n in N_TRAIN:
@@ -2022,12 +2022,12 @@ def phase_train_bf16_kernels(dev):
         # in turns: the bf16 kernel, the float32 kernel, the plain bf16
         # version (which recomputes the forward in its backward)
         _raw32, ws32 = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
-                                                     True, mma, biases)
+                                                     True, wg, biases)
         fns = {
             "mlp_train_fwd_bf16": (
                 fwd,
                 lambda: mlp_train_fused.mlp_train_fwd(params, ls, pts, vd,
-                                                      True, mma, biases),
+                                                      True, wg, biases),
                 lambda: mlp_train_fused.mlp_train_fwd_bf16_plain(
                     params, ls, pts, vd)),
             "mlp_train_bwd_bf16": (
@@ -2035,7 +2035,7 @@ def phase_train_bf16_kernels(dev):
                     params, params_t, ls, pts, vd, cot, ws, False, bwd_b,
                     biases),
                 lambda: mlp_train_fused.mlp_train_bwd(
-                    params, params_t, ls, pts, vd, cot, ws32, False, mma_t,
+                    params, params_t, ls, pts, vd, cot, ws32, False, wg_t,
                     biases),
                 lambda: mlp_train_fused.mlp_train_bwd_bf16_plain(
                     params, params_t, ls, pts, vd, cot, False)),
@@ -2044,7 +2044,7 @@ def phase_train_bf16_kernels(dev):
                     params, params_t, ls, pts, vd, cot, ws, True, bwd_b,
                     biases),
                 lambda: mlp_train_fused.mlp_train_bwd(
-                    params, params_t, ls, pts, vd, cot, ws32, True, mma_t,
+                    params, params_t, ls, pts, vd, cot, ws32, True, wg_t,
                     biases),
                 lambda: mlp_train_fused.mlp_train_bwd_bf16_plain(
                     params, params_t, ls, pts, vd, cot, True))}
@@ -2830,7 +2830,7 @@ def phase_occupancy(dev, scene, sd, tar, dec0):
             tensors[0::3], tensors[1::3], tensors[2::3])
         biases = mlp_train_fused.gather_biases(params)
         packs = (mlp_train_fused.pack_train_bf16 if bf
-                 else mlp_train_fused.pack_train_mma)(tensors[0::3])
+                 else mlp_train_fused.pack_train_wgmma)(tensors[0::3])
         fwd = mlp_train_fused.mlp_train_fwd_bf16 if bf \
             else mlp_train_fused.mlp_train_fwd
         bwd = mlp_train_fused.mlp_train_bwd_bf16 if bf \
@@ -3561,7 +3561,7 @@ def _kb1_against_plain(records, dev):
         params, params_t, _ = mlp_train_fused.pack_train(
             weights, biases, tensors[2::3])
         packs = (mlp_train_fused.pack_train_bf16 if bf16
-                 else mlp_train_fused.pack_train_mma)(weights)
+                 else mlp_train_fused.pack_train_wgmma)(weights)
         form = mlp_train_fused._FORMS[bf16]
         ls, pts, dirs, packed, bias, got = rec[:6]
         what = f"K-B1 {'bf16 ' if bf16 else ''}{kind} at {n} bench points"

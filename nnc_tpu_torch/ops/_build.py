@@ -218,8 +218,8 @@ def lib() -> ctypes.CDLL:
         handle.nnc_render_pass_bf16.restype = ci
         handle.nnc_train_sizes.argtypes = [ctypes.POINTER(ci)] * 2
         handle.nnc_train_sizes.restype = ci
-        handle.nnc_train_mma_sizes.argtypes = [ctypes.POINTER(ci)] * 2
-        handle.nnc_train_mma_sizes.restype = ci
+        handle.nnc_train_wgmma_sizes.argtypes = [ctypes.POINTER(ci)] * 2
+        handle.nnc_train_wgmma_sizes.restype = ci
         handle.nnc_mlp_train_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
                                              vp]
         handle.nnc_mlp_train_fwd.restype = ci

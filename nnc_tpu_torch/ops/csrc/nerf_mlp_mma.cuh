@@ -2,12 +2,11 @@
 // 10/4 frequencies) on a tile of 64 points with its products on the tensor
 // cores at float32 accuracy. Used by mlp_from_points.cu (K-B3),
 // mlp_embedded.cu (K-B5: the embedding read by load_embedded_tile in place
-// of embed_tile's posenc), render_pass.cu (K-B2) (through the kernels of
+// of embed_tile's posenc) and render_pass.cu (K-B2) (through the kernels of
 // mlp_from_points.cuh and render_pass.cuh, which nerf_mlp_bf16.cuh's chain
-// shares) and mlp_train.cu (K-B1: the training forward and the backward
-// without dW take the ring, the split, the fragment loads and the product
-// loops, mma_segment, from here and bring epilogues of their own, because
-// training keeps u = x @ W apart from its scale and bias).
+// shares). mlp_train.cu (K-B1, whose products are warpgroup wgmma) takes
+// the split, the embedding, the heads' reductions and the clock marks from
+// here.
 //
 // K-B6 (mlp_tp_pair.cu) takes the split, the products and cp.async from
 // here for its two products on row-major weights.
@@ -200,8 +199,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // reads only its own eighth of a slab (its output channels), which is
 // contiguous in the packed buffer, and copies just that eighth itself: the
 // ring needs no barrier across warps, only the warp's own wait. SLABS: the
-// length of the schedule (kSlabs for the forward chain; the training
-// backward of mlp_train.cu walks a schedule of its own).
+// length of the schedule (kSlabs for the forward chain; the bf16 chain and
+// K-B1 bf16's backward walk schedules of their own).
 template <int SLABS>
 struct PipeT {
   const float* src;   // this lane's first 16 bytes of slab 0
@@ -389,8 +388,8 @@ __device__ __forceinline__ void mma_slab(float (&acc)[4][NT][4],
 
 // acc += x[:, 0..K) @ (the next ceil(K / rows-per-slab) slabs).
 // K % kGroup == 0.
-template <int NT, class PipeType>
-__device__ __forceinline__ void mma_segment(PipeType& pipe,
+template <int NT>
+__device__ __forceinline__ void mma_segment(Pipe& pipe,
                                             float (&acc)[4][NT][4],
                                             const float* __restrict__ x,
                                             int ld, int K) {

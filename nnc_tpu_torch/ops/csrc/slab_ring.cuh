@@ -1,8 +1,8 @@
 // A stream of 32 KB weight slabs through a ring of shared-memory stages
 // that every warp of the CTA reads in full, for kernels whose two groups of
 // warps walk the same slabs at their own pace: mlp_int8_from_points.cu
-// (K-B4), the bf16 training forward of mlp_train_bf16.cu (K-B1) and the
-// wgmma chain of K-B3 bf16 (nerf_mlp_wgmma.cuh).
+// (K-B4), the bf16 training forward of mlp_train_bf16.cu (K-B1), the wgmma
+// chain of K-B3 bf16 (nerf_mlp_wgmma.cuh) and K-B1 float32 (mlp_train.cu).
 //
 // Slab j of the CTA's sequence (slab j % SLABS of the packed buffer) lands
 // in stage j % STAGES by one bulk copy (cp.async.bulk, the tensor memory

@@ -16,12 +16,12 @@ without any product over the weights. :func:`fused_nerf_mlp_train` is a
 * configurations other than the flagship take the plain MLP.
 
 The forward and the backward run their products on the tensor cores as
-three TF32 products each (``csrc/mlp_train.cu`` on
-``csrc/nerf_mlp_mma.cuh``) and read the weights in ``mma.sync`` fragment
-order, :func:`pack_train_mma`: the unscaled weights in
-:func:`mlp_fused.repack_mma`'s order for the forward, and torch's (out, in)
-weights, the row-major B of ``dx = du @ W^T``, as a second stream of slabs
-for the backward. Both depend on the twelve weight tensors only, which LSA
+three TF32 products each, warpgroup ``wgmma`` (``csrc/mlp_train.cu`` on
+``csrc/mlp_train_wgmma.cuh``), and read B as shared-memory images,
+:func:`pack_train_wgmma`: every weight split once into hi (TF32) and lo,
+the unscaled (in, out) weights for the forward, and torch's (out, in)
+weights, B of ``dx = du @ W^T``, as a second stream of slabs for the
+backward. Both depend on the twelve weight tensors only, which LSA
 and fine-tuning without dW never change, so :data:`TRAIN_PACKS` keeps them
 from step to step; the scales and biases go in as two vectors in the
 ``U_OFFSETS`` layout, which is also that of the forward's per-point
@@ -33,8 +33,8 @@ DW_CHUNK points (:func:`mlp_train_dw_plain` is its plain version). The
 plain versions read the buffers of :func:`pack_train`: ``params``, the
 layout of :func:`mlp_fused.pack_weights` without the scales folded in;
 ``params_t``, every layer's weight in (out, in), concatenated in layer
-order; ``ls``. :func:`unpack_train_mma` reads the fragment order back, so
-the CPU tests check the layouts the kernels read;
+order; ``ls``. :func:`unpack_train_wgmma` reads the images back, so the
+CPU tests check the layouts the kernels read;
 :func:`mlp_train_fwd_3xtf32_plain` and :func:`mlp_train_bwd_3xtf32_plain`
 model the tensor-core arithmetic. On CPU tensors the wrappers run the
 plain versions; the plain backward recomputes the forward, as the TPU
@@ -62,12 +62,11 @@ import torch.nn.functional as F
 
 from ..models import nerf
 from . import _build
-from .mlp_fused import (BF16_PARAMS_SIZE, FLAGSHIP, MMA_PARAMS_SIZE,
-                        MMA_SLAB, PARAMS_SIZE, PLAIN_CHUNK, _check, _segments,
-                        bf16_round, fragment_index, fragment_index_k16,
-                        matmul_3xtf32_plain, repack_bf16, repack_mma,
-                        supports, unpack_weights, unpack_weights_bf16,
-                        unpack_weights_mma)
+from .mlp_fused import (BF16_PARAMS_SIZE, FLAGSHIP, MMA_RUNS, MMA_SLAB,
+                        PARAMS_SIZE, PLAIN_CHUNK, _check, _segments,
+                        bf16_round, fragment_index_k16, matmul_3xtf32_plain,
+                        repack_bf16, supports, tf32_round, unpack_weights,
+                        unpack_weights_bf16)
 from .posenc import positional_encoding
 
 _DIMS = list(nerf._layer_dims(FLAGSHIP).items())   # [(name, (in, out))]
@@ -126,36 +125,98 @@ def pack_train(weights, biases, scales):
 
 
 # --- the tensor-core kernels' weights (csrc/mlp_train.cu) ------------------
-# The backward's slab stream, in the order the reverse chain consumes it:
-# (layer, first input column, input columns). dx = du @ W^T reads torch's
-# (out, in) weight as a row-major B of (out rows, in columns); the view layer
-# passes a gradient to its 256 feature inputs only, layer 5 to its 256 inputs
-# from h (not to the embedding), layer 0 to none.
+# The backward's runs, in the order the reverse chain consumes them: (layer,
+# first input column, input columns). dx = du @ W^T reads torch's (out, in)
+# weight as B of (out rows, in columns); the view layer passes a gradient to
+# its 256 feature inputs only, layer 5 to its 256 inputs from h (not to the
+# embedding), layer 0 to none. The bf16 backward walks the same runs.
 BWD_RUNS = ([("views_linears.0", 0, 256), ("feature_linear", 0, 256)]
             + [(f"pts_linears.{i}", 63 if i == 5 else 0, 256)
                for i in range(7, 0, -1)])
-BWD_SLABS = 68   # then alpha's 256 weights and rgb's (3, 128)
+
+# Both float32 kernels read B of their wgmma products as shared-memory
+# images (csrc/mlp_train_wgmma.cuh), made here once a pack: every weight
+# split into hi, rounded to TF32 (mlp_fused.tf32_round, as the kernels split
+# A), and lo = w - hi, exact, so that hi + lo == w. A group of 32 input
+# channels is one image of each, n_out rows of 32 values (128 bytes), row n
+# at n * 128 bytes with its 16-byte chunk c at chunk c ^ (n & 7) (the
+# 128-byte swizzle), depth position p holding the group's channel
+# GROUP_CHANNEL[p] (the order of the kernels' A registers). A slab (8,192
+# floats, one bulk copy) is the hi or the lo image of a 256-wide layer's
+# group, or both of the 128-wide view layer's. The forward's buffer: the
+# MMA_RUNS of the unscaled weights (in, out), 145 slabs, then alpha's 256
+# weights and rgb's (128, 3); the backward's: the BWD_RUNS, 136 slabs, then
+# alpha's 256 weights and rgb's (3, 128).
+WG_SLAB = 8192
+FWD_WG_SLABS = 145
+BWD_WG_SLABS = 136
+_p = np.arange(32)
+GROUP_CHANNEL = (16 * (_p >> 4) + 4 * (_p & 3) + 2 * ((_p >> 3) & 1)
+                 + ((_p >> 2) & 1))
 
 
-def _bwd_index():
-    """For every float of the backward's buffer, the index of its value in
-    ``params_t`` (every run is whole k steps: there is no padding)."""
-    dims = dict(_DIMS)
+def wgmma_offsets(n_out):
+    """(32, n_out): the float offset, within a group's image of n_out rows,
+    of depth position p of row n."""
+    p = np.arange(32)[:, None]
+    n = np.arange(n_out)[None, :]
+    return n * 32 + (((p >> 2) ^ (n & 7)) << 2) + (p & 3)
+
+
+def _wgmma_index(runs, tails, size):
+    """For every float of a buffer, the index of its value in [w, hi(w),
+    lo(w), 0] of a flat source w of ``size`` floats. runs: (n_out, src)
+    with src (depth, n_out) the source index of B's every value (``size``
+    for a zero row); tails: source indices of the raw values after the
+    slabs."""
+    zero = 3 * size
     parts = []
-    for name, col0, n_in in BWD_RUNS:
-        din, dout = dims[name]
-        parts.append(fragment_index(WT_OFFSETS[NAMES.index(name)] + col0, din,
-                                    dout, dout, n_in, WT_SIZE))
-    for name in ("alpha_linear", "rgb_linear"):
-        din, dout = dims[name]
-        parts.append(WT_OFFSETS[NAMES.index(name)] + np.arange(din * dout))
+    for n_out, src in runs:
+        pos = wgmma_offsets(n_out).reshape(-1)
+        for g0 in range(0, src.shape[0], 32):
+            block = src[g0 + GROUP_CHANNEL].reshape(-1)
+            for part in (1, 2):   # hi, then lo
+                image = np.empty(32 * n_out, dtype=np.int64)
+                image[pos] = np.where(block < size, part * size + block, zero)
+                parts.append(image)
+    tail = np.concatenate(tails)
+    parts += [tail, np.full(-tail.size % 64, zero)]
     return np.concatenate(parts).astype(np.int64)
 
 
-BWD_INDEX = _bwd_index()
-BWD_PARAMS_SIZE = BWD_INDEX.size
-assert BWD_PARAMS_SIZE == BWD_SLABS * MMA_SLAB + 256 + 3 * 128 \
-    and BWD_PARAMS_SIZE % 64 == 0 and BWD_INDEX.max() < WT_SIZE
+def _fwd_wgmma_index():
+    segs = {name: (din, dout, off) for name, din, dout, off
+            in _segments(FLAGSHIP)[0]}
+    runs = []
+    for name, row0, rows, padded in MMA_RUNS:
+        _din, dout, off = segs[name]
+        k = np.arange(padded)[:, None]
+        runs.append((dout, np.where(k < rows, off + (row0 + k) * dout
+                                    + np.arange(dout)[None, :], PARAMS_SIZE)))
+    tails = [segs[name][2] + np.arange(segs[name][0] * segs[name][1])
+             for name in ("alpha_linear", "rgb_linear")]
+    return _wgmma_index(runs, tails, PARAMS_SIZE)
+
+
+def _bwd_wgmma_index():
+    dims = dict(_DIMS)
+    runs = []
+    for name, col0, n_in in BWD_RUNS:
+        din, dout = dims[name]
+        off = WT_OFFSETS[NAMES.index(name)]
+        runs.append((n_in, off + np.arange(dout)[:, None] * din + col0
+                     + np.arange(n_in)[None, :]))
+    tails = [WT_OFFSETS[NAMES.index(name)] + np.arange(np.prod(dims[name]))
+             for name in ("alpha_linear", "rgb_linear")]
+    return _wgmma_index(runs, tails, WT_SIZE)
+
+
+FWD_WG_INDEX = _fwd_wgmma_index()
+BWD_WG_INDEX = _bwd_wgmma_index()
+FWD_WG_SIZE = FWD_WG_INDEX.size
+BWD_WG_SIZE = BWD_WG_INDEX.size
+assert FWD_WG_SIZE == FWD_WG_SLABS * WG_SLAB + 640 \
+    and BWD_WG_SIZE == BWD_WG_SLABS * WG_SLAB + 640
 # every layer's bias in ``params``, in the U_OFFSETS layout
 BIAS_INDEX = np.concatenate([off + din * dout + np.arange(dout)
                              for _name, din, dout, off
@@ -170,11 +231,25 @@ def _gather(flat, which, index):
     return flat[_index_on[key]]
 
 
-def repack_mma_t(params_t: torch.Tensor) -> torch.Tensor:
-    """``params_t`` (every layer's (out, in) weight, concatenated) in the
-    order the backward without dW reads it: one gather."""
+def _split_source(flat):
+    hi = tf32_round(flat)
+    return torch.cat([flat, hi, flat - hi, flat.new_zeros(1)])
+
+
+def repack_wgmma(params: torch.Tensor) -> torch.Tensor:
+    """``params`` (pack_train's layout) as the forward reads it: its
+    weights split and laid out as the forward's wgmma images, then the
+    heads' weights. One split and one gather."""
+    _check("params", params, (PARAMS_SIZE,))
+    return _gather(_split_source(params), "fwd_wg", FWD_WG_INDEX)
+
+
+def repack_wgmma_t(params_t: torch.Tensor) -> torch.Tensor:
+    """``params_t`` (every layer's (out, in) weight, concatenated) as the
+    backward without dW reads it: the BWD_RUNS split and laid out as wgmma
+    images, then the heads' weights."""
     _check("params_t", params_t, (WT_SIZE,))
-    return _gather(params_t, "bwd", BWD_INDEX)
+    return _gather(_split_source(params_t), "bwd_wg", BWD_WG_INDEX)
 
 
 def gather_biases(params: torch.Tensor) -> torch.Tensor:
@@ -182,28 +257,41 @@ def gather_biases(params: torch.Tensor) -> torch.Tensor:
     return _gather(params, "bias", BIAS_INDEX)
 
 
-def pack_train_mma(weights):
+def pack_train_wgmma(weights):
     """(forward buffer, backward buffer) of the tensor-core kernels from each
-    layer's weight (out, in), in layer order: :func:`mlp_fused.repack_mma` of
-    the unscaled weights (its bias block left zero: the biases go to the
-    kernel as a vector) and :func:`repack_mma_t`."""
+    layer's weight (out, in), in layer order: :func:`repack_wgmma` of the
+    unscaled weights and :func:`repack_wgmma_t`."""
     zeros = [w.new_zeros(w.shape[0]) for w in weights]
     params, params_t, _ = pack_train(weights, zeros, zeros)
-    return repack_mma(params), repack_mma_t(params_t)
+    return repack_wgmma(params), repack_wgmma_t(params_t)
 
 
-def unpack_train_mma(packed_fwd, packed_bwd):
+def _unsplit(buf, index, size):
+    """The flat source of a wgmma buffer read back: hi + lo where the buffer
+    holds a value's halves, the raw value where it holds it whole, zeros
+    where it holds nothing."""
+    dev = buf.device
+    idx = torch.from_numpy(index).to(dev)
+    flat = buf.new_zeros(size)
+    whole = idx < size
+    flat[idx[whole]] = buf[whole]
+    for part in (1, 2):
+        mine = (idx >= part * size) & (idx < (part + 1) * size)
+        flat.index_add_(0, idx[mine] - part * size, buf[mine])
+    return flat
+
+
+def unpack_train_wgmma(packed_fwd, packed_bwd):
     """({name: w (in, out)}, {name: w (out, in)}) read back from the buffers
-    of :func:`pack_train_mma`. The second holds zeros where the backward has
-    no use for a weight (layer 0, the embedding columns of layer 5 and the
-    view columns of the view layer)."""
-    fwd = {name: w for name, (w, _b)
-           in unpack_weights_mma(packed_fwd).items()}
-    _check("packed_bwd", packed_bwd, (BWD_PARAMS_SIZE,))
-    flat = packed_bwd.new_zeros(WT_SIZE)
-    flat[torch.from_numpy(BWD_INDEX).to(packed_bwd.device)] = packed_bwd
-    return fwd, _views(flat, WT_OFFSETS,
-                       [(dout, din) for _, (din, dout) in _DIMS])
+    of :func:`pack_train_wgmma` (hi + lo of every split weight). The second
+    holds zeros where the backward has no use for a weight (layer 0, the
+    embedding columns of layer 5 and the view columns of the view layer)."""
+    _check("packed_fwd", packed_fwd, (FWD_WG_SIZE,))
+    _check("packed_bwd", packed_bwd, (BWD_WG_SIZE,))
+    fwd = {name: w for name, (w, _b) in unpack_weights(
+        _unsplit(packed_fwd, FWD_WG_INDEX, PARAMS_SIZE)).items()}
+    return fwd, _views(_unsplit(packed_bwd, BWD_WG_INDEX, WT_SIZE),
+                       WT_OFFSETS, [(dout, din) for _, (din, dout) in _DIMS])
 
 
 # --- the bf16 kernels' weights (csrc/mlp_train_bf16.cu) -----------------------
@@ -266,7 +354,7 @@ def unpack_train_bf16(packed_fwd, packed_bf16_t):
     """({name: w (in, out)}, {name: w (out, in)}) read back from the buffers
     of :func:`pack_train_bf16`, as float32 tensors holding bf16 values; the
     second with zeros where the backward has no use for a weight, as in
-    :func:`unpack_train_mma`."""
+    :func:`unpack_train_wgmma`."""
     fwd = {name: w for name, (w, _b)
            in unpack_weights_bf16(packed_fwd).items()}
     _check("packed_bf16_t", packed_bf16_t, (BWD_BF16_PARAMS_SIZE,),
@@ -282,12 +370,12 @@ def unpack_train_bf16(packed_fwd, packed_bf16_t):
                        [(dout, din) for _, (din, dout) in _DIMS])
 
 
-_PACKERS = {torch.float32: pack_train_mma, torch.bfloat16: pack_train_bf16}
+_PACKERS = {torch.float32: pack_train_wgmma, torch.bfloat16: pack_train_bf16}
 
 
 class TrainPackCache:
     """The kernels' weight buffers of a model's twelve weight tensors for a
-    compute type (:func:`pack_train_mma` for float32, :func:`pack_train_bf16`
+    compute type (:func:`pack_train_wgmma` for float32, :func:`pack_train_bf16`
     for bfloat16), kept while the tensors stay what they were: the same
     tensor objects at the same version (``Tensor._version``, which every
     in-place update bumps), on the same device and storage. The type is part
@@ -631,9 +719,9 @@ def _check_inputs(ls, pts, dirs, *more):
 
 
 def _kernel_buffer(name, buf, size, made_from, make, dtype=torch.float32):
-    """A fragment-ordered buffer a tensor-core kernel launches with: ``buf``
-    checked (``cp.async`` copies it 16 bytes at a time), or, if None, made
-    by ``make`` from the :func:`pack_train` buffer ``made_from``."""
+    """A packed weight buffer a tensor-core kernel launches with: ``buf``
+    checked (the kernels copy it 16 bytes at a time), or, if None, made by
+    ``make`` from the :func:`pack_train` buffer ``made_from``."""
     if buf is None:
         if made_from is None:
             raise ValueError(f"{name}: neither it nor the buffer it is made "
@@ -660,9 +748,8 @@ _FORMS = {
                 bwd_dw="mlp_train_bwd_dw", c_bwd="nnc_mlp_train_bwd_mma",
                 c_dw="nnc_mlp_train_dw", du=(torch.float32, U_SIZE),
                 fwd_plain=mlp_train_fwd_plain, bwd_plain=mlp_train_bwd_plain,
-                buf=("packed_mma", MMA_PARAMS_SIZE, repack_mma,
-                     torch.float32),
-                buf_t=("packed_mma_t", BWD_PARAMS_SIZE, repack_mma_t,
+                buf=("packed_wg", FWD_WG_SIZE, repack_wgmma, torch.float32),
+                buf_t=("packed_wg_t", BWD_WG_SIZE, repack_wgmma_t,
                        torch.float32), tile=TILE),
     True: dict(fwd="mlp_train_fwd_bf16", bwd="mlp_train_bwd_bf16",
                bwd_dw="mlp_train_bwd_dw_bf16", c_bwd="nnc_mlp_train_bwd_bf16",
@@ -704,16 +791,16 @@ def _fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
 
 
 def mlp_train_fwd(params, ls, pts, dirs, save_u: bool = False,
-                  packed_mma=None, biases=None):
+                  packed_wg=None, biases=None):
     """K-B1 forward wrapper: (raw (N, 4), workspace). With ``save_u`` the
     kernel also writes every layer's u per point, (ceil(N / 64) * 64,
     U_SIZE), for :func:`mlp_train_bwd`; else the workspace is None.
 
-    CUDA tensors launch the kernel, which reads ``packed_mma`` (the forward
-    buffer of :func:`pack_train_mma`) and ``biases`` (U_SIZE,); each is made
+    CUDA tensors launch the kernel, which reads ``packed_wg`` (the forward
+    buffer of :func:`pack_train_wgmma`) and ``biases`` (U_SIZE,); each is made
     from ``params`` here if not given, and ``params`` may be None if both
     are. CPU tensors take the plain version on ``params`` (no workspace)."""
-    return _fwd(False, params, ls, pts, dirs, save_u, packed_mma, biases)
+    return _fwd(False, params, ls, pts, dirs, save_u, packed_wg, biases)
 
 
 def mlp_train_fwd_bf16(params, ls, pts, dirs, save_u: bool = False,
@@ -787,13 +874,13 @@ def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
 
 
 def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
-                  packed_mma_t=None, biases=None, du=None):
+                  packed_wg_t=None, biases=None, du=None):
     """K-B1 backward wrapper: the flat gradient [dW (with_dw), dls, db] for
     the raw cotangent ``g`` (N, 4). CUDA tensors need the forward's
     workspace ``ws``; CPU tensors take the plain version.
 
-    On CUDA tensors the tensor-core kernel reads ``packed_mma_t`` (the
-    backward buffer of :func:`pack_train_mma`) and ``biases`` (U_SIZE,),
+    On CUDA tensors the tensor-core kernel reads ``packed_wg_t`` (the
+    backward buffer of :func:`pack_train_wgmma`) and ``biases`` (U_SIZE,),
     made here from ``params_t`` and ``params`` if not given (each of which
     may be None if its buffer is). With dW it also writes every layer's du
     to a workspace of ``ws``'s shape (``du``, made here if not given), from
@@ -801,7 +888,7 @@ def mlp_train_bwd(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,
     sums dW; rows past the first pass's whole 64-point tiles are neither
     written nor read."""
     return _bwd(False, params, params_t, ls, pts, dirs, g, ws, with_dw,
-                packed_mma_t, biases, du)
+                packed_wg_t, biases, du)
 
 
 def mlp_train_bwd_bf16(params, params_t, ls, pts, dirs, g, ws, with_dw: bool,

@@ -307,7 +307,7 @@ def kb1_dw(device, args):
     pts, vd, cot = _points(n, g, device)
     out = {}
     for dtype, fwd, bwd, pack in (
-            ("float32", M.mlp_train_fwd, M.mlp_train_bwd, M.pack_train_mma),
+            ("float32", M.mlp_train_fwd, M.mlp_train_bwd, M.pack_train_wgmma),
             ("bfloat16", M.mlp_train_fwd_bf16, M.mlp_train_bwd_bf16,
              M.pack_train_bf16)):
         packed, packed_t = pack(weights)

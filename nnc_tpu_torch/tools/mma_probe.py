@@ -1,8 +1,9 @@
-"""What holds the tensor-core chains of K-B3 / K-B2 / K-B1
-(ops/csrc/nerf_mlp_mma.cuh, float32 as 3xTF32; ops/csrc/nerf_mlp_bf16.cuh,
-bf16; ops/csrc/nerf_mlp_wgmma.cuh, K-B3 bf16's warpgroup products) and K-B4's
-int8 products on the card they run on. Needs a CUDA device
-and nvcc:
+"""What holds the tensor-core chains of K-B3 / K-B2
+(ops/csrc/nerf_mlp_mma.cuh, float32 as 3xTF32), K-B1 float32
+(ops/csrc/mlp_train_wgmma.cuh, 3xTF32 on warpgroup products),
+ops/csrc/nerf_mlp_bf16.cuh (bf16), ops/csrc/nerf_mlp_wgmma.cuh (K-B3 bf16's
+warpgroup products) and K-B4's int8 products on the card they run on. Needs
+a CUDA device and nvcc:
 
     python -m nnc_tpu_torch.tools.mma_probe
 
@@ -19,13 +20,13 @@ Prints, after the card's name and power limit:
      share of a tile's clocks spent in each part of the chain;
   3. the SASS opcode counts of the shipped build (how many instructions ride
      along with each HMMA);
-  4. K-B1 (``mlp_train.cu``) at 196,608 points built three ways: as shipped
-     (u staged through shared memory and stored to the workspace as 16-byte
-     coalesced rows), with ``-DNNC_TRAIN_DIRECT_U`` (u stored straight from
-     the fragments, 8 bytes a lane; outputs and workspace must be bit-equal)
-     and with clock marks: the forward's two times in turns and its time without
-     the workspace, the backward's time, and the share of a tile's clocks in
-     each part of the forward and of the backward without dW;
+  4. K-B1 (``mlp_train.cu``, warpgroup ``wgmma`` on
+     ``mlp_train_wgmma.cuh``) at 196,608 and 32,768 points (the LSA step's
+     fine pass, the occupancy loss's), as shipped and with clock marks
+     (outputs, workspace and gradients bit-equal): the forward's time with
+     and without the workspace, the backward's without dW, and the share of
+     a tile's clocks in each part of the forward and of the backward, by
+     thread 0 (warpgroup 0);
   5. the bf16 chains: the rate at which a sub-partition issues
      ``mma.sync.m16n8k16 .bf16`` (as in 1; K-B2 bf16 and K-B5 bf16's
      chain), then K-B3 bf16 (``mlp_from_points_bf16.cu``, the ``wgmma``
@@ -90,11 +91,19 @@ PROFILE_SLOTS = ("stage the points in", "embedding", "product loops",
                  "rgb head and barrier", "store the logits")
 
 N_TRAIN = 196_608
-TRAIN_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
-                   "barrier after the products",
-                   "epilogue: u staged, workspace rows, activations",
-                   "barrier after the stores", "alpha head",
-                   "rgb head and barrier", "store the logits")
+N_OCC = 32_768   # the occupancy loss's points a step
+TRAIN_SLOTS = ("tile start: points in, embedding (backward: cotangent, "
+               "heads' sums)",
+               "A loaded and split, waiting for the slabs (backward: also "
+               "the rgb head's dv)",
+               "issuing a group's twelve products",
+               "wgmma.wait_group: the products",
+               "the group's join, the slabs released",
+               "barrier after the products",
+               "epilogue (forward: u staged, workspace rows, activations; "
+               "backward: mask, du, row sums)",
+               "barrier after the epilogue (backward: and the warps' sums)",
+               "heads (forward); the last sums (backward)")
 TRAIN_BF16_FWD_SLOTS = ("stage the points in", "embedding", "product loops",
                         "barrier after the products",
                         "epilogue: u to the workspace, activations",
@@ -114,14 +123,6 @@ TRAIN_BF16_BWD_SLOTS = ("cotangent in, the heads (sums, rgb head's dv)",
                         "epilogue: mask, du, dpre * u",
                         "epilogue: column sums, du to shared memory",
                         "barrier after the stores", "end of the tile")
-TRAIN_BWD_SLOTS = ("cotangent in, the heads' sums", "rgb head's dv",
-                   "product loops (and the alpha term)",
-                   "barrier after the products",
-                   "epilogue: u from the workspace, mask, du",
-                   "epilogue: column sums (shuffles, the CTA's row)",
-                   "du to shared memory", "barrier after the stores",
-                   "end of the tile")
-
 KB3_BF16_SLOTS = ("embedding: coordinates, sincosf, swizzled stores",
                   "waiting for a slab (full barrier)",
                   "issuing a slab's products", "wgmma.wait_group, release",
@@ -583,73 +584,73 @@ def _show_clocks(lib_fn, slots, tiles, what, section=4, points=64):
 
 
 def train_pair(libs, dev):
+    """Section 4: K-B1 float32 as shipped and with clock marks, at the LSA
+    step's fine pass and at the occupancy loss's points."""
     g = torch.Generator().manual_seed(4)
     model = synthetic._activate(nerf.init_params(nerf.NeRFConfig(), g), g)
     model = nerf.init_lsa_scales(model, std=0.05, generator=g).to(dev)
     t = mlp_train_fused._layer_tensors(model)
     params, _params_t, ls = mlp_train_fused.pack_train(t[0::3], t[1::3],
                                                        t[2::3])
-    fw, bw = mlp_train_fused.pack_train_mma(t[0::3])
+    fw, bw = mlp_train_fused.pack_train_wgmma(t[0::3])
     bi = mlp_train_fused.gather_biases(params)
-    n = N_TRAIN
-    pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
-    vd = torch.randn(n, 3, generator=g)
-    vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
-    cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-n // 64)
-    grid = min(tiles, sms)
-    size = mlp_train_fused.grad_size(False)
-    partials = torch.empty(grid, size, device=dev)
-    raws = {k: torch.empty(n, 4, device=dev) for k in libs}
-    wss = {k: torch.empty(tiles * 64, mlp_train_fused.U_SIZE, device=dev)
-           for k in ("train", "train_direct")}
-    wss["train_profile"] = wss["train"]
-    flats = {k: torch.empty(size, device=dev) for k in libs}
     stream = torch.cuda.current_stream().cuda_stream
+    size = mlp_train_fused.grad_size(False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (N_TRAIN, N_OCC):
+        pts = (4 * torch.rand(n, 3, generator=g) - 2).to(dev)
+        vd = torch.randn(n, 3, generator=g)
+        vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True)).to(dev)
+        cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+        tiles = -(-n // 64)
+        grid = min(tiles, sms)
+        partials = torch.empty(grid, size, device=dev)
+        raws = {k: torch.empty(n, 4, device=dev) for k in libs}
+        wss = {k: torch.empty(tiles * 64, mlp_train_fused.U_SIZE, device=dev)
+               for k in libs}
+        flats = {k: torch.empty(size, device=dev) for k in libs}
 
-    def fwd(name, save=True):
-        rc = libs[name].nnc_mlp_train_fwd(
-            fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
-            vd.data_ptr(), raws[name].data_ptr(),
-            wss[name].data_ptr() if save else None, n, stream)
-        assert rc == 0, (name, rc)
+        def fwd(name, save=True):
+            rc = libs[name].nnc_mlp_train_fwd(
+                fw.data_ptr(), ls.data_ptr(), bi.data_ptr(), pts.data_ptr(),
+                vd.data_ptr(), raws[name].data_ptr(),
+                wss[name].data_ptr() if save else None, n, stream)
+            assert rc == 0, (name, rc)
 
-    def bwd(name):
-        rc = libs[name].nnc_mlp_train_bwd_mma(
-            bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
-            wss[name].data_ptr(), None, partials.data_ptr(),
-            flats[name].data_ptr(), n, grid, stream)
-        assert rc == 0, (name, rc)
+        def bwd(name):
+            rc = libs[name].nnc_mlp_train_bwd_mma(
+                bw.data_ptr(), ls.data_ptr(), bi.data_ptr(), cot.data_ptr(),
+                wss[name].data_ptr(), None, partials.data_ptr(),
+                flats[name].data_ptr(), n, grid, stream)
+            assert rc == 0, (name, rc)
 
-    times = [{name: _ms(lambda: fwd(name))
-              for name in ("train", "train_direct")} for _ in range(2)]
-    assert torch.equal(raws["train"], raws["train_direct"]) and \
-        torch.equal(wss["train"], wss["train_direct"]), \
-        "u staged through shared memory and u from the fragments disagree"
-    shown = {name: [f"{x[name]:.3f}" for x in times] for name in times[0]}
-    no_ws = _ms(lambda: fwd("train", save=False))
-    t_bwd = [_ms(lambda: bwd("train")) for _ in range(2)]
-    print(f"[4] K-B1 forward {n} points in turns, ms: u staged through "
-          f"shared memory (16-byte rows, shipped) {shown['train']}, stored "
-          f"from the fragments (8 bytes a lane) {shown['train_direct']}; outputs "
-          f"and workspace bit-equal; without the workspace {no_ws:.3f}; "
-          f"backward without dW {[f'{x:.3f}' for x in t_bwd]}")
-    prof = libs["train_profile"]
-    fwd("train_profile")
-    torch.cuda.synchronize()
-    sums = (ctypes.c_ulonglong * len(TRAIN_FWD_SLOTS))()
-    assert prof.nnc_train_profile(sums) == 0   # warm-up, discarded
-    fwd("train_profile")
-    torch.cuda.synchronize()
-    _show_clocks(prof.nnc_train_profile, TRAIN_FWD_SLOTS, tiles, "forward")
-    bwd("train_profile")
-    torch.cuda.synchronize()
-    assert prof.nnc_train_profile(sums) == 0
-    bwd("train_profile")
-    torch.cuda.synchronize()
-    _show_clocks(prof.nnc_train_profile, TRAIN_BWD_SLOTS, tiles,
-                 "backward without dW")
+        t_fwd = [_ms(lambda: fwd("train")) for _ in range(2)]
+        no_ws = _ms(lambda: fwd("train", save=False))
+        t_bwd = [_ms(lambda: bwd("train")) for _ in range(2)]
+        print(f"[4] K-B1 {n} points, {grid} CTAs, ms: forward "
+              f"{[f'{x:.3f}' for x in t_fwd]}, without the workspace "
+              f"{no_ws:.3f}; backward without dW "
+              f"{[f'{x:.3f}' for x in t_bwd]}")
+        prof = libs["train_profile"]
+        sums = (ctypes.c_ulonglong * len(TRAIN_SLOTS))()
+        fwd("train_profile")
+        torch.cuda.synchronize()
+        assert prof.nnc_train_profile(sums) == 0   # warm-up, discarded
+        fwd("train_profile")
+        torch.cuda.synchronize()
+        _show_clocks(prof.nnc_train_profile, TRAIN_SLOTS, tiles,
+                     f"forward, {n} points")
+        bwd("train_profile")
+        torch.cuda.synchronize()
+        assert prof.nnc_train_profile(sums) == 0
+        bwd("train_profile")
+        torch.cuda.synchronize()
+        _show_clocks(prof.nnc_train_profile, TRAIN_SLOTS, tiles,
+                     f"backward without dW, {n} points")
+        assert torch.equal(raws["train"], raws["train_profile"]) and \
+            torch.equal(wss["train"], wss["train_profile"]) and \
+            torch.equal(flats["train"], flats["train_profile"]), \
+            "the build with clock marks computes other values"
 
 
 def train_bf16(libs, dev):
@@ -976,7 +977,6 @@ def main(argv=None):
               "cvt": ({2}, kb3, "-DNNC_SPLIT_CVT"),
               "profile": ({2}, kb3, "-DNNC_MMA_PROFILE"),
               "train": ({4}, kb1),
-              "train_direct": ({4}, kb1, "-DNNC_TRAIN_DIRECT_U"),
               "train_profile": ({4}, kb1, "-DNNC_MMA_PROFILE"),
               "bf16": ({5, 11}, kb3_bf16),
               "bf16_profile": ({5, 11}, kb3_bf16, "-DNNC_MMA_PROFILE"),
@@ -1014,7 +1014,7 @@ def main(argv=None):
                                                        vp]
     for name in (n for n in libs if n.startswith(("bf16", "no_copy"))):
         libs[name].nnc_mlp_from_points_bf16.argtypes = [vp] * 5 + [ci, vp]
-    for name in ("train", "train_direct", "train_profile"):
+    for name in ("train", "train_profile"):
         if name in libs:
             libs[name].nnc_mlp_train_fwd.argtypes = [vp] * 7 + [ci, vp]
             libs[name].nnc_mlp_train_bwd_mma.argtypes = [vp] * 8 + [ci, ci,
@@ -1037,7 +1037,7 @@ def main(argv=None):
         sass_counts(os.path.join(OUT, "shipped.so"))
     if 4 in sections:
         train_pair({k: v for k, v in libs.items()
-                    if k in ("train", "train_direct", "train_profile")}, dev)
+                    if k in ("train", "train_profile")}, dev)
     if 5 in sections:
         issue_rate(libs["issue_rate"], dev, "bf16")
         bf16_chain({k: v for k, v in libs.items()

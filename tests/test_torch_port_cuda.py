@@ -85,9 +85,9 @@ def test_cuda_build_and_packed_layout(cuda_device):
     assert [s.value for s in sizes] == [mlp_train_fused.U_SIZE,
                                         mlp_train_fused.WT_SIZE]
     sizes = [ctypes.c_int() for _ in range(2)]
-    _build.lib().nnc_train_mma_sizes(*[ctypes.byref(s) for s in sizes])
-    assert [s.value for s in sizes] == [mlp_fused.MMA_PARAMS_SIZE,
-                                        mlp_train_fused.BWD_PARAMS_SIZE]
+    _build.lib().nnc_train_wgmma_sizes(*[ctypes.byref(s) for s in sizes])
+    assert [s.value for s in sizes] == [mlp_train_fused.FWD_WG_SIZE,
+                                        mlp_train_fused.BWD_WG_SIZE]
     sizes = [ctypes.c_int() for _ in range(3)]
     _build.lib().nnc_int8_sizes(*[ctypes.byref(s) for s in sizes])
     assert [s.value for s in sizes] == [mlp_fused.INT8_WQ_SIZE,
@@ -426,14 +426,20 @@ def _grads_close(got, want, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,with_dw", [(10_000, False), (10_000, True),
                                        (4096, False), (33, False),
-                                       (16_401, False), (196_608, False)])
+                                       (16_401, False), (196_608, False),
+                                       (32_768, False), (65_536, False),
+                                       (131_072, False)])
 def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
     """K-B1 forward and backward against the plain versions; 33, 10,000 and
     16,401 are no multiples of the 64-point tile (the ragged tail; the last
-    is a mesh shard's size and a bit), 196,608 is the LSA step's fine pass,
-    more tiles than one wave of persistent CTAs takes 23 times over. The
-    forward and the backward without dW run 3xTF32 products: raw within 3e-5
-    of the exact float32 plain version (TOL of K-B3)."""
+    is a mesh shard's size and a bit; 33 and 16,401 also an odd number of
+    tiles, so that one CTA of a cluster runs a tile past the data), 196,608
+    is the LSA step's fine pass, more tiles than one wave of persistent CTAs
+    takes 23 times over, 32,768 the occupancy loss's points, 65,536 the
+    coarse pass, 131,072 fern's fine pass. The forward and the backward
+    without dW run 3xTF32 products: raw within 3e-5 of the exact float32
+    plain version (TOL of K-B3). Two runs give the same bits: raw, the
+    workspace, dls, db and (with dW) every du."""
     model = _fog_model(cuda_device)
     g = torch.Generator().manual_seed(6)
     pts = (2 * torch.randn(n, 3, generator=g)).to(cuda_device)
@@ -471,16 +477,22 @@ def test_cuda_mlp_train_matches_plain(cuda_device, n, with_dw):
             _grads_close(got[name], want[name], f"{part} {name}")
     # the sum over CTAs is taken in a fixed order: bit-identical reruns,
     # also from the cached buffers in place of those made from pack_train's
-    packed_mma, packed_mma_t = mlp_train_fused.pack_train_mma(tensors[0::3])
+    packed_wg, packed_wg_t = mlp_train_fused.pack_train_wgmma(tensors[0::3])
+    biases = mlp_train_fused.gather_biases(params)
     again = mlp_train_fused.mlp_train_bwd(
         None if not with_dw else params, None if not with_dw else params_t,
-        ls, pts, vd, cot, ws, with_dw, packed_mma_t=packed_mma_t,
-        biases=mlp_train_fused.gather_biases(params))
+        ls, pts, vd, cot, ws, with_dw, packed_wg_t=packed_wg_t, biases=biases)
     assert torch.equal(again, flat)
     raw_c, ws_c = mlp_train_fused.mlp_train_fwd(
-        None, ls, pts, vd, save_u=True, packed_mma=packed_mma,
-        biases=mlp_train_fused.gather_biases(params))
+        None, ls, pts, vd, save_u=True, packed_wg=packed_wg, biases=biases)
     assert torch.equal(raw_c, raw) and torch.equal(ws_c, ws)
+    if with_dw:
+        dus = [torch.full_like(ws, float("nan")) for _ in range(2)]
+        flats = [mlp_train_fused.mlp_train_bwd(
+            None, None, ls, pts, vd, cot, ws_c, True, packed_wg_t, biases,
+            du=d) for d in dus]
+        assert torch.equal(flats[0], flat) and torch.equal(flats[1], flat)
+        assert torch.equal(dus[0], dus[1])
 
 
 @pytest.mark.cuda
@@ -511,7 +523,7 @@ def test_cuda_mlp_train_dw_two_passes(cuda_device, bf16, n):
     fwd, bwd = (M.mlp_train_fwd_bf16, M.mlp_train_bwd_bf16) if bf16 else \
         (M.mlp_train_fwd, M.mlp_train_bwd)
     packed, packed_t = (M.pack_train_bf16 if bf16 else
-                        M.pack_train_mma)(tensors[0::3])
+                        M.pack_train_wgmma)(tensors[0::3])
     _raw, ws = fwd(params, ls, pts, vd, True, packed, biases)
     du = torch.full((ws.shape[0], M.DU_COLS_BF16 if bf16 else M.U_SIZE),
                     float("nan"), device=cuda_device,
@@ -568,12 +580,12 @@ def test_cuda_train_wrappers_need_their_buffers(cuda_device):
     ls = torch.ones(mlp_train_fused.U_SIZE, device=cuda_device)
     with pytest.raises(ValueError, match="neither"):
         mlp_train_fused.mlp_train_fwd(None, ls, pts, vd)
-    packed = torch.zeros(mlp_fused.MMA_PARAMS_SIZE, device=cuda_device)
+    packed = torch.zeros(mlp_train_fused.FWD_WG_SIZE, device=cuda_device)
     with pytest.raises(ValueError, match="device"):
         mlp_train_fused.mlp_train_fwd(None, ls, pts, vd,
-                                      packed_mma=packed.cpu(), biases=ls)
+                                      packed_wg=packed.cpu(), biases=ls)
     raw, ws = mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, save_u=True,
-                                            packed_mma=packed, biases=ls)
+                                            packed_wg=packed, biases=ls)
     # with dW as without: the backward's buffer, or params_t to make it from
     with pytest.raises(ValueError, match="neither"):
         mlp_train_fused.mlp_train_bwd(None, None, ls, pts, vd, raw, ws, True)

@@ -536,7 +536,7 @@ def test_train_packs_key_on_the_compute_type(flagship):
     assert cache.get(w, torch.float32) is f32
     assert cache.get(w, BF16_T) is b16
     assert (cache.hits, cache.misses) == (2, 2)
-    assert all(torch.equal(a, b) for a, b in zip(f32, M.pack_train_mma(w)))
+    assert all(torch.equal(a, b) for a, b in zip(f32, M.pack_train_wgmma(w)))
     assert all(torch.equal(a, b) for a, b in zip(b16, M.pack_train_bf16(w)))
     assert f32[0].dtype == torch.float32 and b16[0].dtype == torch.int32
 

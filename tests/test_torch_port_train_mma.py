@@ -1,9 +1,18 @@
 """K-B1 on the tensor cores (csrc/mlp_train.cu) as far as the CPU reaches it:
-the two fragment-ordered weight buffers, their cache, and the plain models
+the two weight buffers of wgmma images, their cache, and the plain models
 of the kernels' arithmetic.
 
+The images are read back by a model of their own, written from the
+hardware's rule and the kernel's code rather than from the packing's index
+arithmetic: a wgmma descriptor of a K-major 32-bit operand with the 128-byte
+swizzle reads value (k step ks, slot s) of row n at the unswizzled byte
+a = 128 n + 32 ks + 4 s of the image and finds it at a ^ (((a >> 7) & 7) <<
+4); lane 4 g + t of the kernel loads channels 16 h + 4 t .. + 3 of a group's
+half h and gives channels 16 h + 4 t + 2 e and + 1 to slots t and t + 4 of
+k step 2 h + e.
+
 Tolerances.
-  * The buffers are gathers: exact.
+  * The buffers are a split and gathers: exact (hi + lo == w).
   * The modelled 3xTF32 chains against float64. Each product is off by at
     most 2^-21 |x||w| per operand (the split) plus float32 sums, so a layer's
     u carries ~1e-6 of sum |x||w|; twelve layers deep the raw logits are held
@@ -40,9 +49,6 @@ from nnc_tpu_torch.ops import mlp_fused, mlp_train_fused
 from nnc_tpu_torch.ops.posenc import positional_encoding as tposenc
 from nnc_tpu_torch.train import lsa as tlsa
 
-SLAB = mlp_fused.MMA_SLAB
-
-
 @pytest.fixture(scope="module")
 def flagship():
     """Full-width weights and LSA scales (std 0.05) made with numpy, as JAX
@@ -77,21 +83,28 @@ def _points(n, seed=1):
 
 # ------------------------------------------------------------- the buffers
 def test_train_buffers_round_trip(flagship):
-    """Every weight once in the forward buffer (zeros elsewhere: the padding
-    rows, the unused bias block); every weight the reverse chain multiplies
-    by once in the backward buffer, which has no padding at all."""
+    """Every weight once in the forward buffer as its hi and lo halves
+    (zeros elsewhere: the padding rows); every weight the reverse chain
+    multiplies by once in the backward buffer, which has no padding rows;
+    both read back to the weights exactly."""
     model = flagship[3]
     weights = _weights(model)
-    fwd, bwd = mlp_train_fused.pack_train_mma(weights)
-    assert fwd.shape == (mlp_fused.MMA_PARAMS_SIZE,) == (601152,)
-    assert bwd.shape == (mlp_train_fused.BWD_PARAMS_SIZE,) == (557696,)
-    assert mlp_train_fused.BWD_SLABS * SLAB + 256 + 3 * 128 == 557696
+    fwd, bwd = mlp_train_fused.pack_train_wgmma(weights)
+    W = mlp_train_fused.WG_SLAB
+    assert fwd.shape == (mlp_train_fused.FWD_WG_SIZE,) == (145 * W + 640,)
+    assert bwd.shape == (mlp_train_fused.BWD_WG_SIZE,) == (136 * W + 640,)
     params, params_t, _ls = _packed(model)
-    assert torch.equal(bwd, mlp_train_fused.repack_mma_t(params_t))
-    index = mlp_train_fused.BWD_INDEX
-    assert index.max() < mlp_train_fused.WT_SIZE
-    assert np.unique(index).size == index.size
-    got_f, got_b = mlp_train_fused.unpack_train_mma(fwd, bwd)
+    assert torch.equal(fwd, mlp_train_fused.repack_wgmma(params))
+    assert torch.equal(bwd, mlp_train_fused.repack_wgmma_t(params_t))
+    P, T = mlp_fused.PARAMS_SIZE, mlp_train_fused.WT_SIZE
+    for index, size in ((mlp_train_fused.FWD_WG_INDEX, P),
+                        (mlp_train_fused.BWD_WG_INDEX, T)):
+        real = index[index < 3 * size]
+        assert np.unique(real).size == real.size and real.max() < 3 * size
+    # the backward's slabs hold no zero padding: 2 x 136 half-images of
+    # every weight it reads
+    assert (mlp_train_fused.BWD_WG_INDEX[:136 * W] < 3 * T).all()
+    got_f, got_b = mlp_train_fused.unpack_train_wgmma(fwd, bwd)
     assert list(got_f) == list(got_b) == mlp_train_fused.NAMES
     used = {"pts_linears.0": (0, 0), "pts_linears.5": (63, 319),
             "views_linears.0": (0, 256)}
@@ -101,17 +114,16 @@ def test_train_buffers_round_trip(flagship):
         assert torch.equal(got_b[name][:, lo:hi], w.detach()[:, lo:hi]), name
         rest = torch.cat([got_b[name][:, :lo], got_b[name][:, hi:]], dim=1)
         assert rest.numel() == 0 or float(rest.abs().max()) == 0.0, name
-    # the forward buffer's bias block stays zero: biases go in as a vector
-    o = mlp_fused.MMA_SLABS * SLAB
-    assert float(fwd[o:o + 2432].abs().max()) == 0.0
-    assert torch.equal(fwd[o + 2432:o + 2688],
-                       weights[9].detach().reshape(-1))       # alpha
-    assert torch.equal(fwd[o + 2692:o + 3076].view(128, 3),
+    o = 145 * W
+    assert torch.equal(fwd[o:o + 256], weights[9].detach().reshape(-1))
+    assert torch.equal(fwd[o + 256:o + 640].view(128, 3),
                        weights[11].detach().t())              # rgb (in, out)
     with pytest.raises(ValueError):
-        mlp_train_fused.repack_mma_t(params_t[:-1])
+        mlp_train_fused.repack_wgmma_t(params_t[:-1])
     with pytest.raises(ValueError):
-        mlp_train_fused.unpack_train_mma(fwd, bwd[:-1])
+        mlp_train_fused.repack_wgmma(params[:-1])
+    with pytest.raises(ValueError):
+        mlp_train_fused.unpack_train_wgmma(fwd, bwd[:-1])
 
 
 def test_bias_gather_and_small_vectors(flagship):
@@ -131,77 +143,126 @@ def test_bias_gather_and_small_vectors(flagship):
     assert offs["feature_linear"] == 2048 and offs["rgb_linear"] == 2433
 
 
-def _fragment_product(buf, slab0, k_padded, nt_n, x):
-    """x (64, k_padded) times the rows of a run of k steps, read from the
-    buffer with the index arithmetic of mma_slab / PipeT (nerf_mlp_mma.cuh):
-    lane 4 g + t of warp w holds b0, b1 of n-tile nt at k step ks at
-    slab * 8192 + w * 1024 + (ks % per_slab) * 64 NT + (nt // 2) * 128 +
-    lane * 4 + 2 (nt % 2), and they multiply channels 16 (ks // 2) + 4 t +
-    2 (ks % 2) + {0, 1} into column 8 NT w + 8 nt + g."""
-    w = buf.numpy().astype(np.float64)
-    per_slab = 16 // nt_n
-    out = np.zeros((64, 64 * nt_n))
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
-    for ks in range(k_padded // 8):
-        ch = 16 * (ks // 2) + 4 * t + 2 * (ks % 2)
-        for warp in range(8):
-            base = (slab0 + ks // per_slab) * SLAB + warp * 1024 \
-                + (ks % per_slab) * 64 * nt_n + lane * 4
-            for nt in range(nt_n):
-                at = base + (nt // 2) * 128 + 2 * (nt % 2)
-                cols = warp * 8 * nt_n + nt * 8 + g
-                np.add.at(out, (slice(None), cols),
-                          x[:, ch] * w[at] + x[:, ch + 1] * w[at + 1])
+def test_split_halves(flagship):
+    """hi is each weight rounded to TF32 (to nearest, ties away from zero:
+    mlp_fused.tf32_round, as the kernels split A), lo = w - hi exactly, so
+    hi + lo gives back each float32 weight, and lo as the tensor core reads
+    it (cut to TF32) leaves at most 2^-21 |w|."""
+    model = flagship[3]
+    params, _pt, _ls = _packed(model)
+    fwd = mlp_train_fused.repack_wgmma(params)
+    index = torch.from_numpy(mlp_train_fused.FWD_WG_INDEX)
+    P = mlp_fused.PARAMS_SIZE
+    his = index[(index >= P) & (index < 2 * P)]
+    los = index[(index >= 2 * P) & (index < 3 * P)]
+    hi = torch.zeros(P)
+    lo = torch.zeros(P)
+    hi[his - P] = fwd[(index >= P) & (index < 2 * P)]
+    lo[los - 2 * P] = fwd[(index >= 2 * P) & (index < 3 * P)]
+    w = params[his - P]
+    assert torch.equal(hi[his - P], mlp_fused.tf32_round(w))
+    assert not (hi[his - P].view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi[his - P] + lo[his - P], w)
+    assert torch.equal(lo[his - P], w - mlp_fused.tf32_round(w))
+    cut = mlp_fused.tf32_truncate(lo[his - P])
+    assert bool(((w - hi[his - P] - cut).abs()
+                 <= 2.0 ** -21 * w.abs()).all())
+
+
+def _image_values(buf, base, rows):
+    """The (32, rows) values (k step ks, slot s) -> row 8 ks + s of an image
+    of ``rows`` rows at float offset ``base``, by the descriptor's rule."""
+    ks = np.arange(4)[:, None, None]
+    s = np.arange(8)[None, :, None]
+    n = np.arange(rows)[None, None, :]
+    a = 128 * n + 32 * ks + 4 * s
+    phys = a ^ (((a >> 7) & 7) << 4)
+    return buf[base + phys.reshape(32, rows) // 4]
+
+
+def _group_channels():
+    """The group channel in each (k step, slot) of the kernel's A registers,
+    from its loads: lane (g, t) holds channels 16 h + 4 t + 0..3 of half h,
+    and gives 16 h + 4 t + 2 e to slot t of k step 2 h + e, the next channel
+    to slot t + 4."""
+    ch = np.empty((4, 8), dtype=np.int64)
+    for h in range(2):
+        for e in range(2):
+            for t in range(4):
+                ch[2 * h + e, t] = 16 * h + 4 * t + 2 * e
+                ch[2 * h + e, t + 4] = 16 * h + 4 * t + 2 * e + 1
+    return ch.reshape(32)
+
+
+def _wg_product(buf, slab0, k_padded, n_out, x):
+    """x (64, k_padded) times B as the kernel's products read it from the
+    buffer: group q's hi and lo images in slabs slab0 + 2 q and + 1 (n_out
+    256), or in slab slab0 + q, lo 16 KB after hi (n_out 128); hi + lo."""
+    b = buf.numpy().astype(np.float64)
+    ch = _group_channels()
+    out = np.zeros((64, n_out))
+    W = mlp_train_fused.WG_SLAB
+    for q in range(k_padded // 32):
+        if n_out == 256:
+            hi, lo = (slab0 + 2 * q) * W, (slab0 + 2 * q + 1) * W
+        else:
+            hi = (slab0 + q) * W
+            lo = hi + 4096
+        B = _image_values(b, hi, n_out) + _image_values(b, lo, n_out)
+        out += x[:, 32 * q + ch] @ B
     return out
 
 
-# (layer, first row, rows, first slab, rows padded, n-tiles a warp): the
-# schedule train_layer walks, which is mma_layer's (kSlabs = 73)
-FWD_RUNS = [("pts_linears.0", 0, 63, 0, 64, 4)] + [
-    (f"pts_linears.{i}", 0, 256, 2 + 8 * (i - 1), 256, 4) for i in (1, 2, 3, 4)
-] + [("pts_linears.5", 0, 63, 34, 64, 4), ("pts_linears.5", 63, 256, 36, 256, 4),
-     ("pts_linears.6", 0, 256, 44, 256, 4), ("pts_linears.7", 0, 256, 52, 256, 4),
-     ("feature_linear", 0, 256, 60, 256, 4),
-     ("views_linears.0", 0, 256, 68, 256, 2),
-     ("views_linears.0", 256, 27, 72, 32, 2)]
+# (layer, first row, rows, first slab, rows padded, outputs): the schedule
+# train_layer walks (kFwdSlabs = 145): two slabs a group of a 256-wide
+# layer, one a group of the view layer
+FWD_RUNS = [("pts_linears.0", 0, 63, 0, 64, 256)] + [
+    (f"pts_linears.{i}", 0, 256, 4 + 16 * (i - 1), 256, 256)
+    for i in (1, 2, 3, 4)
+] + [("pts_linears.5", 0, 63, 68, 64, 256),
+     ("pts_linears.5", 63, 256, 72, 256, 256),
+     ("pts_linears.6", 0, 256, 88, 256, 256),
+     ("pts_linears.7", 0, 256, 104, 256, 256),
+     ("feature_linear", 0, 256, 120, 256, 256),
+     ("views_linears.0", 0, 256, 136, 256, 128),
+     ("views_linears.0", 256, 27, 144, 32, 128)]
 
 
-@pytest.mark.parametrize("name,row0,rows,slab0,k_padded,nt_n", FWD_RUNS)
-def test_forward_buffer_feeds_the_fragments(flagship, name, row0, rows, slab0,
-                                            k_padded, nt_n):
-    """Reading the forward buffer as train_layer's lanes do gives x @ W of
-    the unscaled weights for every run of k steps."""
+@pytest.mark.parametrize("name,row0,rows,slab0,k_padded,n_out", FWD_RUNS)
+def test_forward_images_feed_the_products(flagship, name, row0, rows, slab0,
+                                          k_padded, n_out):
+    """Reading the forward buffer as train_layer's products do gives x @ W
+    of the unscaled weights for every run of groups."""
     model = flagship[3]
-    fwd, _ = mlp_train_fused.pack_train_mma(_weights(model))
+    fwd, _ = mlp_train_fused.pack_train_wgmma(_weights(model))
     w = dict(zip(mlp_train_fused.NAMES, _weights(model)))[name] \
         .detach().t().numpy().astype(np.float64)
     x = np.random.default_rng(3).standard_normal((64, k_padded))
-    got = _fragment_product(fwd, slab0, k_padded, nt_n, x)
+    got = _wg_product(fwd, slab0, k_padded, n_out, x)
     np.testing.assert_allclose(got, x[:, :rows] @ w[row0:row0 + rows],
                                rtol=0, atol=1e-12)
 
 
 # (layer, first input column, du's width K, first slab): the schedule
-# bwd_layer walks (kBwdSlabs = 68), 4 slabs for K = 128 and 8 for K = 256
-BWD_RUNS = [("views_linears.0", 0, 128, 0), ("feature_linear", 0, 256, 4)] + [
-    (f"pts_linears.{i}", 63 if i == 5 else 0, 256, 12 + 8 * (7 - i))
+# bwd_layer walks (kBwdSlabs = 136), 8 slabs for K = 128 and 16 for K = 256
+BWD_RUNS = [("views_linears.0", 0, 128, 0), ("feature_linear", 0, 256, 8)] + [
+    (f"pts_linears.{i}", 63 if i == 5 else 0, 256, 24 + 16 * (7 - i))
     for i in range(7, 0, -1)]
 
 
 @pytest.mark.parametrize("name,col0,k,slab0", BWD_RUNS)
-def test_backward_buffer_feeds_the_fragments(flagship, name, col0, k, slab0):
-    """Reading the backward buffer as bwd_layer's lanes do gives
+def test_backward_images_feed_the_products(flagship, name, col0, k, slab0):
+    """Reading the backward buffer as bwd_layer's products do gives
     du @ W[:, col0:col0 + 256] of torch's (out, in) weight: dx."""
     model = flagship[3]
     assert [r[0] for r in BWD_RUNS] == \
         [r[0] for r in mlp_train_fused.BWD_RUNS]
-    _, bwd = mlp_train_fused.pack_train_mma(_weights(model))
+    _, bwd = mlp_train_fused.pack_train_wgmma(_weights(model))
     w = dict(zip(mlp_train_fused.NAMES, _weights(model)))[name] \
         .detach().numpy().astype(np.float64)
     assert w.shape[0] == k
     du = np.random.default_rng(4).standard_normal((64, k))
-    got = _fragment_product(bwd, slab0, k, 4, du)
+    got = _wg_product(bwd, slab0, k, 256, du)
     np.testing.assert_allclose(got, du @ w[:, col0:col0 + 256], rtol=0,
                                atol=1e-12)
 
@@ -209,12 +270,14 @@ def test_backward_buffer_feeds_the_fragments(flagship, name, col0, k, slab0):
 def test_backward_buffer_heads(flagship):
     model = flagship[3]
     weights = _weights(model)
-    _, bwd = mlp_train_fused.pack_train_mma(weights)
-    o = mlp_train_fused.BWD_SLABS * SLAB
-    assert BWD_RUNS[-1][3] + 8 == mlp_train_fused.BWD_SLABS
+    _, bwd = mlp_train_fused.pack_train_wgmma(weights)
+    o = mlp_train_fused.BWD_WG_SLABS * mlp_train_fused.WG_SLAB
+    assert BWD_RUNS[-1][3] + 16 == mlp_train_fused.BWD_WG_SLABS
+    assert FWD_RUNS[-1][3] + 1 == mlp_train_fused.FWD_WG_SLABS
     assert torch.equal(bwd[o:o + 256], weights[9].detach().reshape(-1))
     assert torch.equal(bwd[o + 256:o + 640].view(3, 128),
                        weights[11].detach())
+    assert bwd.numel() == o + 640
 
 
 def test_kernel_buffer_checks():
@@ -248,7 +311,7 @@ def test_pack_cache_hits_and_misses():
     assert (cache.hits, cache.misses) == (0, 1)
     assert cache.get(_weights(model)) is first
     assert (cache.hits, cache.misses) == (1, 1)
-    want = mlp_train_fused.pack_train_mma(w)
+    want = mlp_train_fused.pack_train_wgmma(w)
     assert all(torch.equal(a, b) for a, b in zip(first, want))
     # scales and biases are no part of the key
     with torch.no_grad():
@@ -263,7 +326,7 @@ def test_pack_cache_hits_and_misses():
     second = cache.get(_weights(model))
     assert (cache.hits, cache.misses) == (2, 2) and second is not first
     assert all(torch.equal(a, b) for a, b in zip(
-        second, mlp_train_fused.pack_train_mma(_weights(model))))
+        second, mlp_train_fused.pack_train_wgmma(_weights(model))))
     assert not torch.equal(second[0], first[0])
     assert cache.get(_weights(model)) is second
     # a swap of .data (what module.to does) keeps object and version
@@ -417,8 +480,8 @@ def test_modelled_backward_reads_the_unpacked_buffers(flagship, chains):
     backward gives the same bits."""
     model = flagship[3]
     params, _pt, ls = _packed(model)
-    _, got_b = mlp_train_fused.unpack_train_mma(
-        *mlp_train_fused.pack_train_mma(_weights(model)))
+    _, got_b = mlp_train_fused.unpack_train_wgmma(
+        *mlp_train_fused.pack_train_wgmma(_weights(model)))
     params_t = torch.cat([got_b[n].reshape(-1)
                           for n in mlp_train_fused.NAMES])
     pts, vd, cot = (torch.from_numpy(a) for a in _points(700, seed=3))
@@ -521,26 +584,26 @@ def test_cpu_tensors_take_the_plain_versions(flagship):
     nerf.apply_mlp(output_scaling=True)."""
     model = flagship[3]
     params, params_t, ls = _packed(model)
-    fwd, bwd = mlp_train_fused.pack_train_mma(_weights(model))
+    fwd, bwd = mlp_train_fused.pack_train_wgmma(_weights(model))
     b = mlp_train_fused.gather_biases(params)
     pts, vd, tgt = (torch.from_numpy(a) for a in _points(70, seed=6))
     want = mlp_train_fused.mlp_train_fwd_plain(params, ls, pts, vd)
     raw, ws = mlp_train_fused.mlp_train_fwd(params, ls, pts, vd, save_u=True,
-                                            packed_mma=fwd, biases=b)
+                                            packed_wg=fwd, biases=b)
     assert ws is None and torch.equal(raw, want)
     flat = mlp_train_fused.mlp_train_bwd(params, params_t, ls, pts, vd, tgt,
-                                         None, False, packed_mma_t=bwd,
+                                         None, False, packed_wg_t=bwd,
                                          biases=b)
     assert torch.equal(flat, mlp_train_fused.mlp_train_bwd_plain(
         params, params_t, ls, pts, vd, tgt, False))
     with pytest.raises(ValueError):
         mlp_train_fused.mlp_train_fwd(params, ls[:-1], pts, vd)
     with pytest.raises(ValueError, match="plain version"):
-        mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, packed_mma=fwd,
+        mlp_train_fused.mlp_train_fwd(None, ls, pts, vd, packed_wg=fwd,
                                       biases=b)
     with pytest.raises(ValueError, match="plain version"):
         mlp_train_fused.mlp_train_bwd(params, None, ls, pts, vd, tgt, None,
-                                      False, packed_mma_t=bwd, biases=b)
+                                      False, packed_wg_t=bwd, biases=b)
 
     before = (mlp_train_fused.TRAIN_PACKS.hits,
               mlp_train_fused.TRAIN_PACKS.misses)
