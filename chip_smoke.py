@@ -201,6 +201,18 @@ Phases:
      above BENCH_TURBO_MIN (printed beside the reference's 46.53), the
      reference's open-boundary gate (the bench raises) and every number of
      the line finite; both bench lines are printed.
+ 25. K-B1's IPE instantiation (mip-NeRF: the frustum's 96 IPE channels
+     embedded inside the kernel) against its plain versions at a mip-NeRF
+     step's 1,048,576 points and a tenth of them (forward raw within
+     TOL_RAW, backward dls and db by phase 20's gradient criterion, its
+     rerun bit-equal), timed in turns with the
+     vanilla instantiation on as many points, each beside its share of the
+     165 TFLOP/s bound; 9 steps of mip-NeRF's LSA (4,096 rays, two levels
+     of 128 samples, one MLP) in calls of 8 and of 1, bit-equal, launching
+     only the IPE instantiation; compress_model(lsa=True) on a 96x96
+     mip-NeRF scene (17 steps, i_save 17: the test view through the IPE
+     forward), decode and test_model, launching the IPE instantiation
+     only; the `ipe:` JSON line.
 Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
 of 8: a run's first full call captures its graph after one warm-up step,
 whose K-B1 launches count (lsa.WARMUP_STEPS).
@@ -247,7 +259,7 @@ from nnc_tpu_torch.ops import (_build, mlp_fused, mlp_tp_fused,
 from nnc_tpu_torch.ops.posenc import positional_encoding
 from nnc_tpu_torch.ops.sampling import stratified_samples
 from nnc_tpu_torch.parallel import multi_scene
-from nnc_tpu_torch.render import occupancy, renderer
+from nnc_tpu_torch.render import mipnerf, occupancy, renderer
 from nnc_tpu_torch.render.rays import get_rays_np, ndc_rays
 from nnc_tpu_torch.tools import (bench_render_v2, bench_train_step,
                                  demo_synthetic, lsa_profile, profile_codec,
@@ -270,6 +282,13 @@ N_POINTS = 262_144     # K-B3 comparison
 RAGGED = (33, 10_000, 3_414_016)   # K-B3 at sizes that are no tile multiple
 N_RAYS = 4096          # K-B2 comparison
 N_TRAIN = (65_536, 196_608)   # K-B1: one LSA step's coarse and fine points
+# K-B1's IPE instantiation: a tenth of a mip-NeRF step, and its two levels
+# of 4,096 rays x 128 samples
+N_IPE = (104_832, 1_048_576)
+# multiply-adds a point of mip-NeRF's MLP forward, and of the backward
+# without dW (the encodings' rows get no gradient); vanilla's forward
+IPE_FWD_MACS, IPE_BWD_MACS, KB1_FWD_MACS = 610_304, 557_696, 593_408
+IPE_LSA_RAYS, IPE_LSA_SAMPLES = 4096, 128   # phase 25's LSA steps
 TRAJ_STEPS = 10
 # LSA learning rate of phase 7: 1e-3, so that 40 steps move scales past half
 # a quantization step of the bitstream's scales (2^-7 at their qp of -28);
@@ -3652,6 +3671,162 @@ def phase_bench(dev, card):
     return launches
 
 
+def phase_ipe(dev, card):
+    """Phase 25: K-B1's IPE instantiation (mip-NeRF) against its plain
+    versions at a mip-NeRF step's 1,048,576 points and a tenth of them
+    (the forward's raw within TOL_RAW, the backward's dls and db by phase
+    20's gradient criterion, its rerun bit-equal), timed in turns with the vanilla instantiation on as many points (the
+    share of the 165 TFLOP/s bound beside each); then 9 LSA steps of
+    mip-NeRF's two-level loss through ``tune_lsa_scales`` in one call of 8
+    (a graph) and in single steps: the scales bit-equal, the launches the
+    IPE instantiation's only. Prints the ``ipe:`` JSON line."""
+    g = torch.Generator().manual_seed(25)
+    model = nerf.init_lsa_scales(synthetic._activate(
+        nerf.init_params(nerf.MIPNERF, g), g), std=0.05, generator=g).to(dev)
+    vanilla = nerf.init_lsa_scales(synthetic._activate(
+        nerf.init_params(nerf.NeRFConfig(), g), g), std=0.05,
+        generator=g).to(dev)
+    M = mlp_train_fused
+    out = {}
+    for n in N_IPE:
+        rays = n // 128
+        ro = torch.randn(rays, 3, generator=g)
+        ro = 4 * ro / torch.linalg.norm(ro, dim=-1, keepdim=True)
+        rd = -ro / 4 + 0.1 * torch.randn(rays, 3, generator=g)
+        t = mipnerf.stratified(2.0, 6.0, 129, rays,
+                               torch.rand(rays, 129, generator=g), "cpu")
+        means, covs = mipnerf.cast(t, ro, rd, 2 / (math.sqrt(12) * 1111.111))
+        pts6 = torch.cat([means, covs], -1).reshape(-1, 6).to(dev)
+        vd = (rd / torch.linalg.norm(rd, dim=-1, keepdim=True))[:, None] \
+            .expand(rays, 128, 3).reshape(-1, 3).contiguous().to(dev)
+        pts3 = means.reshape(-1, 3).contiguous().to(dev)
+        cot = (1e-3 * torch.randn(n, 4, generator=g)).to(dev)
+        row = {}
+        for name, m, pts in (("ipe", model, pts6), ("vanilla", vanilla,
+                                                    pts3)):
+            tensors = M._layer_tensors(m)
+            params, params_t, ls = M.pack_train(
+                tensors[0::3], tensors[1::3], tensors[2::3])
+            packed, packed_t = M.pack_train_wgmma(tensors[0::3])
+            biases = M.gather_biases(params)
+            raw, ws = M.mlp_train_fwd(params, ls, pts, vd, True, packed,
+                                      biases)
+            fwd = lambda: M.mlp_train_fwd(params, ls, pts, vd, True, packed,
+                                          biases)
+            bwd = lambda: M.mlp_train_bwd(params, params_t, ls, pts, vd, cot,
+                                          ws, False, packed_t, biases)
+            if name == "ipe":
+                err = maxabs(raw, M.mlp_train_fwd_plain(params, ls, pts, vd))
+                check(err <= TOL_RAW, f"K-B1 IPE forward at {n}: max |draw| "
+                      f"{err} > {TOL_RAW}")
+                row["err_raw"] = err
+                # dls and db by phase 20's gradient criterion, and a rerun
+                # bit-equal
+                flat = bwd()
+                err_g, _abs, ok = grad_errors(
+                    M.split_grads(flat, False),
+                    M.split_grads(M.mlp_train_bwd_plain(
+                        params, params_t, ls, pts, vd, cot, False), False))
+                check(torch.isfinite(flat).all().item() and ok,
+                      f"K-B1 IPE backward at {n}: gradients off the plain "
+                      f"version's (worst {err_g:.3e} of their max)")
+                check(torch.equal(bwd(), flat),
+                      f"K-B1 IPE backward at {n} not deterministic")
+                row["err_grad"] = err_g
+                del flat
+                torch.cuda.empty_cache()
+            macs = (IPE_FWD_MACS if name == "ipe" else KB1_FWD_MACS,
+                    IPE_BWD_MACS)
+            for part, fn, mac in (("fwd", fwd, macs[0]), ("bwd", bwd,
+                                                          macs[1])):
+                ms = [cuda_ms(fn, iters=3, warmup=1) for _ in range(2)]
+                bound = 2 * mac * n / 165e12 * 1e3
+                row[f"{name}_{part}_ms"] = min(ms)
+                row[f"{name}_{part}_share"] = 100 * bound / min(ms)
+            del raw, ws, params, params_t, fwd, bwd
+            torch.cuda.empty_cache()
+        print(f"[25] K-B1 at {n} points on {card}: IPE fwd "
+              f"{row['ipe_fwd_ms']:.3f} ms ({row['ipe_fwd_share']:.1f}% of "
+              f"165 TFLOP/s), bwd {row['ipe_bwd_ms']:.3f} ms "
+              f"({row['ipe_bwd_share']:.1f}%); vanilla fwd "
+              f"{row['vanilla_fwd_ms']:.3f} ms, bwd "
+              f"{row['vanilla_bwd_ms']:.3f} ms; against the plain version "
+              f"IPE raw {row['err_raw']:.2e}, gradients {row['err_grad']:.2e} "
+              f"of their max (bar: phase 20's criterion)")
+        out[n] = row
+    # LSA: 9 steps, calls of 8 (step 1 alone, then a graph) and of 1
+    rng = np.random.default_rng(25)
+    images = rng.random((2, 96, 96, 3), dtype=np.float32)
+    poses = synthetic.look_at_poses(2, seed=25)
+    K = presets.pixel_centres(presets._intrinsics(96, 96, 133.3))
+    rc = mipnerf.MipRenderConfig(num_samples=IPE_LSA_SAMPLES,
+                                 pixel_radius=2 / (math.sqrt(12) * 133.3))
+    scales = []
+    for k in (8, 1):
+        m = nerf.init_lsa_scales(synthetic._activate(
+            nerf.init_params(nerf.MIPNERF, torch.Generator().manual_seed(5)),
+            torch.Generator().manual_seed(6))).to(dev)
+        _build.reset_launch_counts()
+        ls, _f, _p, _l, _s, _b = lsa.tune_lsa_scales(
+            m, None, RayBatcher(images, poses, K, np.arange(2),
+                                IPE_LSA_RAYS, seed=3), rc, 2.0, 6.0,
+            n_iters=9, epochs=1,
+            learning_rate=1e-3, learning_rate_decay=0.0, verbose=False,
+            steps_per_call=k, seed=7)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        warm = lsa.WARMUP_STEPS if k > 1 else 0
+        want = {"mlp_train_fwd_ipe": 2 * (9 + warm),
+                "mlp_train_bwd_ipe": 2 * (9 + warm)}
+        check({n: c for n, c in counts.items() if c} == want,
+              f"mip-NeRF LSA (calls of {k}) launched {counts}")
+        scales.append(ls)
+    check(all(torch.equal(scales[0][n], scales[1][n]) for n in scales[0]),
+          "mip-NeRF LSA: calls of 8 and single steps differ")
+    print(f"[25] mip-NeRF LSA, 9 steps of {IPE_LSA_RAYS} rays: calls of 8 "
+          f"== single steps bit for bit, K-B1 IPE launches only")
+    # the normal path: compress_model(lsa=True) on a mip-NeRF scene
+    mip_dir = os.path.join(OUT, "mip")
+    bs = os.path.join(mip_dir, "bitstream", "mip_lsa.nnc")
+    os.makedirs(os.path.dirname(bs), exist_ok=True)
+    scene = {"images": images, "poses": poses, "K": K, "H": 96, "W": 96,
+             "i_train": np.arange(2), "i_test": np.arange(1), "near": 2.0,
+             "far": 6.0, "white_bkgd": True, "ndc": False,
+             "batching_mode": "image", "dataset_type": "blender",
+             "mip": {"num_samples": IPE_LSA_SAMPLES}}
+    teacher = nerf.params_to_state_dict(nerf.init_params(
+        nerf.MIPNERF, torch.Generator().manual_seed(8)), "model.")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(teacher, bitstream_path=bs, qp=-20,
+                                 lsa=True, scene=scene, N_iters=17,
+                                 epochs=1, i_save=17, N_rand=IPE_LSA_RAYS,
+                                 learning_rate=1e-3, use_fused_mlp=True,
+                                 device=dev, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dec = nnc_tpu_torch.decompress_model(bs, verbose=False)
+    ex = presets.create_nerf_model_executer(scene=scene, device=dev,
+                                            use_fused_mlp=True,
+                                            verbose=False)
+    psnr = ex.test_model(dec)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    check(set(counts) == {"mlp_train_fwd_ipe", "mlp_train_bwd_ipe"} and
+          counts["mlp_train_bwd_ipe"] == 2 * (17 + lsa.WARMUP_STEPS),
+          f"mip-NeRF compress_model(lsa=True) launched {counts}")
+    check(set(dec) == set(teacher) and np.isfinite(psnr),
+          f"mip-NeRF decode: {sorted(set(dec) ^ set(teacher))}, {psnr} dB")
+    check(os.path.exists(os.path.join(mip_dir, "reconstructed",
+                                      "ckpt_step17.pt")) and
+          os.path.exists(os.path.join(mip_dir, "testset_step17", "000.png")),
+          "mip-NeRF i_save checkpoint or test PNG missing")
+    print(f"[25] mip-NeRF compress_model(lsa=True), 17 steps of "
+          f"{IPE_LSA_RAYS} rays, on {card}: {seconds:.1f} s, launches "
+          f"{counts}, decoded test view {psnr:.2f} dB")
+    print("ipe: " + json.dumps({str(n): r for n, r in out.items()}))
+
+
 def _numbers(tree):
     """Every number in a tool's result, depth first (None skipped)."""
     if isinstance(tree, dict):
@@ -3735,6 +3910,7 @@ def run_phases(t_start, seconds):
     # (resets the launch counts before each of its runs)
     for name, n in phase(phase_bench, dev, card).items():
         launches[name] = launches.get(name, 0) + n
+    phase(phase_ipe, dev, card)
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():

@@ -15,6 +15,10 @@ names (``cpu`` runs the plain versions of the kernels), else the first CUDA
 device, as the root CLI reads ``JAX_PLATFORMS``. ``--occupancy_renders`` /
 ``--occupancy_tuning`` run the frame renders / the LSA loss through an
 occupancy grid (``render/occupancy.py``) on the flagship architecture.
+``--config nnc_tpu_torch/configs/mip_lego.txt`` compresses a mip-NeRF
+checkpoint (one MLP, ``model.*``) of the Blender lego scene, its LSA on
+mip-NeRF's two-level loss through ``render/mipnerf.py``; there the config
+file's ``N_rand`` (4,096) takes the place of ``--N_rand``'s default.
 """
 import argparse
 
@@ -28,11 +32,15 @@ def main(args):
     device = device_from_env()
     wrapper_dict, _gstep = utils.nerf_tar_to_wrapper_dict(args.ckpt_path)
 
-    scene = None
+    scene, extra = None, {}
     if args.config:
-        scene, _extra = load_scene_from_config(
+        scene, extra = load_scene_from_config(
             args.config, None if args.dataset_path in ("~", "")
             else args.dataset_path)
+    n_rand = args.N_rand
+    if scene is not None and "mip" in scene and "n_rand" in extra and \
+            n_rand == build_parser().get_default("N_rand"):
+        n_rand = int(extra["n_rand"])
 
     path_dict = utils.create_save_path(
         ckpt_nickname=args.ckpt_nickname,
@@ -70,7 +78,7 @@ def main(args):
         render_factor=args.render_factor,
         precrop_iters=args.precrop_iters,
         precrop_frac=args.precrop_frac,
-        N_rand=args.N_rand,
+        N_rand=n_rand,
         n_samples=args.n_samples,
         n_importance=args.n_importance,
         device=device)

@@ -169,6 +169,7 @@ def compress_model(model_path_or_object,
 
     if (lsa or fine_tune or ioq) and model_executer is None \
             and task_type == "NeRF":
+        from .render import mipnerf
         from .train.presets import create_nerf_model_executer
         if mlp_config is None:
             # infer D/W/skips/viewdirs from the checkpoint itself so
@@ -185,6 +186,10 @@ def compress_model(model_path_or_object,
             render_factor=render_factor, precrop_iters=precrop_iters,
             precrop_frac=precrop_frac, n_rand=N_rand,
             n_samples=n_samples, n_importance=n_importance, mesh=mesh)
+        if (occupancy_renders or occupancy_tuning) and \
+                mipnerf.is_mip(model_executer.rc):
+            raise ValueError("occupancy mode has no mip-NeRF form: mip-NeRF "
+                             "renders and tunes on its cones only")
         if occupancy_renders or occupancy_tuning:
             # reference: nnc_tpu/compression.py:179-187
             model_executer.rc = dataclasses.replace(

@@ -11,6 +11,11 @@ i_save. With ``use_occupancy_renders`` the frame renders, and with
 from the fine network (``render/occupancy.py``) where the architecture has
 the kernels (``mlp_fused.supports``); other architectures render and tune
 exactly, as in the reference.
+
+A mip-NeRF scene (its render configuration a ``mipnerf.MipRenderConfig``)
+has one network, the codec's ``model.*`` tensors: it renders its test views
+and probes with ``mipnerf.render_image`` and tunes on ``mipnerf.mip_loss``;
+occupancy mode and a mesh are refused for it.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from ..core.model import ModelExecute
 from ..data.rays import RayBatcher
 from ..models import nerf
 from ..ops import mlp_fused
-from ..render import occupancy, renderer
+from ..render import mipnerf, occupancy, renderer
 from ..render.rays import get_rays_np, ndc_rays
 from ..train import lsa
 from ..utils.images import write_png
@@ -41,7 +46,11 @@ class NeRFModelExecuter(ModelExecute):
                  learning_rate_decay=0.1, n_iters=50000, i_save=10000,
                  n_rand=1024, seed=451, verbose=True, render_factor=0,
                  precrop_iters=0, precrop_frac=0.5, resume=False, mesh=None):
-        renderer.check_supported(render_config)
+        self.mip = mipnerf.is_mip(render_config)
+        if self.mip and mesh is not None:
+            raise ValueError("mip-NeRF tunes on one device: no mesh")
+        if not self.mip:
+            renderer.check_supported(render_config)
         self.resume = resume
         self.device = torch.device(device)
         # parallel.Mesh: LSA / fine-tuning steps run data-parallel over its
@@ -92,8 +101,11 @@ class NeRFModelExecuter(ModelExecute):
         stay absent: the reference's all-ones scales multiply exactly
         (tuning attaches them, lsa.trained_tensors)."""
         cfg = self.rc.mlp
-        return (nerf.params_from_state_dict(parameters, "model.", cfg,
-                                            device=self.device),
+        coarse = nerf.params_from_state_dict(parameters, "model.", cfg,
+                                             device=self.device)
+        if self.mip:   # one network serves both levels
+            return coarse, None
+        return (coarse,
                 nerf.params_from_state_dict(parameters, "model_fine.", cfg,
                                             device=self.device))
 
@@ -129,7 +141,7 @@ class NeRFModelExecuter(ModelExecute):
             K[0, 0] /= rf; K[1, 1] /= rf; K[0, 2] /= rf; K[1, 2] /= rf
         is_ndc = bool(scene.get("ndc", False))
         grid = self._occupancy_grid(model_c, model_f) \
-            if self.rc.use_occupancy_renders else None
+            if not self.mip and self.rc.use_occupancy_renders else None
         rgbs = []
         for i, pose in enumerate(np.asarray(poses)):
             ro, rd = get_rays_np(H, W, K, pose[:3, :4])
@@ -141,7 +153,11 @@ class NeRFModelExecuter(ModelExecute):
                                   torch.as_tensor(ro, device=self.device),
                                   torch.as_tensor(rd, device=self.device))
                 near, far = 0.0, 1.0
-            if grid is not None:
+            if self.mip:
+                rgb = mipnerf.render_image(
+                    model_c, ro, rd, near, far, self.rc, viewdirs=vd,
+                    device=self.device)["rgb_map"].cpu().numpy()
+            elif grid is not None:
                 rgb = occupancy.render_image_fast(
                     model_f if model_f is not None else model_c, ro, rd,
                     near, far, self.rc, grid, viewdirs=vd)["rgb_map"]
@@ -177,6 +193,8 @@ class NeRFModelExecuter(ModelExecute):
         latest = os.path.join(rec_dir, f"ckpt_step{steps[-1]}.pt")
         sd = torch.load(latest, map_location="cpu", weights_only=True)
         for prefix, model in (("model.", model_c), ("model_fine.", model_f)):
+            if model is None:
+                continue
             for name, layer in model.layers().items():
                 ls = sd.get(prefix + name + ".weight_scaling")
                 if ls is not None:
@@ -203,7 +221,8 @@ class NeRFModelExecuter(ModelExecute):
 
         def save_hook(step, model_c, model_f, opt_state):
             sd = nerf.params_to_state_dict(model_c, "model.")
-            sd.update(nerf.params_to_state_dict(model_f, "model_fine."))
+            if model_f is not None:
+                sd.update(nerf.params_to_state_dict(model_f, "model_fine."))
             rec_dir = os.path.join(basedir_save, "reconstructed")
             os.makedirs(rec_dir, exist_ok=True)
             save_to_torch_file(sd, os.path.join(rec_dir,
@@ -245,7 +264,7 @@ class NeRFModelExecuter(ModelExecute):
         # occupancy tuning: one grid from the dequantized fine network; per-
         # ray selection needs no dilation for subsample blocks (dilate=1)
         occ_grid = self._occupancy_grid(model_c, model_f, dilate=1) \
-            if self.rc.use_occupancy_tuning else None
+            if not self.mip and self.rc.use_occupancy_tuning else None
         ls_c, ls_f, _psnr, _loss, _step, biases = lsa.tune_lsa_scales(
             model_c, model_f, self._make_batcher(), self.rc, scene["near"],
             scene["far"], learning_rate=self.learning_rate,
@@ -291,9 +310,14 @@ class NeRFModelExecuter(ModelExecute):
         else:
             ro, rd, target = batch
             vd = None
-        out = renderer.render_image(model_c, model_f, ro, rd, scene["near"],
-                                    scene["far"], self.rc, viewdirs=vd,
-                                    device=self.device)
+        if self.mip:
+            out = mipnerf.render_image(model_c, ro, rd, scene["near"],
+                                       scene["far"], self.rc, viewdirs=vd,
+                                       device=self.device)
+        else:
+            out = renderer.render_image(model_c, model_f, ro, rd,
+                                        scene["near"], scene["far"], self.rc,
+                                        viewdirs=vd, device=self.device)
         mse = float(np.mean((out["rgb_map"].cpu().numpy() - target) ** 2))
         psnr = mse2psnr(mse)
         return psnr, psnr, mse

@@ -48,6 +48,29 @@ class NeRFConfig:
                              f"torch.bfloat16, got {self.compute_dtype}")
 
 
+# mip-NeRF's one MLP (Barron et al., ICCV 2021; github.com/google/mip-nerf
+# internal/models.py MLP with configs/blender.gin): the same twelve layers,
+# fed by the integrated positional encoding of a frustum (16 frequencies x
+# (sin, cos) x 3, no identity) and posenc 4 of the view direction.
+MIPNERF = NeRFConfig(input_ch=96, input_ch_views=27)
+
+
+def _mip_orders():
+    """(IPE_FROM_MIP, VIEWS_FROM_MIP): for each of the port's input channels
+    the index of the same channel in mip-NeRF's order. The port orders
+    frequency by frequency, [sin (3), cos (3)] each (posenc's order); mip-NeRF
+    puts every sine first, frequency-major ([sin (16 x 3), cos (16 x 3)]),
+    and its view encoding as [x, sin (4 x 3), cos (4 x 3)]."""
+    ipe = [48 * k + 3 * l + d for l in range(16) for k in range(2)
+           for d in range(3)]
+    views = [0, 1, 2] + [3 + 12 * k + 3 * f + d for f in range(4)
+                         for k in range(2) for d in range(3)]
+    return np.asarray(ipe), np.asarray(views)
+
+
+IPE_FROM_MIP, VIEWS_FROM_MIP = _mip_orders()
+
+
 def layer_names(config: NeRFConfig):
     """Module names of the linear layers of one NeRF MLP, in forward order."""
     names = [f"pts_linears.{i}" for i in range(config.D)]
@@ -296,4 +319,51 @@ def from_jax_params(params, config: NeRFConfig, ls=None,
                 layer.weight_scaling = torch.tensor(
                     np.asarray(ls[name], np.float32).reshape(-1, 1),
                     device=device)
+    return model
+
+
+# mip-NeRF's flax tree: Dense_0..7 the trunk, Dense_8 the density, Dense_9
+# the bottleneck, Dense_10 the view layer, Dense_11 the rgb head
+MIP_DENSE = {f"Dense_{i}": f"pts_linears.{i}" for i in range(8)}
+MIP_DENSE.update(Dense_8="alpha_linear", Dense_9="feature_linear",
+                 Dense_10="views_linears.0", Dense_11="rgb_linear")
+
+
+def _mip_rows(name: str, w: np.ndarray) -> np.ndarray:
+    """A mip-NeRF kernel (in, out)'s rows in the port's input order: the
+    IPE's channels (``IPE_FROM_MIP``), the skip layer's [inputs, h] where
+    mip-NeRF concatenates [h, inputs], the view layer's encoding
+    (``VIEWS_FROM_MIP``)."""
+    if name == "pts_linears.0":
+        return w[IPE_FROM_MIP]
+    if name == "pts_linears.5":
+        h = w.shape[0] - IPE_FROM_MIP.size
+        return np.concatenate([w[h + IPE_FROM_MIP], w[:h]])
+    if name == "views_linears.0":
+        f = w.shape[0] - VIEWS_FROM_MIP.size
+        return np.concatenate([w[:f], w[f + VIEWS_FROM_MIP]])
+    return w
+
+
+def from_mipnerf_params(tree, scales=None, device=None) -> NeRF:
+    """mip-NeRF's MLP from its flax parameter tree (numpy or tensors,
+    ``{"Dense_i": {"kernel": (in, out), "bias": (out,)}}``, as
+    ``MipNerfModel``'s ``params["params"]["MLP_0"]`` holds it) as the port's
+    :data:`MIPNERF` module, the rows permuted into the port's channel and
+    skip order; ``scales`` ({"Dense_i": (out,)}), if given, become LSA
+    scales."""
+    host = lambda a: (a.detach().cpu().numpy() if torch.is_tensor(a)
+                      else np.asarray(a)).astype(np.float32)
+    model = NeRF(MIPNERF, device=device)
+    layers = model.layers()
+    with torch.no_grad():
+        for dense, name in MIP_DENSE.items():
+            kernel = host(tree[dense]["kernel"])
+            layers[name].weight.copy_(torch.as_tensor(
+                _mip_rows(name, kernel).T.copy()))
+            layers[name].bias.copy_(torch.as_tensor(host(tree[dense]["bias"])))
+            if scales is not None:
+                layers[name].weight_scaling = torch.as_tensor(
+                    host(scales[dense]).reshape(-1, 1),
+                    device=layers[name].weight.device)
     return model

@@ -41,7 +41,7 @@ KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
            "mlp_train_bwd_dw", "mlp_tp_pair",
            "mlp_from_points_bf16", "render_pass_bf16", "mlp_train_fwd_bf16",
            "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16", "mlp_embedded_bf16",
-           "mlp_tp_pair_bf16")
+           "mlp_tp_pair_bf16", "mlp_train_fwd_ipe", "mlp_train_bwd_ipe")
 
 _lock = threading.Lock()
 _lib = None
@@ -226,6 +226,12 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_train_bwd_mma.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                  vp, ci, ci, vp]
         handle.nnc_mlp_train_bwd_mma.restype = ci
+        # K-B1's IPE instantiation (mip-NeRF): pts (n, 6)
+        handle.nnc_train_wgmma_ipe_size.argtypes = [ctypes.POINTER(ci)]
+        handle.nnc_train_wgmma_ipe_size.restype = ci
+        handle.nnc_mlp_train_fwd_ipe.argtypes = \
+            handle.nnc_mlp_train_fwd.argtypes
+        handle.nnc_mlp_train_fwd_ipe.restype = ci
         handle.nnc_mlp_train_dw.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             ci, ci, vp]
         handle.nnc_mlp_train_dw.restype = ci

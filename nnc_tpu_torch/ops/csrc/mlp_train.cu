@@ -90,6 +90,21 @@
 // - Rows past n: the forward reads zero points there and writes their u (so
 //   the workspace is finite); the backward loads a zero cotangent for them,
 //   so they add exactly zero.
+// - Two input stages, one body (fwd_body<SAVE, IPE>; the launch names
+//   mlp_train_fwd_kernel and mlp_train_fwd_ipe_kernel). Vanilla NeRF reads
+//   3 floats a point and embeds posenc 10/4 (63 + 27 channels). mip-NeRF
+//   (IPE) reads a conical frustum's mean and diagonal variance, 6 floats,
+//   and embeds its integrated positional encoding, 96 channels with no
+//   identity, so layer 0 has K = 96 and layer 5 K = 96 + 256 (3 groups of
+//   32 where vanilla has 2: 149 slabs forward). Shared memory holds no
+//   wider embedding row (the ring, the activations and the 112-float rows
+//   of the embedding fill 225.6 of its 227 KB), so the IPE takes the
+//   columns 0..95 of the same rows, and the view directions' 27 channels,
+//   which only the view layer reads, are written over its columns 0..31
+//   once layer 5 has read the IPE: no byte more than a second copy of the
+//   frustum's 3 extra floats a point. The backward is the same kernel for
+//   both: the embedding's rows of layers 0 and 5 get no gradient, so only
+//   its pack differs (layer 5's rows for h start at 96).
 //
 // Where the time goes at 196,608 points (NVIDIA H100 80GB HBM3, 700 W;
 // nnc_tpu_torch/tools/mma_probe.py section 4, thread 0's clock marks, which
@@ -121,23 +136,43 @@ namespace {
 using namespace nerf;
 using namespace nerf::train;
 
-// slabs of a tile: forward pts_linears.0 (2 groups), .1-.4 (8 each), .5
-// (2 + 8), .6-.7 (8 each), feature (8), two slabs a group; views 9 groups,
-// one slab each
-constexpr int kFwdSlabs = 2 * (2 + 4 * 8 + 10 + 2 * 8 + 8) + 9;
+// The forward's input stage, a compile-time parameter of one kernel body:
+// posenc of a point's 3 floats (vanilla NeRF: 63 channels and a zero in
+// columns 0..63 of the embedding, the view directions' 27 beside them) or,
+// IPE, mip-NeRF's integrated positional encoding of a conical frustum's
+// Gaussian from its mean and diagonal variance (6 floats: 96 channels in
+// columns 0..95, the view directions' embedding written over them once
+// layer 5 has read them).
+template <bool IPE>
+struct Input {
+  static constexpr int kFloats = IPE ? 6 : 3;               // a point's
+  static constexpr int kK = IPE ? kInIpe : mma::kPtsPad;     // layer 0's depth
+  static constexpr int kViews = IPE ? 0 : mma::kPtsPad;      // view columns
+  // slabs of a tile: pts_linears.0 (2 groups, IPE 3), .1-.4 (8 each), .5
+  // (2 + 8, IPE 3 + 8), .6-.7 (8 each), feature (8), two slabs a group;
+  // views 9 groups, one slab each
+  static constexpr int kSlabs =
+      2 * (kK / 32 + 4 * 8 + kK / 32 + 8 + 2 * 8 + 8) + 9;
+  static constexpr int kAlphaW = kSlabs * twg::kSlabFloats;   // 256 weights
+  static constexpr int kRgbW = kAlphaW + kW;                 // (128, 3)
+  static constexpr int kParamsSize = (kRgbW + 3 * (kW / 2) + 63) / 64 * 64;
+};
+constexpr int kFwdSlabs = Input<false>::kSlabs;
 static_assert(kFwdSlabs == 145, "forward slab schedule");
-constexpr int kFwdAlphaW = kFwdSlabs * twg::kSlabFloats;   // 256 weights
-constexpr int kFwdRgbW = kFwdAlphaW + kW;                 // (128, 3)
-constexpr int kFwdParamsSize = (kFwdRgbW + 3 * (kW / 2) + 63) / 64 * 64;
+static_assert(Input<true>::kSlabs == 149, "IPE forward slab schedule");
+static_assert(kInIpe + 16 <= mma::kLdE, "the IPE embedding fits a row");
+constexpr int kFwdParamsSize = Input<false>::kParamsSize;
 // backward: the view layer's feature columns (4 groups), the feature layer
-// and pts layers 7..1 (8 each), two slabs a group
+// and pts layers 7..1 (8 each), two slabs a group; the same for both input
+// stages (the embedding's rows of layers 0 and 5 get no gradient)
 constexpr int kBwdSlabs = 2 * (4 + 8 + 7 * 8);
 static_assert(kBwdSlabs == 136, "backward slab schedule");
 constexpr int kBwdAlphaW = kBwdSlabs * twg::kSlabFloats;   // 256 weights
 constexpr int kBwdRgbW = kBwdAlphaW + kW;                 // (3, 128)
 constexpr int kBwdParamsSize = (kBwdRgbW + 3 * (kW / 2) + 63) / 64 * 64;
 
-using Ring = ring::SlabRing<kFwdSlabs, twg::kStages>;
+template <bool IPE>
+using FwdRing = ring::SlabRing<Input<IPE>::kSlabs, twg::kStages>;
 using BwdRing = ring::SlabRing<kBwdSlabs, twg::kStages>;
 
 // ----------------------------------------------------------------- forward
@@ -163,8 +198,8 @@ __device__ __forceinline__ void store_fragments(float* __restrict__ out,
 // columns, row stride kU) when SAVE and U is not null. U2: the layer's
 // workspace columns start at an even offset. out may be x1 or x2. Ends with
 // the consumers' barrier.
-template <int NW, bool RELU, bool SAVE, bool U2>
-__device__ __forceinline__ void train_layer(Ring& ring, float* out,
+template <int NW, bool RELU, bool SAVE, bool U2, class R>
+__device__ __forceinline__ void train_layer(R& ring, float* out,
                                             const float* x1, int ld1, int K1,
                                             const float* x2, int ld2, int K2,
                                             const float* __restrict__ ls,
@@ -231,13 +266,73 @@ __device__ __forceinline__ void train_layer(Ring& ring, float* out,
   NNC_PROF(7);
 }
 
+template <bool IPE>
 struct FwdSmem {
   ring::RingSmem<twg::kStages> ring;   // first: 1,024-byte aligned stages
   float act[kM * mma::kLdA];   // the layer's input, then its output
-  float emb[kM * mma::kLdE];   // pts 0..62, 63 zero; dirs 64..90, 91..95 zero
-  float xs[kM * 3];
+  // pts 0..62, 63 zero; dirs 64..90, 91..95 zero. IPE: the frustum's 0..95,
+  // then (from layer 6 on) dirs 0..26, 27..31 zero
+  float emb[kM * mma::kLdE];
+  float xs[kM * Input<IPE>::kFloats];
   float ds[kM * 3];
 };
+
+// sin(x) as mip-NeRF's math.safe_sin takes it: of x % (100 pi), the
+// remainder of the divisor's sign as torch.remainder and jnp's % give it,
+// where |x| reaches 100 pi.
+__device__ __forceinline__ float safe_sin(float x) {
+  constexpr float kT = 314.159265358979323846f;   // 100 pi in float32
+  if (!(fabsf(x) < kT)) {
+    x = fmodf(x, kT);
+    if (x != 0.f && x < 0.f) x += kT;
+  }
+  return sinf(x);
+}
+
+// mip-NeRF's integrated positional encoding of the tile (xs: (kM, 6), a
+// frustum's mean, then its diagonal variance) into emb's columns 0..95,
+// point-major: for frequency l < 16 and coordinate d, w = exp(-4^l var_d /
+// 2) and columns 6 l + d, 6 l + 3 + d take w sin(2^l mu_d) and w sin(2^l
+// mu_d + pi / 2) (mlp_train_fused.ipe_embed's order). 2^l mu and 4^l var
+// are exact in float32; sinf and expf are the precise ones.
+__device__ __forceinline__ void embed_ipe(float* __restrict__ emb,
+                                          const float* __restrict__ xs) {
+  for (int i = threadIdx.x; i < kM * 48; i += kThreads) {
+    const int m = i / 48;
+    const int c = i - m * 48;
+    const int l = c / 3;
+    const int d = c - l * 3;
+    const float y = xs[m * 6 + d] * static_cast<float>(1 << l);
+    const float v = xs[m * 6 + 3 + d] * static_cast<float>(1 << (2 * l));
+    const float w = expf(-0.5f * v);
+    float* e = emb + m * mma::kLdE + 6 * l + d;
+    e[0] = w * safe_sin(y);
+    e[3] = w * safe_sin(y + 1.57079632679489662f);
+  }
+}
+
+// The view directions' posenc (4 frequencies after the raw direction, in
+// embed_tile's order) into emb's columns 0..26, zeros into 27..31.
+__device__ __forceinline__ void embed_views(float* __restrict__ emb,
+                                            const float* __restrict__ ds) {
+  for (int i = threadIdx.x; i < kM * 32; i += kThreads) {
+    const int m = i >> 5;
+    const int c = i & 31;
+    float* e = emb + m * mma::kLdE;
+    if (c < 3) {
+      e[c] = ds[m * 3 + c];
+    } else if (c < 15) {
+      const int fr = (c - 3) / 3;
+      const int d = c - 3 - 3 * fr;
+      float sn, cs;
+      sincosf(ds[m * 3 + d] * static_cast<float>(1 << fr), &sn, &cs);
+      e[3 + 6 * fr + d] = sn;
+      e[6 + 6 * fr + d] = cs;
+    } else if (c >= kInViews) {
+      e[c] = 0.f;
+    }
+  }
+}
 
 // The training MLP on the embedded tile in s.emb; raw logits to out (the
 // tile's first row; its first `rows` rows are written), u of every layer
@@ -245,8 +340,9 @@ struct FwdSmem {
 // pack_train_wgmma's forward buffer, whose slabs the ring streams. The
 // consumers enter; starts (after the embedding's stores) and ends with
 // their barrier.
-template <bool SAVE>
-__device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
+template <bool SAVE, bool IPE>
+__device__ __forceinline__ void mlp_tile_train(FwdSmem<IPE>& s,
+                                               FwdRing<IPE>& ring,
                                                const float* __restrict__ FW,
                                                const float* __restrict__ LS,
                                                const float* __restrict__ BI,
@@ -261,17 +357,21 @@ __device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
 
   __syncthreads();
   NNC_PROF(0);
-  train_layer<128, true, SAVE, true>(ring, A, E, mma::kLdE, mma::kPtsPad,
+  train_layer<128, true, SAVE, true>(ring, A, E, mma::kLdE, Input<IPE>::kK,
                                      nullptr, 0, 0, LS, BI, U);
 #pragma unroll 1
   for (int i = 1; i <= 4; ++i)
     train_layer<128, true, SAVE, true>(ring, A, A, mma::kLdA, kW, nullptr, 0,
                                        0, LS + i * kW, BI + i * kW,
                                        at(i * kW));
-  // skip: [emb, h] @ w5 — rows 0..62 of w5 act on emb, rows 63.. on h
-  train_layer<128, true, SAVE, true>(ring, A, E, mma::kLdE, mma::kPtsPad, A,
-                                     mma::kLdA, kW, LS + 5 * kW, BI + 5 * kW,
-                                     at(5 * kW));
+  // skip: [emb, h] @ w5 — rows 0..62 (IPE 0..95) of w5 act on emb, the
+  // rest on h
+  train_layer<128, true, SAVE, true>(ring, A, E, mma::kLdE, Input<IPE>::kK,
+                                     A, mma::kLdA, kW, LS + 5 * kW,
+                                     BI + 5 * kW, at(5 * kW));
+  // (layer 5 ended with a barrier: no warp reads the IPE any more; the
+  // layers before the view layer end with barriers too)
+  if constexpr (IPE) embed_views(s.emb, s.ds);
 #pragma unroll 1
   for (int i = 6; i <= 7; ++i)
     train_layer<128, true, SAVE, true>(ring, A, A, mma::kLdA, kW, nullptr, 0,
@@ -283,7 +383,7 @@ __device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
     constexpr int o = u_offset(kLayerAlpha);
     float wa[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) wa[j] = __ldg(FW + kFwdAlphaW + lane + 32 * j);
+    for (int j = 0; j < 8; ++j) wa[j] = __ldg(FW + Input<IPE>::kAlphaW + lane + 32 * j);
     const float la = __ldg(LS + o), ba = __ldg(BI + o);
 #pragma unroll 2
     for (int i = 0; i < 8; ++i) {
@@ -307,7 +407,8 @@ __device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
       BI + u_offset(kLayerFeature), at(u_offset(kLayerFeature)));
   // views: relu(ls * ([feature, view emb] @ wv) + bv) -> A cols 0..127
   train_layer<64, true, SAVE, false>(
-      ring, A, A, mma::kLdA, kW, E + mma::kPtsPad, mma::kLdE, mma::kViewsPad,
+      ring, A, A, mma::kLdA, kW, E + Input<IPE>::kViews, mma::kLdE,
+      mma::kViewsPad,
       LS + u_offset(kLayerViews), BI + u_offset(kLayerViews),
       at(u_offset(kLayerViews)));
   // rgb head (128 -> 3)
@@ -318,7 +419,7 @@ __device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        wr[j][c] = __ldg(FW + kFwdRgbW + (lane + 32 * j) * 3 + c);
+        wr[j][c] = __ldg(FW + Input<IPE>::kRgbW + (lane + 32 * j) * 3 + c);
     float lr = 0.f, br = 0.f;
     if (lane < 3) {
       lr = __ldg(LS + o + lane);
@@ -348,6 +449,54 @@ __device__ __forceinline__ void mlp_tile_train(FwdSmem& s, Ring& ring,
   NNC_PROF(8);
 }
 
+// The forward's body: pts (n, Input<IPE>::kFloats), dirs (n, 3).
+template <bool SAVE, bool IPE>
+__device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
+                                         const float* __restrict__ FW,
+                                         const float* __restrict__ LS,
+                                         const float* __restrict__ BI,
+                                         const float* __restrict__ pts,
+                                         const float* __restrict__ dirs,
+                                         float* __restrict__ out,
+                                         float* __restrict__ ws, int n,
+                                         int tiles) {
+  FwdSmem<IPE>& s = *reinterpret_cast<FwdSmem<IPE>*>(smem_raw);
+  if (twg::smem_u32(smem_raw) % 1024) __trap();
+  const int tid = threadIdx.x;
+  const int mine = (tiles - static_cast<int>(blockIdx.x) +
+                    static_cast<int>(gridDim.x) - 1) / gridDim.x;
+  mma::prof_begin();
+  FwdRing<IPE> ring{&s.ring, FW, mine * Input<IPE>::kSlabs, 0};
+  if (tid == 0) ring.start();
+  twg::order_start();
+  if constexpr (!IPE) mma::zero_embedding_pad(s.emb);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long base = static_cast<long long>(tile) * kM;
+    if constexpr (IPE) {
+      for (int i = tid; i < kM * 6; i += kThreads)
+        s.xs[i] = base + i / 6 < n ? pts[base * 6 + i] : 0.f;
+      if (tid < kM * 3)
+        s.ds[tid] = base + tid / 3 < n ? dirs[base * 3 + tid] : 0.f;
+      __syncthreads();
+      embed_ipe(s.emb, s.xs);
+    } else {
+      if (tid < kM * 3) {
+        const bool valid = base + tid / 3 < n;
+        s.xs[tid] = valid ? pts[base * 3 + tid] : 0.f;
+        s.ds[tid] = valid ? dirs[base * 3 + tid] : 0.f;
+      }
+      __syncthreads();
+      mma::embed_tile(s.emb, s.xs, s.ds);
+    }
+    mlp_tile_train<SAVE, IPE>(
+        s, ring, FW, LS, BI,
+        SAVE ? ws + static_cast<size_t>(base) * kU : nullptr, out + base * 4,
+        static_cast<int>(n - base < kM ? n - base : kM));
+  }
+  twg::order_end();
+  mma::prof_end();
+}
+
 template <bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_train_fwd_kernel(const float* __restrict__ FW,
@@ -357,32 +506,22 @@ mlp_train_fwd_kernel(const float* __restrict__ FW,
                      const float* __restrict__ dirs, float* __restrict__ out,
                      float* __restrict__ ws, int n, int tiles) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
-  if (twg::smem_u32(smem_raw) % 1024) __trap();
-  const int tid = threadIdx.x;
-  const int mine = (tiles - static_cast<int>(blockIdx.x) +
-                    static_cast<int>(gridDim.x) - 1) / gridDim.x;
-  mma::prof_begin();
-  Ring ring{&s.ring, FW, mine * kFwdSlabs, 0};
-  if (tid == 0) ring.start();
-  twg::order_start();
-  mma::zero_embedding_pad(s.emb);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long base = static_cast<long long>(tile) * kM;
-    if (tid < kM * 3) {
-      const bool valid = base + tid / 3 < n;
-      s.xs[tid] = valid ? pts[base * 3 + tid] : 0.f;
-      s.ds[tid] = valid ? dirs[base * 3 + tid] : 0.f;
-    }
-    __syncthreads();
-    mma::embed_tile(s.emb, s.xs, s.ds);
-    mlp_tile_train<SAVE>(s, ring, FW, LS, BI,
-                         SAVE ? ws + static_cast<size_t>(base) * kU : nullptr,
-                         out + base * 4,
-                         static_cast<int>(n - base < kM ? n - base : kM));
-  }
-  twg::order_end();
-  mma::prof_end();
+  fwd_body<SAVE, false>(smem_raw, FW, LS, BI, pts, dirs, out, ws, n, tiles);
+}
+
+// The IPE instantiation (mip-NeRF): pts holds a frustum's mean and diagonal
+// variance a point.
+template <bool SAVE>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_train_fwd_ipe_kernel(const float* __restrict__ FW,
+                         const float* __restrict__ LS,
+                         const float* __restrict__ BI,
+                         const float* __restrict__ pts,
+                         const float* __restrict__ dirs,
+                         float* __restrict__ out, float* __restrict__ ws,
+                         int n, int tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  fwd_body<SAVE, true>(smem_raw, FW, LS, BI, pts, dirs, out, ws, n, tiles);
 }
 
 // ------------------------------------------------- backward without dW
@@ -690,14 +829,15 @@ mlp_train_bwd_mma_kernel(const float* __restrict__ BW,
   mma::prof_end();
 }
 
-template <bool SAVE>
+template <bool SAVE, bool IPE>
 int launch_fwd(const float* fw, const float* ls, const float* bi,
                const float* pts, const float* dirs, float* out, float* ws,
                int n, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(FwdSmem));
+  auto* kernel = IPE ? mlp_train_fwd_ipe_kernel<SAVE>
+                     : mlp_train_fwd_kernel<SAVE>;
+  const int smem = static_cast<int>(sizeof(FwdSmem<IPE>));
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_fwd_kernel<SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -706,9 +846,8 @@ int launch_fwd(const float* fw, const float* ls, const float* bi,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const int tiles = (n + kM - 1) / kM;
-    mlp_train_fwd_kernel<SAVE><<<tiles < sms ? tiles : sms, kThreads, smem,
-                                 stream>>>(fw, ls, bi, pts, dirs, out, ws, n,
-                                           tiles);
+    kernel<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
+        fw, ls, bi, pts, dirs, out, ws, n, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -746,8 +885,31 @@ extern "C" int nnc_mlp_train_fwd(const float* fw, const float* ls,
                                  int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return ws != nullptr
-             ? launch_fwd<true>(fw, ls, bi, pts, dirs, out, ws, n, st)
-             : launch_fwd<false>(fw, ls, bi, pts, dirs, out, ws, n, st);
+             ? launch_fwd<true, false>(fw, ls, bi, pts, dirs, out, ws, n, st)
+             : launch_fwd<false, false>(fw, ls, bi, pts, dirs, out, ws, n,
+                                        st);
+}
+
+// Length of the IPE instantiation's forward buffer (pack_train_wgmma of a
+// mip-NeRF MLP); its backward buffer has nnc_train_wgmma_sizes' length.
+extern "C" int nnc_train_wgmma_ipe_size(int* fwd_size) {
+  *fwd_size = Input<true>::kParamsSize;
+  return 0;
+}
+
+// The IPE instantiation's forward (mip-NeRF): pts (n, 6), each point's
+// frustum mean and diagonal variance; the rest as nnc_mlp_train_fwd. Its
+// workspace is the backward's, nnc_mlp_train_bwd_mma's, as the vanilla
+// one's.
+extern "C" int nnc_mlp_train_fwd_ipe(const float* fw, const float* ls,
+                                     const float* bi, const float* pts,
+                                     const float* dirs, float* out, float* ws,
+                                     int n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ws != nullptr
+             ? launch_fwd<true, true>(fw, ls, bi, pts, dirs, out, ws, n, st)
+             : launch_fwd<false, true>(fw, ls, bi, pts, dirs, out, ws, n,
+                                       st);
 }
 
 // The backward without dW, and the first pass of the backward with dW. bw:

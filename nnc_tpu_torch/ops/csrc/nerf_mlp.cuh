@@ -20,6 +20,7 @@ namespace nerf {
 constexpr int kW = 256;        // hidden width
 constexpr int kInPts = 63;     // posenc(xyz, 10)
 constexpr int kInViews = 27;   // posenc(viewdir, 4)
+constexpr int kInIpe = 96;     // mip-NeRF's IPE of a frustum, 16 x 2 x 3
 constexpr int kM = 64;         // points per tile
 constexpr int kThreads = 256;
 constexpr int kLayers = 12;

@@ -41,6 +41,18 @@ plain versions; the plain backward recomputes the forward, as the TPU
 kernel does, where the CUDA forward leaves ``u`` in a workspace for its
 backward.
 
+mip-NeRF's MLP (``nerf.MIPNERF``: the same twelve layers on the 96
+channels of the integrated positional encoding of a conical frustum) takes
+K-B1's IPE instantiation (:data:`IPE`): the forward kernel reads each
+point's frustum mean and diagonal variance, (N, 6), and embeds it itself
+(``csrc/mlp_train.cu``, ``mlp_train_fwd_ipe``); the backward is the same
+kernel on a pack whose skip layer's rows for h start at 96. An input stage
+(:class:`Stage`) holds what differs: the buffers' layouts and the plain
+embedding; the functions below pick it from the sizes they are given (63
+or 96 input channels, 3 or 6 floats a point). The IPE instantiation is
+float32 and without dW; :func:`fused_ipe_mlp_train` takes the plain MLP
+for anything else.
+
 A model with ``config.compute_dtype == torch.bfloat16`` takes K-B1's bf16
 form (mlp_train_pallas.py:380): the UNSCALED weights, the embedding and
 every stored activation rounded to bf16, ``u`` summed in float32 and scaled
@@ -55,6 +67,7 @@ are the float32 ones with the rounding hook ``rnd`` on the rounded weights.
 from __future__ import annotations
 
 import collections
+import functools
 
 import numpy as np
 import torch
@@ -67,7 +80,7 @@ from .mlp_fused import (BF16_PARAMS_SIZE, FLAGSHIP, MMA_RUNS, MMA_SLAB,
                         bf16_round, fragment_index_k16, matmul_3xtf32_plain,
                         repack_bf16, supports, tf32_round, unpack_weights,
                         unpack_weights_bf16)
-from .posenc import positional_encoding
+from .posenc import integrated_positional_encoding, positional_encoding
 
 _DIMS = list(nerf._layer_dims(FLAGSHIP).items())   # [(name, (in, out))]
 NAMES = [name for name, _ in _DIMS]
@@ -108,8 +121,10 @@ def grad_size(with_dw: bool) -> int:
 # --------------------------------------------------------------- packing
 def pack_train(weights, biases, scales):
     """(params, params_t, ls) from each layer's weight (out, in), bias (out,)
-    and scales (out, 1), in layer order."""
-    segs, size = _segments(FLAGSHIP)
+    and scales (out, 1), in layer order (either input stage, by the first
+    layer's inputs)."""
+    st = _stage("weights", weights[0].shape[1], "n_pe")
+    segs, size = st.segs, st.params_size
     ends = [off for *_, off in segs[1:]] + [size]
     parts = []
     with torch.no_grad():
@@ -130,9 +145,13 @@ def pack_train(weights, biases, scales):
 # weight as B of (out rows, in columns); the view layer passes a gradient to
 # its 256 feature inputs only, layer 5 to its 256 inputs from h (not to the
 # embedding), layer 0 to none. The bf16 backward walks the same runs.
-BWD_RUNS = ([("views_linears.0", 0, 256), ("feature_linear", 0, 256)]
-            + [(f"pts_linears.{i}", 63 if i == 5 else 0, 256)
+def _bwd_runs(n_pe: int):
+    return ([("views_linears.0", 0, 256), ("feature_linear", 0, 256)]
+            + [(f"pts_linears.{i}", n_pe if i == 5 else 0, 256)
                for i in range(7, 0, -1)])
+
+
+BWD_RUNS = _bwd_runs(63)
 
 # Both float32 kernels read B of their wgmma products as shared-memory
 # images (csrc/mlp_train_wgmma.cuh), made here once a pack: every weight
@@ -184,31 +203,32 @@ def _wgmma_index(runs, tails, size):
     return np.concatenate(parts).astype(np.int64)
 
 
-def _fwd_wgmma_index():
-    segs = {name: (din, dout, off) for name, din, dout, off
-            in _segments(FLAGSHIP)[0]}
+def _fwd_wgmma_index(config=FLAGSHIP, mma_runs=MMA_RUNS):
+    segs_all, size = _segments(config)
+    segs = {name: (din, dout, off) for name, din, dout, off in segs_all}
     runs = []
-    for name, row0, rows, padded in MMA_RUNS:
+    for name, row0, rows, padded in mma_runs:
         _din, dout, off = segs[name]
         k = np.arange(padded)[:, None]
         runs.append((dout, np.where(k < rows, off + (row0 + k) * dout
-                                    + np.arange(dout)[None, :], PARAMS_SIZE)))
+                                    + np.arange(dout)[None, :], size)))
     tails = [segs[name][2] + np.arange(segs[name][0] * segs[name][1])
              for name in ("alpha_linear", "rgb_linear")]
-    return _wgmma_index(runs, tails, PARAMS_SIZE)
+    return _wgmma_index(runs, tails, size)
 
 
-def _bwd_wgmma_index():
-    dims = dict(_DIMS)
+def _bwd_wgmma_index(config=FLAGSHIP, bwd_runs=BWD_RUNS):
+    dims = nerf._layer_dims(config)
+    offsets, size = _offsets([din * dout for din, dout in dims.values()])
     runs = []
-    for name, col0, n_in in BWD_RUNS:
+    for name, col0, n_in in bwd_runs:
         din, dout = dims[name]
-        off = WT_OFFSETS[NAMES.index(name)]
+        off = offsets[NAMES.index(name)]
         runs.append((n_in, off + np.arange(dout)[:, None] * din + col0
                      + np.arange(n_in)[None, :]))
-    tails = [WT_OFFSETS[NAMES.index(name)] + np.arange(np.prod(dims[name]))
+    tails = [offsets[NAMES.index(name)] + np.arange(np.prod(dims[name]))
              for name in ("alpha_linear", "rgb_linear")]
-    return _wgmma_index(runs, tails, WT_SIZE)
+    return _wgmma_index(runs, tails, size)
 
 
 FWD_WG_INDEX = _fwd_wgmma_index()
@@ -218,10 +238,86 @@ BWD_WG_SIZE = BWD_WG_INDEX.size
 assert FWD_WG_SIZE == FWD_WG_SLABS * WG_SLAB + 640 \
     and BWD_WG_SIZE == BWD_WG_SLABS * WG_SLAB + 640
 # every layer's bias in ``params``, in the U_OFFSETS layout
-BIAS_INDEX = np.concatenate([off + din * dout + np.arange(dout)
-                             for _name, din, dout, off
-                             in _segments(FLAGSHIP)[0]]).astype(np.int64)
+def _bias_index(config=FLAGSHIP):
+    return np.concatenate([off + din * dout + np.arange(dout)
+                           for _name, din, dout, off
+                           in _segments(config)[0]]).astype(np.int64)
+
+
+BIAS_INDEX = _bias_index()
 _index_on = {}   # (which, device) -> the index as a tensor there
+
+
+def _ipe_mma_runs():
+    """MMA_RUNS with the IPE's 96 channels in pts_linears.0 and .5."""
+    return ([("pts_linears.0", 0, 96, 96)]
+            + [(f"pts_linears.{i}", 0, 256, 256) for i in (1, 2, 3, 4)]
+            + [("pts_linears.5", 0, 96, 96), ("pts_linears.5", 96, 256, 256)]
+            + list(MMA_RUNS[7:]))
+
+
+class Stage:
+    """One input stage of K-B1: posenc of a point (vanilla NeRF, 3 floats a
+    point) or the IPE of a frustum (mip-NeRF, 6: mean, diagonal variance).
+    It holds the MLP's dimensions, the layouts of :func:`pack_train`'s
+    buffers and of the kernels' wgmma images (made on first use), the plain
+    embedding and the kernels' launch names."""
+
+    def __init__(self, tag, config, pt_floats, fwd, bwd, mma_runs):
+        self.tag, self.config, self.pt_floats = tag, config, pt_floats
+        self.fwd, self.bwd = fwd, bwd
+        self.n_pe = config.input_ch
+        self.dims = list(nerf._layer_dims(config).items())
+        self.segs, self.params_size = _segments(config)
+        self.wt_offsets, self.wt_size = _offsets(
+            [din * dout for _, (din, dout) in self.dims])
+        self._mma_runs = mma_runs
+
+    @functools.cached_property
+    def fwd_index(self):
+        return _fwd_wgmma_index(self.config, self._mma_runs)
+
+    @functools.cached_property
+    def bwd_index(self):
+        return _bwd_wgmma_index(self.config, _bwd_runs(self.n_pe))
+
+    @functools.cached_property
+    def bias_index(self):
+        return _bias_index(self.config)
+
+    @property
+    def fwd_size(self) -> int:
+        return self.fwd_index.size
+
+    def embed(self, pts, rnd=None):
+        """The plain embedding of (N, pt_floats) points."""
+        q = rnd or (lambda t: t)
+        if self.pt_floats == 6:
+            return q(integrated_positional_encoding(pts[:, :3], pts[:, 3:]))
+        return q(positional_encoding(pts, 10))
+
+
+VANILLA = Stage("", FLAGSHIP, 3, "mlp_train_fwd", "mlp_train_bwd", MMA_RUNS)
+VANILLA.__dict__.update(fwd_index=FWD_WG_INDEX, bwd_index=BWD_WG_INDEX,
+                        bias_index=BIAS_INDEX)
+IPE = Stage("ipe_", nerf.MIPNERF, 6, "mlp_train_fwd_ipe", "mlp_train_bwd_ipe",
+            _ipe_mma_runs())
+_STAGES = (VANILLA, IPE)
+
+
+def _stage(what: str, size: int, key: str) -> Stage:
+    """The stage whose ``key`` (params_size, wt_size, n_pe, pt_floats) is
+    ``size``."""
+    for st in _STAGES:
+        if getattr(st, key) == size:
+            return st
+    raise ValueError(f"{what}: no input stage of K-B1 has {key} {size}")
+
+
+def supports_ipe(config: nerf.NeRFConfig) -> bool:
+    """Whether K-B1's IPE instantiation runs this configuration: mip-NeRF's
+    MLP in float32."""
+    return config == nerf.MIPNERF
 
 
 def _gather(flat, which, index):
@@ -239,22 +335,26 @@ def _split_source(flat):
 def repack_wgmma(params: torch.Tensor) -> torch.Tensor:
     """``params`` (pack_train's layout) as the forward reads it: its
     weights split and laid out as the forward's wgmma images, then the
-    heads' weights. One split and one gather."""
-    _check("params", params, (PARAMS_SIZE,))
-    return _gather(_split_source(params), "fwd_wg", FWD_WG_INDEX)
+    heads' weights. One split and one gather. The input stage follows from
+    the size."""
+    st = _stage("params", params.numel(), "params_size")
+    _check("params", params, (st.params_size,))
+    return _gather(_split_source(params), st.tag + "fwd_wg", st.fwd_index)
 
 
 def repack_wgmma_t(params_t: torch.Tensor) -> torch.Tensor:
     """``params_t`` (every layer's (out, in) weight, concatenated) as the
     backward without dW reads it: the BWD_RUNS split and laid out as wgmma
-    images, then the heads' weights."""
-    _check("params_t", params_t, (WT_SIZE,))
-    return _gather(_split_source(params_t), "bwd_wg", BWD_WG_INDEX)
+    images, then the heads' weights (the same length for both stages)."""
+    st = _stage("params_t", params_t.numel(), "wt_size")
+    _check("params_t", params_t, (st.wt_size,))
+    return _gather(_split_source(params_t), st.tag + "bwd_wg", st.bwd_index)
 
 
 def gather_biases(params: torch.Tensor) -> torch.Tensor:
     """Every layer's bias out of ``params``, concatenated (U_OFFSETS)."""
-    return _gather(params, "bias", BIAS_INDEX)
+    st = _stage("params", params.numel(), "params_size")
+    return _gather(params, st.tag + "bias", st.bias_index)
 
 
 def pack_train_wgmma(weights):
@@ -286,12 +386,14 @@ def unpack_train_wgmma(packed_fwd, packed_bwd):
     of :func:`pack_train_wgmma` (hi + lo of every split weight). The second
     holds zeros where the backward has no use for a weight (layer 0, the
     embedding columns of layer 5 and the view columns of the view layer)."""
-    _check("packed_fwd", packed_fwd, (FWD_WG_SIZE,))
+    st = VANILLA if packed_fwd.numel() == FWD_WG_SIZE else IPE
+    _check("packed_fwd", packed_fwd, (st.fwd_size,))
     _check("packed_bwd", packed_bwd, (BWD_WG_SIZE,))
-    fwd = {name: w for name, (w, _b) in unpack_weights(
-        _unsplit(packed_fwd, FWD_WG_INDEX, PARAMS_SIZE)).items()}
-    return fwd, _views(_unsplit(packed_bwd, BWD_WG_INDEX, WT_SIZE),
-                       WT_OFFSETS, [(dout, din) for _, (din, dout) in _DIMS])
+    fwd = {name: w for name, (w, _b) in _unpack_params(
+        _unsplit(packed_fwd, st.fwd_index, st.params_size), st).items()}
+    return fwd, _views(_unsplit(packed_bwd, st.bwd_index, st.wt_size),
+                       st.wt_offsets,
+                       [(dout, din) for _, (din, dout) in st.dims])
 
 
 # --- the bf16 kernels' weights (csrc/mlp_train_bf16.cu) -----------------------
@@ -450,13 +552,23 @@ def split_grads(flat, with_dw: bool):
 
 
 # --------------------------------------------------------- plain versions
+def _unpack_params(params, st: Stage):
+    """{layer name: (w (in, out), b (out,))} views into ``params``."""
+    if st is VANILLA:
+        return unpack_weights(params)
+    return {name: (params[off:off + din * dout].view(din, dout),
+                   params[off + din * dout:off + din * dout + dout])
+            for name, din, dout, off in st.segs}
+
+
 def _unpack(params, ls, params_t=None):
-    L = unpack_weights(params)
-    S = _views(ls, U_OFFSETS, [(dout,) for _, (_din, dout) in _DIMS])
+    st = _stage("params", params.numel(), "params_size")
+    L = _unpack_params(params, st)
+    S = _views(ls, U_OFFSETS, [(dout,) for _, (_din, dout) in st.dims])
     WT = None
     if params_t is not None:
-        WT = _views(params_t, WT_OFFSETS,
-                    [(dout, din) for _, (din, dout) in _DIMS])
+        WT = _views(params_t, st.wt_offsets,
+                    [(dout, din) for _, (din, dout) in st.dims])
     return L, S, WT
 
 
@@ -504,11 +616,13 @@ def _chain(L, S, pe, ve, keep=False, mm=torch.matmul, rnd=None):
 
 def mlp_train_fwd_plain(params, ls, pts, dirs, mm=torch.matmul, rnd=None):
     """Plain PyTorch version of the K-B1 forward: raw (N, 4). ``mm``,
-    ``rnd``: as in :func:`_chain`; ``rnd`` also rounds the embeddings."""
+    ``rnd``: as in :func:`_chain`; ``rnd`` also rounds the embeddings.
+    ``pts``: (N, 3) points, or (N, 6) frusta of the IPE stage."""
     torch.backends.cuda.matmul.allow_tf32 = False
     L, S, _ = _unpack(params, ls)
+    st = _stage("pts", pts.shape[-1], "pt_floats")
     q = rnd or (lambda t: t)
-    outs = [_chain(L, S, q(positional_encoding(pts[s:s + PLAIN_CHUNK], 10)),
+    outs = [_chain(L, S, st.embed(pts[s:s + PLAIN_CHUNK], rnd),
                    q(positional_encoding(dirs[s:s + PLAIN_CHUNK], 4)), mm=mm,
                    rnd=rnd)
             for s in range(0, pts.shape[0], PLAIN_CHUNK)]
@@ -588,14 +702,15 @@ def mlp_train_bwd_plain(params, params_t, ls, pts, dirs, g, with_dw: bool,
     torch.backends.cuda.matmul.allow_tf32 = False
     q = rnd or (lambda t: t)
     L, S, WT = _unpack(params, ls, params_t)
+    st = _stage("pts", pts.shape[-1], "pt_floats")
     zeros = lambda shape: torch.zeros(shape, device=pts.device)
-    dW = {n: zeros((dout, din)) for n, (din, dout) in _DIMS}
-    dls = {n: zeros((dout,)) for n, (_din, dout) in _DIMS}
-    db = {n: zeros((dout,)) for n, (_din, dout) in _DIMS}
-    n_pe = 63
+    dW = {n: zeros((dout, din)) for n, (din, dout) in st.dims}
+    dls = {n: zeros((dout,)) for n, (_din, dout) in st.dims}
+    db = {n: zeros((dout,)) for n, (_din, dout) in st.dims}
+    n_pe = st.n_pe
 
     for s in range(0, pts.shape[0], PLAIN_CHUNK):
-        pe = q(positional_encoding(pts[s:s + PLAIN_CHUNK], 10))
+        pe = st.embed(pts[s:s + PLAIN_CHUNK], rnd)
         ve = q(positional_encoding(dirs[s:s + PLAIN_CHUNK], 4))
         _out, r = _chain(L, S, pe, ve, keep=True, mm=mm, rnd=rnd)
         gc = g[s:s + PLAIN_CHUNK]
@@ -709,7 +824,7 @@ def mlp_train_dw_plain(ws, du, ls, biases, pts, dirs, bf16: bool = False,
 def _check_inputs(ls, pts, dirs, *more):
     n = pts.shape[0]
     _check("ls", ls, (U_SIZE,))
-    _check("pts", pts, (n, 3))
+    _check("pts", pts, (n, 6 if pts.dim() == 2 and pts.shape[1] == 6 else 3))
     _check("dirs", dirs, (n, 3))
     if any(t.device != pts.device for t in (ls, dirs, *more)):
         raise ValueError("the weights, ls, pts and dirs must be on one device")
@@ -763,30 +878,41 @@ _FORMS = {
 }
 
 
+def _refuse_ipe_form(bf16, st, with_dw=False):
+    if st is IPE and (bf16 or with_dw):
+        raise ValueError("K-B1's IPE instantiation is float32 without dW; "
+                         "fused_ipe_mlp_train takes the plain MLP for dW")
+
+
 def _fwd(bf16, params, ls, pts, dirs, save_u, packed, biases):
     form = _FORMS[bf16]
     given = [t for t in (params, packed, biases) if t is not None]
     n = _check_inputs(ls, pts, dirs, *given)
+    st = _stage("pts", pts.shape[1], "pt_floats")
+    _refuse_ipe_form(bf16, st)
     if params is not None:
-        _check("params", params, (PARAMS_SIZE,))
+        _check("params", params, (st.params_size,))
     if pts.device.type == "cpu":
         if params is None:
             raise ValueError("the plain version reads params")
         return form["fwd_plain"](params, ls, pts, dirs), None
     name, size, make, dtype = form["buf"]
+    if st is IPE:
+        size = st.fwd_size
     packed = _kernel_buffer(name, packed, size, params, make, dtype)
     biases = _biases(biases, params)
     lib = _build.lib()
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     ws = torch.empty((_padded(n, form["tile"]), U_SIZE), dtype=torch.float32,
                      device=pts.device) if save_u else None
+    kernel = st.fwd if st is IPE else form["fwd"]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.count_launch(form["fwd"])
-        _build.check(getattr(lib, "nnc_" + form["fwd"])(
+        _build.count_launch(kernel)
+        _build.check(getattr(lib, "nnc_" + kernel)(
             packed.data_ptr(), ls.data_ptr(), biases.data_ptr(),
             pts.data_ptr(), dirs.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), n, stream), form["fwd"])
+            None if ws is None else ws.data_ptr(), n, stream), kernel)
     return out, ws
 
 
@@ -819,15 +945,17 @@ def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
     given = [t for t in (params, params_t, packed_t, biases, g, du)
              if t is not None]
     n = _check_inputs(ls, pts, dirs, *given)
+    st = _stage("pts", pts.shape[1], "pt_floats")
     if params is not None:
-        _check("params", params, (PARAMS_SIZE,))
+        _check("params", params, (st.params_size,))
     if params_t is not None:
-        _check("params_t", params_t, (WT_SIZE,))
+        _check("params_t", params_t, (st.wt_size,))
     _check("g", g, (n, 4))
     if pts.device.type == "cpu":
         if params is None or params_t is None:
             raise ValueError("the plain version reads params and params_t")
         return form["bwd_plain"](params, params_t, ls, pts, dirs, g, with_dw)
+    _refuse_ipe_form(bf16, st, with_dw)
     if ws is None:
         raise ValueError("the CUDA backward needs the forward's workspace "
                          f"({form['fwd']}(save_u=True))")
@@ -853,7 +981,7 @@ def _bwd(bf16, params, params_t, ls, pts, dirs, g, ws, with_dw, packed_t,
                            dtype=torch.float32, device=pts.device)
     out = torch.empty((grad_size(with_dw),), dtype=torch.float32,
                       device=pts.device)
-    kernel = form["bwd_dw" if with_dw else "bwd"]
+    kernel = st.bwd if st is IPE else form["bwd_dw" if with_dw else "bwd"]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.count_launch(kernel)
@@ -969,4 +1097,66 @@ def fused_nerf_mlp_train(model: nerf.NeRF, pts, viewdirs,
     raw = _TrainMLP.apply(pts.detach().reshape(-1, 3).float().contiguous(),
                           vd.detach().reshape(-1, 3).float().contiguous(),
                           with_dw, dtype == torch.bfloat16, packs, *tensors)
+    return raw.reshape(*lead, 4)
+
+
+# ------------------------------------------------- the IPE stage (mip-NeRF)
+def _ipe_inputs(means, covs, viewdirs):
+    pts = torch.cat([means, covs], -1).detach().reshape(-1, 6).float()
+    vd = torch.broadcast_to(viewdirs, means.shape).detach().reshape(-1, 3)
+    return pts.contiguous(), vd.float().contiguous()
+
+
+def _refuse_ipe_config(model: nerf.NeRF, means):
+    if means.is_cuda and not supports_ipe(model.config):
+        raise ValueError(
+            f"K-B1's IPE instantiation runs mip-NeRF's MLP in float32 only, "
+            f"not {model.config}: a bf16 mip-NeRF has no kernel on the card "
+            f"yet (run it in float32, or on the CPU's plain MLP)")
+
+
+def fused_ipe_mlp_train(model: nerf.NeRF, means, covs, viewdirs):
+    """Differentiable IPE + MLP of mip-NeRF's frusta (training renders).
+
+    means, covs: (..., 3) each frustum's Gaussian; viewdirs broadcastable to
+    them. Returns raw (..., 4) float32 with gradients for every layer's
+    ``weight_scaling`` and ``bias`` (the weights get a zero gradient). On
+    CUDA tensors of a :func:`supports_ipe` model it runs K-B1's IPE
+    instantiation, its packs from :data:`TRAIN_PACKS`; a model that trains
+    its weights, or any model on CPU tensors, takes the plain MLP in
+    output-scaling form. Another configuration (bf16, say) on CUDA tensors
+    raises: the instantiation has no such form."""
+    _refuse_ipe_config(model, means)
+    lead = means.shape[:-1]
+    trains_weights = any(layer.weight.requires_grad
+                         for layer in model.layers().values())
+    if not supports_ipe(model.config) or trains_weights:
+        vd = torch.broadcast_to(viewdirs, means.shape)
+        return nerf.apply_mlp(model, integrated_positional_encoding(
+            means, covs), positional_encoding(vd, 4), output_scaling=True)
+    pts, vd = _ipe_inputs(means, covs, viewdirs)
+    tensors = _layer_tensors(model)
+    packs = TRAIN_PACKS.get(tensors[0::3]) if pts.is_cuda else None
+    raw = _TrainMLP.apply(pts, vd, False, False, packs, *tensors)
+    return raw.reshape(*lead, 4)
+
+
+@torch.no_grad()
+def ipe_mlp_forward(model: nerf.NeRF, means, covs, viewdirs):
+    """IPE + MLP of mip-NeRF's frusta without gradients (test views): on
+    CUDA tensors K-B1's IPE forward without its workspace (another
+    configuration than :func:`supports_ipe`'s raises there), on CPU tensors
+    the plain MLP. Returns raw (..., 4)."""
+    _refuse_ipe_config(model, means)
+    lead = means.shape[:-1]
+    if not means.is_cuda:
+        vd = torch.broadcast_to(viewdirs, means.shape)
+        return nerf.apply_mlp(model, integrated_positional_encoding(
+            means, covs), positional_encoding(vd, 4), output_scaling=True)
+    pts, vd = _ipe_inputs(means, covs, viewdirs)
+    tensors = _layer_tensors(model)
+    packed, _packed_t = TRAIN_PACKS.get(tensors[0::3])
+    ls = torch.cat([t.reshape(-1).float() for t in tensors[2::3]])
+    b = torch.cat([t.float() for t in tensors[1::3]])
+    raw, _ws = _fwd(False, None, ls, pts, vd, False, packed, b)
     return raw.reshape(*lead, 4)

@@ -9,7 +9,10 @@ double MSE loss and its backward, and makes one Adam update of the trained
 tensors (:class:`Adam`: optax's update as tensor ops, its learning rate and
 bias corrections read from a tensor). With an occupancy ``grid`` the loss is
 :func:`double_mse_loss_occ`: both networks integrate the grid-selected
-samples instead of the hierarchical sweep.
+samples instead of the hierarchical sweep. With a mip-NeRF configuration
+(``mipnerf.MipRenderConfig``) there is one network (``model_f`` None), and
+the step's loss is :func:`mipnerf.mip_loss` on its two levels, its draws
+from :func:`mipnerf.step_draws`.
 
 The steps run in calls, scheduled as the reference's loop schedules them
 (:func:`call_lengths`): a full call takes ``steps_per_call`` (K) steps, as
@@ -54,7 +57,7 @@ import torch
 
 from .. import parallel
 from ..ops import _build, mlp_train_fused
-from ..render import occupancy, renderer
+from ..render import mipnerf, occupancy, renderer
 from ..render.volume import raw2outputs
 from ..utils import profiling
 from ..utils.logging import ResultLogger, mse2psnr
@@ -135,6 +138,18 @@ def occ_step_draws(n_rays: int, rc: renderer.RenderConfig, budget: int,
         return {}
     return {k: torch.randn((n_rays, budget), generator=generator,
                            device=device) for k in ("noise0", "noise1")}
+
+
+def points_per_ray(rc, grid=None, occ_budget: int = 32) -> int:
+    """MLP points a training step computes a ray, summed over its networks
+    or levels: both levels' samples (mip-NeRF), twice the occupancy budget,
+    or the coarse samples and the fine pass's union."""
+    if mipnerf.is_mip(rc):
+        return mipnerf.NUM_LEVELS * rc.num_samples
+    if grid is not None:
+        return 2 * occ_budget
+    fine = rc.n_samples + rc.n_importance if rc.n_importance > 0 else 0
+    return rc.n_samples + fine
 
 
 def make_lr_schedule(lr: float, decay: float, steps_per_epoch: int,
@@ -557,7 +572,8 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     ``capture_s``, ``pool_bytes`` and ``captured`` launches, and the
     ``warmup_steps`` run before the capture. While a torch profiler
     records, each call is an ``nnc.lsa.call`` request span
-    (``utils/profiling``; counts ``steps`` and ``rays``, the call's rays)
+    (``utils/profiling``; counts ``steps``, ``rays``, the call's rays, and
+    ``points``, the MLP points its steps compute, :func:`points_per_ray`)
     over the interval ``calls`` times, its phases the spans
     ``nnc.lsa.batches``, ``.pack``, ``.draws``, ``.upload``, ``.capture``
     (the first full call), ``.steps`` and ``.readback``.
@@ -583,6 +599,13 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                                 offset=offset)
     generator = torch.Generator(device=device).manual_seed(seed)
     loss_fn = double_mse_loss
+    mip = mipnerf.is_mip(rc)
+    if mip:
+        if grid is not None or mesh is not None or model_f is not None:
+            raise ValueError("mip-NeRF tunes one network on its cones, on "
+                             "one device: no fine network, occupancy grid "
+                             "or mesh")
+        loss_fn = mipnerf.mip_loss
     if grid is not None:
         loss_fn = lambda *a, **kw: double_mse_loss_occ(
             *a, grid=grid, n_candidates=occ_candidates, budget=occ_budget,
@@ -602,7 +625,8 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                                for a in (ro, rd, vd, tgt)], axis=-1)
 
     def step_draws(i, n_rays):
-        made = renderer.step_draws(n_rays, rc, generator, device) \
+        made = mipnerf.step_draws(n_rays, rc, generator, device) if mip \
+            else renderer.step_draws(n_rays, rc, generator, device) \
             if grid is None else \
             occ_step_draws(n_rays, rc, occ_budget, generator, device)
         return {**made, **(draws(i) if draws is not None else {})}
@@ -631,6 +655,8 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                 n_rays = batches[0].shape[0]
                 if call is not None:
                     call.counts["rays"] = k * n_rays
+                    call.counts["points"] = k * n_rays * points_per_ray(
+                        rc, grid, occ_budget)
                 with profiling.span("nnc.lsa.pack"):
                     host = pack_call(batches, [
                         Adam.hyper(schedule(count + j), count + j)

@@ -10,6 +10,12 @@ hyperparameters (reference: framework/applications/utils/train_nerf.py:37-70):
     1 around the mean camera radius; LINEMOD: the split files' near / far
 The dataset loaders are the port's own ``data.blender``, ``data.llff``,
 ``data.deepvoxels`` and ``data.linemod``.
+
+A config file with ``model = mipnerf`` (``nnc_tpu_torch/configs/
+mip_lego.txt``) makes a mip-NeRF scene: its mip-NeRF keys go to
+``scene["mip"]``, its rays leave through the pixels' centres (the principal
+point half a pixel up and left, as mip-NeRF's loader casts them), and the
+executer renders and tunes it through ``render/mipnerf.py``.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import numpy as np
 
 from ..framework.executer import NeRFModelExecuter
 from ..models import nerf
-from ..render import renderer
+from ..render import mipnerf, renderer
 
 DEFAULT_DATA_ROOT = os.environ.get(
     "NNC_TPU_DATA_ROOT",
@@ -147,10 +153,23 @@ def load_scene_from_config(config_path: str, data_dir: str = None):
                     ("half_res", "testskip", "factor", "llffhold",
                      "spherify") if k in ov}
     scene = load_scene(dataset_type, data_dir, **scene_kwargs)
-    for k in ("white_bkgd", "raw_noise_std", "n_importance"):
+    for k in ("white_bkgd", "raw_noise_std", "n_importance", "near", "far"):
         if k in ov:
             scene[k] = ov.pop(k)
+    if ov.pop("model", "nerf") == "mipnerf":
+        scene["mip"] = ov.pop("mip", {})
+        scene["K"] = pixel_centres(scene["K"])
     return scene, ov
+
+
+def pixel_centres(K):
+    """K with the principal point half a pixel up and left, so that rays
+    leave through the pixels' centres ((x - W / 2 + 0.5) / f, mip-NeRF's
+    datasets.py)."""
+    K = np.array(K, np.float32)
+    K[0, 2] -= 0.5
+    K[1, 2] -= 0.5
+    return K
 
 
 def make_render_config(scene, mlp_config=None, chunk=1024 * 32,
@@ -189,8 +208,14 @@ def create_nerf_model_executer(dataset_type="blender", dataset_path=None,
     (reference: framework/pytorch_model/__init__.py:924-959)"""
     if scene is None:
         scene = load_scene(dataset_type, dataset_path)
-    rc = make_render_config(scene, mlp_config, use_fused_mlp=use_fused_mlp,
-                            n_samples=n_samples, n_importance=n_importance)
+    if "mip" in scene:
+        rc = mipnerf.make_render_config(scene, mlp_config,
+                                        use_fused_mlp=use_fused_mlp)
+    else:
+        rc = make_render_config(scene, mlp_config,
+                                use_fused_mlp=use_fused_mlp,
+                                n_samples=n_samples,
+                                n_importance=n_importance)
     return NeRFModelExecuter(
         scene, rc, device=device, learning_rate=learning_rate,
         epochs=epochs, learning_rate_decay=learning_rate_decay,

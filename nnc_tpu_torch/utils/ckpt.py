@@ -20,8 +20,8 @@ def _torch():
 def load_nerf_tar(ckpt_path):
     """Load a nerf-pytorch ``.tar`` checkpoint into numpy state dicts.
 
-    Returns dict with keys: network_fn (dict), network_fine (dict),
-    global_step (int)."""
+    Returns dict with keys: network_fn (dict), network_fine (dict, empty
+    for a one-network model such as mip-NeRF's), global_step (int)."""
     torch = _torch()
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     to_np = lambda sd: OrderedDict(
@@ -29,7 +29,7 @@ def load_nerf_tar(ckpt_path):
          else np.asarray(v)) for k, v in sd.items())
     return {
         "network_fn": to_np(ckpt["network_fn_state_dict"]),
-        "network_fine": to_np(ckpt["network_fine_state_dict"]),
+        "network_fine": to_np(ckpt.get("network_fine_state_dict", {})),
         "global_step": int(ckpt.get("global_step", 0)),
     }
 

@@ -57,4 +57,16 @@ def scene_overrides(cfg: dict) -> dict:
     for src, dst in mapping.items():
         if src in cfg:
             out[dst] = cfg[src]
+    if cfg.get("model") == "mipnerf":
+        out["model"] = "mipnerf"
+        out["near"], out["far"] = float(cfg.get("near", 2.0)), \
+            float(cfg.get("far", 6.0))
+        out["mip"] = {k: cfg[k] for k in MIP_KEYS if k in cfg}
     return out
+
+
+# a mip-NeRF config's keys (configs/blender.gin's names), which
+# render/mipnerf.MipRenderConfig takes
+MIP_KEYS = ("num_samples", "num_levels", "resample_padding", "min_deg_point",
+            "max_deg_point", "deg_view", "density_bias", "rgb_padding",
+            "coarse_loss_mult")

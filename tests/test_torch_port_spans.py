@@ -151,8 +151,9 @@ def _lsa_run(steps_per_call, n_iters):
 
 
 def test_tune_lsa_scales_spans_match_its_calls():
-    """One nnc.lsa.call request per entry of stats["calls"], with its steps
-    and rays, lasting as long within 1 ms, its phases in order."""
+    """One nnc.lsa.call request per entry of stats["calls"], with its steps,
+    rays and MLP points (8 coarse and 8 + 8 fine samples a ray), lasting as
+    long within 1 ms, its phases in order."""
     stats = _lsa_run(steps_per_call=4, n_iters=9)
     got = profiling.spans()
     calls = [s for s in got if s.name == "nnc.lsa.call"]
@@ -160,7 +161,8 @@ def test_tune_lsa_scales_spans_match_its_calls():
     assert len(calls) == len(stats["calls"])
     for call, (k, seconds, _captured) in zip(calls, stats["calls"]):
         assert call.request == call.index
-        assert call.counts == {"steps": k, "rays": 16 * k}
+        assert call.counts == {"steps": k, "rays": 16 * k,
+                               "points": 16 * k * (8 + 16)}
         assert abs(_ms(call) - 1e3 * seconds) < 1.0
         assert [s.name for s in _children(got, call)] == LSA_CALL
         assert all(s.request == call.index for s in got
