@@ -134,8 +134,10 @@ Phases:
      through its plain version (phase 3's tolerances, bf16 in units of the
      bf16-to-float32 distance), each kernel timed at this mode's shapes
      (a sweep chunk of 262,144 voxel centres, 160,000 rays of 16 compacted
-     samples with the points needed against those computed, 1,024 rays x 32
-     selected samples); the reference's quality sweep (bench.py:145-212:
+     samples with the points needed against those computed, in float32 the
+     packed render pass beside render_pass_kernel on the same launch, their
+     maps bit for bit, 1,024 rays x 32 selected samples); the reference's
+     quality sweep (bench.py:145-212:
      160x256, 4 poses, res 128, 48 candidates, budget 16, subsample 4):
      devPSNR of the fast render against the exact render through the
      kernels, at least 47.0 dB on the solid teacher (the reference's 47.19),
@@ -2505,8 +2507,9 @@ OCC_REF_DEVPSNR = {"solid": 47.19, "fog": 33.23}
 OCC_FOG_SEEDS = ((7, 8), (0, 1), (2, 3), (4, 5))
 OCC_SOLID_MIN = 47.0
 OCC_STEPS = 20
-OCC_TYPES = {"float32": (torch.float32, "mlp_from_points", "render_pass",
-                         "mlp_train_fwd", "mlp_train_bwd"),
+OCC_TYPES = {"float32": (torch.float32, "mlp_from_points",
+                         "render_pass_packed", "mlp_train_fwd",
+                         "mlp_train_bwd"),
              "bf16": (torch.bfloat16, "mlp_from_points_bf16",
                       "render_pass_bf16", "mlp_train_fwd_bf16",
                       "mlp_train_bwd_bf16")}
@@ -2536,6 +2539,10 @@ def _kb2_plain():
         render_fused.fused_render_pass_plain(packed, *a, **kw)))
     stack.enter_context(swapped(render_fused, "render_pass_bf16",
                                 render_fused.fused_render_pass_bf16_plain))
+    stack.enter_context(swapped(
+        render_fused, "render_pass_packed",
+        lambda packed, *a, packed_mma=None, **kw:
+        render_fused.fused_render_pass_packed_plain(packed, *a, **kw)))
     return stack
 
 
@@ -2777,28 +2784,49 @@ def phase_occupancy(dev, scene, sd, tar, dec0):
                   and d["depth_map"] <= 2 * eps * 6.0,
                   f"occupancy frame against plain K-B2: {d}")
             frame_err = f"max|d| {d}"
-        # K-B2 at the frame's shape: the solid frame's one launch's inputs
+        # K-B2 at the frame's shape: the solid frame's one launch's inputs;
+        # in float32 the packed render pass, and render_pass_kernel on the
+        # same launch beside it (the maps bit for bit)
         check(len(kb2_calls) == 2, f"two frames launched {kb2} "
               f"{len(kb2_calls)} times")
         args, kw = kb2_calls[1]
-        run2 = lambda: getattr(render_fused, kb2)(*args, **kw)
-        plain2 = render_fused.fused_render_pass_bf16_plain if bf \
-            else render_fused.fused_render_pass_plain
-        maps2 = run2()[0]
-        needed, computed = render_work.kb2_points(kb2, args)
+        args = args[:8]
+        if bf:
+            run2 = lambda: render_fused.render_pass_bf16(
+                *args, want_weights=False)[0]
+            plain2 = lambda: render_fused.fused_render_pass_bf16_plain(
+                *args, want_weights=False)[0]
+            runs2 = {kb2: run2}
+        else:
+            run2 = lambda: render_fused.render_pass_packed(
+                *args, packed_mma=kw["packed_mma"])
+            plain2 = lambda: render_fused.fused_render_pass_packed_plain(
+                *args)
+            runs2 = {kb2: run2, "render_pass": lambda: render_fused
+                     .render_pass(*args, want_weights=False,
+                                  packed_mma=kw["packed_mma"])[0]}
+        maps2 = run2()
+        needed = render_work.kb2_points(kb2, args)[0]
         R2, S2 = args[4].shape
-        shapes[f"{kb2}, compacted"] = {
-            "rays": R2, "samples": S2, "points_needed": needed,
-            "points_computed": computed,
-            "max_abs_err": maxabs(maps2, plain2(*args, want_weights=False)[0]),
-            "ms": cuda_ms(run2),
-            "plain_ms": cuda_ms(lambda: plain2(*args, want_weights=False)),
-            **bound(nbytes(args[0] if kw.get("packed_mma") is None
-                           else kw["packed_mma"], *args[1:7], maps2),
-                    2 * MLP_MACS * needed, peak)}
-        print(f"     the solid frame through {kb2} against its plain "
-              f"version: {frame_err}; its launch: {R2} rays x {S2} "
-              f"samples, {needed} points needed, {computed} computed")
+        for name, fn in runs2.items():
+            maps_n = fn()
+            computed = render_work.kb2_points(name, args)[1]
+            check(name == kb2 or torch.equal(maps_n, maps2),
+                  f"the packed render pass parts from render_pass on the "
+                  f"solid frame's launch: max|d| {maxabs(maps_n, maps2)}")
+            shapes[f"{name}, compacted"] = {
+                "rays": R2, "samples": S2, "points_needed": needed,
+                "points_computed": computed,
+                "max_abs_err": maxabs(maps_n, plain2()),
+                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain2),
+                **bound(nbytes(args[0] if kw.get("packed_mma") is None
+                               else kw["packed_mma"], *args[1:7], maps_n),
+                        2 * MLP_MACS * needed, peak)}
+            print(f"     the solid frame through {name} against its plain "
+                  f"version: {frame_err}; its launch: {R2} rays x {S2} "
+                  f"samples, {needed} points needed, {computed} computed"
+                  + ("" if name == kb2 else "; its maps the packed render "
+                     "pass's bit for bit"))
 
         # the reference's quality sweep: devPSNR of the fast render against
         # the exact one through the kernels, on the solid and the fog
@@ -3221,26 +3249,34 @@ def _conv_phase(dev, card):
 
 def _kb2_recorded(records):
     """Inside the block the first K-B2 render pass of each (compute type,
-    samples, weights) that the renderer or the occupancy mode makes on the
-    card is recorded: its model's tensors and config, its inputs and the
-    maps the kernel gave, for :func:`_kb2_against_plain` after the path's
-    counts were read."""
-    real = render_fused.fused_render_pass
+    samples, weights, packed) that the renderer or the occupancy mode makes
+    on the card is recorded: its model's tensors and config, its inputs and
+    the maps the kernel gave, for :func:`_kb2_against_plain` after the
+    path's counts were read."""
     copy = lambda v: v.clone() if torch.is_tensor(v) else v
 
-    def record(model, *args, **kw):
-        out = real(model, *args, **kw)
-        key = (str(model.config.compute_dtype).split(".")[-1],
-               args[3].shape[1], kw.get("return_weights", True))
-        if key not in records and args[3].is_cuda:
-            records[key] = (nerf.params_to_state_dict(model, ""),
-                            model.config, [copy(a) for a in args],
-                            {k: copy(v) for k, v in kw.items()},
-                            {k: copy(v) for k, v in out.items()})
-        return out
+    def recorder(real, packed):
+        def record(model, *args, **kw):
+            out = real(model, *args, **kw)
+            key = (str(model.config.compute_dtype).split(".")[-1],
+                   args[3].shape[1], kw.get("return_weights", not packed),
+                   packed)
+            if key not in records and args[3].is_cuda:
+                records[key] = (
+                    nerf.params_to_state_dict(model, ""), model.config,
+                    [copy(a) for a in args],
+                    {k: copy(v) for k, v in kw.items()},
+                    {"maps": out.clone()} if packed
+                    else {k: copy(v) for k, v in out.items()})
+            return out
+        return record
     stack = contextlib.ExitStack()
+    record = recorder(render_fused.fused_render_pass, False)
     stack.enter_context(swapped(render_fused, "fused_render_pass", record))
     stack.enter_context(swapped(renderer, "fused_render_pass", record))
+    stack.enter_context(swapped(
+        render_fused, "fused_render_pass_packed",
+        recorder(render_fused.fused_render_pass_packed, True)))
     return stack
 
 
@@ -3269,13 +3305,29 @@ def _kb2_against_plain(records, dev):
     """Each recorded K-B2 launch against its plain version on the same
     inputs: float32 at phase 3's bars (with early termination 2 eps for
     rgb / acc / weights and 2 eps x 6 for depth), bf16 held to the
-    bf16-to-float32 distance as phase 20 holds its frames."""
+    bf16-to-float32 distance as phase 20 holds its frames; a launch of the
+    packed render pass also against render_pass_kernel's maps on the same
+    rows, bit for bit."""
     shown = []
-    for (tname, S, want_w), (sd, cfg, args, kw, got) in sorted(
+    for (tname, S, want_w, packed), (sd, cfg, args, kw, got) in sorted(
             records.items()):
         model = nerf.params_from_state_dict(sd, "", cfg, device=dev)
-        with _kb2_plain():
-            plain = render_fused.fused_render_pass(model, *args, **kw)
+        if packed:
+            ro, rd, vd, z, dists = args
+            same = render_fused.fused_render_pass(
+                model, ro, rd, vd, z, dists=dists,
+                early_term_eps=kw.get("early_term_eps", 0.0),
+                ray_flags=kw.get("ray_flags"), r_t=render_fused.RAY_TILE,
+                return_weights=False, raw_maps=True)["maps"]
+            check(torch.equal(got["maps"], same), f"K-B2's packed pass S={S} "
+                  f"at a tool's shape parts from render_pass: max|d| "
+                  f"{maxabs(got['maps'], same)}")
+            with _kb2_plain():
+                plain = {"maps": render_fused.fused_render_pass_packed(
+                    model, *args, **kw)}
+        else:
+            with _kb2_plain():
+                plain = render_fused.fused_render_pass(model, *args, **kw)
         R = args[3].shape[0]
         (rgb, acc, depth), (rgb_p, acc_p, depth_p) = (
             _rgb_acc_depth(o) for o in (got, plain))
@@ -3302,7 +3354,9 @@ def _kb2_against_plain(records, dev):
         check(d["rgb/acc"] <= tol and d["depth"] <= tol_depth
               and d.get("weights", 0.0) <= (1e-4 if eps == 0 else tol),
               f"K-B2 float32 S={S} at a tool's shape, eps {eps}: {d}")
-        shown.append(f"float32 {R} rays S={S} weights={want_w} eps={eps}: "
+        shown.append(f"float32 {R} rays S={S} weights={want_w} eps={eps}"
+                     + (" packed, render_pass's maps bit for bit" if packed
+                        else "") + ": "
                      + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
     return shown
 
@@ -3384,7 +3438,8 @@ def phase_tools(dev, scene, dec0, card):
 # phase 23: the render-side tools --------------------------------------------
 # the tools' own kernels, by compute type: K-B3 (the fused_mlp route, the
 # grids) and K-B2
-RENDER_TOOL_KERNELS = {"float32": ("mlp_from_points", "render_pass"),
+RENDER_TOOL_KERNELS = {"float32": ("mlp_from_points", "render_pass",
+                                   "render_pass_packed"),
                        "bfloat16": ("mlp_from_points_bf16",
                                     "render_pass_bf16")}
 RENDER_TOOL_ITERS = 3
@@ -3496,8 +3551,10 @@ def phase_render_tools(dev, card, scene):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = _build.launch_counts()
-            mine = {k: counts[k] for k in kernels}
-            check(all(n > 0 for n in mine.values()) and not any(
+            mine = {k: counts[k] for k in kernels if counts[k]}
+            # K-B3 and a K-B2 of its type (float32: the exact render's, or
+            # the packed pass of compacted frames), and no other kernel
+            check(kernels[0] in mine and len(mine) > 1 and not any(
                 n for k, n in counts.items() if k not in mine),
                 f"{label} ({tname}) launched {counts}")
             for k, n in mine.items():
@@ -3523,8 +3580,8 @@ BENCH_ARGV = ("--iters", "5", "--train-iters", "16")
 # the bench's own kernels, by compute type: K-B3 (the grids), K-B2 (every
 # render), K-B1 (the LSA steps)
 BENCH_KERNELS = {
-    "float32": ("mlp_from_points", "render_pass", "mlp_train_fwd",
-                "mlp_train_bwd"),
+    "float32": ("mlp_from_points", "render_pass", "render_pass_packed",
+                "mlp_train_fwd", "mlp_train_bwd"),
     "bfloat16": ("mlp_from_points_bf16", "render_pass_bf16",
                  "mlp_train_fwd_bf16", "mlp_train_bwd_bf16")}
 BENCH_REF_TURBO = 46.53   # the reference's turbo devPSNR (BENCH_r05.json)

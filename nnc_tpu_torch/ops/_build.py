@@ -41,7 +41,8 @@ KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
            "mlp_train_bwd_dw", "mlp_tp_pair",
            "mlp_from_points_bf16", "render_pass_bf16", "mlp_train_fwd_bf16",
            "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16", "mlp_embedded_bf16",
-           "mlp_tp_pair_bf16", "mlp_train_fwd_ipe", "mlp_train_bwd_ipe")
+           "mlp_tp_pair_bf16", "mlp_train_fwd_ipe", "mlp_train_bwd_ipe",
+           "render_pass_packed")
 
 _lock = threading.Lock()
 _lib = None
@@ -202,6 +203,10 @@ def lib() -> ctypes.CDLL:
         handle.nnc_render_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, cf,
                                            vp, vp, ci, ci, vp]
         handle.nnc_render_pass.restype = ci
+        # (the packed pass: the plan's bounds after live, stats after maps)
+        handle.nnc_render_pass_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                  vp, vp, vp, ci, ci, vp]
+        handle.nnc_render_pass_packed.restype = ci
         handle.nnc_bf16_params_size.argtypes = []
         handle.nnc_bf16_params_size.restype = ci
         handle.nnc_bf16_tile_points.argtypes = []

@@ -427,4 +427,232 @@ int launch_render_pass(const float* params, const float* rays_o,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------------------
+// The packed render pass (render_pass_kernel_packed; K-B2 float32 as
+// occupancy mode calls it, render_pass.cu): rays of at most kSB samples
+// whose MLP tiles hold filled sample slots (dists > 0) only.
+//
+// A compacted occupancy row has at most `budget` (<= kSB) slots, a part of
+// them filled, so render_pass_kernel's tile of 2 rays x 32 samples computes
+// points that no ray needs: the lanes past S, and the empty slots. Here the
+// rays come in runs of equal filled count k (the caller orders them by
+// non-increasing count), and a tile of run k holds floor(kPoints / k) whole
+// rays, each ray's filled slots in their order, ray q of the tile at points
+// q k .. q k + k - 1. The plan is a cumulative histogram of the counts:
+// bounds[k] (k = 0..S) rays have more than k filled slots, so run k is the
+// rays [bounds[k], bounds[k - 1]); the rays [bounds[0], R) have none (or
+// are culled: live == 0) and write zeros. Every CTA derives the runs' tiles
+// from bounds (one warp, S <= 32 runs), then walks the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... (one persistent CTA an SM), so
+// that the weight ring runs on across tiles: the next tile's first slabs
+// arrive while this one composites.
+//
+// Staging and compositing take one warp a ray, lane = the slot: a
+// __ballot_sync of dists > 0 and a popcount give each filled slot its rank,
+// which is its point in the tile and, in compositing, its lane. The
+// compositing is render_pass_kernel's on one block from an optical depth of
+// 0; lanes at or past the ray's count add exact zeros, as the lanes of empty
+// slots and of slots past S do there. A ray's rows of the MLP depend on its
+// own points alone, so where the filled slots are a prefix of the row (as
+// occupancy's compaction leaves them) the maps are render_pass_kernel's bit
+// for bit. With one block a ray there is nothing for early termination to
+// skip (render_pass_kernel always runs a ray's first block). A ray whose
+// filled count is not its run's (rays not in non-increasing count order)
+// gets NaN maps. With `stats`, CTA 0 writes the filled slots launched and
+// the points the tiles compute (kPoints a tile).
+template <class Chain>
+struct PackedSmem {
+  static constexpr int kRays = Chain::kPoints;   // a tile's rays at count 1
+  typename Chain::Smem mlp;
+  float xs[Chain::kPoints * 3];
+  float ds[Chain::kPoints * 3];
+  float zb[Chain::kPoints];
+  float db[Chain::kPoints];
+  int count[kRays];        // each ray's filled count, as staged
+  int run_ray0[kSB];       // run j (count S - j): its first ray,
+  int run_rays[kSB];       // its rays,
+  int run_tile0[kSB];      // its first tile
+  int tiles;
+};
+
+template <class Chain>
+__global__ void __launch_bounds__(kThreads, 1)
+render_pass_kernel_packed(const float* __restrict__ P,
+                          const float* __restrict__ rays_o,
+                          const float* __restrict__ rays_d,
+                          const float* __restrict__ viewdirs,
+                          const float* __restrict__ z,
+                          const float* __restrict__ dists,
+                          const int* __restrict__ live,
+                          const int* __restrict__ bounds,
+                          float* __restrict__ maps,
+                          long long* __restrict__ stats, int R, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PackedSmem<Chain>& s = *reinterpret_cast<PackedSmem<Chain>*>(smem_raw);
+  constexpr int kPoints = Chain::kPoints;
+  constexpr int kWarps = kThreads / 32;
+  static_assert(kPoints <= kThreads && kPoints <= 64,
+                "a tile's points are staged by one thread each");
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  // the plan: run j = lane holds the rays of count k = S - j
+  long long slots = 0;   // (warp 0) the filled slots of all runs
+  if (warp == 0) {
+    const int k = S - lane;
+    const bool run = lane < S;
+    const int ray0 = run ? bounds[k] : 0;
+    const int rays = run ? bounds[k - 1] - ray0 : 0;
+    const int cap = run ? kPoints / k : 1;
+    const int tiles = (rays + cap - 1) / cap;
+    int incl = tiles;
+    slots = static_cast<long long>(k) * rays;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += t;
+      slots += __shfl_xor_sync(kFull, slots, off);
+    }
+    s.run_ray0[lane] = ray0;
+    s.run_rays[lane] = rays;
+    s.run_tile0[lane] = incl - tiles;
+    if (lane == 31) s.tiles = incl;
+  }
+  __syncthreads();
+  const int n_tiles = s.tiles;
+  if (stats && blockIdx.x == 0 && tid == 0) {
+    stats[0] = slots;
+    stats[1] = static_cast<long long>(kPoints) * n_tiles;
+  }
+  // rays without a filled slot: zeros
+  for (long long i = static_cast<long long>(bounds[0]) * 5 +
+                     static_cast<long long>(blockIdx.x) * kThreads + tid;
+       i < static_cast<long long>(R) * 5;
+       i += static_cast<long long>(gridDim.x) * kThreads)
+    maps[i] = 0.f;
+  if (static_cast<int>(blockIdx.x) >= n_tiles) return;
+
+  typename Chain::Pipe pipe;
+  Chain::begin(s.mlp, pipe, P);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int j = 0;
+    while (j + 1 < S && s.run_tile0[j + 1] <= t) ++j;
+    const int k = S - j;
+    const int cap = kPoints / k;
+    const int ray0 = s.run_ray0[j] + (t - s.run_tile0[j]) * cap;
+    const int n_rays = min(cap, s.run_ray0[j] + s.run_rays[j] - ray0);
+
+    // stage: warp w takes rays w, w + kWarps, ...; lane = the ray's slot
+    for (int q = warp; q < n_rays; q += kWarps) {
+      const long long r = ray0 + q;
+      const long long idx = r * S + lane;
+      const bool in = lane < S;
+      const float dd = in ? dists[idx] : 0.f;
+      const float zz = in ? z[idx] : 0.f;
+      const unsigned filled = __ballot_sync(kFull, dd > 0.f);
+      const int rank = __popc(filled & ((1u << lane) - 1u));
+      // lanes 0..8 read the ray's o, d and view direction
+      const float rv = lane < 3 ? rays_o[r * 3 + lane]
+                     : lane < 6 ? rays_d[r * 3 + lane - 3]
+                     : lane < 9 ? viewdirs[r * 3 + lane - 6] : 0.f;
+      float o[3], d[3], v[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        o[c] = __shfl_sync(kFull, rv, c);
+        d[c] = __shfl_sync(kFull, rv, 3 + c);
+        v[c] = __shfl_sync(kFull, rv, 6 + c);
+      }
+      if (lane == 0) s.count[q] = live[r] != 0 ? __popc(filled) : 0;
+      if (((filled >> lane) & 1u) && rank < k) {
+        const int m = q * k + rank;
+        s.zb[m] = zz;
+        s.db[m] = dd;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          // o + d * z rounded as two operations, like the plain version
+          s.xs[m * 3 + c] = __fadd_rn(o[c], __fmul_rn(d[c], zz));
+          s.ds[m * 3 + c] = v[c];
+        }
+      }
+    }
+    // the tile's points past its rays: zero points, which nothing reads
+    if (tid >= n_rays * k && tid < kPoints) {
+      s.zb[tid] = s.db[tid] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s.xs[tid * 3 + c] = s.ds[tid * 3 + c] = 0.f;
+    }
+    __syncthreads();
+    Chain::embed(s.mlp, s.xs, s.ds);
+    Chain::mlp(s.mlp, pipe, P);
+
+    // composite: warp w takes rays w, w + kWarps, ...; lane = the rank
+    for (int q = warp; q < n_rays; q += kWarps) {
+      const bool on = lane < k;
+      const int m = q * k + lane;
+      const float* raw = s.mlp.raw + (on ? m : 0) * 4;
+      const float sd = on ? fmaxf(raw[3], 0.f) * s.db[m] : 0.f;
+      float incl = sd;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      float excl = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float trans = expf(-excl);
+      const float alpha = 1.f - expf(-sd);
+      const float w = alpha * trans;
+      float v[5];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        v[c] = w * (1.f / (1.f + expf(-(on ? raw[c] : 0.f))));
+      v[3] = w;
+      v[4] = w * (on ? s.zb[m] : 0.f);
+#pragma unroll
+      for (int c = 0; c < 5; ++c) v[c] = warp_sum(v[c]);
+      const bool whole = s.count[q] == k;
+      if (lane < 5) {
+        const float out = lane == 0 ? v[0] : lane == 1 ? v[1]
+                        : lane == 2 ? v[2] : lane == 3 ? v[3] : v[4];
+        maps[(static_cast<long long>(ray0) + q) * 5 + lane] =
+            whole ? 0.f + out : __int_as_float(0x7fc00000);
+      }
+    }
+    __syncthreads();
+  }
+  pipe.drain();
+}
+
+// rays_o, rays_d, viewdirs: (R, 3); z, dists: (R, S), S <= kSB (dists
+// already scaled by |rays_d|); live: (R,) int32; bounds: (S + 1,) int32,
+// bounds[k] the rays with more than k filled slots (of a live ray), the rays
+// ordered by non-increasing filled count; maps: (R, 5); stats: 2 int64 or
+// null; params: the weights as the chain's packing lays them out, 16-byte
+// aligned.
+template <class Chain>
+int launch_render_packed(const float* params, const float* rays_o,
+                         const float* rays_d, const float* viewdirs,
+                         const float* z, const float* dists, const int* live,
+                         const int* bounds, float* maps, long long* stats,
+                         int R, int S, void* stream) {
+  if (S < 1 || S > kSB) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(PackedSmem<Chain>));
+  cudaError_t err = cudaFuncSetAttribute(
+      render_pass_kernel_packed<Chain>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0)
+    render_pass_kernel_packed<Chain><<<R < sms ? R : sms, kThreads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        params, rays_o, rays_d, viewdirs, z, dists, live, bounds, maps,
+        stats, R, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace nerf

@@ -12,7 +12,11 @@ plain form with the same results: ``lookup`` reads a byte grid (the
 reference packs 32 voxels a word for its gather), and the renders cull at
 K-B2's own ray tile (``render_fused.RAY_TILE``, one ray in bf16) where the
 reference passes its TPU tiles ``occ_ray_tile`` / ``occ_sample_block``. A
-culled ray has all its dists 0, so the maps are the same either way.
+culled ray has all its dists 0, so the maps are the same either way. In
+float32, rows of at most ``render_fused.SAMPLE_BLOCK`` slots take K-B2's
+packed render pass (``render_fused.fused_render_pass_packed``: MLP tiles of
+filled slots only), whose plan needs the rays in non-increasing order of
+their filled counts, the order both renders already give them.
 
 The selection keeps the reference's float32 arithmetic and operand order, so
 that on the CPU it equals the reference's exactly; the grid's dilation is
@@ -302,21 +306,34 @@ def render_rays_fast(model: nerf.NeRF, rays_o, rays_d, viewdirs, near, far,
     else:
         z, dists, any_occ = select_occupied_samples(
             grid, rays_o, rays_d, near, far, n_candidates, budget)
-        # descending occupied count: empty rays cluster into tiles the
-        # kernel skips, light rays into tiles whose later sample blocks
-        # are all masked
+        # descending occupied count: the packed pass's runs; else empty
+        # rays cluster into tiles the kernel skips, light rays into tiles
+        # whose later sample blocks are all masked
         order = torch.argsort(-(dists > 0).sum(dim=-1, dtype=torch.int32),
                               stable=True)
         inv = torch.argsort(order)
-        out = render_fused.fused_render_pass(
-            model, rays_o[order], rays_d[order], viewdirs[order], z[order],
-            early_term_eps=rc.early_term_eps, ray_flags=any_occ[order],
-            dists=dists[order], r_t=render_fused.ray_tile(model.config),
-            return_weights=False)
-        res = {k: out[k][inv] for k in MAPS}
+        maps = _kb2(model, rays_o[order], rays_d[order], viewdirs[order],
+                    z[order], dists[order], any_occ[order], rc)
+        res = render_fused.unpack_maps(maps[inv])
     if rc.white_bkgd:
         res["rgb_map"] = res["rgb_map"] + (1.0 - res["acc_map"][..., None])
     return res
+
+
+def _kb2(model, rays_o, rays_d, viewdirs, z, dists, flags, rc, stats=None):
+    """K-B2 on compacted rows whose rays come in non-increasing order of
+    their filled slots: the packed render pass where it applies
+    (``render_fused.packs``: float32, at most 32 slots), else the render
+    pass culled at its ray tile. ``stats``: the packed pass's counts (see
+    ``render_fused.render_pass_packed``). Returns the packed maps (R, 5)."""
+    if render_fused.packs(model.config, z.shape[1]):
+        return render_fused.fused_render_pass_packed(
+            model, rays_o, rays_d, viewdirs, z, dists,
+            early_term_eps=rc.early_term_eps, ray_flags=flags, stats=stats)
+    return render_fused.fused_render_pass(
+        model, rays_o, rays_d, viewdirs, z, early_term_eps=rc.early_term_eps,
+        ray_flags=flags, dists=dists, r_t=render_fused.ray_tile(model.config),
+        return_weights=False, raw_maps=True)["maps"]
 
 
 def _render_tiled_sorted(model, rays_o, rays_d, viewdirs, near, far, grid,
@@ -349,12 +366,14 @@ def _render_tiled_sorted(model, rays_o, rays_d, viewdirs, near, far, grid,
         rays9_s = torch.cat([rays_o, rays_d, viewdirs], dim=1)[ray_idx]
         expand_rows = lambda a: a[order_s].repeat_interleave(nb, dim=0)
         z_k, any_k, dists_k = (expand_rows(a) for a in (z_s, any_s, dists_s))
-    with profiling.span("nnc.frame.kb2"):
-        out = render_fused.fused_render_pass(
-            model, rays9_s[:, 0:3], rays9_s[:, 3:6], rays9_s[:, 6:9], z_k,
-            early_term_eps=rc.early_term_eps, ray_flags=any_k, dists=dists_k,
-            r_t=render_fused.ray_tile(model.config), return_weights=False,
-            raw_maps=True)
+    with profiling.span("nnc.frame.kb2") as recording:
+        stats = None
+        if recording is not None and render_fused.packs(model.config,
+                                                        budget):
+            stats = torch.zeros(2, dtype=torch.int64, device=device)
+            profiling.count_later(recording, stats, ("slots", "points"))
+        maps = _kb2(model, rays9_s[:, 0:3], rays9_s[:, 3:6], rays9_s[:, 6:9],
+                    z_k, dists_k, any_k, rc, stats)
 
     with profiling.span("nnc.frame.unpack"):
         # inverse: ray r of block b sits at kernel row pos_s[b] * nb +
@@ -362,7 +381,7 @@ def _render_tiled_sorted(model, rays_o, rays_d, viewdirs, near, far, grid,
         pos_up = _upsample(pos_s, Hs, Ws, fac)[:, 0]
         iota = torch.arange(n_rays, device=device)
         slot = (iota // W % fac) * fac + iota % W % fac
-        return render_fused.unpack_maps(out["maps"][pos_up * nb + slot])
+        return render_fused.unpack_maps(maps[pos_up * nb + slot])
 
 
 @torch.no_grad()
@@ -390,7 +409,9 @@ def render_image_fast(model: nerf.NeRF, rays_o, rays_d, near, far, rc,
     ``nnc.frame.select``, ``.sort``, ``.kb2`` and ``.unpack``, then
     ``nnc.frame.wait`` (a synchronize of the devices, taken only then: the
     first copy would wait there anyway) and ``nnc.frame.copy`` (the maps to
-    the host)."""
+    the host). Where K-B2 is the packed render pass, each ``.kb2`` span
+    counts its ``slots`` (filled sample slots launched) and ``points``
+    (points its tiles compute), read from the device at the wait."""
     H, W = rays_o.shape[:2]
     with profiling.request("nnc.frame", rays=H * W):
         return _render_image_fast(model, rays_o, rays_d, near, far, rc, grid,
@@ -438,6 +459,7 @@ def _render_image_fast(model, rays_o, rays_d, near, far, rc, grid,
             for d in {torch.device(p[0]) for p in places}:
                 if d.type == "cuda":
                     torch.cuda.current_stream(d).synchronize()
+            profiling.settle_counts()
     with profiling.span("nnc.frame.copy"):
         outs = [{k: v.cpu().numpy() for k, v in res.items()} for res in outs]
         return {k: np.concatenate([o[k] for o in outs]).reshape(

@@ -37,7 +37,9 @@ Each name in ``--kernels`` (all nine by default) adds its part:
   a ray, zero-dist tails; the inputs of the card test
   ``test_cuda_occupancy_render_matches_plain``), per-ray and tiled: where
   the kernel parts from its plain version and why, from K-B3's raw on the
-  launch's points against the plain MLP's (see :func:`kb2_occ`).
+  launch's points against the plain MLP's (see :func:`kb2_occ`); the launch
+  is the packed render pass, whose inputs run through ``render_pass`` here,
+  and whether its maps equal ``render_pass``'s.
 - ``kb3_bf16``: K-B3 bf16 (``mlp_from_points_bf16``) on phase 14's inputs
   (phase 2's net and points) and at ``RAGGED`` sizes (points from seed 14):
   the error of raw against the plain bf16 version as [rms, max], each over
@@ -493,10 +495,11 @@ def kb2_occ(device, args):
         with render_work.kb2_launches(calls):
             occupancy.render_rays_fast(model, ro, rd, vd, 2.0, 6.0, grid, rc,
                                        layout=layout)
-        (_name, call, kw), = calls
-        packed, r_o, r_d, v_d, z, dists, live, term = call[:8]
+        (name, call, kw), = calls
+        call = call[:8]
+        packed, r_o, r_d, v_d, z, dists, live, term = call
         pm = kw["packed_mma"]
-        maps = render_fused.render_pass(*call, **kw)[0]
+        maps = render_fused.render_pass(*call, packed_mma=pm)[0]
         plain = render_fused.fused_render_pass_plain(*call)[0]
         kb3 = lambda p, pts, d: mlp_fused.mlp_from_points(p, pts, d, pm)
         mixed = render_fused.fused_render_pass_plain(*call,
@@ -520,6 +523,9 @@ def kb2_occ(device, args):
         big = (d[:, :4] > 1e-5).any(dim=1)
         key = f"kb2_occ {label}"
         out[f"{key} rays x samples"] = [R, S]
+        if name == "render_pass_packed":
+            out[f"{key} the packed pass equal to render_pass"] = torch.equal(
+                render_fused.render_pass_packed(*call, packed_mma=pm), maps)
         out[f"{key} max|d| rgb, acc, depth"] = [
             float(d[:, :3].max()), float(d[:, 3].max()), float(d[:, 4].max())]
         out[f"{key} rays above 1e-5"] = int(big.sum())

@@ -12,8 +12,10 @@ termination threshold; the kernel computes every block of
 ``render_fused.SAMPLE_BLOCK`` samples of a tile of ``ray_tile`` rays that
 holds a live ray with a dist that is not 0 while one of the tile's rays is
 still below the threshold at the block's start (``render_fused``'s tiling
-semantics). The optical depths come from the plain version of the MLP on the
-launch's packed weights, so counting launches no kernel.
+semantics); the packed render pass computes ``render_fused.PACKED_POINTS``
+points a tile of its plan (``render_fused.packed_plan``). The optical depths
+come from the plain version of the MLP on the launch's packed weights, so
+counting launches no kernel.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from ..render.rays import get_rays_np
 from ..utils import profiling
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-KB2 = ("render_pass", "render_pass_bf16")
+KB2 = ("render_pass", "render_pass_bf16", "render_pass_packed")
 # points of one plain MLP call while counting a launch's work
 COUNT_CHUNK = 262_144
 
@@ -144,6 +146,10 @@ def kb2_points(name: str, args) -> tuple:
     before = torch.cat([torch.zeros_like(tau[:, :1]), tau[:, :-1]], -1)
     on = (live[:, None] > 0) & (dists > 0)
     needed = int(((before < term) & on).sum())
+    if name == "render_pass_packed":
+        tiles = render_fused.packed_plan(render_fused.packed_bounds(
+            render_fused.filled_counts(dists, live, term), S))
+        return needed, len(tiles) * render_fused.PACKED_POINTS
     sb = render_fused.SAMPLE_BLOCK
     nb, pad = -(-S // sb), -R % tile
     blk = lambda t, v: F.pad(t, (0, nb * sb - S, 0, pad), value=v) \

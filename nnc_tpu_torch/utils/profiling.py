@@ -38,6 +38,7 @@ TRACE_FILE = "trace.json"
 SPAN_LOG = 65_536      # spans the log keeps, the newest
 
 _LOG: collections.deque = collections.deque(maxlen=SPAN_LOG)
+_LATER: collections.deque = collections.deque(maxlen=SPAN_LOG)
 _INDEX = itertools.count()
 _OPEN = threading.local()          # .stack: this thread's open spans
 _OFF = contextlib.nullcontext()
@@ -108,6 +109,22 @@ def request(name: str, **counts):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Recording(name, counts, True)
+
+
+def count_later(record: Span, values, names) -> None:
+    """Counts of the recorded span ``record`` that a device computes: the
+    tensor ``values`` (one entry a name of ``names``), read into its
+    ``counts`` by :func:`settle_counts`, once the device has been waited
+    for."""
+    _LATER.append((record, values, names))
+
+
+def settle_counts() -> None:
+    """Read the counts of :func:`count_later` into their spans (call after
+    a synchronisation: each read copies to the host)."""
+    while _LATER:
+        record, values, names = _LATER.popleft()
+        record.counts.update(zip(names, values.tolist()))
 
 
 def spans() -> list:

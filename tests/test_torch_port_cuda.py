@@ -1382,9 +1382,10 @@ def test_cuda_occupancy_grid_matches_plain(cuda_device, bf16, monkeypatch):
 def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
                                              monkeypatch):
     """16 compacted samples a ray, zero-dist tails, rays sorted by their
-    occupied count: K-B2 against its plain version on the same selection.
-    The grid is the solid teacher's; the weights rendered carry noise, so
-    that every product is dense."""
+    occupied count: K-B2 against its plain version on the same selection
+    (in float32 the packed render pass, bf16 the ray queue). The grid is
+    the solid teacher's; the weights rendered carry noise, so that every
+    product is dense."""
     from nnc_tpu_torch.render import occupancy
     from nnc_tpu_torch.render.rays import get_rays_np
     model = synthetic.make_solid_mlp(noise_std=1e-3, device=cuda_device,
@@ -1401,7 +1402,7 @@ def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
     rc = lambda m: renderer.RenderConfig(mlp=m.config, white_bkgd=True)
     run = lambda m: occupancy.render_rays_fast(
         m, ro, rd, vd, 2.0, 6.0, grid, rc(m), layout=layout)
-    name = "render_pass_bf16" if bf16 else "render_pass"
+    name = "render_pass_bf16" if bf16 else "render_pass_packed"
     before = _build.launch_counts()[name]
     calls = []
     with monkeypatch.context() as mp:
@@ -1411,9 +1412,10 @@ def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
         got = run(twin)
     assert _build.launch_counts()[name] == before + 1
     with monkeypatch.context() as mp:
-        mp.setattr(render_fused, "render_pass",
+        mp.setattr(render_fused, "render_pass_packed",
                    lambda packed, *a, packed_mma=None, **kw:
-                   render_fused.fused_render_pass_plain(packed, *a, **kw))
+                   render_fused.fused_render_pass_packed_plain(packed, *a,
+                                                               **kw))
         mp.setattr(render_fused, "render_pass_bf16",
                    render_fused.fused_render_pass_bf16_plain)
         want = run(twin)
@@ -1437,8 +1439,9 @@ def test_cuda_occupancy_render_matches_plain(cuda_device, bf16, layout,
 
 
 def _compacted_launch_within_its_mlp_error(args, kw, eps):
-    """K-B2 float32 on a compacted launch against its plain version, ray by
-    ray, with the bar stated from where the two part. The rays carry at most
+    """K-B2 float32 on a compacted launch (the packed render pass) against
+    its plain version, ray by ray, with the bar stated from where the two
+    part. The rays carry at most
     SAMPLE_BLOCK samples, one block, whose start is always computed, so
     early termination cannot act: the two part only through the MLP. The
     solid teacher's density reaches ~150 and a sample's sigma * dist ~33, so
@@ -1455,7 +1458,7 @@ def _compacted_launch_within_its_mlp_error(args, kw, eps):
     packed, ro, rd, vd, z, dists = args[:6]
     R, S = z.shape
     assert S <= render_fused.SAMPLE_BLOCK
-    maps = render_fused.render_pass(*args, **kw)[0]
+    maps = render_fused.render_pass_packed(*args, **kw)
     plain = render_fused.fused_render_pass_plain(*args)[0]
     kb3 = lambda p, pts, d: mlp_fused.mlp_from_points(p, pts, d,
                                                       kw["packed_mma"])
@@ -1477,6 +1480,153 @@ def _compacted_launch_within_its_mlp_error(args, kw, eps):
     assert bool((d[:, 3] <= torch.clamp(1e-5 + E, max=2 * eps)).all())
     assert bool((d[:, 4] <= torch.clamp(1e-4 + 2 * E * z.amax(dim=1),
                                         max=20 * eps)).all())
+
+
+def _packed_launch(device, budget, layout):
+    """Occupancy mode's packed render pass on a 64x64 frame of the solid
+    teacher's grid at ``budget``: the recorded launch's (args, kw), with the
+    noisy solid's weights (every product dense)."""
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.render.rays import get_rays_np
+    model = synthetic.make_solid_mlp(noise_std=1e-3, device=device,
+                                     generator=torch.Generator()
+                                     .manual_seed(7))
+    grid = occupancy.build_occupancy_grid(
+        synthetic.make_solid_mlp(device=device), res=64)
+    K = torch.tensor([[51.2, 0, 32], [0, 51.2, 32], [0, 0, 1]]).numpy()
+    ro, rd = (torch.as_tensor(a.reshape(-1, 3), device=device)
+              for a in get_rays_np(64, 64, K, synthetic.look_at_poses(1)[0]
+                                   [:3, :4]))
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    rc = renderer.RenderConfig(mlp=model.config, white_bkgd=True)
+    calls = []
+    real = render_fused.render_pass_packed
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(render_fused, "render_pass_packed", lambda *a, **kw: (
+            calls.append((a, kw)), real(*a, **kw))[1])
+        occupancy.render_rays_fast(model, ro, rd, vd, 2.0, 6.0, grid, rc,
+                                   n_candidates=48, budget=budget,
+                                   layout=layout)
+    assert len(calls) == 1
+    return calls[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [None, (64, 64)], ids=["per_ray",
+                                                          "tiled"])
+@pytest.mark.parametrize("budget", [1, 16, 32])
+def test_cuda_packed_render_pass_equals_render_pass(cuda_device, budget,
+                                                    layout):
+    """The packed render pass on occupancy mode's own compacted launch
+    against render_pass_kernel on the same inputs: the maps bit for bit (a
+    point's MLP row depends on its inputs alone, each filled slot keeps its
+    lane, the lanes past a ray's count add exact zeros); reruns bit-equal;
+    rays without a filled slot and culled rays exact zeros; the stats the
+    plan's."""
+    args, kw = _packed_launch(cuda_device, budget, layout)
+    args = args[:8]
+    packed, ro, rd, vd, z, dists, live, term = args
+    pm = kw["packed_mma"]
+    stats = torch.full((2,), -1, dtype=torch.int64, device=cuda_device)
+    before = _build.launch_counts()["render_pass_packed"]
+    maps = render_fused.render_pass_packed(*args, stats=stats,
+                                           packed_mma=pm)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["render_pass_packed"] == before + 1
+    want = render_fused.render_pass(*args, want_weights=False,
+                                    packed_mma=pm)[0]
+    assert torch.equal(maps, want)
+    assert torch.equal(render_fused.render_pass_packed(*args), maps)
+    counts = render_fused.filled_counts(dists, live, term)
+    empty = counts == 0
+    assert int(empty.sum()) > 0 and bool((live[empty] == 0).any())
+    assert bool((maps[empty] == 0).all())
+    assert float(maps[:, 3].max()) > 0.5
+    tiles = render_fused.packed_plan(render_fused.packed_bounds(
+        counts, z.shape[1]))
+    assert stats.tolist() == [int(counts.sum()),
+                              render_fused.PACKED_POINTS * len(tiles)]
+    assert int(counts.sum()) > 0.8 * stats.tolist()[1]
+
+
+@pytest.mark.cuda
+def test_cuda_frame_path_does_not_synchronise(cuda_device):
+    """The frame path on rays already on the card, selection to the packed
+    render pass and the maps' gather, under torch's sync debug mode set to
+    raise: nothing in it waits for the card (the frame's one wait is
+    render_image_fast's copy to the host)."""
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.render.rays import get_rays_np
+    model = synthetic.make_solid_mlp(device=cuda_device)
+    grid = occupancy.build_occupancy_grid(model, res=64)
+    K = torch.tensor([[51.2, 0, 32], [0, 51.2, 32], [0, 0, 1]]).numpy()
+    ro, rd = (torch.as_tensor(a.reshape(-1, 3), device=cuda_device)
+              for a in get_rays_np(64, 64, K, synthetic.look_at_poses(1)[0]
+                                   [:3, :4]))
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    rc = renderer.RenderConfig(mlp=model.config, white_bkgd=True)
+    run = lambda: occupancy.render_rays_fast(model, ro, rd, vd, 2.0, 6.0,
+                                             grid, rc, layout=(64, 64))
+    want = run()   # builds and packs first
+    before = _build.launch_counts()["render_pass_packed"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launch_counts()["render_pass_packed"] == before + 1
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_render_pass_marks_rays_out_of_order(cuda_device):
+    """Filled counts [1, 2, 0]: the plan's binary search puts rays 0 and 1
+    in the run of count 2, where ray 0 does not belong: its maps are NaN,
+    ray 1's are the render pass's, ray 2's zeros."""
+    model = synthetic.make_solid_mlp(device=cuda_device)
+    packed = mlp_fused.pack_weights(model)
+    ro, rd, vd, _ = _rays(3, 2, cuda_device)
+    ro = ro + torch.tensor([0.0, 0.0, 4.0], device=cuda_device)
+    z = torch.tensor([[3.5, 4.0]] * 3, device=cuda_device)   # in the solid
+    dists = torch.tensor([[0.1, 0.0], [0.1, 0.1], [0.0, 0.0]],
+                         device=cuda_device)
+    live = torch.ones(3, dtype=torch.int32, device=cuda_device)
+    args = (packed, ro, rd, vd, z, dists, live, math.inf)
+    maps = render_fused.render_pass_packed(*args)
+    want = render_fused.render_pass(*args, want_weights=False)[0]
+    assert bool(torch.isnan(maps[0]).all())
+    assert torch.equal(maps[1], want[1]) and float(maps[1, 3]) > 0.5
+    assert bool((maps[2] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_frame_span_counts_are_the_plans(cuda_device):
+    """A traced 400x400 frame of the solid teacher through the packed
+    render pass: its kb2 span's slots and points equal the plan of its own
+    launch, read at the frame's wait."""
+    from nnc_tpu_torch.render import occupancy
+    from nnc_tpu_torch.render.rays import get_rays_np
+    from nnc_tpu_torch.utils import profiling
+    model = synthetic.make_solid_mlp(noise_std=1e-3, device=cuda_device,
+                                     generator=torch.Generator()
+                                     .manual_seed(7))
+    grid = occupancy.build_occupancy_grid(model)
+    K = torch.tensor([[555.6, 0, 200], [0, 555.6, 200], [0, 0, 1]]).numpy()
+    ro, rd = get_rays_np(400, 400, K, synthetic.look_at_poses(1)[0][:3, :4])
+    rc = renderer.RenderConfig(mlp=model.config, white_bkgd=True)
+    calls = []
+    real = render_fused.render_pass_packed
+    with pytest.MonkeyPatch.context() as mp, profiling.trace_if(None):
+        mp.setattr(render_fused, "render_pass_packed", lambda *a, **kw: (
+            calls.append(a), real(*a, **kw))[1])
+        occupancy.render_image_fast(model, ro, rd, 2.0, 6.0, rc, grid)
+    (args,) = calls
+    kb2 = [s for s in profiling.spans() if s.name == "nnc.frame.kb2"][-1]
+    counts = render_fused.filled_counts(args[5], args[6], args[7])
+    tiles = render_fused.packed_plan(render_fused.packed_bounds(counts, 16))
+    assert kb2.counts == {"slots": int(counts.sum()),
+                          "points": render_fused.PACKED_POINTS * len(tiles)}
 
 
 @pytest.mark.cuda

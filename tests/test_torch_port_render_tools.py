@@ -12,7 +12,9 @@ kernels in interpret mode), in float32:
   * the active-ray fraction equal;
   * K-B2's points needed and computed equal to those counted here with
     numpy from the reference's selection and MLP (its tiling: tiles of
-    ``RAY_TILE`` rays, blocks of ``SAMPLE_BLOCK`` samples).
+    ``RAY_TILE`` rays, blocks of ``SAMPLE_BLOCK`` samples; for the packed
+    render pass of compacted rows, ``PACKED_POINTS`` a tile of
+    floor(``PACKED_POINTS`` / k) rays of filled count k).
 Each tool's ``main()`` runs at ``--hw``-sized frames with grids at res 16
 (at 128 the full-width plain MLP sweeps 2.5 TFLOP).
 """
@@ -108,6 +110,16 @@ def _work(sigma, dists, flags, term, tile=render_fused.RAY_TILE,
     return needed, computed
 
 
+def _packed_points(dists, flags):
+    """The points the packed render pass computes in numpy: the rays of
+    filled count k (flagged, dists > 0) in tiles of floor(64 / k) rays, 64
+    points a tile."""
+    counts = (dists > 0).sum(axis=1) * flags
+    n = np.bincount(counts, minlength=render_fused.SAMPLE_BLOCK + 1)
+    P = render_fused.PACKED_POINTS
+    return P * sum(-(-int(n[k]) // (P // k)) for k in range(1, len(n)))
+
+
 # -- bench_render_v2 ---------------------------------------------------------
 def test_bench_render_v2_deviations_match_jax(teacher):
     """The ladder at 8x16 rays, 32 + 64 samples: each fused route's max /
@@ -185,7 +197,8 @@ def test_tune_fast_mode_points_merge_tpu_tiles_with_one_warning():
 
 def _jax_fast_work(params, cfg, grid, ro, rd, layout, C, B, fac):
     """The compacted launch's (needed, computed), counted from the
-    reference's selection (``_select_sub``), its block sort and its MLP."""
+    reference's selection (``_select_sub``), its block sort and its MLP;
+    at most ``SAMPLE_BLOCK`` slots a ray run the packed render pass."""
     H, W = layout
     Ws = W // fac
     nb = fac * fac
@@ -206,7 +219,11 @@ def _jax_fast_work(params, cfg, grid, ro, rd, layout, C, B, fac):
     pts = ro_s[:, None, :] + rd_s[:, None, :] * z[..., None]
     sigma = _sigma_jax(params, cfg, pts,
                        np.broadcast_to(vd[:, None, :], pts.shape))
-    return _work(sigma, dists.astype(np.float32), flags, -math.log(1e-4))
+    needed, computed = _work(sigma, dists.astype(np.float32), flags,
+                             -math.log(1e-4))
+    if B <= render_fused.SAMPLE_BLOCK:
+        computed = _packed_points(dists, flags)
+    return needed, computed
 
 
 def test_tune_fast_mode_sweep_matches_jax(teacher):
