@@ -278,22 +278,16 @@ def train_setup(cfg, device, grid=None):
     rc = renderer.RenderConfig(mlp=cfg, n_samples=64, n_importance=128,
                                use_fused_train=True)
     adam = lsa.Adam(lsa.trained_tensors(*models))
-    loss_fn = lsa.double_mse_loss
-    if grid is not None:
-        loss_fn = lambda *a, **kw: lsa.double_mse_loss_occ(
-            *a, grid=grid, n_candidates=OCC_CANDIDATES, budget=OCC_BUDGET,
-            **kw)
-    step = lsa.make_train_step(*models, rc, NEAR, FAR, adam, loss_fn)
+    loss = lsa.route(rc, grid, OCC_CANDIDATES, OCC_BUDGET).loss
+    step = lsa.make_train_step(*models, rc, NEAR, FAR, adam, loss)
     return models, adam, step, rc
 
 
 def train_draws(n: int, rc, device, grid=None) -> dict:
-    """The draws of every step, from a generator on ``device`` seeded 0 (the
-    reference passes one key to every step)."""
+    """The draws of every step (``lsa.route``'s), from a generator on
+    ``device`` seeded 0 (the reference passes one key to every step)."""
     g = torch.Generator(device=device).manual_seed(0)
-    if grid is None:
-        return renderer.step_draws(n, rc, g, device)
-    return lsa.occ_step_draws(n, rc, OCC_BUDGET, g, device)
+    return lsa.route(rc, grid, OCC_CANDIDATES, OCC_BUDGET).draws(n, g, device)
 
 
 def _hypers(count: int, device) -> torch.Tensor:

@@ -12,10 +12,9 @@ from the fine network (``render/occupancy.py``) where the architecture has
 the kernels (``mlp_fused.supports``); other architectures render and tune
 exactly, as in the reference.
 
-A mip-NeRF scene (its render configuration a ``mipnerf.MipRenderConfig``)
-has one network, the codec's ``model.*`` tensors: it renders its test views
-and probes with ``mipnerf.render_image`` and tunes on ``mipnerf.mip_loss``;
-occupancy mode and a mesh are refused for it.
+A scene's model tunes and renders on its ``lsa.route``. A mip-NeRF scene
+(a ``mipnerf.MipRenderConfig``) has one network, the codec's ``model.*``
+tensors; its MLP has no occupancy kernels, and a mesh is refused for it.
 """
 from __future__ import annotations
 
@@ -46,11 +45,8 @@ class NeRFModelExecuter(ModelExecute):
                  learning_rate_decay=0.1, n_iters=50000, i_save=10000,
                  n_rand=1024, seed=451, verbose=True, render_factor=0,
                  precrop_iters=0, precrop_frac=0.5, resume=False, mesh=None):
-        self.mip = mipnerf.is_mip(render_config)
-        if self.mip and mesh is not None:
+        if mipnerf.is_mip(render_config) and mesh is not None:
             raise ValueError("mip-NeRF tunes on one device: no mesh")
-        if not self.mip:
-            renderer.check_supported(render_config)
         self.resume = resume
         self.device = torch.device(device)
         # parallel.Mesh: LSA / fine-tuning steps run data-parallel over its
@@ -103,18 +99,19 @@ class NeRFModelExecuter(ModelExecute):
         cfg = self.rc.mlp
         coarse = nerf.params_from_state_dict(parameters, "model.", cfg,
                                              device=self.device)
-        if self.mip:   # one network serves both levels
+        if lsa.route(self.rc).networks == 1:
             return coarse, None
         return (coarse,
                 nerf.params_from_state_dict(parameters, "model_fine.", cfg,
                                             device=self.device))
 
-    def _occupancy_grid(self, model_c, model_f, **kw):
-        """The grid of occupancy mode, from the fine network (the coarse
-        one without a fine), or None where the architecture has no kernel
-        (reference: executer.py:110-124, :253-270): over the NDC cube for
-        NDC scenes, else over ``scene["aabb"]`` or (-2, 2)^3."""
-        if not mlp_fused.supports(self.rc.mlp):
+    def _occupancy_grid(self, model_c, model_f, flag, **kw):
+        """The grid of occupancy mode where ``rc``'s ``flag`` (read only
+        where the architecture has the kernels) asks for one, from the fine
+        network (the coarse one without a fine), else None (reference:
+        executer.py:110-124, :253-270): over the NDC cube for NDC scenes,
+        else over ``scene["aabb"]`` or (-2, 2)^3."""
+        if not mlp_fused.supports(self.rc.mlp) or not getattr(self.rc, flag):
             return None
         if self.scene.get("ndc", False):
             aabb = ((-1.0,) * 3, (1.0,) * 3)
@@ -126,9 +123,9 @@ class NeRFModelExecuter(ModelExecute):
 
     def _render_poses(self, model_c, model_f, poses, savedir=None,
                       names=None, render_factor=0):
-        """Render camera poses; returns (n, H, W, 3) numpy. With
-        ``use_occupancy_renders`` one grid is built for the call and every
-        pose renders through it (``occupancy.render_image_fast``).
+        """Render camera poses (``lsa.route``); returns (n, H, W, 3) numpy.
+        With ``use_occupancy_renders`` one grid is built for the call and
+        every pose renders through it (``occupancy.render_image_fast``).
         render_factor > 0 renders at (H//rf, W//rf) with focal/rf
         (reference: run_nerf.py:161-172)."""
         scene = self.scene
@@ -140,8 +137,8 @@ class NeRFModelExecuter(ModelExecute):
             K = K.copy()
             K[0, 0] /= rf; K[1, 1] /= rf; K[0, 2] /= rf; K[1, 2] /= rf
         is_ndc = bool(scene.get("ndc", False))
-        grid = self._occupancy_grid(model_c, model_f) \
-            if not self.mip and self.rc.use_occupancy_renders else None
+        render_view = lsa.route(self.rc, self._occupancy_grid(
+            model_c, model_f, "use_occupancy_renders")).render_view
         rgbs = []
         for i, pose in enumerate(np.asarray(poses)):
             ro, rd = get_rays_np(H, W, K, pose[:3, :4])
@@ -153,18 +150,8 @@ class NeRFModelExecuter(ModelExecute):
                                   torch.as_tensor(ro, device=self.device),
                                   torch.as_tensor(rd, device=self.device))
                 near, far = 0.0, 1.0
-            if self.mip:
-                rgb = mipnerf.render_image(
-                    model_c, ro, rd, near, far, self.rc, viewdirs=vd,
-                    device=self.device)["rgb_map"].cpu().numpy()
-            elif grid is not None:
-                rgb = occupancy.render_image_fast(
-                    model_f if model_f is not None else model_c, ro, rd,
-                    near, far, self.rc, grid, viewdirs=vd)["rgb_map"]
-            else:
-                rgb = renderer.render_image(
-                    model_c, model_f, ro, rd, near, far, self.rc,
-                    viewdirs=vd, device=self.device)["rgb_map"].cpu().numpy()
+            rgb = render_view(model_c, model_f, ro, rd, near, far, vd,
+                              self.device)
             rgbs.append(rgb)
             if savedir is not None:
                 name = names[i] if names is not None else i
@@ -263,8 +250,8 @@ class NeRFModelExecuter(ModelExecute):
                 basedir_save, model_c, model_f, biases=ft_flag)
         # occupancy tuning: one grid from the dequantized fine network; per-
         # ray selection needs no dilation for subsample blocks (dilate=1)
-        occ_grid = self._occupancy_grid(model_c, model_f, dilate=1) \
-            if not self.mip and self.rc.use_occupancy_tuning else None
+        occ_grid = self._occupancy_grid(model_c, model_f,
+                                        "use_occupancy_tuning", dilate=1)
         ls_c, ls_f, _psnr, _loss, _step, biases = lsa.tune_lsa_scales(
             model_c, model_f, self._make_batcher(), self.rc, scene["near"],
             scene["far"], learning_rate=self.learning_rate,
@@ -310,15 +297,10 @@ class NeRFModelExecuter(ModelExecute):
         else:
             ro, rd, target = batch
             vd = None
-        if self.mip:
-            out = mipnerf.render_image(model_c, ro, rd, scene["near"],
-                                       scene["far"], self.rc, viewdirs=vd,
-                                       device=self.device)
-        else:
-            out = renderer.render_image(model_c, model_f, ro, rd,
-                                        scene["near"], scene["far"], self.rc,
-                                        viewdirs=vd, device=self.device)
-        mse = float(np.mean((out["rgb_map"].cpu().numpy() - target) ** 2))
+        rgb = lsa.route(self.rc).render_view(
+            model_c, model_f, ro, rd, scene["near"], scene["far"], vd,
+            self.device)
+        mse = float(np.mean((rgb - target) ** 2))
         psnr = mse2psnr(mse)
         return psnr, psnr, mse
 

@@ -3,9 +3,9 @@
 Counterpart of ``nnc_tpu/parallel/multi_scene.py``. The reference stacks the
 scenes' models on a leading axis and ``vmap`` s the loss over it; here a loop
 over the scenes takes its place. The joint loss is the SUM of the per-scene
-losses and one Adam updates every scene's scales: Adam is elementwise, so
-this equals independent per-scene optimizers, which is how it runs here
-(``lsa.Adam`` on each scene's device). On a mesh with axes
+losses (``lsa.route``'s) and one Adam updates every scene's scales: Adam is
+elementwise, so this equals independent per-scene optimizers, which is how
+it runs here (``lsa.Adam`` on each scene's device). On a mesh with axes
 ('scene', 'data') each device group owns one scene's models and splits that
 scene's ray batch over its 'data' devices (``train/lsa.py``'s data-parallel
 step). The reference's ``key_schedule`` becomes :func:`scene_seeds`: every
@@ -64,6 +64,7 @@ def tune_multi_scene(scenes, models_list, rc: renderer.RenderConfig, *,
     if mesh is not None and mesh.shape.get("scene") != S:
         raise ValueError(f"{S} scenes on a mesh of shape {mesh.shape}")
     seeds = scene_seeds(seed, S) if seeds is None else list(seeds)
+    route = lsa.route(rc)
 
     per_scene = []
     for i, (model_c, model_f) in enumerate(models_list):
@@ -90,7 +91,7 @@ def tune_multi_scene(scenes, models_list, rc: renderer.RenderConfig, *,
             _loss, img_losses[i] = lsa.sharded_loss_backward(
                 places, lsa.shard_batch(batch, places), scenes[i]["near"],
                 scenes[i]["far"], rc,
-                renderer.step_draws(batch.shape[0], rc, generator, device))
+                route.draws(batch.shape[0], generator, device), route.loss)
             lsa.reduce_grads(adam.trained, others)
             adam.update([t.grad for t in adam.trained],
                         torch.from_numpy(hyper).to(device))

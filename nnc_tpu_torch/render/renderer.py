@@ -78,12 +78,6 @@ class RenderConfig:
     occ_sample_block: int = 16
 
 
-def check_supported(rc: RenderConfig) -> None:
-    """Raise for a render option the port does not run. Every option of
-    :class:`RenderConfig` runs, occupancy mode (``render/occupancy.py``)
-    included, so nothing raises."""
-
-
 def _query_mlp(model: nerf.NeRF, pts, viewdirs, rc: RenderConfig,
                allow_fused: bool = True):
     """posenc + MLP over (R, S, 3) points. Returns raw (R, S, 4).
@@ -123,7 +117,6 @@ def render_rays(model, model_fine, rays_o, rays_d, viewdirs, near, far,
     ``noise1`` (coarse / fine sigma noise); missing ones are drawn from
     ``generator``. Returns dict with rgb_map/disp_map/acc_map (+ rgb0/disp0/
     acc0/z_std when n_importance > 0)."""
-    check_supported(rc)
     n_rays = rays_o.shape[0]
     device = rays_o.device
     perturb = rc.perturb and not deterministic

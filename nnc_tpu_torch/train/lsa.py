@@ -7,12 +7,11 @@ Counterpart of ``nnc_tpu/train/lsa.py`` (reference hot loop: run_nerf.py:
 fine (the MLP through kernel pair K-B1 with ``use_fused_train``), takes the
 double MSE loss and its backward, and makes one Adam update of the trained
 tensors (:class:`Adam`: optax's update as tensor ops, its learning rate and
-bias corrections read from a tensor). With an occupancy ``grid`` the loss is
-:func:`double_mse_loss_occ`: both networks integrate the grid-selected
-samples instead of the hierarchical sweep. With a mip-NeRF configuration
-(``mipnerf.MipRenderConfig``) there is one network (``model_f`` None), and
-the step's loss is :func:`mipnerf.mip_loss` on its two levels, its draws
-from :func:`mipnerf.step_draws`.
+bias corrections read from a tensor). The loss, its draws and the view
+render of a model are its :func:`route`'s: :func:`double_mse_loss`; with an
+occupancy ``grid`` :func:`double_mse_loss_occ`, both networks integrating
+the grid-selected samples; with a mip-NeRF configuration
+:func:`mipnerf.mip_loss` on the two levels of one network (``model_f`` None).
 
 The steps run in calls, scheduled as the reference's loop schedules them
 (:func:`call_lengths`): a full call takes ``steps_per_call`` (K) steps, as
@@ -42,13 +41,14 @@ not span them.
 
 The random draws of a step (stratified jitter, ``sample_pdf``'s u, the raw
 noise) come from a ``torch.Generator`` on the render device seeded with
-``seed``, step by step in the order of :func:`renderer.step_draws` /
-:func:`occ_step_draws`, whatever the calls' lengths, so that every
-``steps_per_call`` gives the same trajectory; a ``draws`` callable can
-replace them, so that a test can replay the JAX package's draws.
+``seed``, step by step in the order of the route's ``draws``, whatever the
+calls' lengths, so that every ``steps_per_call`` gives the same
+trajectory; a ``draws`` callable can replace them, so that a test can
+replay the JAX package's draws.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, List, Optional
 
@@ -140,16 +140,60 @@ def occ_step_draws(n_rays: int, rc: renderer.RenderConfig, budget: int,
                            device=device) for k in ("noise0", "noise1")}
 
 
-def points_per_ray(rc, grid=None, occ_budget: int = 32) -> int:
-    """MLP points a training step computes a ray, summed over its networks
-    or levels: both levels' samples (mip-NeRF), twice the occupancy budget,
-    or the coarse samples and the fine pass's union."""
+ONE_NETWORK = ("mip-NeRF tunes one network on its cones, on one device: no "
+               "fine network, occupancy grid or mesh")
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """How a model trains and renders (:func:`route`): ``loss`` in
+    :func:`double_mse_loss`'s signature, ``draws(n_rays, generator,
+    device)`` in the order ``loss`` takes them from a generator, the MLP
+    points a step computes a ray over all networks or levels, the networks
+    (2, or 1), and ``render_view(model_c, model_f, rays_o, rays_d, near,
+    far, viewdirs, device)``, a view's rgb as host numpy."""
+    loss: Callable
+    draws: Callable
+    points_per_ray: int
+    networks: int
+    render_view: Callable
+
+
+def route(rc, grid=None, n_candidates: int = 64, budget: int = 32) -> Route:
+    """The route of ``rc``'s model family: mip-NeRF, occupancy on ``grid``
+    (``budget`` of ``n_candidates`` samples a ray) or exact. Its functions
+    look theirs up in their modules at each call, so that a patch of a
+    module's attribute reaches them."""
     if mipnerf.is_mip(rc):
-        return mipnerf.NUM_LEVELS * rc.num_samples
+        if grid is not None:
+            raise ValueError(ONE_NETWORK)
+        return Route(
+            loss=lambda *a, **kw: mipnerf.mip_loss(*a, **kw),
+            draws=lambda n, g, device: mipnerf.step_draws(n, rc, g, device),
+            points_per_ray=mipnerf.NUM_LEVELS * rc.num_samples, networks=1,
+            render_view=lambda m_c, _m_f, ro, rd, near, far, vd, device:
+            mipnerf.render_image(m_c, ro, rd, near, far, rc, viewdirs=vd,
+                                 device=device)["rgb_map"].cpu().numpy())
     if grid is not None:
-        return 2 * occ_budget
+        return Route(
+            loss=lambda *a, **kw: double_mse_loss_occ(
+                *a, grid=grid, n_candidates=n_candidates, budget=budget,
+                **kw),
+            draws=lambda n, g, device: occ_step_draws(n, rc, budget, g,
+                                                      device),
+            points_per_ray=2 * budget, networks=2,
+            render_view=lambda m_c, m_f, ro, rd, near, far, vd, _device:
+            occupancy.render_image_fast(
+                m_f if m_f is not None else m_c, ro, rd, near, far, rc, grid,
+                viewdirs=vd)["rgb_map"])
     fine = rc.n_samples + rc.n_importance if rc.n_importance > 0 else 0
-    return rc.n_samples + fine
+    return Route(
+        loss=lambda *a, **kw: double_mse_loss(*a, **kw),
+        draws=lambda n, g, device: renderer.step_draws(n, rc, g, device),
+        points_per_ray=rc.n_samples + fine, networks=2,
+        render_view=lambda m_c, m_f, ro, rd, near, far, vd, device:
+        renderer.render_image(m_c, m_f, ro, rd, near, far, rc, viewdirs=vd,
+                              device=device)["rgb_map"].cpu().numpy())
 
 
 def make_lr_schedule(lr: float, decay: float, steps_per_epoch: int,
@@ -318,17 +362,15 @@ def shard_batch(batch: torch.Tensor, places) -> List[torch.Tensor]:
                                                  places)]
 
 
-def sharded_loss_backward(places, shards, near, far, rc, draws: dict,
-                          loss_fn=double_mse_loss):
+def sharded_loss_backward(places, shards, near, far, rc, draws: dict, loss_fn):
     """One data-parallel loss and backward. ``shards``: one packed (n, 12)
     batch [rays_o | rays_d | viewdirs | target] per place, on its device,
     equal parts in ray order of the step's batch (:func:`shard_batch`,
     ``parallel.shard_scan_inputs``); ``draws``: the whole batch's random
     draws on the first device, split here in the same way. Every shard's
     gradient, scaled to the mean over the shards, is accumulated in its
-    replica's ``.grad``. ``loss_fn``: :func:`double_mse_loss` or a loss of
-    its signature. Returns the mean (loss, img_loss), detached, on the first
-    device."""
+    replica's ``.grad``. ``loss_fn``: a :class:`Route`'s loss. Returns the
+    mean (loss, img_loss), detached, on the first device."""
     n = len(places)
     sizes = [s.shape[0] for s in shards]
     if len(set(sizes)) != 1:
@@ -364,13 +406,14 @@ def broadcast(trained, others) -> None:
                 o.copy_(t)
 
 
-def make_train_step(model_c, model_f, rc, near, far, adam: Adam,
-                    loss_fn=double_mse_loss, places=None, others=None):
+def make_train_step(model_c, model_f, rc, near, far, adam: Adam, loss_fn,
+                    places=None, others=None):
     """One LSA step as a function ``step(batch, draws, hyper) -> (2,)
     [loss, img_loss]`` (reference: nnc_tpu/train/lsa.py:111-128): the loss
-    of the packed (N, 12) ``batch`` [rays_o | rays_d | viewdirs | target]
-    on the step's ``draws``, its gradient in ``adam``'s tensors and one
-    update with ``hyper`` (:meth:`Adam.hyper` on the device). With
+    ``loss_fn`` (a :class:`Route`'s) of the packed (N, 12) ``batch``
+    [rays_o | rays_d | viewdirs | target] on the step's ``draws``, its
+    gradient in ``adam``'s tensors and one update with ``hyper``
+    (:meth:`Adam.hyper` on the device). With
     ``places`` / ``others`` (:func:`make_places`) the step is data-parallel
     and ``batch`` is the list of its shards instead. Nothing in it waits for
     the host, so a CUDA graph can capture it."""
@@ -565,15 +608,15 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     draws of this run's i-th step (0-based) in place of the generator's.
     ``mesh``: run each step data-parallel over its 'data' devices (see the
     module docstring); the models must be on the first of them. ``grid``
-    (an ``occupancy.OccupancyGrid``): train on :func:`double_mse_loss_occ`
-    with ``occ_candidates`` / ``occ_budget``. ``stats``: a dict that
+    (an ``occupancy.OccupancyGrid``), ``occ_candidates`` and ``occ_budget``
+    pick the :func:`route` with ``rc``. ``stats``: a dict that
     receives every call's (steps, wall seconds from its batches to its
     readback, whether it captured the graph) as ``calls``, the graph's
     ``capture_s``, ``pool_bytes`` and ``captured`` launches, and the
     ``warmup_steps`` run before the capture. While a torch profiler
     records, each call is an ``nnc.lsa.call`` request span
     (``utils/profiling``; counts ``steps``, ``rays``, the call's rays, and
-    ``points``, the MLP points its steps compute, :func:`points_per_ray`)
+    ``points``, the MLP points its steps compute)
     over the interval ``calls`` times, its phases the spans
     ``nnc.lsa.batches``, ``.pack``, ``.draws``, ``.upload``, ``.capture``
     (the first full call), ``.steps`` and ``.readback``.
@@ -598,20 +641,11 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
     schedule = make_lr_schedule(learning_rate, learning_rate_decay, n_iters,
                                 offset=offset)
     generator = torch.Generator(device=device).manual_seed(seed)
-    loss_fn = double_mse_loss
-    mip = mipnerf.is_mip(rc)
-    if mip:
-        if grid is not None or mesh is not None or model_f is not None:
-            raise ValueError("mip-NeRF tunes one network on its cones, on "
-                             "one device: no fine network, occupancy grid "
-                             "or mesh")
-        loss_fn = mipnerf.mip_loss
-    if grid is not None:
-        loss_fn = lambda *a, **kw: double_mse_loss_occ(
-            *a, grid=grid, n_candidates=occ_candidates, budget=occ_budget,
-            **kw)
+    chosen = route(rc, grid, occ_candidates, occ_budget)
+    if chosen.networks == 1 and (mesh is not None or model_f is not None):
+        raise ValueError(ONE_NETWORK)
     train_step = make_train_step(model_c, model_f, rc, near, far, adam,
-                                 loss_fn, places, others)
+                                 chosen.loss, places, others)
     logger = ResultLogger(basedir_save) if basedir_save else None
 
     def get_batch():
@@ -623,13 +657,6 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
             vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
         return np.concatenate([np.asarray(a, np.float32)
                                for a in (ro, rd, vd, tgt)], axis=-1)
-
-    def step_draws(i, n_rays):
-        made = mipnerf.step_draws(n_rays, rc, generator, device) if mip \
-            else renderer.step_draws(n_rays, rc, generator, device) \
-            if grid is None else \
-            occ_step_draws(n_rays, rc, occ_budget, generator, device)
-        return {**made, **(draws(i) if draws is not None else {})}
 
     runners = {}
 
@@ -655,8 +682,7 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                 n_rays = batches[0].shape[0]
                 if call is not None:
                     call.counts["rays"] = k * n_rays
-                    call.counts["points"] = k * n_rays * points_per_ray(
-                        rc, grid, occ_budget)
+                    call.counts["points"] = k * n_rays * chosen.points_per_ray
                 with profiling.span("nnc.lsa.pack"):
                     host = pack_call(batches, [
                         Adam.hyper(schedule(count + j), count + j)
@@ -664,7 +690,9 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                 run = runner(k, n_rays)
                 capturing = run.graph and not run.replays
                 with profiling.span("nnc.lsa.draws"):
-                    made = [step_draws(step + j, n_rays) for j in range(k)]
+                    made = [{**chosen.draws(n_rays, generator, device),
+                             **(draws(step + j) if draws is not None else {})}
+                            for j in range(k)]
                 out = run(host, made)
                 call_s.append((k, time.perf_counter() - t0, capturing))
             for loss_v, img_v in out:

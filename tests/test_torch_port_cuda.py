@@ -1712,14 +1712,13 @@ def test_cuda_lsa_graph_call_equals_eager_call(cuda_device, bf16, loss):
         else ("mlp_train_fwd", "mlp_train_bwd")
     grid = occupancy.build_occupancy_grid(
         synthetic.make_solid_mlp(device=cuda_device), res=64, dilate=1)
-    loss_fn = lsa.double_mse_loss if loss == "exact" else \
-        lambda *a, **kw: lsa.double_mse_loss_occ(*a, grid=grid, **kw)
+    route = lsa.route(rc, grid if loss == "occupancy" else None)
     runs = []
     for graph in (True, False):
         models = [_fog_model(cuda_device, seed=s) for s in (1, 2)]
         models = [_bf16_twin(m) if bf16 else m for m in models]
         adam = lsa.Adam(lsa.trained_tensors(*models))
-        step = lsa.make_train_step(*models, rc, 2.0, 6.0, adam, loss_fn)
+        step = lsa.make_train_step(*models, rc, 2.0, 6.0, adam, route.loss)
         call = lsa.ScanTrainStep(step, adam, K, R, cuda_device, graph=graph)
         g = torch.Generator().manual_seed(3)
         dg = torch.Generator(device=cuda_device).manual_seed(4)
@@ -1735,10 +1734,7 @@ def test_cuda_lsa_graph_call_equals_eager_call(cuda_device, bf16, loss):
                 vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
                 tgt = torch.rand(R, 3, generator=g)
                 batches.append(torch.cat([ro, rd, vd, tgt], -1).numpy())
-            draws = [renderer.step_draws(R, rc, dg, cuda_device)
-                     if loss == "exact" else
-                     lsa.occ_step_draws(R, rc, 32, dg, cuda_device)
-                     for _ in range(K)]
+            draws = [route.draws(R, dg, cuda_device) for _ in range(K)]
             host = lsa.pack_call(batches, [lsa.Adam.hyper(1e-3, K * c + j)
                                            for j in range(K)])
             losses.append(torch.from_numpy(call(host, draws)))

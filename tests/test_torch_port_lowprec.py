@@ -379,7 +379,6 @@ def _render_both(models, common, R=32, seed=7):
     ro, rd, vd = _rays(R, seed)
     rc_j = jrenderer.RenderConfig(mlp=cfg, **common)
     rc_t = trenderer.RenderConfig(mlp=model.config, **common)
-    trenderer.check_supported(rc_t)
     want = jrenderer.render_rays(
         jparams, None, jls, None, jnp.asarray(ro), jnp.asarray(rd),
         jnp.asarray(vd), 2.0, 6.0, jax.random.PRNGKey(0), rc_j,
@@ -481,18 +480,3 @@ def test_renderer_embedded_route_reaches_the_kernel_wrapper(flagship,
     out = mlp_fused.fused_nerf_mlp(model, pe, ve)
     assert calls == [((24, 63), {"packed_mma": None})]
     assert out.shape == (6, 4, 4)
-
-
-def test_check_supported_passes_every_config():
-    """Every render option is ported, occupancy mode included
-    (tests/test_torch_port_occupancy.py)."""
-    for kw in ({"use_int8_mlp": True},
-               {"use_int8_mlp": True, "use_fused_mlp": True},
-               {"use_fused_mlp": True, "multires": 6},
-               {"use_fused_mlp": True, "multires_views": 2},
-               {"use_occupancy_renders": True},
-               {"use_occupancy_tuning": True},
-               {"use_occupancy_renders": True, "use_occupancy_tuning": True,
-                "use_fused_mlp": True, "use_fused_compositing": True}):
-        assert trenderer.check_supported(trenderer.RenderConfig(**kw)) \
-            is None

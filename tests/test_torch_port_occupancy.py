@@ -588,4 +588,5 @@ def test_executer_occupancy_matches_reference(monkeypatch):
     # the reference
     narrow = TExecuter(scene, dataclasses.replace(
         rc_t, mlp=tnerf.NeRFConfig(W=32)), device="cpu", **ex_kw)
-    assert narrow._occupancy_grid(None, None) is None
+    assert narrow._occupancy_grid(None, None, "use_occupancy_renders") \
+        is None

@@ -45,6 +45,8 @@ from nnc_tpu_torch.data import synthetic as tsynthetic
 from nnc_tpu_torch.models import nerf as tnerf
 from nnc_tpu_torch.ops import mlp_train_fused
 from nnc_tpu_torch.ops.posenc import positional_encoding as tposenc
+from nnc_tpu_torch.render import mipnerf as tmipnerf
+from nnc_tpu_torch.render import occupancy as tocc
 from nnc_tpu_torch.render import renderer as trenderer
 from nnc_tpu_torch.train import lsa as tlsa
 from nnc_tpu_torch.train import presets as tpresets
@@ -278,6 +280,46 @@ def test_double_mse_loss_grads_match_jax_flagship_fused():
 
 
 # (e) -----------------------------------------------------------------------
+@pytest.mark.parametrize("kind, points", [("exact", 8 + 16),
+                                          ("occupancy", 2 * 8),
+                                          ("mip", 2 * 8)])
+def test_route_draws_pair_with_its_loss(kind, points):
+    """A route's loss on its draws equals its loss drawing from a generator
+    seeded the same; its MLP points a ray are those that the LSA call's
+    span counts (tests/test_torch_port_spans.py, 8 + (8 + 8) samples;
+    tests/test_torch_port_mipnerf.py, 2 levels of 8)."""
+    g = torch.Generator().manual_seed(0)
+    grid = None
+    if kind == "mip":
+        mlp = tnerf.NeRFConfig(W=32, input_ch=96, input_ch_views=27)
+        rc = tmipnerf.MipRenderConfig(mlp=mlp, num_samples=8)
+        models = (tnerf.init_params(mlp, g), None)
+    else:
+        rc = trenderer.RenderConfig(mlp=MLP_T, n_samples=8, n_importance=8,
+                                    raw_noise_std=0.5)
+        models = (tnerf.init_params(MLP_T, g), tnerf.init_params(MLP_T, g))
+        if kind == "occupancy":
+            grid = tocc.grid_from_arrays(np.ones((8, 8, 8), bool),
+                                         (-2.0,) * 3, (2.0,) * 3)
+    route = tlsa.route(rc, grid, n_candidates=16, budget=8)
+    assert route.points_per_ray == points
+    assert route.networks == (1 if kind == "mip" else 2)
+    args = (*models, *map(torch.from_numpy, _batch(16, 5)), 2.0, 6.0, rc)
+    drawn = route.draws(16, torch.Generator().manual_seed(7),
+                        torch.device("cpu"))
+    assert drawn
+    got = route.loss(*args, draws=drawn)
+    want = route.loss(*args, generator=torch.Generator().manual_seed(7))
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), (got, want)
+
+
+def test_route_refuses_mip_on_a_grid():
+    grid = tocc.grid_from_arrays(np.ones((8, 8, 8), bool), (-2.0,) * 3,
+                                 (2.0,) * 3)
+    with pytest.raises(ValueError, match="one network"):
+        tlsa.route(tmipnerf.MipRenderConfig(), grid)
+
+
 def test_lr_schedule_matches_jax():
     for decay, offset in ((0.5, 0), (0.1, 7), (0.0, 3)):
         want = jlsa.make_lr_schedule(1e-3, decay, 5, offset=offset)
