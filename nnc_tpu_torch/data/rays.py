@@ -6,6 +6,8 @@ Two sampling modes mirroring the reference hot loop
     pixels from it (blender path).
   * "pool" (use_batching): precompute rays for all training images, shuffle
     the flat pool, walk it in N_rand slices, reshuffle per epoch (llff path).
+    The shuffle permutes an index order over the pool, and a batch gathers
+    its rows through its slice of the order.
 The draw sequence for a seed is the reference's, draw for draw. An "image"
 batch computes its rays at the drawn pixels only (:func:`rays_at_pixels`),
 the same values as the reference's rays of the whole image there.
@@ -48,13 +50,17 @@ class RayBatcher:
             rays_rgb = np.concatenate(
                 [rays, self.images[self.i_train][:, None]], 1)
             self.pool = rays_rgb.transpose(0, 2, 3, 1, 4).reshape(-1, 3, 3)
+            self.order = np.arange(self.pool.shape[0])
             self._shuffle()
             self.i_batch = 0
 
     def _shuffle(self):
-        """Shuffle the pool in place, as the span ``nnc.rays.shuffle``."""
+        """Shuffle the pool's order in place, as the span
+        ``nnc.rays.shuffle``. numpy shuffles a 1-D array in one C loop but
+        an (N, 3, 3) array row by row through views; both draw the same
+        intervals in the same order."""
         with profiling.span("nnc.rays.shuffle", rays=self.pool.shape[0]):
-            self.rng.shuffle(self.pool)
+            self.rng.shuffle(self.order)
 
     def next_batch(self):
         """Returns (rays_o, rays_d, target), each (n_rand, 3) float32."""
@@ -62,7 +68,9 @@ class RayBatcher:
             if self.i_batch + self.n_rand > self.pool.shape[0]:
                 self._shuffle()
                 self.i_batch = 0
-            batch = self.pool[self.i_batch:self.i_batch + self.n_rand]
+            batch = np.take(
+                self.pool, self.order[self.i_batch:self.i_batch + self.n_rand],
+                axis=0)
             self.i_batch += self.n_rand
             return batch[:, 0], batch[:, 1], batch[:, 2]
 

@@ -152,3 +152,42 @@ def test_ray_batcher_identical_draws(mode, precrop):
     for _ in range(5):
         for a, b in zip(bj.next_batch(), bt.next_batch()):
             np.testing.assert_array_equal(a, b)
+
+
+def _pool_scene():
+    """3 views of 6x8: a pool of 144 rays, which N_rand 20 does not divide
+    (7 batches a pass, 4 rays left out of each)."""
+    rng = np.random.default_rng(5)
+    images = rng.uniform(size=(3, 6, 8, 3)).astype(np.float32)
+    K, c2w = _camera()
+    poses = np.stack([c2w] * 3)
+    return images, poses, K, np.arange(3), 20
+
+
+def test_pool_batcher_identical_over_passes():
+    """30 "pool" batches, across 4 reshuffles: bit for bit the JAX
+    package's, and its generator's state after the last."""
+    args = _pool_scene()
+    bj = JRayBatcher(*args, mode="pool", seed=9001)
+    bt = TRayBatcher(*args, mode="pool", seed=9001)
+    for _ in range(30):
+        for a, b in zip(bj.next_batch(), bt.next_batch()):
+            assert b.dtype == np.float32 and b.shape == (20, 3)
+            assert np.array_equal(a, b)
+    assert bt.rng.bit_generator.state == bj.rng.bit_generator.state
+
+
+def test_pool_batcher_pass_is_a_permutation():
+    """A pass's batches are N - N % n_rand distinct rows of the pool, each
+    row at most once; a batch keeps its values across the reshuffle."""
+    bt = TRayBatcher(*_pool_scene(), mode="pool", seed=3)
+    n, n_rand = bt.pool.shape[0], bt.n_rand
+    rows = {r.tobytes(): i for i, r in enumerate(bt.pool)}
+    assert len(rows) == n
+    batches = [bt.next_batch() for _ in range(n // n_rand)]
+    kept = [np.stack(b, 1).copy() for b in batches]
+    drawn = [rows[r.tobytes()] for b in kept for r in b]
+    assert len(drawn) == n - n % n_rand == len(set(drawn))
+    bt.next_batch()                 # reshuffles
+    for b, k in zip(batches, kept):
+        assert np.array_equal(np.stack(b, 1), k)
