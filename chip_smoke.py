@@ -215,6 +215,19 @@ Phases:
      mip-NeRF scene (17 steps, i_save 17: the test view through the IPE
      forward), decode and test_model, launching the IPE instantiation
      only; the `ipe:` JSON line.
+ 26. kernel K-B7 (the LSA epilogue of mip-NeRF 360's layers, each a cuBLAS
+     float32 GEMM) against its plain versions at a mip-NeRF 360 step's
+     shapes, 524,288 x 1,024 (a NeRF trunk layer: 16,384 rays x 32) and
+     1,048,576 x 256 (a proposal layer: 16,384 x 64), ReLU layers: the
+     forward and dacc within 2e-6 (+ 2e-6 relative), the scale and bias
+     gradients' column sums within 1e-5 of the sum of their terms'
+     magnitudes (the card tests' bars), reruns bit-equal; each direction
+     timed in turns with its plain version, beside its bound by bytes and
+     the layer's GEMM; then 9 LSA steps of mip-NeRF 360 at the published
+     widths (1,024 rays, 64 + 64 + 32 samples) in calls of 8 and
+     compress_model(lsa=True) on a 32x48 mip-NeRF 360 scene, each launching
+     K-B7 only, 44 times a step (22 layers forward and backward); the
+     `kb7:` JSON line.
 Every LSA run of phases 7, 13, 17 and 20 takes the default steps_per_call
 of 8: a run's first full call captures its graph after one warm-up step,
 whose K-B1 launches count (lsa.WARMUP_STEPS).
@@ -291,6 +304,10 @@ N_IPE = (104_832, 1_048_576)
 # without dW (the encodings' rows get no gradient); vanilla's forward
 IPE_FWD_MACS, IPE_BWD_MACS, KB1_FWD_MACS = 610_304, 557_696, 593_408
 IPE_LSA_RAYS, IPE_LSA_SAMPLES = 4096, 128   # phase 25's LSA steps
+# K-B7: a mip-NeRF 360 step's NeRF trunk layer (16,384 rays x 32 samples x
+# 1,024) and proposal layer (16,384 x 64 x 256, one of two levels)
+N_KB7 = ((524_288, 1_024), (1_048_576, 256))
+KB7_LSA_RAYS = 1024    # phase 26's LSA steps
 TRAJ_STEPS = 10
 # LSA learning rate of phase 7: 1e-3, so that 40 steps move scales past half
 # a quantization step of the bitstream's scales (2^-7 at their qp of -28);
@@ -3884,6 +3901,167 @@ def phase_ipe(dev, card):
     print("ipe: " + json.dumps({str(n): r for n, r in out.items()}))
 
 
+def _mip360_teacher(seed):
+    """mip-NeRF 360's two MLPs at the published widths in the port's state
+    dict layout (the proposal MLP as ``model.*``, the NeRF MLP as
+    ``model_fine.*``): each layer U(-1/sqrt(in), 1/sqrt(in)), the density
+    layers x20 and the rgb layer x10 (visible density and colour)."""
+    from nnc_tpu_torch.models import mipnerf360 as m360
+    g = torch.Generator().manual_seed(seed)
+    tree = {}
+    for key, cfg in (("prop_mlp", m360.PROP_MLP), ("nerf_mlp",
+                                                   m360.NERF_MLP)):
+        tree[key] = {}
+        for i, (d_in, d_out) in enumerate(m360.layer_dims(cfg).values()):
+            b = 1 / math.sqrt(d_in)
+            tree[key][f"Dense_{i}"] = {
+                "kernel": (torch.rand(d_in, d_out, generator=g) * 2 - 1) * b,
+                "bias": (torch.rand(d_out, generator=g) * 2 - 1) * b}
+        tree[key][f"Dense_{cfg.depth}"]["kernel"].mul_(20.0)
+        if cfg.rgb:
+            tree[key][f"Dense_{cfg.depth + 3}"]["kernel"].mul_(10.0)
+    prop, mlp = m360.from_mipnerf360_params(tree)
+    return prop, mlp, {**nerf.params_to_state_dict(prop, "model."),
+                       **nerf.params_to_state_dict(mlp, "model_fine.")}
+
+
+def _kb7_held(what, got, want, bar):
+    """The worst of |got - want| / bar(want) (held at most 1)."""
+    worst = float(((got - want).abs() / bar).max())
+    check(worst <= 1.0, f"K-B7 {what}: {worst:.3f} of its bar")
+    return worst
+
+
+def phase_kb7(dev, card):
+    """Phase 26: K-B7 against its plain versions at a mip-NeRF 360 step's
+    shapes, timed; mip-NeRF 360's LSA and compress_model(lsa=True) at the
+    published widths launching K-B7 only. Prints the ``kb7:`` JSON line."""
+    from nnc_tpu_torch.models import mipnerf360 as m360
+    from nnc_tpu_torch.ops import lsa_epilogue as E
+    from nnc_tpu_torch.render import mipnerf360
+    g = torch.Generator(device=dev).manual_seed(26)
+    out = {}
+    for n, c in N_KB7:
+        r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+        acc, dy, s, b = r(n, c), r(n, c), 1 + 0.1 * r(c), 0.1 * r(c)
+        y = E.epilogue_fwd(acc, s, b, True)
+        want_y = E.epilogue_fwd_plain(acc, s, b, True)
+        row = {"fwd_err": maxabs(y, want_y),
+               "fwd_worst": _kb7_held("forward", y, want_y,
+                                      2e-6 + 2e-6 * want_y.abs())}
+        check(torch.equal(E.epilogue_fwd(acc, s, b, True), y),
+              f"K-B7 forward at {n} x {c} not deterministic")
+        del want_y
+        got = E.epilogue_bwd(dy, acc, s, b, True)
+        want = E.epilogue_bwd_plain(dy, acc, s, b, True)
+        row["dacc_err"] = maxabs(got[0], want[0])
+        row["dacc_worst"] = _kb7_held("dacc", got[0], want[0],
+                                      2e-6 + 2e-6 * want[0].abs())
+        mask = acc * s + b > 0
+        for k, name, terms in ((1, "ds", dy * acc * mask),
+                               (2, "db", dy * mask)):
+            row[f"{name}_worst"] = _kb7_held(
+                name, got[k], want[k], 1e-5 * terms.abs().sum(0) + 1e-6)
+            del terms
+        del want, mask
+        again = E.epilogue_bwd(dy, acc, s, b, True)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"K-B7 backward at {n} x {c} not deterministic")
+        del got, again
+        torch.cuda.empty_cache()
+        parts = (("fwd", lambda: E.epilogue_fwd(acc, s, b, True),
+                  lambda: E.epilogue_fwd_plain(acc, s, b, True),
+                  2 * 4 * n * c, 2 * n * c),
+                 ("bwd", lambda: E.epilogue_bwd(dy, acc, s, b, True),
+                  lambda: E.epilogue_bwd_plain(dy, acc, s, b, True),
+                  3 * 4 * n * c, 4 * n * c))
+        for part, kernel, plain, n_bytes, ops in parts:
+            k_ms, p_ms = [], []
+            for _ in range(2):       # in turns
+                k_ms.append(cuda_ms(kernel, iters=5, warmup=1))
+                p_ms.append(cuda_ms(plain, iters=5, warmup=1))
+            torch.cuda.empty_cache()
+            row[f"{part}_ms"], row[f"{part}_plain_ms"] = min(k_ms), min(p_ms)
+            row[f"{part}_bound_ms"] = bound(n_bytes, ops,
+                                            PEAK_FP32)["bound_ms"]
+            row[f"{part}_share"] = 100 * row[f"{part}_bound_ms"] / min(k_ms)
+        w = r(c, c)
+        with E._fp32_products():
+            row["gemm_ms"] = cuda_ms(lambda: torch.mm(acc, w.t()), iters=3,
+                                     warmup=1)
+        print(f"[26] K-B7 at {n} x {c} on {card}: fwd {row['fwd_ms']:.3f} ms "
+              f"(plain {row['fwd_plain_ms']:.3f}, bound "
+              f"{row['fwd_bound_ms']:.3f}, {row['fwd_share']:.1f}%), bwd "
+              f"{row['bwd_ms']:.3f} ms (plain {row['bwd_plain_ms']:.3f}, "
+              f"bound {row['bwd_bound_ms']:.3f}, {row['bwd_share']:.1f}%); "
+              f"the layer's cuBLAS GEMM {row['gemm_ms']:.3f} ms; against "
+              f"the plain versions y {row['fwd_err']:.2e}, dacc "
+              f"{row['dacc_err']:.2e}, worst of their bars: "
+              f"{max(v for k, v in row.items() if k.endswith('_worst')):.3f}")
+        out[f"{n}x{c}"] = row
+        del acc, dy, s, b, y, w
+        torch.cuda.empty_cache()
+    # the main path: 9 LSA steps of mip-NeRF 360, a call of 8 (a graph,
+    # captured after one warm-up step) and a single step
+    rng = np.random.default_rng(26)
+    images = rng.random((2, 32, 48, 3), dtype=np.float32)
+    poses = synthetic.look_at_poses(2, seed=26)
+    K = presets.pixel_centres(presets._intrinsics(32, 48, 40.0))
+    rc = mipnerf360.make_render_config({"K": K})
+    prop, mlp, teacher = _mip360_teacher(26)
+    prop, mlp = prop.to(dev), mlp.to(dev)
+    per_step = 2 * (len(mlp.layers()) + 2 * len(prop.layers()))
+    _build.reset_launch_counts()
+    lsa.tune_lsa_scales(
+        prop, mlp, RayBatcher(images, poses, K, np.arange(2), KB7_LSA_RAYS,
+                              mode="pool", seed=3), rc, 0.2, 1e6,
+        n_iters=9, epochs=1, learning_rate=1e-3, learning_rate_decay=0.0,
+        verbose=False, seed=7)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    want = {"lsa_epilogue": per_step * (9 + lsa.WARMUP_STEPS)}
+    check(counts == want, f"mip-NeRF 360 LSA launched {counts}, not {want}")
+    check(all(bool(torch.isfinite(l.weight_scaling).all())
+              for m in (prop, mlp) for l in m.layers().values()),
+          "mip-NeRF 360 LSA: scales not finite")
+    print(f"[26] mip-NeRF 360 LSA, 9 steps of {KB7_LSA_RAYS} rays at the "
+          f"published widths: launches {counts} ({per_step} a step)")
+    del prop, mlp
+    torch.cuda.empty_cache()
+    # the normal path: compress_model(lsa=True) on a mip-NeRF 360 scene
+    m360_dir = os.path.join(OUT, "mip360")
+    bs = os.path.join(m360_dir, "bitstream", "mip360_lsa.nnc")
+    os.makedirs(os.path.dirname(bs), exist_ok=True)
+    scene = {"images": images, "poses": poses, "K": K, "H": 32, "W": 48,
+             "i_train": np.arange(2), "i_test": np.arange(1), "near": 0.2,
+             "far": 1e6, "white_bkgd": False, "ndc": False,
+             "raw_noise_std": 0.0, "batching_mode": "pool",
+             "dataset_type": "llff", "mip360": {}}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    nnc_tpu_torch.compress_model(teacher, bitstream_path=bs, qp=-20,
+                                 lsa=True, scene=scene, N_iters=17,
+                                 epochs=1, i_save=17, N_rand=KB7_LSA_RAYS,
+                                 learning_rate=1e-3, device=dev,
+                                 verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    tuned = per_step * (17 + lsa.WARMUP_STEPS)
+    views = counts.get("lsa_epilogue", 0) - tuned
+    check(set(counts) == {"lsa_epilogue"} and views >= 0 and
+          views % (per_step // 2) == 0,
+          f"mip-NeRF 360 compress_model(lsa=True) launched {counts} "
+          f"({tuned} for the tuning, then {per_step // 2} a chunk)")
+    dec = nnc_tpu_torch.decompress_model(bs, verbose=False)
+    check(set(dec) >= set(teacher),
+          f"mip-NeRF 360 decode: {sorted(set(teacher) - set(dec))} missing")
+    print(f"[26] mip-NeRF 360 compress_model(lsa=True), 17 steps of "
+          f"{KB7_LSA_RAYS} rays, on {card}: {seconds:.1f} s, launches "
+          f"{counts} ({tuned} tuning, {views} in test views)")
+    print("kb7: " + json.dumps(out))
+
+
 def _numbers(tree):
     """Every number in a tool's result, depth first (None skipped)."""
     if isinstance(tree, dict):
@@ -3968,6 +4146,7 @@ def run_phases(t_start, seconds):
     for name, n in phase(phase_bench, dev, card).items():
         launches[name] = launches.get(name, 0) + n
     phase(phase_ipe, dev, card)
+    phase(phase_kb7, dev, card)
     print("seconds per phase: " + ", ".join(
         f"{i} {t:.1f}" for i, t in enumerate(seconds, 1)))
     for name, n in mesh_launches.items():

@@ -19,6 +19,11 @@ occupancy grid (``render/occupancy.py``) on the flagship architecture.
 checkpoint (one MLP, ``model.*``) of the Blender lego scene, its LSA on
 mip-NeRF's two-level loss through ``render/mipnerf.py``; there the config
 file's ``N_rand`` (4,096) takes the place of ``--N_rand``'s default.
+``--config nnc_tpu_torch/configs/mip360_garden.txt`` compresses a mip-NeRF
+360 checkpoint (the proposal MLP as ``model.*``, the NeRF MLP as
+``model_fine.*``) of an unbounded LLFF-layout capture, its LSA on mip-NeRF
+360's three-term loss through ``render/mipnerf360.py`` at the file's
+``N_rand`` (16,384).
 """
 import argparse
 
@@ -38,7 +43,8 @@ def main(args):
             args.config, None if args.dataset_path in ("~", "")
             else args.dataset_path)
     n_rand = args.N_rand
-    if scene is not None and "mip" in scene and "n_rand" in extra and \
+    if scene is not None and ("mip" in scene or "mip360" in scene) and \
+            "n_rand" in extra and \
             n_rand == build_parser().get_default("N_rand"):
         n_rand = int(extra["n_rand"])
 

@@ -14,7 +14,10 @@ exactly, as in the reference.
 
 A scene's model tunes and renders on its ``lsa.route``. A mip-NeRF scene
 (a ``mipnerf.MipRenderConfig``) has one network, the codec's ``model.*``
-tensors; its MLP has no occupancy kernels, and a mesh is refused for it.
+tensors; its MLP has no occupancy kernels, and a mesh is refused for it. A
+mip-NeRF 360 scene (a ``mipnerf360.Mip360RenderConfig``) has two networks of
+different shapes: the proposal MLP (``model.*``) and the NeRF MLP
+(``model_fine.*``); it has no occupancy mode and no mesh either.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from ..core.model import ModelExecute
 from ..data.rays import RayBatcher
 from ..models import nerf
 from ..ops import mlp_fused
-from ..render import mipnerf, occupancy, renderer
+from ..render import occupancy, renderer
 from ..render.rays import get_rays_np, ndc_rays
 from ..train import lsa
 from ..utils.images import write_png
@@ -45,8 +48,7 @@ class NeRFModelExecuter(ModelExecute):
                  learning_rate_decay=0.1, n_iters=50000, i_save=10000,
                  n_rand=1024, seed=451, verbose=True, render_factor=0,
                  precrop_iters=0, precrop_frac=0.5, resume=False, mesh=None):
-        if mipnerf.is_mip(render_config) and mesh is not None:
-            raise ValueError("mip-NeRF tunes on one device: no mesh")
+        lsa.route(render_config).refuse(mesh=mesh)
         self.resume = resume
         self.device = torch.device(device)
         # parallel.Mesh: LSA / fine-tuning steps run data-parallel over its
@@ -93,17 +95,10 @@ class NeRFModelExecuter(ModelExecute):
         return NDCBatcher()
 
     def _split_params(self, parameters):
-        """(coarse, fine) NeRF modules on the device. Missing LSA scales
-        stay absent: the reference's all-ones scales multiply exactly
+        """(coarse, fine) modules on the device (``lsa.route``). Missing LSA
+        scales stay absent: the reference's all-ones scales multiply exactly
         (tuning attaches them, lsa.trained_tensors)."""
-        cfg = self.rc.mlp
-        coarse = nerf.params_from_state_dict(parameters, "model.", cfg,
-                                             device=self.device)
-        if lsa.route(self.rc).networks == 1:
-            return coarse, None
-        return (coarse,
-                nerf.params_from_state_dict(parameters, "model_fine.", cfg,
-                                            device=self.device))
+        return lsa.route(self.rc).split_params(parameters, self.device)
 
     def _occupancy_grid(self, model_c, model_f, flag, **kw):
         """The grid of occupancy mode where ``rc``'s ``flag`` (read only
@@ -111,7 +106,9 @@ class NeRFModelExecuter(ModelExecute):
         network (the coarse one without a fine), else None (reference:
         executer.py:110-124, :253-270): over the NDC cube for NDC scenes,
         else over ``scene["aabb"]`` or (-2, 2)^3."""
-        if not mlp_fused.supports(self.rc.mlp) or not getattr(self.rc, flag):
+        if lsa.route(self.rc).refusal is not None or \
+                not mlp_fused.supports(self.rc.mlp) or \
+                not getattr(self.rc, flag):
             return None
         if self.scene.get("ndc", False):
             aabb = ((-1.0,) * 3, (1.0,) * 3)

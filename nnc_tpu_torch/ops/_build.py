@@ -42,7 +42,7 @@ KERNELS = ("render_pass", "mlp_from_points", "mlp_int8_from_points",
            "mlp_from_points_bf16", "render_pass_bf16", "mlp_train_fwd_bf16",
            "mlp_train_bwd_bf16", "mlp_train_bwd_dw_bf16", "mlp_embedded_bf16",
            "mlp_tp_pair_bf16", "mlp_train_fwd_ipe", "mlp_train_bwd_ipe",
-           "render_pass_packed")
+           "render_pass_packed", "lsa_epilogue")
 
 _lock = threading.Lock()
 _lib = None
@@ -259,6 +259,14 @@ def lib() -> ctypes.CDLL:
         handle.nnc_mlp_embedded_bf16.restype = ci
         handle.nnc_mlp_tp_pair_bf16.argtypes = handle.nnc_mlp_tp_pair.argtypes
         handle.nnc_mlp_tp_pair_bf16.restype = ci
+        # K-B7 (lsa_epilogue.cu): n as long long
+        cll = ctypes.c_longlong
+        handle.nnc_lsa_epilogue_fwd.argtypes = [vp, vp, vp, vp, cll, ci, ci,
+                                                vp]
+        handle.nnc_lsa_epilogue_fwd.restype = ci
+        handle.nnc_lsa_epilogue_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                vp, cll, ci, ci, ci, cll, vp]
+        handle.nnc_lsa_epilogue_bwd.restype = ci
         _lib = handle
         return _lib
 

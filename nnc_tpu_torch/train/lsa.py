@@ -11,7 +11,9 @@ bias corrections read from a tensor). The loss, its draws and the view
 render of a model are its :func:`route`'s: :func:`double_mse_loss`; with an
 occupancy ``grid`` :func:`double_mse_loss_occ`, both networks integrating
 the grid-selected samples; with a mip-NeRF configuration
-:func:`mipnerf.mip_loss` on the two levels of one network (``model_f`` None).
+:func:`mipnerf.mip_loss` on the two levels of one network (``model_f`` None);
+with a mip-NeRF 360 configuration :func:`mipnerf360.m360_loss`, the proposal
+MLP as ``model_c`` for two levels and the NeRF MLP as ``model_f``.
 
 The steps run in calls, scheduled as the reference's loop schedules them
 (:func:`call_lengths`): a full call takes ``steps_per_call`` (K) steps, as
@@ -56,8 +58,10 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..models import mipnerf360 as m360
+from ..models import nerf
 from ..ops import _build, mlp_train_fused
-from ..render import mipnerf, occupancy, renderer
+from ..render import mipnerf, mipnerf360, occupancy, renderer
 from ..render.volume import raw2outputs
 from ..utils import profiling
 from ..utils.logging import ResultLogger, mse2psnr
@@ -142,6 +146,8 @@ def occ_step_draws(n_rays: int, rc: renderer.RenderConfig, budget: int,
 
 ONE_NETWORK = ("mip-NeRF tunes one network on its cones, on one device: no "
                "fine network, occupancy grid or mesh")
+M360_ONLY = ("mip-NeRF 360 tunes its proposal and NeRF MLPs on its own "
+             "sampling, on one device: no occupancy grid or mesh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,32 +156,80 @@ class Route:
     :func:`double_mse_loss`'s signature, ``draws(n_rays, generator,
     device)`` in the order ``loss`` takes them from a generator, the MLP
     points a step computes a ray over all networks or levels, the networks
-    (2, or 1), and ``render_view(model_c, model_f, rays_o, rays_d, near,
-    far, viewdirs, device)``, a view's rgb as host numpy."""
+    (2, or 1), ``render_view(model_c, model_f, rays_o, rays_d, near, far,
+    viewdirs, device)``, a view's rgb as host numpy,
+    ``split_params(state_dict, device)``, the (coarse, fine) modules of a
+    checkpoint's ``model.*`` / ``model_fine.*`` tensors (fine None for one
+    network), and ``refusal``, why the family runs on one device without
+    occupancy mode (None where it runs both)."""
     loss: Callable
     draws: Callable
     points_per_ray: int
     networks: int
     render_view: Callable
+    split_params: Callable
+    refusal: Optional[str] = None
+
+    def refuse(self, mesh=None, occupancy: bool = False,
+               models=None) -> None:
+        """Raise ValueError(``refusal``) for a ``mesh``, ``occupancy`` mode or
+        ``models`` (model_c, model_f) whose fine network the family does
+        not have (one network) or needs (two)."""
+        if self.refusal is None:
+            return
+        wrong = models is not None and \
+            (models[1] is None) != (self.networks == 1)
+        if mesh is not None or occupancy or wrong:
+            raise ValueError(self.refusal)
+
+
+def _nerf_params(cfg, networks: int):
+    """A :class:`Route`'s ``split_params`` for ``networks`` NeRF MLPs of
+    ``cfg``: ``model.*``, and ``model_fine.*`` for two."""
+    def split(state_dict, device):
+        coarse = nerf.params_from_state_dict(state_dict, "model.", cfg,
+                                             device=device)
+        if networks == 1:
+            return coarse, None
+        return coarse, nerf.params_from_state_dict(state_dict, "model_fine.",
+                                                   cfg, device=device)
+    return split
 
 
 def route(rc, grid=None, n_candidates: int = 64, budget: int = 32) -> Route:
-    """The route of ``rc``'s model family: mip-NeRF, occupancy on ``grid``
+    """The route of ``rc``'s model family: mip-NeRF 360, mip-NeRF, occupancy
+    on ``grid``
     (``budget`` of ``n_candidates`` samples a ray) or exact. Its functions
     look theirs up in their modules at each call, so that a patch of a
-    module's attribute reaches them."""
-    if mipnerf.is_mip(rc):
-        if grid is not None:
-            raise ValueError(ONE_NETWORK)
-        return Route(
+    module's attribute reaches them. A family without occupancy mode refuses
+    a ``grid``."""
+    if mipnerf360.is_mip360(rc):
+        chosen = Route(
+            loss=lambda *a, **kw: mipnerf360.m360_loss(*a, **kw),
+            draws=lambda n, g, device: mipnerf360.step_draws(n, rc, g,
+                                                             device),
+            points_per_ray=2 * rc.num_prop_samples + rc.num_nerf_samples,
+            networks=2,
+            render_view=lambda m_c, m_f, ro, rd, near, far, vd, device:
+            mipnerf360.render_image(m_c, m_f, ro, rd, near, far, rc,
+                                    viewdirs=vd, device=device)[
+                "rgb_map"].cpu().numpy(),
+            split_params=lambda sd, device: tuple(
+                m360.params_from_state_dict(sd, prefix, cfg, device=device)
+                for prefix, cfg in (("model.", rc.prop),
+                                    ("model_fine.", rc.nerf))),
+            refusal=M360_ONLY)
+    elif mipnerf.is_mip(rc):
+        chosen = Route(
             loss=lambda *a, **kw: mipnerf.mip_loss(*a, **kw),
             draws=lambda n, g, device: mipnerf.step_draws(n, rc, g, device),
             points_per_ray=mipnerf.NUM_LEVELS * rc.num_samples, networks=1,
             render_view=lambda m_c, _m_f, ro, rd, near, far, vd, device:
             mipnerf.render_image(m_c, ro, rd, near, far, rc, viewdirs=vd,
-                                 device=device)["rgb_map"].cpu().numpy())
-    if grid is not None:
-        return Route(
+                                 device=device)["rgb_map"].cpu().numpy(),
+            split_params=_nerf_params(rc.mlp, 1), refusal=ONE_NETWORK)
+    elif grid is not None:
+        chosen = Route(
             loss=lambda *a, **kw: double_mse_loss_occ(
                 *a, grid=grid, n_candidates=n_candidates, budget=budget,
                 **kw),
@@ -185,15 +239,21 @@ def route(rc, grid=None, n_candidates: int = 64, budget: int = 32) -> Route:
             render_view=lambda m_c, m_f, ro, rd, near, far, vd, _device:
             occupancy.render_image_fast(
                 m_f if m_f is not None else m_c, ro, rd, near, far, rc, grid,
-                viewdirs=vd)["rgb_map"])
-    fine = rc.n_samples + rc.n_importance if rc.n_importance > 0 else 0
-    return Route(
-        loss=lambda *a, **kw: double_mse_loss(*a, **kw),
-        draws=lambda n, g, device: renderer.step_draws(n, rc, g, device),
-        points_per_ray=rc.n_samples + fine, networks=2,
-        render_view=lambda m_c, m_f, ro, rd, near, far, vd, device:
-        renderer.render_image(m_c, m_f, ro, rd, near, far, rc, viewdirs=vd,
-                              device=device)["rgb_map"].cpu().numpy())
+                viewdirs=vd)["rgb_map"],
+            split_params=_nerf_params(rc.mlp, 2))
+    else:
+        fine = rc.n_samples + rc.n_importance if rc.n_importance > 0 else 0
+        chosen = Route(
+            loss=lambda *a, **kw: double_mse_loss(*a, **kw),
+            draws=lambda n, g, device: renderer.step_draws(n, rc, g, device),
+            points_per_ray=rc.n_samples + fine, networks=2,
+            render_view=lambda m_c, m_f, ro, rd, near, far, vd, device:
+            renderer.render_image(m_c, m_f, ro, rd, near, far, rc,
+                                  viewdirs=vd, device=device)[
+                "rgb_map"].cpu().numpy(),
+            split_params=_nerf_params(rc.mlp, 2))
+    chosen.refuse(occupancy=grid is not None)
+    return chosen
 
 
 def make_lr_schedule(lr: float, decay: float, steps_per_epoch: int,
@@ -565,6 +625,10 @@ class ScanTrainStep:
                 t.copy_(s)
         torch.cuda.synchronize(dev)
         del saved
+        # the eager steps' cached blocks back to the device: the graph's
+        # private pool cannot take them, and a wide model's step needs most
+        # of the card
+        torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -642,8 +706,7 @@ def tune_lsa_scales(model_c, model_f, batcher, rc, near, far, *,
                                 offset=offset)
     generator = torch.Generator(device=device).manual_seed(seed)
     chosen = route(rc, grid, occ_candidates, occ_budget)
-    if chosen.networks == 1 and (mesh is not None or model_f is not None):
-        raise ValueError(ONE_NETWORK)
+    chosen.refuse(mesh=mesh, models=(model_c, model_f))
     train_step = make_train_step(model_c, model_f, rc, near, far, adam,
                                  chosen.loss, places, others)
     logger = ResultLogger(basedir_save) if basedir_save else None

@@ -15,17 +15,24 @@ A config file with ``model = mipnerf`` (``nnc_tpu_torch/configs/
 mip_lego.txt``) makes a mip-NeRF scene: its mip-NeRF keys go to
 ``scene["mip"]``, its rays leave through the pixels' centres (the principal
 point half a pixel up and left, as mip-NeRF's loader casts them), and the
-executer renders and tunes it through ``render/mipnerf.py``.
+executer renders and tunes it through ``render/mipnerf.py``. One with
+``model = mipnerf360`` (``nnc_tpu_torch/configs/mip360_garden.txt``) makes a
+mip-NeRF 360 scene: its keys go to ``scene["mip360"]``, its rays leave
+through the pixels' centres, NDC is off where the file says ``no_ndc``
+(forward-facing NDC scenes are refused), its rays are batched from the pool
+of every training view's rays, and the executer renders and tunes it
+through ``render/mipnerf360.py``.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import torch
 
 from ..framework.executer import NeRFModelExecuter
 from ..models import nerf
-from ..render import mipnerf, renderer
+from ..render import mipnerf, mipnerf360, renderer
 
 DEFAULT_DATA_ROOT = os.environ.get(
     "NNC_TPU_DATA_ROOT",
@@ -156,9 +163,17 @@ def load_scene_from_config(config_path: str, data_dir: str = None):
     for k in ("white_bkgd", "raw_noise_std", "n_importance", "near", "far"):
         if k in ov:
             scene[k] = ov.pop(k)
-    if ov.pop("model", "nerf") == "mipnerf":
+    model = ov.pop("model", "nerf")
+    if model == "mipnerf":
         scene["mip"] = ov.pop("mip", {})
         scene["K"] = pixel_centres(scene["K"])
+    if model == "mipnerf360":
+        scene["mip360"] = ov.pop("mip360", {})
+        scene["K"] = pixel_centres(scene["K"])
+        if ov.pop("no_ndc", False):
+            scene["ndc"] = False
+        scene.update(batching_mode="pool", raw_noise_std=0.0,
+                     white_bkgd=False)
     return scene, ov
 
 
@@ -208,7 +223,13 @@ def create_nerf_model_executer(dataset_type="blender", dataset_path=None,
     (reference: framework/pytorch_model/__init__.py:924-959)"""
     if scene is None:
         scene = load_scene(dataset_type, dataset_path)
-    if "mip" in scene:
+    if "mip360" in scene:
+        if mlp_config is not None and \
+                getattr(mlp_config, "compute_dtype", None) == torch.bfloat16:
+            raise ValueError("mip-NeRF 360 runs in float32 only: no bf16 "
+                             "body")
+        rc = mipnerf360.make_render_config(scene)
+    elif "mip" in scene:
         rc = mipnerf.make_render_config(scene, mlp_config,
                                         use_fused_mlp=use_fused_mlp)
     else:

@@ -62,6 +62,11 @@ def scene_overrides(cfg: dict) -> dict:
         out["near"], out["far"] = float(cfg.get("near", 2.0)), \
             float(cfg.get("far", 6.0))
         out["mip"] = {k: cfg[k] for k in MIP_KEYS if k in cfg}
+    if cfg.get("model") == "mipnerf360":
+        out["model"] = "mipnerf360"
+        out["near"], out["far"] = float(cfg.get("near", 0.2)), \
+            float(cfg.get("far", 1e6))
+        out["mip360"] = {k: cfg[k] for k in MIP360_KEYS if k in cfg}
     return out
 
 
@@ -70,3 +75,10 @@ def scene_overrides(cfg: dict) -> dict:
 MIP_KEYS = ("num_samples", "num_levels", "resample_padding", "min_deg_point",
             "max_deg_point", "deg_view", "density_bias", "rgb_padding",
             "coarse_loss_mult")
+# a mip-NeRF 360 config's keys (multinerf's configs/360.gin and Model /
+# Config names), which render/mipnerf360.make_render_config checks
+MIP360_KEYS = ("num_levels", "num_prop_samples", "num_nerf_samples",
+               "dilation_bias", "dilation_multiplier", "resample_padding",
+               "min_deg_point", "max_deg_point", "deg_view", "density_bias",
+               "rgb_padding", "charb_padding", "interlevel_loss_mult",
+               "distortion_loss_mult", "basis_subdivisions")

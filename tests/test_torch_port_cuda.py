@@ -34,7 +34,12 @@ plain model of its arithmetic (fused_pair_3xtf32_plain; ~2e-6 expected); the
 tensor-parallel forward against the dense MLP: rtol 1e-4, atol 1e-5 of the
 output's scale (tests/test_parallel.py:296). The bf16 variants of K-B3,
 K-B2, K-B1, K-B5 and K-B6 are held to the distance between their plain bf16
-and plain float32 versions (the notes above their tests).
+and plain float32 versions (the notes above their tests). K-B7 (the LSA
+epilogue of mip-NeRF 360's GEMM layers) against its plain version: the
+forward's fused multiply-add 2e-6 relative (one rounding against two), dacc
+the same, the column sums of the scale and bias gradients 1e-5 of the sum
+of magnitudes (up to 524,288 terms in chunks of rows, then the chunks; the
+plain version sums in another order); a rerun is bit-equal.
 """
 import ctypes
 import math
@@ -1750,3 +1755,68 @@ def test_cuda_lsa_graph_call_equals_eager_call(cuda_device, bf16, loss):
     assert launched_e == {k: 2 * 3 * K for k in names}
     assert launched_g == {k: 2 * (3 * K + lsa.WARMUP_STEPS) for k in names}
     assert bool(torch.isfinite(got[0]).all()) and call_g.pool_bytes > 0
+
+
+@pytest.mark.parametrize("n,c,relu", [(65536, 1024, True),
+                                      (131072, 256, False),
+                                      (65536, 3, False), (65536, 1, True),
+                                      (1000, 128, True)])
+def test_kb7_epilogue_against_plain(cuda_device, n, c, relu):
+    from nnc_tpu_torch.ops import lsa_epilogue
+    g = torch.Generator(device=cuda_device).manual_seed(n + c)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=cuda_device)
+    acc, dy, s, b = r(n, c), r(n, c), 1 + 0.1 * r(c), 0.1 * r(c)
+    y = lsa_epilogue.epilogue_fwd(acc, s, b, relu)
+    torch.testing.assert_close(
+        y, lsa_epilogue.epilogue_fwd_plain(acc, s, b, relu),
+        rtol=2e-6, atol=2e-6)
+    got = lsa_epilogue.epilogue_bwd(dy, acc, s, b, relu)
+    again = lsa_epilogue.epilogue_bwd(dy, acc, s, b, relu)
+    want = lsa_epilogue.epilogue_bwd_plain(dy, acc, s, b, relu)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-6, atol=2e-6)
+    mask = (acc * s + b > 0) if relu else torch.ones_like(acc, dtype=bool)
+    for k, scale in ((1, (dy * acc * mask).abs().sum(0)),
+                     (2, (dy * mask).abs().sum(0))):
+        assert bool(((got[k] - want[k]).abs() <= 1e-5 * scale + 1e-6).all())
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    _, ds, db = lsa_epilogue.epilogue_bwd(dy, acc.clone(), s, b, relu,
+                                          want_dacc=False)
+    assert torch.equal(ds, got[1]) and torch.equal(db, got[2])
+    over = acc.clone()
+    dacc, _, _ = lsa_epilogue.epilogue_bwd(dy, over, s, b, relu,
+                                           over_acc=True)
+    assert dacc.data_ptr() == over.data_ptr() and torch.equal(dacc, got[0])
+
+
+def test_kb7_scaled_linear_against_plain_autograd(cuda_device):
+    """A skip layer (two inputs) through cuBLAS and K-B7 against the plain
+    autograd of (x @ W^T) * s + b, TF32 off on both sides."""
+    from nnc_tpu_torch.models.nerf import Linear
+    from nnc_tpu_torch.ops import lsa_epilogue
+    torch.manual_seed(0)
+    layer = Linear(96, 64, device=cuda_device)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(64, 96) / math.sqrt(96))
+        layer.bias.copy_(0.1 * torch.randn(64))
+    layer.weight.requires_grad_(False)
+    layer.weight_scaling = (1 + 0.1 * torch.randn(64, 1, device=cuda_device)
+                            ).requires_grad_(True)
+    layer.bias.requires_grad_(True)
+    xs = [torch.randn(4096, k, device=cuda_device, requires_grad=True)
+          for k in (64, 32)]
+    cot = torch.randn(4096, 64, device=cuda_device)
+    y = lsa_epilogue.scaled_linear(layer, xs, relu=True)
+    got = torch.autograd.grad(y, [layer.weight_scaling, layer.bias, *xs],
+                              cot)
+    x = torch.cat([t.detach().requires_grad_(True) for t in xs], -1)
+    s = layer.weight_scaling.detach().clone().requires_grad_(True)
+    b = layer.bias.detach().clone().requires_grad_(True)
+    want_y = torch.relu((x @ layer.weight.t()) * s.reshape(-1) + b)
+    want = torch.autograd.grad(want_y, [s, b, x], cot)
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[0].reshape(-1), want[0].reshape(-1),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(torch.cat(got[2:], -1), want[2], rtol=1e-5,
+                               atol=1e-5)
